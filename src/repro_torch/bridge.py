@@ -15,9 +15,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 
-def tensor_tree(tree, device="cpu", dtype=torch.float32):
-    """Map every array leaf of a dict/tuple/list tree to a torch tensor."""
+
+def tensor_tree(tree, device=None, dtype=torch.float32):
+    """Map every array leaf of a dict/tuple/list tree to a torch tensor on
+    ``device`` (default: the card, raising without one)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tensor_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

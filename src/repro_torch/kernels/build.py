@@ -60,11 +60,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names=KERNELS, verbose: bool = False) -> dict[str, float]:
-    """Compile every library in ``names`` that is not built yet, all in
-    parallel. Returns seconds per compiled kernel (empty if all were built).
-    ``verbose`` adds ``-Xptxas -v`` and prints each compiler's report."""
-    todo = [n for n in names if not library_path(n).exists()]
+def build_all() -> dict[str, float]:
+    """Compile every library of ``KERNELS`` that is not built yet, all in
+    parallel. Returns seconds per compiled kernel (empty if all were built)."""
+    todo = [n for n in KERNELS if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -73,8 +72,7 @@ def build_all(names=KERNELS, verbose: bool = False) -> dict[str, float]:
     t0 = time.perf_counter()
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     seconds, failed = {}, []
@@ -85,8 +83,6 @@ def build_all(names=KERNELS, verbose: bool = False) -> dict[str, float]:
             failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{log}")
             tmp.unlink(missing_ok=True)
             continue
-        if verbose and log:
-            print(f"--- nvcc {n}.cu ---\n{log}", flush=True)
         os.replace(tmp, library_path(n))  # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

@@ -52,10 +52,20 @@ struct Split {
   int pages;  // pages per split
 };
 
+// The SM count of the first device that asks, read once: the port runs on
+// one card per process.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
 Split split_for(int B, int Hkv, int pages_per_seq) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
   const int blocks = B * Hkv;
   int n = (2 * sms + blocks - 1) / blocks;
   n = n < 1 ? 1 : (n > pages_per_seq ? pages_per_seq : n);

@@ -23,6 +23,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
 
 @dataclasses.dataclass
 class KVPoolSpec:
@@ -46,9 +47,10 @@ class PagedKVPool:
     """Two-tier physical KV block store."""
 
     def __init__(self, spec: KVPoolSpec, n_hbm_blocks: int, n_host_blocks: int,
-                 device="cpu"):
+                 device=None):
+        """``device`` defaults to the card and raises without one."""
         self.spec = s = spec
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         blk = (s.num_layers, s.block_size, s.kv_heads, s.head_dim)
         pin = self.device.type == "cuda"  # pin_memory raises on CPU-only torch
         self.k_hbm = torch.zeros((n_hbm_blocks, *blk), dtype=s.dtype, device=self.device)

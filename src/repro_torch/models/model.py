@@ -9,7 +9,8 @@ from ..configs.base import ModelConfig
 from .transformer import LM
 
 
-def build_model(cfg: ModelConfig, dtype=torch.float32, device="cpu") -> LM:
-    """The dense decoder LM for ``cfg`` on ``device``; other families raise
-    ``NotImplementedError`` naming their ROADMAP item."""
-    return LM(cfg, dtype=dtype, device=torch.device(device))
+def build_model(cfg: ModelConfig, dtype=torch.float32, device=None) -> LM:
+    """The dense decoder LM for ``cfg`` on ``device`` (default: the card,
+    raising without one); other families raise ``NotImplementedError``
+    naming their ROADMAP item."""
+    return LM(cfg, dtype=dtype, device=device)

@@ -30,6 +30,7 @@ import dataclasses
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from .attention import cached_step, check_supported, gqa_cached, init_gqa
 from .common import dense_init, embed_init, init_rms, rms_norm
 from .ffn import dense_ffn, init_dense_ffn
@@ -48,10 +49,11 @@ def layer_slice(tree, i: int):
 class LM:
     cfg: ModelConfig
     dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: torch.device | str | None = None  # None: the card, raising without one
 
     def __post_init__(self):
         check_supported(self.cfg)
+        self.device = resolve_device(self.device)
 
     # ------------------------------------------------------------------ init
     def init_params(self, gen: torch.Generator) -> dict:

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core import NodeKind, SwapKind, make_fastlibra
+from ..device import resolve_device
 from ..obs import (
     ATTRIB_CATEGORIES,
     EV_ABORT,
@@ -84,18 +85,6 @@ def _default_schedule_mode() -> str:
     # the ablation pin. The env override lets CI pin either mode without
     # touching every test's EngineConfig construction.
     return os.environ.get("REPRO_SCHEDULE_MODE", "mixed")
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else the
-    card. Without a card and without an explicit ``device`` this raises;
-    nothing falls back to the CPU silently."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: pass device='cpu' to run on the CPU explicitly")
-    return torch.device("cuda")
 
 
 @dataclasses.dataclass

@@ -46,7 +46,7 @@ def engines(**engine_kw):
         aid = f"lora-{i}"
         jeng.register_adapter(aid)
         teng.register_adapter(aid, weights=bridge.tensor_tree(
-            jeng.adapters._host[aid].weights))
+            jeng.adapters._host[aid].weights, "cpu"))
     return jeng, teng
 
 
@@ -123,7 +123,7 @@ def _pair_sized(**engine_kw):
         aid = f"lora-{i}"
         jeng.register_adapter(aid)
         teng.register_adapter(aid, weights=bridge.tensor_tree(
-            jeng.adapters._host[aid].weights))
+            jeng.adapters._host[aid].weights, "cpu"))
     return jeng, teng
 
 

@@ -79,6 +79,43 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
         ServingEngine(configs.reduced(configs.get("qwen3-0.6b")), EngineConfig())
 
 
+def _build_model():
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    return build_model(configs.reduced(configs.get("qwen3-0.6b")))
+
+
+def _lm():
+    from repro_torch import configs
+    from repro_torch.models.transformer import LM
+
+    return LM(configs.reduced(configs.get("qwen3-0.6b")))
+
+
+def _kv_pool():
+    from repro_torch.kvcache import KVPoolSpec, PagedKVPool
+
+    return PagedKVPool(KVPoolSpec(num_layers=1, block_size=2, kv_heads=1,
+                                  head_dim=4), 2, 2)
+
+
+def _tensor_tree():
+    import numpy as np
+
+    from repro_torch import bridge
+
+    return bridge.tensor_tree({"w": np.zeros(3, np.float32)})
+
+
+@pytest.mark.parametrize("make", [_build_model, _lm, _kv_pool, _tensor_tree],
+                         ids=lambda f: f.__name__.lstrip("_"))
+def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch, make):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
 def test_cuda_tensor_never_takes_the_plain_version():
     """The wrappers choose the plain version only for CPU tensors; anything
     else goes to the kernel path (which raises here, with no card)."""

@@ -84,8 +84,8 @@ def _pair(T, n_slots=3):
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), n_slots).items()}
     tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
-    tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams))
-    tlora = bridge.tensor_tree(lora)
+    tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
+    tlora = bridge.tensor_tree(lora, "cpu")
     # a cache with history: random K/V below each row's start
     B = 4
     start = np.array([0, 5, 12, 3], np.int32)
