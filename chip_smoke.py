@@ -1,28 +1,37 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's two paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failed check raises and the script
 exits non-zero:
 
-1. device  — the card (``nvidia-smi`` name and power limit), torch and CUDA.
-2. build   — nvcc builds every kernel of the path from ``src/repro_torch/
-             kernels/csrc`` (one process per source, in parallel).
-3. kernels — each kernel against its plain PyTorch version at the main
-             path's shapes (qwen3-0.6b: 8 slots, 256-token buckets, a
-             2048-token cache), timed with CUDA events beside its plain
-             version, one PyTorch library call where one computes the same
-             function, and its bound (bytes / 3.35 TB/s or f32 flops / 67
-             TFLOP/s, the larger).
-4. engine  — the serving engine on qwen3-0.6b at full width (28 layers,
-             random weights from seed 0), 36 requests on 6 adapters with
-             shared system prompts and repeated prompts, a 4 GiB KV pool and
-             an 8 GiB host tier; launch counts are reset just before and
-             read just after. Then ``profile``: a fresh 12-request wave,
-             40 of its steps under ``torch.profiler``, gives the device's
-             busy share and device time per kernel group.
-5. cpu     — the card's tokens against a teacher-forced CPU run of the same
-             weights (the kernels' plain versions).
+1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA.
+2. build    — nvcc builds every kernel source from ``src/repro_torch/
+              kernels/csrc`` (one process per source, in parallel).
+3. kernels  — each of the six kernels against its plain PyTorch version at
+              the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
+              buckets and a 2048-token cache for the engine; 8 rows of 2016
+              tokens for the fresh prefill), timed with CUDA events beside
+              its plain version, one PyTorch library call where one
+              computes the same function, and its bound (bytes / 3.35 TB/s
+              or f32 flops / 67 TFLOP/s, the larger); and a check that every
+              wrapper refuses autograd on the card.
+4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
+              random weights from seed 0), 36 requests on 6 adapters with
+              shared system prompts and repeated prompts, a 4 GiB KV pool and
+              an 8 GiB host tier; launch counts are reset just before and
+              read just after. Then ``profile``: a fresh 12-request wave,
+              40 of its steps under ``torch.profiler``, gives the device's
+              busy share and device time per kernel group.
+5. cpu      — the engine's tokens against a teacher-forced CPU run of the
+              same weights (the kernels' plain versions).
+6. generate — the static-batch path on the same model: ``LM.prefill`` of 8
+              prompts of 2016 tokens (adapters 0..6 and the base model)
+              into a 2048-token cache, then 32 greedy ``make_decode_step``
+              steps; launch counts reset just before and read just after;
+              one more prefill and 8 decode steps under ``torch.profiler``;
+              forward / prefill / decode held against each other at B=2,
+              S=256; the first 8 tokens of two rows against a CPU run.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +55,9 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 SGMV_TOL = 1e-4  # times max|ref|: f32 sums of up to 2048 terms, other order
 ATTN_TOL = 1e-5  # absolute: softmax-weighted unit-scale values
 ARGMAX_TOL = 1e-3  # a card token may trail the CPU's best logit by this
+# forward / prefill / decode logits of one model against each other: the
+# tolerance of tests/test_arch_smoke.py (other kernels, other sum orders)
+ARCH_TOL = 2e-4
 
 
 def emit(obj) -> None:
@@ -89,36 +101,55 @@ def require(cond: bool, msg: str) -> None:
 
 
 # ----------------------------------------------------------------- phase 3
-def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32):
+def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
+              base=True):
+    """fused_sgmv (``base``) or sgmv, the delta alone, on one projection."""
     x = torch.randn((B, S, d_in), generator=gen, device=dev)
     w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
     a = torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5
     b = torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1
     ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7], dtype=torch.int32, device=dev)
     scale = 1.0
+    name = "fused_sgmv" if base else "sgmv"
+
+    def kernel(ww):
+        if base:
+            return ops.fused_sgmv(x, ww, a, b, ids, scale=scale)
+        return ops.sgmv(x, a, b, ids, scale=scale)
+
+    def plain(ww):
+        if base:
+            return ref.fused_sgmv_ref(x, ww, a, b, ids, scale)
+        return ref.sgmv_ref(x, a, b, ids, scale)
+
     errs = []
-    for zero_w in (False, True):
-        ww = torch.zeros_like(w) if zero_w else w
-        got = ops.fused_sgmv(x, ww, a, b, ids, scale=scale)
-        want = ref.fused_sgmv_ref(x, ww, a, b, ids, scale)
+    for ww in ((w, torch.zeros_like(w)) if base else (w,)):
+        got, want = kernel(ww), plain(ww)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = SGMV_TOL * float(want.abs().max())
-        require(err <= tol, f"fused_sgmv {proj} S={S} zero_w={zero_w}: "
+        require(err <= tol, f"{name} {proj} S={S} zero_w={ww is not w}: "
                             f"max err {err} > {tol}")
         errs.append(err)
     live = ids >= 0
+    if not base:
+        require(bool((got[~live] == 0).all()), f"sgmv {proj} S={S}: a row of "
+                                               "id -1 is not 0")
     n_live_ids = int(torch.unique(ids[live]).numel())
     M, M_live = B * S, int(live.sum()) * S
-    nbytes = 4 * (M * d_in + d_in * d_out + M * d_out
-                  + n_live_ids * r * (d_in + d_out)) + 4 * B
-    flops = 2 * M * d_in * d_out + 2 * M_live * r * (d_in + d_out)
+    lora_bytes = n_live_ids * r * (d_in + d_out)
+    if base:
+        nbytes = 4 * (M * d_in + d_in * d_out + M * d_out + lora_bytes) + 4 * B
+        flops = 2 * M * d_in * d_out + 2 * M_live * r * (d_in + d_out)
+    else:  # rows of id -1 need no x
+        nbytes = 4 * (M_live * d_in + M * d_out + lora_bytes) + 4 * B
+        flops = 2 * M_live * r * (d_in + d_out)
     bnd, by = bound_ms(nbytes, flops)
-    ms, host_ms = time_ms(lambda: ops.fused_sgmv(x, w, a, b, ids, scale=scale))
+    ms, host_ms = time_ms(lambda: kernel(w))
     return dict(
         case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}",
         max_abs_err=max(errs), ms=ms, host_ms=host_ms,
-        plain_ms=time_ms(lambda: ref.fused_sgmv_ref(x, w, a, b, ids, scale))[0],
+        plain_ms=time_ms(lambda: plain(w))[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
 
@@ -193,6 +224,95 @@ def paged_case(ops, ref, gen, dev, B=8, T=2048, H=16, Hkv=8, D=128, ps=128):
     )
 
 
+def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
+               D=128):
+    """flash_prefill, or flash_prefill_ragged with ``lens``, at the fresh
+    prefill's shape. The library call is SDPA, causal or with the
+    equivalent boolean mask (its fully masked queries give NaN there)."""
+    F = torch.nn.functional
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+    if lens is None:
+        name, live = "flash_prefill", [S] * B
+
+        def kernel():
+            return ops.flash_prefill(q, k, v)
+
+        def plain():
+            return ref.flash_prefill_ref(q, k, v)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        name, live = "flash_prefill_ragged", lens
+        tl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pos = torch.arange(S, device=dev)
+        mask = ((pos[None, :, None] >= pos[None, None, :])
+                & (pos[None, None, :] < tl[:, None, None].long()))[:, None]
+
+        def kernel():
+            return ops.flash_prefill_ragged(q, k, v, tl)
+
+        def plain():
+            return ref.flash_prefill_ragged_ref(q, k, v, tl)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(err <= ATTN_TOL, f"{name}: max err {err} > {ATTN_TOL}")
+    for b, n in enumerate(live):
+        require(bool((got[b, :, n:] == 0).all()),
+                f"{name}: row {b} is not 0 past its {n} tokens")
+    del got, want
+    nbytes = 4 * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
+    nbytes += 4 * B if lens is not None else 0
+    flops = sum(4 * H * D * n * (n + 1) // 2 for n in live)
+    bnd, by = bound_ms(nbytes, flops)
+    ms, host_ms = time_ms(kernel)
+    return dict(
+        case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}"
+             + (f", true_lens={lens}" if lens is not None else ""),
+        max_abs_err=err, ms=ms, host_ms=host_ms,
+        plain_ms=time_ms(plain, iters=5)[0],
+        bound_ms=bnd, bound_by=by, library_ms=time_ms(library, iters=5)[0],
+    )
+
+
+def grad_guard(ops, dev):
+    """Every wrapper refuses autograd on the card: an input that requires
+    grad raises instead of coming back without a gradient."""
+    x = torch.randn((2, 3, 8), device=dev, requires_grad=True)
+    qh = torch.randn((2, 2, 3, 4), device=dev, requires_grad=True)
+    qs = torch.randn((2, 3, 2, 4), device=dev, requires_grad=True)
+    kv = torch.randn((2, 8, 1, 4), device=dev)
+    kvh = torch.randn((2, 1, 3, 4), device=dev)
+    w, a, b = (torch.randn(s, device=dev) for s in ((8, 8), (1, 8, 4), (1, 4, 8)))
+    ids = torch.zeros((2,), dtype=torch.int32, device=dev)
+    calls = {
+        "fused_sgmv": lambda: ops.fused_sgmv(x, w, a, b, ids),
+        "sgmv": lambda: ops.sgmv(x, a, b, ids),
+        "ragged_extend": lambda: ops.ragged_extend(qs, kv, kv, ids, ids + 3),
+        "paged_attention": lambda: ops.paged_attention(
+            qs[:, 0], kv, kv, torch.arange(2, device=dev).view(2, 1), ids + 5),
+        "flash_prefill": lambda: ops.flash_prefill(qh, kvh, kvh),
+        "flash_prefill_ragged": lambda: ops.flash_prefill_ragged(qh, kvh, kvh, ids + 2),
+    }
+    refused = []
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(name)
+    require(sorted(refused) == sorted(calls),
+            f"only {refused} refused an input that requires grad")
+    return refused
+
+
 # ----------------------------------------------------------------- phase 4
 def make_trace(Request, vocab: int, seed: int = 0, N1: int = 24, tag: str = ""):
     """Two waves: N1 requests, then 12 that include 6 repeats of wave-1
@@ -229,29 +349,24 @@ def make_trace(Request, vocab: int, seed: int = 0, N1: int = 24, tag: str = ""):
 KERNEL_GROUPS = (  # device-event name fragment -> group, first match wins
     ("fused_sgmv", "fused_sgmv"), ("lora_shrink", "fused_sgmv"),
     ("ragged_extend", "ragged_extend"), ("paged_attention", "paged_attention"),
+    ("flash_prefill", "flash_prefill"),
     ("gemm", "library matmul"), ("gemv", "library matmul"),
     ("Memcpy", "copies"), ("Memset", "copies"),
 )
 
 
-def profile_steps(engine, Request, vocab: int, steps: int = 40):
-    """Serve a fresh wave of 12 requests (another seed) and trace the first
-    ``steps`` engine steps with ``torch.profiler`` (device activity only).
-    Returns the device's busy share of the window's wall time and device
-    time per kernel group; ``None`` fields if the profiler saw no kernel."""
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler`` (device activity only). Returns
+    the device's busy share of the window's wall time and device time per
+    kernel group; ``None`` fields if the profiler saw no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wave = make_trace(Request, vocab, seed=1, N1=12, tag="prof")[0]
-    for r in wave:
-        engine.submit(r)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    engine.run()  # finish the wave outside the window
     spans, groups, top = [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -266,12 +381,28 @@ def profile_steps(engine, Request, vocab: int, steps: int = 40):
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
     return {
-        "steps": steps, "wall_ms": wall_us / 1e3, "device_events": len(spans),
+        "wall_ms": wall_us / 1e3, "device_events": len(spans),
         "device_busy_ms": busy / 1e3 if spans else None,
         "device_busy_share": busy / wall_us if spans else None,
         "device_ms_by_group": groups or None,
         "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]) or None,
     }
+
+
+def profile_steps(engine, Request, vocab: int, steps: int = 40):
+    """Serve a fresh wave of 12 requests (another seed) and trace the first
+    ``steps`` engine steps (see :func:`profiled`)."""
+    wave = make_trace(Request, vocab, seed=1, N1=12, tag="prof")[0]
+    for r in wave:
+        engine.submit(r)
+
+    def window():
+        for _ in range(steps):
+            engine.step()
+
+    out = {"steps": steps, **profiled(window)}
+    engine.run()  # finish the wave outside the window
+    return out
 
 
 def pick_requests(finished):
@@ -341,6 +472,156 @@ def check_against_cpu(cfg, ecfg, adapters, picked, seed: int = 0):
     return total, exact, worst, min_gap
 
 
+# ----------------------------------------------------------------- phase 6
+def random_lora(model, n_slots: int, seed: int) -> dict:
+    """LoRA slots with non-zero A and B, drawn on the CPU (the same numbers
+    on every device): ``init_lora`` zeroes B, and a zero B would hide a
+    broken delta."""
+    gen = torch.Generator().manual_seed(seed)
+    lora = model.init_lora(gen, n_slots)
+    return {t: (a, (torch.randn(b.shape, generator=gen) * 0.02).to(model.device))
+            for t, (a, b) in lora.items()}
+
+
+def top2_gap(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def greedy(model, params, lora, tokens, ids, max_len: int, steps: int,
+           gaps: list | None = None):
+    """``LM.prefill`` then ``steps`` greedy ``make_decode_step`` steps.
+    Returns the tokens (B, steps + 1) and the seconds of the prefill and of
+    the decode steps (synchronised). With ``gaps`` (a list), each step runs
+    the step's body (``LM.decode``, then argmax) to keep its logits, and the
+    list gets each token's top-2 logit gap."""
+    from repro_torch.models import make_decode_step
+
+    decode = make_decode_step(model)
+    sync = torch.cuda.synchronize if model.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, tokens, max_len, lora=lora, adapter_ids=ids)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    sync()
+    t1 = time.perf_counter()
+    out = [tok]
+    for _ in range(steps):
+        if gaps is None:
+            tok, cache = decode(params, lora, cache, {"tokens": tok[:, None],
+                                                      "adapter_ids": ids})
+        else:
+            gaps.append(top2_gap(logits[:, -1]))
+            logits, cache = model.decode(params, cache, tok[:, None], lora=lora,
+                                         adapter_ids=ids)
+            tok = logits[:, -1].argmax(-1).to(torch.int32)
+        out.append(tok)
+    if gaps is not None:
+        gaps.append(top2_gap(logits[:, -1]))
+    sync()
+    return torch.stack(out, 1).cpu(), t1 - t0, time.perf_counter() - t1
+
+
+def arch_identities(model, params, lora, tokens, ids):
+    """forward / prefill / decode against each other on ``tokens`` (B, S):
+    prefill of tokens[:, :S-1] gives forward's logits at S-2, and decoding
+    token S-1 then gives forward's logits at S-1. Returns the largest
+    excess of |difference| over ARCH_TOL·(1 + |forward|) (<= 0 passes) and
+    the largest |difference| of each identity."""
+    S = tokens.shape[1]
+    full, _ = model.forward(params, tokens, lora=lora, adapter_ids=ids)
+    last, cache = model.prefill(params, tokens[:, :S - 1], S, lora=lora,
+                                adapter_ids=ids)
+    dec, _ = model.decode(params, cache, tokens[:, S - 1:], lora=lora,
+                          adapter_ids=ids)
+    errs, excess = [], -math.inf
+    for got, want in ((last[:, 0], full[:, S - 2]), (dec[:, 0], full[:, S - 1])):
+        diff = (got - want).abs()
+        errs.append(float(diff.max()))
+        excess = max(excess, float((diff - ARCH_TOL * (1 + want.abs())).max()))
+    return excess, errs
+
+
+def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
+                   max_len: int = 2048, steps: int = 32, check_rows=(0, 7),
+                   check_tokens: int = 8):
+    """Phase 6: the static-batch prefill / greedy-decode path at full width.
+    Returns (its JSON line, the launch counts of its run)."""
+    from repro_torch.models import build_model, make_decode_step
+
+    L = cfg.num_layers
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator().manual_seed(seed))
+    lora = random_lora(model, 8, seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed + 2))
+    ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1][:B], dtype=torch.int32)
+
+    ops.reset_launch_counts()
+    gen_tokens, prefill_s, decode_s = greedy(model, params, lora, tokens, ids,
+                                             max_len, steps)
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_prefill=L, fused_sgmv=4 * L * (1 + steps),
+                paged_attention=L * steps)
+    require(launches == want, f"generate launches {launches}, expected {want}")
+
+    # a second prefill and 8 decode steps under the profiler
+    prof_prefill = profiled(lambda: model.prefill(params, tokens, max_len,
+                                                  lora=lora, adapter_ids=ids))
+    torch.cuda.empty_cache()
+    _, cache = model.prefill(params, tokens, max_len, lora=lora, adapter_ids=ids)
+    tok = gen_tokens[:, 0].to(dev)
+    step = make_decode_step(model)
+
+    def decode8():
+        nonlocal tok, cache
+        for _ in range(8):
+            tok, cache = step(params, lora, cache, {"tokens": tok[:, None],
+                                                    "adapter_ids": ids})
+
+    prof_decode = profiled(decode8)
+    del cache
+    torch.cuda.empty_cache()
+
+    excess, arch_errs = arch_identities(model, params, lora, tokens[:2, :256],
+                                        ids[list(check_rows)])
+    require(excess <= 0, f"forward / prefill / decode disagree on the card: "
+                         f"max errors {arch_errs} over {ARCH_TOL}·(1 + |logit|)")
+    del model, params, lora
+    torch.cuda.empty_cache()
+
+    # the CPU run of the same weights: the kernels' plain versions
+    t0 = time.perf_counter()
+    cpu = build_model(cfg, device="cpu")
+    rows = list(check_rows)
+    gaps: list = []
+    cpu_tokens, _, _ = greedy(
+        cpu, cpu.init_params(torch.Generator().manual_seed(seed)),
+        random_lora(cpu, 8, seed + 1), tokens[rows], ids[rows],
+        S + check_tokens, check_tokens - 1, gaps=gaps)
+    cpu_s = time.perf_counter() - t0
+    equal = torch.equal(cpu_tokens, gen_tokens[rows, :check_tokens])
+    require(equal, f"card tokens {gen_tokens[rows, :check_tokens].tolist()} != "
+                   f"CPU tokens {cpu_tokens.tolist()}")
+    line = {
+        "phase": "generate", "batch": B, "prompt_tokens": S, "max_len": max_len,
+        "decode_steps": steps, "adapter_ids": ids.tolist(),
+        "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+        "decode_s": decode_s, "decode_ms_per_step": decode_s / steps * 1e3,
+        "decode_tokens_per_s": B * steps / decode_s,
+        "launches": launches, "profile_prefill": prof_prefill,
+        "profile_decode_8_steps": prof_decode,
+        "arch_identities_max_abs_err": arch_errs,
+        "cpu_rows": rows, "cpu_tokens_equal": equal,
+        "tokens": gen_tokens[rows, :check_tokens].tolist(),
+        "smallest_top2_gap": float(torch.stack(gaps).min()),
+        "cpu_seconds": cpu_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    }
+    return line, launches
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
@@ -377,11 +658,22 @@ def main() -> None:
                                     ("v", 1024, 1024), ("o", 2048, 1024))]
     rag = ragged_case(ops, ref, gen, dev)
     pag = paged_case(ops, ref, gen, dev)
-    emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
-          "ragged_extend": rag, "paged_attention": pag})
+    delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)
+                   for S in (2016, 1)
+                   for p, di, do in (("q", 1024, 2048), ("o", 2048, 1024))]
     torch.cuda.empty_cache()
+    fla = flash_case(ops, ref, gen, dev)
+    torch.cuda.empty_cache()
+    flr = flash_case(ops, ref, gen, dev,
+                     lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016])
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
+          "ragged_extend": rag, "paged_attention": pag, "sgmv": delta_cases,
+          "flash_prefill": fla, "flash_prefill_ragged": flr,
+          "refuse_autograd": grad_guard(ops, dev)})
 
     # ----------------------------------------------------------- 4. engine
+    torch.cuda.reset_peak_memory_stats()  # the engine's own peak
     cfg = configs.get("qwen3-0.6b")
     ecfg = EngineConfig(hbm_bytes=4 << 30, host_bytes=8 << 30, block_size=16,
                         max_batch_slots=8, max_seq_len=2048, prefill_chunk=256,
@@ -420,7 +712,9 @@ def main() -> None:
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     require(row["n_finished"] == len(reqs) and row["n_unfinished"] == 0,
             f"finished {row['n_finished']} of {len(reqs)}")
-    require(all(n > 0 for n in launches.values()), f"a kernel never ran: {launches}")
+    engine_kernels = ("fused_sgmv", "ragged_extend", "paged_attention")
+    require(all(launches[n] > 0 for n in engine_kernels),
+            f"a kernel of the engine never ran: {launches}")
     require(row["kv_hit_rate"] > 0, "kv_hit_rate is 0")
     require(launches["paged_attention"] == L * decode_calls
             and launches["ragged_extend"] == L * prefill_calls
@@ -443,19 +737,36 @@ def main() -> None:
           "largest_deficit": worst, "smallest_top2_gap": min_gap,
           "seconds": time.perf_counter() - t0})
 
-    # ---------------------------------------------------------- 6. summary
-    main_sgmv = sgmv_cases[0]  # the q projection in a 256-token bucket
+    # ---------------------------------------------------------- 6. generate
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    line, gen_launches = generate_phase(ops, cfg, dev)
+    emit(line)
+
+    # ----------------------------------------------------------- 7. summary
     kernels = []
     for name, src, tpu, m in (
-            ("fused_sgmv", "fused_sgmv.cu", "src/repro/kernels/sgmv.py:115", main_sgmv),
+            # the q projection in a 256-token bucket
+            ("fused_sgmv", "fused_sgmv.cu", "src/repro/kernels/sgmv.py:115",
+             sgmv_cases[0]),
+            # the q projection of 8 rows of 2016 tokens
+            ("sgmv", "fused_sgmv.cu", "src/repro/kernels/sgmv.py:47",
+             delta_cases[0]),
             ("ragged_extend", "ragged_extend.cu",
              "src/repro/kernels/ragged_extend.py:121", rag),
             ("paged_attention", "paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:99", pag)):
+             "src/repro/kernels/paged_attention.py:99", pag),
+            ("flash_prefill", "flash_prefill.cu",
+             "src/repro/kernels/flash_prefill.py:143", fla),
+            ("flash_prefill_ragged", "flash_prefill.cu",
+             "src/repro/kernels/flash_prefill.py:252", flr)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
-            "launches": launches[name], "max_abs_err": m["max_abs_err"],
+            "launches": launches[name] + gen_launches[name],
+            "launches_by_path": {"engine": launches[name],
+                                 "generate": gen_launches[name]},
+            "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "case": m["case"]})

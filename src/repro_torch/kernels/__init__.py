@@ -3,18 +3,24 @@ PyTorch versions; see ``kernels/ops.py``."""
 
 from . import ref
 from .ops import (
+    flash_prefill,
+    flash_prefill_ragged,
     fused_sgmv,
     launch_counts,
     paged_attention,
     ragged_extend,
     reset_launch_counts,
+    sgmv,
 )
 
 __all__ = [
+    "flash_prefill",
+    "flash_prefill_ragged",
     "fused_sgmv",
     "launch_counts",
     "paged_attention",
     "ragged_extend",
     "ref",
     "reset_launch_counts",
+    "sgmv",
 ]

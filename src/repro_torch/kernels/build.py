@@ -1,12 +1,12 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
-plain C interface (``<name>_launch`` returns the CUDA error code of the
-launch, ``<name>_error_string`` names it):
+Each source ``csrc/<source>.cu`` compiles on its own into a shared library
+with a plain C interface (each ``*_launch`` function returns the CUDA error
+code of its launch, ``<source>_error_string`` names it):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-        -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so \
-        src/repro_torch/kernels/csrc/<name>.cu
+        -Xcompiler -fPIC -o build/repro_torch_kernels/lib<source>-<hash>.so \
+        src/repro_torch/kernels/csrc/<source>.cu
 
 The build runs at first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
@@ -14,8 +14,11 @@ name carries a hash of its source and flags, so an edited source rebuilds
 and an unchanged one is reused. All missing libraries compile at once, one
 ``nvcc`` process per source.
 
-This module also holds the launch counts: every wrapper adds one to its
-kernel's count where it launches the kernel, and nowhere else.
+A source may export more than one kernel (``fused_sgmv.cu`` holds
+``fused_sgmv`` and ``sgmv``; ``flash_prefill.cu`` holds ``flash_prefill``
+and ``flash_prefill_ragged``): libraries are keyed by source, launch counts
+by kernel. This module holds the launch counts: every wrapper adds one to
+its kernel's count where it launches the kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("fused_sgmv", "ragged_extend", "paged_attention")
+# csrc/<source>.cu, one library each
+SOURCES = ("fused_sgmv", "ragged_extend", "paged_attention", "flash_prefill")
+# the kernels whose launches are counted
+KERNELS = ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
+           "flash_prefill", "flash_prefill_ragged")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,16 +61,16 @@ def nvcc_path() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def library_path(source: str) -> Path:
+    src = (CSRC / f"{source}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{source}-{digest}.so"
 
 
 def build_all() -> dict[str, float]:
-    """Compile every library of ``KERNELS`` that is not built yet, all in
-    parallel. Returns seconds per compiled kernel (empty if all were built)."""
-    todo = [n for n in KERNELS if not library_path(n).exists()]
+    """Compile every library of ``SOURCES`` that is not built yet, all in
+    parallel. Returns seconds per compiled source (empty if all were built)."""
+    todo = [n for n in SOURCES if not library_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -89,45 +96,59 @@ def build_all() -> dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: tuple[str, ...], extra: dict | None = None):
-    """The ctypes library of kernel ``name``, built first if needed.
-    ``argtypes`` spells the launch function's C signature: "p" for a
-    pointer (the stream included), "i" for an int, "f" for a float.
-    ``extra`` maps a suffix to the signature of another int-returning
-    function ``<name>_<suffix>`` (a shape query)."""
-    lib = _libs.get(name)
-    if lib is None:
-        import ctypes
+def load(source: str, signatures: dict[str, str]):
+    """The ctypes library of ``csrc/<source>.cu``, built first if needed.
+    ``signatures`` maps each int-returning C function the caller uses to
+    its arguments: "p" for a pointer (the stream included), "i" for an
+    int, "l" for a 64-bit int, "f" for a float."""
+    import ctypes
 
+    lib = _libs.get(source)
+    if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(library_path(name)))
-        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-        for fname, sig in {"launch": argtypes, **(extra or {})}.items():
-            fn = getattr(lib, f"{name}_{fname}")
-            fn.argtypes = [kinds[a] for a in sig]
-            fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        lib = ctypes.CDLL(str(library_path(source)))
+        err = getattr(lib, f"{source}_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
-        _libs[name] = lib
+        _libs[source] = lib
+    for fname, sig in signatures.items():
+        fn = getattr(lib, fname)
+        if fn.argtypes is None:
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                     "l": ctypes.c_int64, "f": ctypes.c_float}
+            fn.argtypes = [kinds[a] for a in sig]
+            fn.restype = ctypes.c_int
     return lib
 
 
-def check_error(name: str, lib, code: int) -> None:
+def check_error(name: str, source: str, lib, code: int) -> None:
     if code != 0:
-        msg = getattr(lib, f"{name}_error_string")(code).decode()
+        msg = getattr(lib, f"{source}_error_string")(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
 
 
-def check_cuda_f32(name: str, device, **tensors) -> None:
-    """Every tensor float32, contiguous, 16-byte aligned, on ``device``.
-    The messages are built only on failure: this runs on every launch."""
+def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
+    """Every tensor float32, on ``device``, 16-byte aligned, and contiguous;
+    with ``rows`` it may be strided as long as its last dimension has unit
+    stride and every other stride is a multiple of 4 floats (16-byte rows).
+
+    The kernels have no backward: under autograd, a tensor that requires
+    grad raises rather than come back without a gradient. The messages are
+    built only on failure: this runs on every launch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels have no backward pass yet (training is "
+            "ROADMAP Queue 1 item 9); call under torch.no_grad() or on CPU tensors")
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
+        if rows:
+            if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]):
+                raise ValueError(f"{name}: {arg} needs unit stride on its last "
+                                 "dimension and 16-byte rows")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")

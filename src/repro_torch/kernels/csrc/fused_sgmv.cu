@@ -1,6 +1,14 @@
-// fused_sgmv: base projection plus multi-LoRA delta, for Hopper (sm_90a).
+// fused_sgmv and sgmv: base projection plus multi-LoRA delta, and the delta
+// alone, for Hopper (sm_90a).
 //
-// Replaces src/repro/kernels/sgmv.py:fused_sgmv, the Pallas TPU kernel.
+// fused_sgmv_launch replaces src/repro/kernels/sgmv.py:fused_sgmv, the
+// Pallas TPU kernel; sgmv_launch replaces src/repro/kernels/sgmv.py:sgmv.
+// Both run the kernels below, with the base term compiled in or out
+// (HAS_BASE): without it the tiled path never stages W and the skinny path
+// never streams it, so y = scale·(x·A[id])·B[id], and a row with a negative
+// id comes out as exact zeros without touching A or B. The sums run in the
+// same fixed order either way.
+//
 // Computes y = x·W + scale·(x·A[id])·B[id] with x flattened to M = B·S rows;
 // row m carries its batch row's adapter id ids[m / S]. A negative id keeps
 // x·W and drops the delta: it never dereferences A or B (the TPU kernel
@@ -39,6 +47,12 @@
 // scale·h[r=g]·B[id][g] for its columns, and the lanes' partial sums meet in
 // a fixed order (warp shuffles, then eight warp partials), so the result
 // does not change from run to run.
+//
+// sgmv (no base term) does 2·r·(d_in + d_out) flops per row against
+// 4·(d_in + d_out) bytes of x and y, 16 flop/byte at r = 32: bound by the
+// bytes of x and y at every M. It runs on the same two paths, which is
+// simple and repeats fused_sgmv's sums, but spends the tiled path's 4x4
+// register block on nothing; a delta-only tiling is for a later change.
 //
 // All arithmetic is IEEE f32 FMA: no TF32, no tensor cores (a later change
 // can move the base product to wgmma once the parity tolerances allow it).
@@ -106,7 +120,7 @@ __host__ __device__ inline int shrink_chunks(int d_in) { return (d_in + SHRINK_K
 
 // The rank R is a template parameter: the staging loops index by it, and a
 // division by a runtime R costs more than the copy it addresses.
-template <int R>
+template <int R, bool HAS_BASE>
 __global__ void __launch_bounds__(THREADS) fused_sgmv_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ lora_a, const float* __restrict__ lora_b,
@@ -144,12 +158,14 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_kernel(
       const int gm = m0 + mm, gk = k0 + kk;
       xs[kk * (BM + 4) + mm] = (gm < M && gk < d_in) ? x[(size_t)gm * d_in + gk] : 0.f;
     }
+    if constexpr (HAS_BASE) {
 #pragma unroll
-    for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int kk = idx / BN, nn = idx % BN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      ws[kk * BN + nn] = (gk < d_in && gn < d_out) ? w[(size_t)gk * d_out + gn] : 0.f;
+      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
+        const int idx = tid + i * THREADS;
+        const int kk = idx / BN, nn = idx % BN;
+        const int gk = k0 + kk, gn = n0 + nn;
+        ws[kk * BN + nn] = (gk < d_in && gn < d_out) ? w[(size_t)gk * d_out + gn] : 0.f;
+      }
     }
     // the k slice of A[id] for every segment: A[id] is (d_in, R) row-major,
     // so a slice is BK·R contiguous floats
@@ -162,16 +178,18 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_kernel(
     }
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (HAS_BASE) {
 #pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk * (BM + 4) + ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk * BN + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      for (int kk = 0; kk < BK; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(&xs[kk * (BM + 4) + ty * 4]);
+        const float4 b = *reinterpret_cast<const float4*>(&ws[kk * BN + tx * 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
     if (hrow) {
       const float* as = ab + hseg * slice;
@@ -267,8 +285,9 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_kernel(
 
 // Skinny path, step 2: y[:, n0 .. n0+16) for all M rows. Thread (g, q)
 // owns float4 column q and k rows g, g + 64, ...; x rows sit in shared
-// memory, W streams from device memory SK_UNROLL loads at a time.
-template <int R>
+// memory, W streams from device memory SK_UNROLL loads at a time. Without
+// the base term neither x nor W is read: only the rank lanes' delta.
+template <int R, bool HAS_BASE>
 __global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ lora_b, const int* __restrict__ ids,
@@ -282,8 +301,9 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  for (int e = tid; e < M * d_in / 4; e += THREADS)
-    reinterpret_cast<float4*>(xs)[e] = reinterpret_cast<const float4*>(x)[e];
+  if constexpr (HAS_BASE)
+    for (int e = tid; e < M * d_in / 4; e += THREADS)
+      reinterpret_cast<float4*>(xs)[e] = reinterpret_cast<const float4*>(x)[e];
   const int chunks = shrink_chunks(d_in);
   for (int e = tid; e < M * R; e += THREADS) {
     const int m = e / R, r = e % R;
@@ -301,24 +321,26 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
   for (int m = 0; m < SK_MAX_M; ++m) acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   if (n < d_out) {
-    const float* wc = w + n;
-    int k = g;
-    for (; k + (SK_UNROLL - 1) * SK_KLANES < d_in; k += SK_UNROLL * SK_KLANES) {
-      float4 wv[SK_UNROLL];
+    if constexpr (HAS_BASE) {
+      const float* wc = w + n;
+      int k = g;
+      for (; k + (SK_UNROLL - 1) * SK_KLANES < d_in; k += SK_UNROLL * SK_KLANES) {
+        float4 wv[SK_UNROLL];
 #pragma unroll
-      for (int u = 0; u < SK_UNROLL; ++u)
-        wv[u] = __ldg(reinterpret_cast<const float4*>(wc + (size_t)(k + u * SK_KLANES) * d_out));
+        for (int u = 0; u < SK_UNROLL; ++u)
+          wv[u] = __ldg(reinterpret_cast<const float4*>(wc + (size_t)(k + u * SK_KLANES) * d_out));
 #pragma unroll
-      for (int u = 0; u < SK_UNROLL; ++u)
+        for (int u = 0; u < SK_UNROLL; ++u)
+#pragma unroll
+          for (int m = 0; m < SK_MAX_M; ++m)
+            if (m < M) fma4(acc[m], xs[m * d_in + k + u * SK_KLANES], wv[u]);
+      }
+      for (; k < d_in; k += SK_KLANES) {
+        const float4 wv = __ldg(reinterpret_cast<const float4*>(wc + (size_t)k * d_out));
 #pragma unroll
         for (int m = 0; m < SK_MAX_M; ++m)
-          if (m < M) fma4(acc[m], xs[m * d_in + k + u * SK_KLANES], wv[u]);
-    }
-    for (; k < d_in; k += SK_KLANES) {
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(wc + (size_t)k * d_out));
-#pragma unroll
-      for (int m = 0; m < SK_MAX_M; ++m)
-        if (m < M) fma4(acc[m], xs[m * d_in + k], wv);
+          if (m < M) fma4(acc[m], xs[m * d_in + k], wv);
+      }
     }
     // the delta: lane g < R adds scale·h[m][g]·B[id_m][g][n .. n+4)
     if (g < R) {
@@ -364,7 +386,7 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
   }
 }
 
-template <int R>
+template <int R, bool HAS_BASE>
 int launch(const float* x, const float* w, const float* lora_a,
            const float* lora_b, const int* ids, float* y, float* scratch,
            int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
@@ -373,23 +395,41 @@ int launch(const float* x, const float* w, const float* lora_a,
         x, lora_a, ids, scratch, M, S, d_in);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = (size_t)M * d_in * sizeof(float);
-    err = cudaFuncSetAttribute(fused_sgmv_skinny_kernel<R>,
+    const size_t smem = HAS_BASE ? (size_t)M * d_in * sizeof(float) : 0;
+    err = cudaFuncSetAttribute(fused_sgmv_skinny_kernel<R, HAS_BASE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    fused_sgmv_skinny_kernel<R><<<(d_out + SK_COLS - 1) / SK_COLS, THREADS, smem, stream>>>(
-        x, w, lora_b, ids, scratch, y, M, S, d_in, d_out, scale);
+    fused_sgmv_skinny_kernel<R, HAS_BASE>
+        <<<(d_out + SK_COLS - 1) / SK_COLS, THREADS, smem, stream>>>(
+            x, w, lora_b, ids, scratch, y, M, S, d_in, d_out, scale);
     return (int)cudaGetLastError();
   }
   const int nseg_max = max_segments(M / S, S);
   const size_t smem = smem_bytes(nseg_max, R);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sgmv_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_sgmv_kernel<R, HAS_BASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d_out + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_sgmv_kernel<R><<<grid, THREADS, smem, stream>>>(
+  fused_sgmv_kernel<R, HAS_BASE><<<grid, THREADS, smem, stream>>>(
       x, w, lora_a, lora_b, ids, y, M, S, d_in, d_out, nseg_max, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool HAS_BASE>
+int dispatch(const float* x, const float* w, const float* lora_a,
+             const float* lora_b, const int* ids, float* y, float* scratch,
+             int M, int S, int d_in, int d_out, int R, float scale, void* stream) {
+  if (M <= 0 || S <= 0 || M % S != 0 || d_in <= 0 || d_out <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (R) {
+    case 4: return launch<4, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
+    case 8: return launch<8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
+    case 16: return launch<16, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
+    case 32: return launch<32, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
+    case 64: return launch<64, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -405,17 +445,17 @@ extern "C" int fused_sgmv_launch(const float* x, const float* w,
                                  const int* ids, float* y, float* scratch,
                                  int M, int S, int d_in, int d_out, int R,
                                  float scale, void* stream) {
-  if (M <= 0 || S <= 0 || M % S != 0 || d_in <= 0 || d_out <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (R) {
-    case 4: return launch<4>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 8: return launch<8>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 16: return launch<16>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 32: return launch<32>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 64: return launch<64>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, R,
+                        scale, stream);
+}
+
+// The delta alone: y = scale·(x·A[id])·B[id], zeros where id < 0.
+extern "C" int sgmv_launch(const float* x, const float* lora_a,
+                           const float* lora_b, const int* ids, float* y,
+                           float* scratch, int M, int S, int d_in, int d_out,
+                           int R, float scale, void* stream) {
+  return dispatch<false>(x, nullptr, lora_a, lora_b, ids, y, scratch, M, S, d_in,
+                         d_out, R, scale, stream);
 }
 
 extern "C" const char* fused_sgmv_error_string(int err) {

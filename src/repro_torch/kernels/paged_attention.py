@@ -15,12 +15,14 @@ import torch
 from . import build
 from .ref import paged_attention_ref
 
-# q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page,
-# pages, stream
-_ARGTYPES = ("p", "p", "p", "p", "p", "p", "p", "i", "i", "i", "i", "i", "i", "p")
-# paged_attention_scratch_floats(B, H, Hkv, D, pages_per_seq): floats of
-# scratch a launch needs (the page splits' partial softmax states)
-_EXTRA = {"scratch_floats": ("i", "i", "i", "i", "i")}
+_SIGNATURES = {
+    # q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
+    # page, pages, stream
+    "paged_attention_launch": "pppppppiiiiiip",
+    # (B, H, Hkv, D, pages_per_seq) -> floats of scratch a launch needs (the
+    # page splits' partial softmax states)
+    "paged_attention_scratch_floats": "iiiii",
+}
 GROUP_SIZES = (1, 2, 4, 8)
 MAX_HEAD_DIM = 128
 
@@ -60,7 +62,7 @@ def paged_attention(
     out = torch.empty_like(q)
     if B == 0 or tables.shape[1] == 0:
         return out.zero_()
-    lib = build.load(name, _ARGTYPES, _EXTRA)
+    lib = build.load(name, _SIGNATURES)
     pages = tables.shape[1]
     scratch = torch.empty(
         (lib.paged_attention_scratch_floats(B, H, Hkv, D, pages),),
@@ -69,6 +71,6 @@ def paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
         lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, Hkv, D, page,
         pages, torch.cuda.current_stream(dev).cuda_stream)
-    build.check_error(name, lib, code)
+    build.check_error(name, name, lib, code)
     build.launches[name] += 1
     return out

@@ -17,7 +17,7 @@ from . import build
 from .ref import ragged_extend_ref
 
 # q, k, v, start, true_lens, out, B, S, T, Hq, Hkv, D, stream
-_ARGTYPES = ("p", "p", "p", "p", "p", "p", "i", "i", "i", "i", "i", "i", "p")
+_SIGNATURES = {"ragged_extend_launch": "ppppppiiiiiip"}
 QUERIES_PER_BLOCK = 32
 MAX_HEAD_DIM = 128
 
@@ -53,11 +53,11 @@ def ragged_extend(
     out = torch.empty_like(q)
     if B * S == 0:
         return out
-    lib = build.load(name, _ARGTYPES)
+    lib = build.load(name, _SIGNATURES)
     code = lib.ragged_extend_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), tl.data_ptr(),
         out.data_ptr(), B, S, T, Hq, Hkv, D,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check_error(name, lib, code)
+    build.check_error(name, name, lib, code)
     build.launches[name] += 1
     return out

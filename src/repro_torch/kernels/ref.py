@@ -16,6 +16,25 @@ import torch
 NEG_INF = -1e30
 
 
+def sgmv_ref(
+    x: torch.Tensor,  # (B, S, d_in)
+    lora_a: torch.Tensor,  # (N, d_in, r)
+    lora_b: torch.Tensor,  # (N, r, d_out)
+    adapter_ids: torch.Tensor,  # (B,) int — negative marks a base-model row
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """Multi-LoRA delta alone: ``scale·(x·A[id])·B[id]``.
+
+    A negative id gives a zero delta; the id is clamped only for the
+    gather."""
+    ids = adapter_ids.long()
+    safe = ids.clamp(min=0)
+    h = torch.einsum("bsd,bdr->bsr", x.float(), lora_a[safe].float())
+    delta = torch.einsum("bsr,bro->bso", h, lora_b[safe].float()) * scale
+    delta = delta * (ids >= 0).to(delta.dtype)[:, None, None]
+    return delta.to(x.dtype)
+
+
 def fused_sgmv_ref(
     x: torch.Tensor,  # (B, S, d_in)
     w: torch.Tensor,  # (d_in, d_out)
@@ -26,16 +45,10 @@ def fused_sgmv_ref(
 ) -> torch.Tensor:
     """Fused base + LoRA projection: ``x·W + scale·(x·A[id])·B[id]``.
 
-    A negative id keeps the base term and drops the delta; the id is clamped
-    only for the gather."""
-    ids = adapter_ids.long()
-    safe = ids.clamp(min=0)
-    xf = x.float()
-    base = torch.einsum("bsd,do->bso", xf, w.float())
-    h = torch.einsum("bsd,bdr->bsr", xf, lora_a[safe].float())
-    delta = torch.einsum("bsr,bro->bso", h, lora_b[safe].float()) * scale
-    delta = delta * (ids >= 0).to(delta.dtype)[:, None, None]
-    return (base + delta).to(x.dtype)
+    A negative id keeps the base term and drops the delta."""
+    base = torch.einsum("bsd,do->bso", x.float(), w.float())
+    delta = sgmv_ref(x, lora_a, lora_b, adapter_ids, scale)
+    return (base + delta.float()).to(x.dtype)
 
 
 def ragged_extend_ref(
@@ -98,3 +111,28 @@ def paged_attention_ref(
     w = torch.where(valid[:, None, None, :], w, 0.0)
     out = torch.einsum("bkgt,btkd->bkgd", w, v)
     return out.reshape(B, H, D).to(q.dtype)
+
+def flash_prefill_ragged_ref(
+    q: torch.Tensor,  # (B, H, S, D) — S is the padded length
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    true_lens: torch.Tensor,  # (B,) int — live tokens per row (may be 0)
+) -> torch.Tensor:
+    """Causal attention over padded rows in the head-major layout; padded
+    query positions and rows of length 0 are zeros. This is
+    :func:`ragged_extend_ref` of a fresh sequence (start 0, T = S)."""
+    start = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
+    out = ragged_extend_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), start, true_lens)
+    return out.transpose(1, 2)
+
+
+def flash_prefill_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+) -> torch.Tensor:
+    """Causal full-sequence GQA attention (fresh prefill)."""
+    B, _, S, _ = q.shape
+    full = torch.full((B,), S, dtype=torch.int64, device=q.device)
+    return flash_prefill_ragged_ref(q, k, v, full)

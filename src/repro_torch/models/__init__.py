@@ -1,6 +1,6 @@
 """Dense GQA decoder (PyTorch counterpart of ``repro.models``)."""
 
-from .model import build_model
+from .model import build_model, make_decode_step, make_prefill_step
 from .transformer import LM
 
-__all__ = ["LM", "build_model"]
+__all__ = ["LM", "build_model", "make_decode_step", "make_prefill_step"]

@@ -6,6 +6,9 @@ Conventions follow the reference: ``p`` is one layer's parameter dict,
 ported; sliding windows, int8 KV, logit softcap and MLA raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 8).
 
+:func:`gqa_full` is the fresh full-sequence path (``LM.forward`` and
+``LM.prefill``): causal attention through ``flash_prefill``.
+
 Unlike the reference, which returns a new cache, :func:`gqa_cached` writes
 the new K/V rows into the cache in place. Where it writes is decided once
 per ``extend`` call by :func:`cached_step`, on the host: only real tokens of
@@ -114,6 +117,37 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, Hq, v.shape[-1])
+
+
+def gqa_full(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    rope: tuple[torch.Tensor, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    lora=None,
+    adapter_ids=None,
+    lora_scale: float = 1.0,
+    window: int = 0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence causal attention (train / fresh prefill). ``rope`` is
+    the (cos, sin) tables at positions 0 .. S-1, so causality by index is
+    causality by position, as the reference's kernel path assumes.
+
+    Attention goes through ``flash_prefill`` in the head-major layout; the
+    transposes are views, which the kernel reads by their strides. Returns
+    ``(out, (k, v))`` with k/v ``(B, S, Hkv, D)``, so a caller can seed a
+    decode cache. The reference's ``q_chunk`` (blockwise attention, a
+    training memory knob) is not ported: the kernel is already blockwise."""
+    if window or cfg.logit_softcap:
+        raise NotImplementedError(f"windowed / softcapped attention is {_UNPORTED}")
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale)
+    out = kernel_ops.flash_prefill(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ).transpose(1, 2)
+    out = out.reshape(B, S, -1)
+    return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale), (k, v)
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
 """Model facade (PyTorch counterpart of ``repro.models.model``): the dense
-decoder only; training steps are ROADMAP Queue 1 item 9."""
+decoder and its static-batch prefill and decode steps; training steps are
+ROADMAP Queue 1 item 9."""
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -14,3 +17,30 @@ def build_model(cfg: ModelConfig, dtype=torch.float32, device=None) -> LM:
     raising without one); other families raise ``NotImplementedError``
     naming their ROADMAP item."""
     return LM(cfg, dtype=dtype, device=device)
+
+
+def make_prefill_step(model: LM) -> Callable:
+    """prefill_step(params, lora, batch) -> (last-token logits, cache): a
+    fresh prefill of ``batch["tokens"]`` (B, S) into a cache of exactly S
+    positions, with ``batch.get("adapter_ids")`` (B,)."""
+
+    def prefill_step(params, lora, batch):
+        return model.prefill(params, batch["tokens"],
+                             max_len=batch["tokens"].shape[1], lora=lora,
+                             adapter_ids=batch.get("adapter_ids"))
+
+    return prefill_step
+
+
+def make_decode_step(model: LM) -> Callable:
+    """decode_step(params, lora, cache, batch) -> (next tokens (B,) int32,
+    cache): one greedy token per row against the cache, which is updated in
+    place."""
+
+    def decode_step(params, lora, cache, batch):
+        logits, cache = model.decode(params, cache, batch["tokens"], lora=lora,
+                                     adapter_ids=batch.get("adapter_ids"))
+        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return next_tok, cache
+
+    return decode_step

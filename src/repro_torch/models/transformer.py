@@ -14,13 +14,19 @@ Public surface (functions of the params, as in the reference):
   init_params(gen)                          -> params
   init_lora(gen, n_slots)                   -> stacked multi-LoRA params
   init_cache(batch, max_len)                -> dense decode cache
+  forward(params, tokens, ...)              -> (logits, aux)
+  prefill(params, tokens, max_len, ...)     -> (last logits, cache)
   extend(params, cache, tokens, start, ...) -> (logits, cache)
-(``decode`` is ``extend`` at ``cache["len"]`` with one token per row.)
+  decode(params, cache, tokens, ...)        -> (logits, cache)
 
-``extend`` updates the cache in place and returns it: only the real tokens
-of kept rows are written, and ``len`` advances only for kept rows.
-``cache["len"]`` is a host-side (CPU) int32 tensor, so planning a step never
-waits on the device.
+``forward`` and ``prefill`` run a fresh sequence through ``flash_prefill``;
+``extend`` (and ``decode``, which is ``extend`` at ``cache["len"]`` with one
+token per row) runs against the cache. ``prefill`` writes each layer's K/V
+into a new cache in place, where the reference pads; ``extend`` updates the
+cache in place and returns it: only the real tokens of kept rows are
+written, and ``len`` advances only for kept rows. ``cache["len"]`` is a
+host-side (CPU) int32 tensor, so planning a step never waits on the device.
+Remat, ``q_chunk`` and int8 KV are not ported.
 """
 
 from __future__ import annotations
@@ -31,8 +37,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import cached_step, check_supported, gqa_cached, init_gqa
-from .common import dense_init, embed_init, init_rms, rms_norm
+from .attention import cached_step, check_supported, gqa_cached, gqa_full, init_gqa
+from .common import dense_init, embed_init, init_rms, rms_norm, rope_tables
 from .ffn import dense_ffn, init_dense_ffn
 
 
@@ -126,6 +132,39 @@ class LM:
         return x @ params["lm_head"]
 
     # ---------------------------------------------------------- layer bodies
+    def _layer_full(self, lp, lora_slice, x, rope, adapter_ids):
+        """One layer over a fresh sequence; returns (x, (k, v))."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
+                             adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+        x = x + mixed
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        return x + dense_ffn(lp["ffn"], h2, cfg.activation), kv
+
+    def _run_full(self, params, tokens, lora, adapter_ids, cache=None):
+        """Embed ``tokens`` (B, S) and run every layer over the fresh
+        sequence (positions 0 .. S-1); with ``cache``, layer i's K/V go into
+        ``cache["k"][i, :, :S]`` / ``cache["v"][i, :, :S]``. Returns the
+        final hidden states (B, S, d)."""
+        cfg, dev = self.cfg, self.device
+        tokens = torch.as_tensor(tokens).to(dev, torch.int64, non_blocking=True)
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        rope = rope_tables(torch.arange(S, device=dev), cfg.resolved_head_dim,
+                           cfg.rope_theta)
+        ids = None
+        if adapter_ids is not None:
+            ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
+        for i in range(cfg.num_layers):
+            x, (k, v) = self._layer_full(layer_slice(params["layers"], i),
+                                         layer_slice(lora, i) if lora else None,
+                                         x, rope, ids)
+            if cache is not None:
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+        return x
+
     def _layer_cached(self, lp, lora_slice, cache_k, cache_v, x, step,
                       adapter_ids):
         cfg = self.cfg
@@ -135,6 +174,29 @@ class LM:
                            lora_scale=self.lora_scale)
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         return x + dense_ffn(lp["ffn"], h2, cfg.activation)
+
+    # ================================================================ train
+    def forward(self, params, tokens, *, lora=None, adapter_ids=None):
+        """Full causal forward over ``tokens`` (B, S); returns
+        ``(logits (B, S, vocab), aux)`` with the MoE auxiliary loss ``aux``
+        0 (a dense model has none)."""
+        x = self._run_full(params, tokens, lora, adapter_ids)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._unembed(params, x), aux
+
+    # ============================================================== prefill
+    def prefill(self, params, tokens, max_len: int, *, lora=None,
+                adapter_ids=None):
+        """Fresh full prefill of ``tokens`` (B, S) into a new cache of
+        ``max_len`` positions: returns (last-token logits (B, 1, vocab),
+        cache) with ``cache["len"]`` S in every row."""
+        B, S = torch.as_tensor(tokens).shape
+        if S > max_len:
+            raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
+        cache = self.init_cache(B, max_len)
+        x = self._run_full(params, tokens, lora, adapter_ids, cache=cache)
+        cache["len"] = torch.full((B,), S, dtype=torch.int32)  # host side
+        return self._unembed(params, x[:, -1:, :]), cache
 
     # ====================================================== extend / decode
     def extend(self, params, cache, tokens, start, *, lora=None,
@@ -183,3 +245,8 @@ class LM:
             x = x[:, -1:, :]
         return self._unembed(params, x), cache
 
+    def decode(self, params, cache, tokens, *, lora=None, adapter_ids=None):
+        """One-token decode step: ``tokens`` (B, 1) at the offsets
+        ``cache["len"]``."""
+        return self.extend(params, cache, tokens, cache["len"], lora=lora,
+                           adapter_ids=adapter_ids)

@@ -6,9 +6,9 @@ no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Inputs come from numpy with a fixed seed. Tolerances: fused_sgmv 1e-4 of
-the largest reference magnitude (f32 sums of up to 2048 terms, in another
-order); the attention kernels 1e-5 absolute (softmax weights times
+Inputs come from numpy with a fixed seed. Tolerances: fused_sgmv and sgmv
+1e-4 of the largest reference magnitude (f32 sums of up to 2048 terms, in
+another order); the attention kernels 1e-5 absolute (softmax weights times
 unit-scale values).
 """
 
@@ -16,8 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_sgmv, paged_attention, ragged_extend, ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import (
+    flash_prefill,
+    flash_prefill_ragged,
+    fused_sgmv,
+    ops,
+    paged_attention,
+    ragged_extend,
+    ref,
+    sgmv,
+)
 
 
 @pytest.fixture
@@ -105,6 +113,115 @@ def test_paged_attention_cuda_matches_plain(cuda, B, T, H, Hkv, D, page):
     want = ref.paged_attention_ref(*args)
     assert float((got - want).abs().max()) <= 1e-5
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # length 0
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N", [
+    (8, 1, 1024, 2048, 32, 8),   # decode rows: the skinny path
+    (8, 1, 2048, 1024, 32, 8),
+    (3, 5, 100, 328, 8, 2),      # skinny, a part-filled column block
+    (4, 37, 96, 320, 16, 3),     # the tiled path
+    (2, 256, 1024, 2048, 32, 8),
+])
+def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, S, d_in), np.float32)
+    a = rng.standard_normal((N, d_in, r), np.float32) * 0.03
+    b = rng.standard_normal((N, r, d_out), np.float32) * 0.03
+    ids = rng.integers(-1, N, size=(B,)).astype(np.int32)
+    ids[0] = -1
+    args = [_t(v, cuda) for v in (x, a, b, ids)]
+    before = ops.launch_counts()["sgmv"]
+    got = sgmv(*args, scale=2.0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sgmv"] == before + 1
+    want = ref.sgmv_ref(*args, scale=2.0)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got[0], torch.zeros_like(got[0]))  # a negative id
+    assert torch.equal(sgmv(*args, scale=2.0), got)  # a fixed order of sums
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (8, 16, 8, 2016, 128),  # the generate path; S off the 16-token q tiles
+    (2, 4, 2, 100, 128),
+    (3, 8, 1, 33, 64),      # MQA
+    (1, 4, 4, 1, 32),       # MHA, one token
+])
+def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((B, H, S, D), np.float32)
+    k = rng.standard_normal((B, Hkv, S, D), np.float32)
+    v = rng.standard_normal((B, Hkv, S, D), np.float32)
+    args = [_t(a, cuda) for a in (q, k, v)]
+    before = ops.launch_counts()["flash_prefill"]
+    got = flash_prefill(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_prefill"] == before + 1
+    assert float((got - ref.flash_prefill_ref(*args)).abs().max()) <= 1e-5
+    # (B, S, H, D) tensors transposed to head-major are read in place
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in args)
+    got_t = flash_prefill(qt, kt, vt)
+    assert got_t.stride() == qt.stride()
+    assert torch.equal(got_t, got)
+
+
+@pytest.mark.parametrize("S,lens", [
+    (2016, [0, 1, 37, 1000, 2015, 2016, 2016, 2016]),
+    (100, [100, 0, 17]),
+])
+def test_flash_prefill_ragged_cuda_matches_plain(cuda, S, lens):
+    B, H, Hkv, D = len(lens), 16, 8, 128
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((B, H, S, D), np.float32)
+    k = rng.standard_normal((B, Hkv, S, D), np.float32)
+    v = rng.standard_normal((B, Hkv, S, D), np.float32)
+    args = [_t(a, cuda) for a in (q, k, v, np.asarray(lens, np.int32))]
+    before = ops.launch_counts()
+    got = flash_prefill_ragged(*args)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_prefill_ragged"] == before["flash_prefill_ragged"] + 1
+    assert after["flash_prefill"] == before["flash_prefill"]
+    assert float((got - ref.flash_prefill_ragged_ref(*args)).abs().max()) <= 1e-5
+    for b, n in enumerate(lens):  # padded queries and empty rows are zeros
+        assert torch.equal(got[b, :, n:], torch.zeros_like(got[b, :, n:]))
+    full = [b for b, n in enumerate(lens) if n == S]
+    assert torch.equal(got[full], flash_prefill(*args[:3])[full])
+
+
+def _grad_cases(dev):
+    """kernel -> (shape of its first float input x, a call on x)"""
+    f = lambda *shape: torch.randn(shape, device=dev)  # noqa: E731
+    ids = torch.zeros((2,), dtype=torch.int32, device=dev)
+    kv = (2, 8, 1, 4)  # (B, T, Hkv, D), also one page of 8 per row
+    return {
+        "fused_sgmv": ((2, 3, 8), lambda x: fused_sgmv(
+            x, f(8, 8), f(1, 8, 4), f(1, 4, 8), ids)),
+        "sgmv": ((2, 3, 8), lambda x: sgmv(x, f(1, 8, 4), f(1, 4, 8), ids)),
+        "ragged_extend": ((2, 3, 2, 4), lambda x: ragged_extend(
+            x, f(*kv), f(*kv), ids, ids + 3)),
+        "paged_attention": ((2, 2, 4), lambda x: paged_attention(
+            x, f(*kv), f(*kv), torch.arange(2, device=dev).view(2, 1), ids + 5)),
+        "flash_prefill": ((2, 2, 3, 4), lambda x: flash_prefill(
+            x, f(2, 1, 3, 4), f(2, 1, 3, 4))),
+        "flash_prefill_ragged": ((2, 2, 3, 4), lambda x: flash_prefill_ragged(
+            x, f(2, 1, 3, 4), f(2, 1, 3, 4), ids + 2)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_grad_cases("cpu")))
+def test_cuda_launch_under_autograd_raises(cuda, name):
+    """The kernels have no backward: an input that requires grad raises
+    rather than come back as a tensor without a gradient. Under no_grad the
+    same call launches."""
+    shape, call = _grad_cases(cuda)[name]
+    x = torch.randn(shape, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        call(x)
+    with torch.no_grad():
+        before = ops.launch_counts()[name]
+        assert torch.isfinite(call(x)).all()
+        torch.cuda.synchronize()
+        assert ops.launch_counts()[name] == before + 1
 
 
 def test_cuda_wrappers_reject_bad_inputs(cuda):
