@@ -11,7 +11,8 @@ exits non-zero:
 3. kernels  — each of the six kernels against its plain PyTorch version at
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
-              tokens for the fresh prefill), timed with CUDA events beside
+              tokens for the fresh prefill, fused_sgmv at both paths'
+              shapes), timed with CUDA events beside
               its plain version, one PyTorch library call where one
               computes the same function, and its bound (bytes / 3.35 TB/s
               or f32 flops / 67 TFLOP/s, the larger); and a check that every
@@ -488,13 +489,10 @@ def top2_gap(logits):
     return top2[..., 0] - top2[..., 1]
 
 
-def greedy(model, params, lora, tokens, ids, max_len: int, steps: int,
-           gaps: list | None = None):
+def greedy(model, params, lora, tokens, ids, max_len: int, steps: int):
     """``LM.prefill`` then ``steps`` greedy ``make_decode_step`` steps.
-    Returns the tokens (B, steps + 1) and the seconds of the prefill and of
-    the decode steps (synchronised). With ``gaps`` (a list), each step runs
-    the step's body (``LM.decode``, then argmax) to keep its logits, and the
-    list gets each token's top-2 logit gap."""
+    Returns the tokens (B, steps + 1), the seconds of the prefill and of
+    the decode steps (synchronised), and the cache."""
     from repro_torch.models import make_decode_step
 
     decode = make_decode_step(model)
@@ -507,19 +505,11 @@ def greedy(model, params, lora, tokens, ids, max_len: int, steps: int,
     t1 = time.perf_counter()
     out = [tok]
     for _ in range(steps):
-        if gaps is None:
-            tok, cache = decode(params, lora, cache, {"tokens": tok[:, None],
-                                                      "adapter_ids": ids})
-        else:
-            gaps.append(top2_gap(logits[:, -1]))
-            logits, cache = model.decode(params, cache, tok[:, None], lora=lora,
-                                         adapter_ids=ids)
-            tok = logits[:, -1].argmax(-1).to(torch.int32)
+        tok, cache = decode(params, lora, cache, {"tokens": tok[:, None],
+                                                  "adapter_ids": ids})
         out.append(tok)
-    if gaps is not None:
-        gaps.append(top2_gap(logits[:, -1]))
     sync()
-    return torch.stack(out, 1).cpu(), t1 - t0, time.perf_counter() - t1
+    return torch.stack(out, 1).cpu(), t1 - t0, time.perf_counter() - t1, cache
 
 
 def arch_identities(model, params, lora, tokens, ids):
@@ -558,9 +548,10 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
     ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1][:B], dtype=torch.int32)
 
     ops.reset_launch_counts()
-    gen_tokens, prefill_s, decode_s = greedy(model, params, lora, tokens, ids,
-                                             max_len, steps)
+    gen_tokens, prefill_s, decode_s, cache = greedy(model, params, lora, tokens,
+                                                    ids, max_len, steps)
     launches = ops.launch_counts()
+    del cache
     want = dict.fromkeys(launches, 0)
     want.update(flash_prefill=L, fused_sgmv=4 * L * (1 + steps),
                 paged_attention=L * steps)
@@ -594,12 +585,18 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
     # the CPU run of the same weights: the kernels' plain versions
     t0 = time.perf_counter()
     cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init_params(torch.Generator().manual_seed(seed))
+    cpu_lora = random_lora(cpu, 8, seed + 1)
     rows = list(check_rows)
-    gaps: list = []
-    cpu_tokens, _, _ = greedy(
-        cpu, cpu.init_params(torch.Generator().manual_seed(seed)),
-        random_lora(cpu, 8, seed + 1), tokens[rows], ids[rows],
-        S + check_tokens, check_tokens - 1, gaps=gaps)
+    prompt = tokens[rows]
+    cpu_tokens, _, _, cache = greedy(cpu, cpu_params, cpu_lora, prompt, ids[rows],
+                                     S + check_tokens, check_tokens - 1)
+    # the top-2 gap of each checked token: one extend over the last prompt
+    # token and the generated ones, with every position's logits
+    logits, _ = cpu.extend(
+        cpu_params, cache, torch.cat([prompt[:, -1:], cpu_tokens[:, :-1]], 1),
+        torch.full((len(rows),), S - 1), lora=cpu_lora, adapter_ids=ids[rows],
+        all_logits=True)
     cpu_s = time.perf_counter() - t0
     equal = torch.equal(cpu_tokens, gen_tokens[rows, :check_tokens])
     require(equal, f"card tokens {gen_tokens[rows, :check_tokens].tolist()} != "
@@ -615,7 +612,7 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
         "arch_identities_max_abs_err": arch_errs,
         "cpu_rows": rows, "cpu_tokens_equal": equal,
         "tokens": gen_tokens[rows, :check_tokens].tolist(),
-        "smallest_top2_gap": float(torch.stack(gaps).min()),
+        "smallest_top2_gap": float(top2_gap(logits).min()),
         "cpu_seconds": cpu_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
@@ -652,15 +649,18 @@ def main() -> None:
 
     # ---------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
+    projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
+                   ("o", 2048, 1024))
+    # the engine's 256-token buckets and decode steps, then the generate
+    # path's prefill: 2016 is no multiple of the 64-row tile, so tiles
+    # straddle rows of different adapters (and of id -1)
     sgmv_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev)
-                  for S in (256, 1)
-                  for p, di, do in (("q", 1024, 2048), ("k", 1024, 1024),
-                                    ("v", 1024, 1024), ("o", 2048, 1024))]
+                  for S in (256, 1, 2016) for p, di, do in projections]
     rag = ragged_case(ops, ref, gen, dev)
     pag = paged_case(ops, ref, gen, dev)
     delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)
                    for S in (2016, 1)
-                   for p, di, do in (("q", 1024, 2048), ("o", 2048, 1024))]
+                   for p, di, do in (projections[0], projections[3])]
     torch.cuda.empty_cache()
     fla = flash_case(ops, ref, gen, dev)
     torch.cuda.empty_cache()
@@ -770,6 +770,11 @@ def main() -> None:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "case": m["case"]})
+    # fused_sgmv's shapes differ by path: beside the engine's bucket, the q
+    # projection of the generate path's prefill
+    kernels[0]["generate_path_case"] = {
+        k: sgmv_cases[8][k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
