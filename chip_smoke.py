@@ -12,11 +12,12 @@ exits non-zero:
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
               tokens for the fresh prefill, fused_sgmv at both paths'
-              shapes), timed with CUDA events beside
+              shapes and at the engine's 64-token buckets), timed with
+              CUDA events beside
               its plain version, one PyTorch library call where one
               computes the same function, and its bound (bytes / 3.35 TB/s
-              or f32 flops / 67 TFLOP/s, the larger); and a check that every
-              wrapper refuses autograd on the card.
+              or f32 flops / 165 TFLOP/s, the larger); and a check that
+              every wrapper refuses autograd on the card.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -52,7 +53,10 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# H100 SXM: f32-accurate products on the tensor cores, 495 TFLOP/s TF32
+# dense over the three TF32 products of a 3xTF32 split (the CUDA cores'
+# 67 TFLOP/s f32 is not the least time once a kernel uses the split)
+F32_FLOPS = 495e12 / 3
 SGMV_TOL = 1e-4  # times max|ref|: f32 sums of up to 2048 terms, other order
 ATTN_TOL = 1e-5  # absolute: softmax-weighted unit-scale values
 ARGMAX_TOL = 1e-3  # a card token may trail the CPU's best logit by this
@@ -652,10 +656,12 @@ def main() -> None:
     projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
                    ("o", 2048, 1024))
     # the engine's 256-token buckets and decode steps, then the generate
-    # path's prefill: 2016 is no multiple of the 64-row tile, so tiles
-    # straddle rows of different adapters (and of id -1)
+    # path's prefill: 2016 is no multiple of the 128-row tile, so tiles
+    # straddle rows of different adapters (and of id -1); then the engine's
+    # 64-token buckets, too few tiles for the card, where the kernel splits
+    # d_in over blocks
     sgmv_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev)
-                  for S in (256, 1, 2016) for p, di, do in projections]
+                  for S in (256, 1, 2016, 64) for p, di, do in projections]
     rag = ragged_case(ops, ref, gen, dev)
     pag = paged_case(ops, ref, gen, dev)
     delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)

@@ -6,35 +6,75 @@
 // Both run the kernels below, with the base term compiled in or out
 // (HAS_BASE): without it the tiled path never stages W and the skinny path
 // never streams it, so y = scale·(x·A[id])·B[id], and a row with a negative
-// id comes out as exact zeros without touching A or B. The sums run in the
-// same fixed order either way.
+// id comes out as exact zeros without touching A or B.
 //
 // Computes y = x·W + scale·(x·A[id])·B[id] with x flattened to M = B·S rows;
 // row m carries its batch row's adapter id ids[m / S]. A negative id keeps
 // x·W and drops the delta: it never dereferences A or B (the TPU kernel
 // clamps the id for the gather and masks with the raw id; the result is the
-// same).
+// same). Every output element has one owner and its sums run in a fixed
+// order, so two launches on the same inputs give the same bits.
 //
 // What bounds it on this card: at decode (M = 8 rows) the kernel does
 // 2·M flops per weight it reads (W is 4·d_in·d_out bytes), 4 flop/byte,
-// far below the H100's ~20 f32 flop/byte, so it is bound by the bytes of W.
-// At a 256-token prefill bucket (M = 2048) it does ~1000 flop/byte and is
-// bound by f32 FMA throughput (67 TFLOP/s outside the tensor cores).
+// so it is bound by the bytes of W. At a 256-token prefill bucket
+// (M = 2048) it does ~1000 flop/byte and is bound by the arithmetic: f32
+// products that keep f32 accuracy run at 165 TFLOP/s on the tensor cores
+// (495 TFLOP/s TF32, three products each, see 3xTF32 below) and at
+// 67 TFLOP/s on the CUDA cores.
 //
-// What the design does about it. Two paths, chosen from the shapes:
+// Two paths, chosen from the shapes:
 //
-// Tiled (M > 16, the prefill buckets): tiles run over (M, d_out), so W is
-// read once per 64-row M tile rather than once per batch row (the Pallas
-// grid (B, S/bs, d_out/bo) re-reads W for every b). Each tile stages x and W
-// in shared memory in 32-wide k slices and keeps a 4x4 block of the base sum
-// in registers per thread. The rows of a tile fall into a few segments, one
-// per batch row and so one adapter each: the k slice of A[id] is staged
-// once per segment with coalesced loads, and the x slice already in shared
-// memory feeds the rank-r shrink h = x·A[id] (4 threads per row). The
-// epilogue stages B[id] once per segment and adds scale·h·B[id] only where
-// id >= 0. The A and B tiles move with cp.async (zero-filled where id < 0
-// or past d_in), and the x and W loops are unrolled, so every load of a k
-// slice is in flight before the block waits.
+// Tiled (M > 16, the prefill buckets and fresh prefills), two kernels:
+// 1. The rank-r shrink, once per row: h[m] = scale·x[m]·A[id], f32 FMA on
+//    the CUDA cores, as up to 8 partial sums over parts of d_in in a
+//    scratch buffer the wrapper allocates. One block takes 64 rows of one
+//    batch row, so one adapter, and one part of d_in: the parts put two
+//    blocks per SM on the card (at M = 2048 the rows alone give 32). A row
+//    of id < 0 writes zeros and never reads A. It is 2·M·d_in·r flops, 3 %
+//    of the base product at r = 32, and one more read of x.
+// 2. The base product and the expand on the tensor cores. A block owns a
+//    128 x 128 output tile; its 8 warps own 64 x 32 each, 4 x 4 tiles of
+//    mma.sync.m16n8k8 TF32. x and W move in 32-wide k slices through a
+//    3-stage cp.async ring (16-byte copies, or 4-byte ones in the same
+//    kernel where d_in or d_out is no multiple of 4; zero-fill past M,
+//    d_in and d_out): slice k + 2 is in flight while slice k computes,
+//    with one wait and one barrier per slice. Row pitches of 36 (x) and
+//    136 (W) floats put the 32 scalar fragment loads of a warp on 32
+//    banks. After the d_in loop, for each adapter id live in the tile
+//    (once, however many batch rows carry it), B[id] (r x 128) and the
+//    tile's h rows are staged, rows of other ids read as zero, and r/8
+//    more k steps add h·B[id] to the same accumulator. Tiles straddle
+//    batch rows wherever S is no multiple of 128 (2016 in a fresh
+//    prefill, 37 in the tests).
+//    Grid: columns fastest, so the blocks in flight share their x rows.
+//    ~185 registers a thread allow one block per SM. At M = 2048 the q
+//    projection gives 16 x 16 tiles, 256 blocks: two waves on 132 SMs, the
+//    second 94 % full; k, v and o give 128 blocks, one wave. The engine's
+//    smaller buckets (M = 64 .. 1024) give too few tiles, and each would
+//    walk all of d_in alone: there d_in is split over up to 8 blocks per
+//    tile for about one wave, each writes its partial tile, and a third
+//    kernel adds them in a fixed order. A 64-row tile would double the
+//    blocks but halve the reuse of each B fragment.
+//
+// 3xTF32. Each operand a splits as it leaves shared memory into
+// hi = tf32(a) and lo = tf32(a − hi), rounded to nearest, so
+// a = hi + lo + e with |e| <= 2^-22·|a|. The product is
+// lo·hi + hi·lo + hi·hi (lo·lo, below 2^-22 of it, is dropped), each term
+// exact in f32. The tensor cores add into their accumulator rounding
+// toward zero, an error that grows with the number of products added to
+// one accumulator; so each 128-wide part of d_in sums in its own
+// accumulator, which then joins the tile's total in shared memory with a
+// rounded f32 add (FLUSH). The result is within f32 reordering error of
+// the plain version, and the kernel keeps the f32 tolerances of the
+// parity checks; tests/test_torch_tf32x3.py emulates the arithmetic on the
+// CPU. One TF32 product per term would keep ~11 bits and break them.
+//
+// Why mma.sync and not yet wgmma: wgmma reads TF32 operands from shared
+// memory only K-major, and W is (d_in, d_out) row-major, N-major; it would
+// need a transpose of every W tile in shared memory or a transposed copy of
+// the weights in the model. mma.sync fragments are loaded thread by thread,
+// so the [k][n] W tile is read as it lies. wgmma is later work.
 //
 // Skinny (M <= 16, the decode steps): a 64-row tile would leave the card
 // nearly empty (d_out / 64 blocks) and every block would re-read A[id] for
@@ -45,26 +85,33 @@
 // 64 k-lanes of 4 threads stream W as 16-byte loads, eight in flight per
 // thread, against x staged once in shared memory; lane g < r also adds
 // scale·h[r=g]·B[id][g] for its columns, and the lanes' partial sums meet in
-// a fixed order (warp shuffles, then eight warp partials), so the result
-// does not change from run to run.
+// a fixed order (warp shuffles, then eight warp partials). All IEEE f32 FMA.
 //
 // sgmv (no base term) does 2·r·(d_in + d_out) flops per row against
 // 4·(d_in + d_out) bytes of x and y, 16 flop/byte at r = 32: bound by the
-// bytes of x and y at every M. It runs on the same two paths, which is
-// simple and repeats fused_sgmv's sums, but spends the tiled path's 4x4
-// register block on nothing; a delta-only tiling is for a later change.
-//
-// All arithmetic is IEEE f32 FMA: no TF32, no tensor cores (a later change
-// can move the base product to wgmma once the parity tolerances allow it).
+// bytes of x and y at every M. On the tiled path it is the shrink pass and
+// the expand alone: no d_in loop.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 64;       // rows per tile
-constexpr int BN = 64;       // output columns per tile
-constexpr int BK = 32;       // k slice staged in shared memory
-constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int THREADS = 256; // every kernel of this file
+
+// tiled path
+constexpr int TM = 128;      // rows per output tile
+constexpr int TN = 128;      // output columns per tile
+constexpr int TK = 32;       // k slice of one pipeline stage
+constexpr int STAGES = 3;    // k slices in the cp.async ring
+constexpr int FLUSH = 4;     // k slices summed on the tensor cores per f32 add
+constexpr int WM = 64, WN = 32;           // one warp's part of the tile
+constexpr int MT = WM / 16, NT = WN / 8;  // its m16n8k8 tiles
+constexpr int XS_LD = TK + 4;  // x row pitch: fragment (g, t) -> bank 4g + t
+constexpr int WS_LD = TN + 8;  // W row pitch: fragment (t, g) -> bank 8t + g
+constexpr int XS_FLOATS = TM * XS_LD;
+constexpr int STAGE_FLOATS = XS_FLOATS + TK * WS_LD;
+constexpr int SH_ROWS = 64;    // rows per shrink block
+constexpr int MAX_SPLIT = 8;   // parts of d_in, each in its own block, at most
 
 constexpr int SK_MAX_M = 16;                   // skinny path: rows at most
 constexpr int SK_COLS = 16;                    // output columns per block
@@ -82,8 +129,21 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pre
                "l"(src), "r"(pred ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
+// the same for 16 bytes, through L2 only
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
@@ -93,22 +153,66 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-// batch-row segments one BM-row tile can touch
-int max_segments(int B, int S) {
-  const int n = (BM + S - 2) / S + 1;
-  return n < B ? n : B;
+// a rounded to TF32 (10 explicit mantissa bits), to nearest, ties away
+// from zero: cvt.rna.tf32.f32 for finite a, in two integer ops where the
+// cvt compiles to four
+__device__ __forceinline__ unsigned tf32_rna(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
 }
 
-// floats of the A slices (all segments) or, in the epilogue, one B tile
-__host__ __device__ inline int ab_floats(int nseg, int R) {
-  const int a = nseg * BK * R, b = R * BN;
-  return a > b ? a : b;
+// a = hi + lo, both TF32; a − hi is exact in f32
+__device__ __forceinline__ void split_tf32(float a, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(a);
+  lo = tf32_rna(a - __uint_as_float(hi));
 }
 
-// dynamic shared memory: xs [BK][BM+4], ws [BK][BN], ab, hs [BM][R+1]
-size_t smem_bytes(int nseg, int R) {
-  return sizeof(float) *
-         ((size_t)BK * (BM + 4) + BK * BN + ab_floats(nseg, R) + (size_t)BM * (R + 1));
+// d += a·b: one m16n8k8 TF32 product on the tensor cores, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k8 step of a warp's WM x WN tile in 3xTF32: ``as`` points at the
+// warp's first row and this step's k (row pitch lda), ``bs`` at this
+// step's k row and the warp's first column (pitch ldb). Fragments: A
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (t, g), (t + 4, g);
+// g = lane / 4, t = lane % 4. With MASKED, fragment row mt·16 + g + 8·hh
+// reads as zero unless bit 2·mt + hh of ``keep`` is set. The small
+// products go first.
+template <bool MASKED>
+__device__ __forceinline__ void mma_k8_3xtf32(float (&acc)[MT][NT][4], const float* as,
+                                              int lda, const float* bs, int ldb,
+                                              unsigned keep) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned ahi[MT][4], alo[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float* p = as + (mt * 16 + g) * lda + t;
+    float v[4] = {p[0], p[8 * lda], p[4], p[8 * lda + 4]};
+    if constexpr (MASKED) {
+      if (!((keep >> (2 * mt)) & 1u)) v[0] = v[2] = 0.f;
+      if (!((keep >> (2 * mt + 1)) & 1u)) v[1] = v[3] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(v[i], ahi[mt][i], alo[mt][i]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float* p = bs + t * ldb + nt * 8 + g;
+    unsigned bhi[2], blo[2];
+    split_tf32(p[0], bhi[0], blo[0]);
+    split_tf32(p[4 * ldb], bhi[1], blo[1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      mma_tf32(acc[mt][nt], alo[mt], bhi);
+      mma_tf32(acc[mt][nt], ahi[mt], blo);
+      mma_tf32(acc[mt][nt], ahi[mt], bhi);
+    }
+  }
 }
 
 bool use_skinny(int M, int d_in, int d_out) {
@@ -118,136 +222,397 @@ bool use_skinny(int M, int d_in, int d_out) {
 
 __host__ __device__ inline int shrink_chunks(int d_in) { return (d_in + SHRINK_KC - 1) / SHRINK_KC; }
 
-// The rank R is a template parameter: the staging loops index by it, and a
-// division by a runtime R costs more than the copy it addresses.
+// the expand's depth: the rank, at least one k8 step (ranks past R are 0)
+__host__ __device__ constexpr int expand_depth(int R) { return R < 8 ? 8 : R; }
+
+// dynamic shared memory of the tiled kernel: the cp.async ring (reused by
+// the expand's h rows [TM][RK + 4] and B tile [RK][WS_LD]), then with the
+// base term the tile's running f32 sums (TM x TN)
+static_assert(TM * (expand_depth(64) + 4) + expand_depth(64) * WS_LD <= STAGES * STAGE_FLOATS,
+              "the expand's tiles fit in the ring it reuses");
+
 template <int R, bool HAS_BASE>
-__global__ void __launch_bounds__(THREADS) fused_sgmv_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ lora_a, const float* __restrict__ lora_b,
-    const int* __restrict__ ids, float* __restrict__ y, int M, int S,
-    int d_in, int d_out, int nseg_max, float scale) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // x slice, transposed
-  float* ws = xs + BK * (BM + 4);
-  float* ab = ws + BK * BN;
-  float* hs = ab + ab_floats(nseg_max, R);
-  __shared__ int seg_id[BM];
+size_t tiled_smem_bytes() {
+  constexpr int RK = expand_depth(R);
+  const size_t expand = (size_t)TM * (RK + 4) + (size_t)RK * WS_LD;
+  const size_t ring = (size_t)STAGES * STAGE_FLOATS;
+  return sizeof(float) * (HAS_BASE ? ring + (size_t)TM * TN : expand);
+}
 
+// The SM count of the first device that asks, read once: the port runs on
+// one card per process.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+// How the tiled path splits d_in to fill the card where the rows alone do
+// not (the engine's prefill buckets run M = 8 x 8 .. 8 x 256 rows): the
+// shrink into ``shrink`` parts, for two blocks per SM; with the base term,
+// the product into ``base`` parts of ``kper`` k slices (at least FLUSH
+// each), for one wave of output tiles. Partials are added in a fixed order.
+struct TiledSplit {
+  int shrink, base, kper;
+};
+
+TiledSplit tiled_split(int M, int d_in, int d_out, bool has_base) {
+  const int sms = sm_count();
+  const int KT = (d_in + TK - 1) / TK;
+  // v in [1, min(hi, MAX_SPLIT)]
+  auto clamp = [](int v, int hi) {
+    hi = hi < MAX_SPLIT ? hi : MAX_SPLIT;
+    return v > hi ? (hi > 1 ? hi : 1) : (v < 1 ? 1 : v);
+  };
+  const int row_blocks = (M + SH_ROWS - 1) / SH_ROWS;
+  TiledSplit sp{clamp((2 * sms + row_blocks - 1) / row_blocks, KT), 1, KT};
+  if (has_base) {
+    const int tiles = ((M + TM - 1) / TM) * ((d_out + TN - 1) / TN);
+    sp.base = clamp(sms / tiles, KT / FLUSH);
+    sp.kper = (KT + sp.base - 1) / sp.base;
+    sp.base = (KT + sp.kper - 1) / sp.kper;  // no empty part
+  }
+  return sp;
+}
+
+// Tiled path, pass 1: hpart[z][m, :] = scale·x[m, k part z]·A[id] for
+// SH_ROWS rows of batch row blockIdx.x, part blockIdx.z of gridDim.z
+// (rows of id < 0 get zeros, A unread). The split fills the card where
+// the rows alone would not (32 blocks at M = 2048); the tiled kernel adds
+// the partials in a fixed order. Thread
+// (rg, r) owns rank r of rows rg, rg + THREADS/R, ...; x and the k slice
+// of A[id] come through a two-stage cp.async ring, and each sum runs in k
+// order. The rank R is a template parameter: the staging loops index by
+// it, and a division by a runtime R costs more than the copy it addresses.
+template <int R, bool V4>
+__global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
+    const float* __restrict__ x, const float* __restrict__ lora_a,
+    const int* __restrict__ ids, float* __restrict__ hpart, int M, int S,
+    int d_in, float scale) {
+  constexpr int RG = THREADS / R;    // row groups
+  constexpr int RPT = SH_ROWS / RG;  // rows per thread
+  __shared__ __align__(16) float xs[2][SH_ROWS][XS_LD];
+  __shared__ __align__(16) float as[2][TK][R];
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int b0 = m0 / S;
-  const int nseg = (min(m0 + BM, M) - 1) / S - b0 + 1;
-  if (tid < nseg) seg_id[tid] = ids[b0 + tid];
-
-  // shrink lanes: tile row hm, ranks hr, hr + 4, hr + 8, ...
-  const int hm = tid >> 2, hr = tid & 3;
-  const int hseg = min((m0 + hm) / S - b0, nseg - 1);
-  const bool hrow = m0 + hm < M;
-
-  float acc[4][4] = {};
-  float h[(R + 3) / 4] = {};
-  constexpr int slice = BK * R;
-  __syncthreads();  // seg_id
-
-  for (int k0 = 0; k0 < d_in; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / THREADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int mm = idx / BK, kk = idx % BK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      xs[kk * (BM + 4) + mm] = (gm < M && gk < d_in) ? x[(size_t)gm * d_in + gk] : 0.f;
-    }
-    if constexpr (HAS_BASE) {
-#pragma unroll
-      for (int i = 0; i < (BK * BN) / THREADS; ++i) {
-        const int idx = tid + i * THREADS;
-        const int kk = idx / BN, nn = idx % BN;
-        const int gk = k0 + kk, gn = n0 + nn;
-        ws[kk * BN + nn] = (gk < d_in && gn < d_out) ? w[(size_t)gk * d_out + gn] : 0.f;
+  const int b = blockIdx.x, s0 = blockIdx.y * SH_ROWS;
+  const int rows = min(SH_ROWS, S - s0);
+  const size_t m0 = (size_t)b * S + s0;
+  const int id = ids[b];
+  float* hb = hpart + ((size_t)blockIdx.z * M + m0) * R;
+  if (id < 0) {  // uniform over the block
+    for (int e = tid; e < rows * R; e += THREADS) hb[e] = 0.f;
+    return;
+  }
+  const float* xb = x + m0 * d_in;
+  const float* ab = lora_a + (size_t)id * d_in * R;
+  auto load_slice = [&](int kt, int st) {
+    const int k0 = kt * TK;
+    if constexpr (V4) {
+      for (int c = tid; c < SH_ROWS * TK / 4; c += THREADS) {
+        const int row = c / (TK / 4), kc = c % (TK / 4) * 4;
+        const bool ok = row < rows && k0 + kc < d_in;
+        cp_async16(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
+      }
+    } else {
+      for (int c = tid; c < SH_ROWS * TK; c += THREADS) {
+        const int row = c / TK, kc = c % TK;
+        const bool ok = row < rows && k0 + kc < d_in;
+        cp_async4(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
       }
     }
-    // the k slice of A[id] for every segment: A[id] is (d_in, R) row-major,
-    // so a slice is BK·R contiguous floats
-    for (int e = tid; e < nseg * slice; e += THREADS) {
-      const int seg = e / slice, rem = e % slice;
-      const int id = seg_id[seg];
-      const bool ok = id >= 0 && k0 + rem / R < d_in;
-      cp_async4(ab + e, ok ? lora_a + (size_t)id * d_in * R + (size_t)k0 * R + rem
-                           : lora_a, ok);
+    // TK rows of A[id], R contiguous floats each (R % 4 == 0)
+    for (int c = tid; c < TK * R / 4; c += THREADS) {
+      const bool ok = k0 + c * 4 / R < d_in;
+      cp_async16(&as[st][0][0] + c * 4, ok ? ab + (size_t)k0 * R + c * 4 : lora_a, ok);
     }
-    cp_async_wait_all();
+    cp_async_commit();
+  };
+
+  const int r = tid % R, rg = tid / R;
+  float acc[RPT] = {};
+  const int per = ((d_in + TK - 1) / TK + gridDim.z - 1) / gridDim.z;  // k slices per part
+  const int KT0 = blockIdx.z * per;
+  const int KT = min(KT0 + per, (d_in + TK - 1) / TK);
+  if (KT0 < KT) load_slice(KT0, 0);
+  for (int kt = KT0; kt < KT; ++kt) {
+    const int st = (kt - KT0) & 1;
+    if (kt + 1 < KT) {
+      load_slice(kt + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    if constexpr (HAS_BASE) {
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&xs[kk * (BM + 4) + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&ws[kk * BN + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < TK; kk += 4) {
+      const float a0 = as[st][kk][r], a1 = as[st][kk + 1][r];
+      const float a2 = as[st][kk + 2][r], a3 = as[st][kk + 3][r];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < RPT; ++j) {
+        const float4 xv = *reinterpret_cast<const float4*>(&xs[st][rg + j * RG][kk]);
+        acc[j] = fmaf(xv.x, a0, acc[j]);
+        acc[j] = fmaf(xv.y, a1, acc[j]);
+        acc[j] = fmaf(xv.z, a2, acc[j]);
+        acc[j] = fmaf(xv.w, a3, acc[j]);
       }
     }
-    if (hrow) {
-      const float* as = ab + hseg * slice;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        const float xv = xs[kk * (BM + 4) + hm];
+    __syncthreads();  // stage st is free for slice kt + 2
+  }
 #pragma unroll
-        for (int j = 0; j < (R + 3) / 4; ++j) {
-          const int r = hr + 4 * j;
-          if (r < R) h[j] = fmaf(xv, as[kk * R + r], h[j]);
+  for (int j = 0; j < RPT; ++j) {
+    const int row = rg + j * RG;
+    if (row < rows) hb[row * R + r] = scale * acc[j];
+  }
+}
+
+// Tiled path, pass 2: the TM x TN output tile at (blockIdx.y, blockIdx.x),
+// y = x·W (HAS_BASE) + h·B[id] per row, on the tensor cores in 3xTF32,
+// with h the sum of ``hsplit`` shrink partials. With gridDim.z > 1 block z
+// takes k slices [z·kper, (z + 1)·kper) of the base product and writes its
+// partial tile to part[z] (M x d_out), z = 0 with the expand, for
+// sum_parts_kernel to add; otherwise it writes y. V4: d_in and d_out are
+// multiples of 4, so every 16-byte chunk of x, W and B lies wholly inside
+// or outside its matrix.
+template <int R, bool HAS_BASE, bool V4>
+__global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ lora_b, const int* __restrict__ ids,
+    const float* __restrict__ h, int hsplit, float* __restrict__ part, int kper,
+    float* __restrict__ y, int M, int S, int d_in, int d_out) {
+  constexpr int RK = expand_depth(R);
+  constexpr int HS_LD = RK + 4;  // fragment (g, t) -> bank (g·HS_LD + t) % 32, all distinct
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ int seg_id[TM];    // adapter id of each batch row in the tile
+  __shared__ int seg_lead[TM];  // that id is live and new in the tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / (TN / WN) * WM, wn = warp % (TN / WN) * WN;
+  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
+  float acc[MT][NT][4] = {};
+  // the running sums of the base product, one float4 per (mt, nt) fragment
+  // of each thread: acc holds the sum of at most FLUSH k slices
+  float4* total = reinterpret_cast<float4*>(sm + STAGES * STAGE_FLOATS) + tid;
+
+  if constexpr (HAS_BASE) {
+    // stage slice kt of x (TM x TK) and W (TK x TN) into ring slot kt % STAGES
+    auto load_slice = [&](int kt) {
+      float* xs = sm + (kt % STAGES) * STAGE_FLOATS;
+      float* ws = xs + XS_FLOATS;
+      const int k0 = kt * TK;
+      if constexpr (V4) {
+#pragma unroll
+        for (int i = 0; i < TM * TK / 4 / THREADS; ++i) {
+          const int c = tid + i * THREADS, row = c / (TK / 4), kc = c % (TK / 4) * 4;
+          const bool ok = m0 + row < M && k0 + kc < d_in;
+          cp_async16(xs + row * XS_LD + kc,
+                     ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < TK * TN / 4 / THREADS; ++i) {
+          const int c = tid + i * THREADS, kk = c / (TN / 4), nc = c % (TN / 4) * 4;
+          const bool ok = k0 + kk < d_in && n0 + nc < d_out;
+          cp_async16(ws + kk * WS_LD + nc,
+                     ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < TM * TK / THREADS; ++i) {
+          const int c = tid + i * THREADS, row = c / TK, kc = c % TK;
+          const bool ok = m0 + row < M && k0 + kc < d_in;
+          cp_async4(xs + row * XS_LD + kc,
+                    ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
+        }
+#pragma unroll 4
+        for (int i = 0; i < TK * TN / THREADS; ++i) {
+          const int c = tid + i * THREADS, kk = c / TN, nc = c % TN;
+          const bool ok = k0 + kk < d_in && n0 + nc < d_out;
+          cp_async4(ws + kk * WS_LD + nc,
+                    ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
+        }
+      }
+    };
+    const int KT0 = blockIdx.z * kper;
+    const int KT = min(KT0 + kper, (d_in + TK - 1) / TK);  // launch: KT0 < KT
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (KT0 + s < KT) load_slice(KT0 + s);
+      cp_async_commit();  // empty groups keep the count uniform
+    }
+    for (int kt = KT0; kt < KT; ++kt) {
+      cp_async_wait<STAGES - 2>();  // this thread's copies of slice kt landed
+      __syncthreads();              // everyone's; and slot (kt - 1) % STAGES is consumed
+      if (kt + STAGES - 1 < KT) load_slice(kt + STAGES - 1);
+      cp_async_commit();
+      const float* xs = sm + (kt % STAGES) * STAGE_FLOATS;
+      const float* ws = xs + XS_FLOATS;
+#pragma unroll
+      for (int kk = 0; kk < TK; kk += 8)
+        mma_k8_3xtf32<false>(acc, xs + wm * XS_LD + kk, XS_LD, ws + kk * WS_LD + wn,
+                             WS_LD, 0u);
+      // The tensor cores round their sums toward zero, relative to the
+      // accumulator: over all of d_in that bias reaches ~1e-5 of |y| at
+      // d_in = 1024. So every FLUSH slices the sum joins the total in a
+      // rounded f32 add.
+      if ((kt + 1 - KT0) % FLUSH == 0 || kt + 1 == KT) {
+#pragma unroll
+        for (int i = 0; i < MT * NT; ++i) {
+          float(&p)[4] = acc[i / NT][i % NT];
+          float4 v = kt + 1 - KT0 > FLUSH ? total[i * THREADS]
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+          v.x += p[0];
+          v.y += p[1];
+          v.z += p[2];
+          v.w += p[3];
+          total[i * THREADS] = v;
+          p[0] = p[1] = p[2] = p[3] = 0.f;
         }
       }
     }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the expand
+  }
+
+  // The expand (block z = 0 alone): for each adapter id live in the tile,
+  // its rows' h times B[id], into the same accumulator. Rows of id < 0
+  // take no delta.
+  if (blockIdx.z == 0) {  // uniform over the block
+    const int b0 = m0 / S;
+    const int nseg = (min(m0 + TM, M) - 1) / S - b0 + 1;
+    if (tid < nseg) seg_id[tid] = ids[b0 + tid];
     __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < (R + 3) / 4; ++j) {
-    const int r = hr + 4 * j;
-    if (r < R) hs[hm * (R + 1) + r] = h[j];
-  }
-
-  float d[4][4] = {};
-  for (int seg = 0; seg < nseg; ++seg) {
-    const int id = seg_id[seg];
-    if (id < 0) continue;  // base-model rows: no delta (uniform branch)
-    __syncthreads();       // hs written / previous B tile consumed
-    for (int e = tid; e < R * BN; e += THREADS) {
-      const int r = e / BN, gn = n0 + e % BN;
-      const bool ok = gn < d_out;
-      cp_async4(ab + e, ok ? lora_b + ((size_t)id * R + r) * d_out + gn : lora_b, ok);
+    if (tid < nseg) {
+      const int id = seg_id[tid];
+      bool lead = id >= 0;
+      for (int p = 0; p < tid && lead; ++p) lead = seg_id[p] != id;
+      seg_lead[tid] = lead;
     }
-    cp_async_wait_all();
-    __syncthreads();
+    int rid[MT][2];  // ids of this thread's fragment rows, -1 past M
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = ty * 4 + i;
-      if (m0 + m >= M || (m0 + m) / S - b0 != seg) continue;
-#pragma unroll 8
-      for (int r = 0; r < R; ++r) {
-        const float hv = hs[m * (R + 1) + r];
-        const float4 bv = *reinterpret_cast<const float4*>(&ab[r * BN + tx * 4]);
-        d[i][0] = fmaf(hv, bv.x, d[i][0]);
-        d[i][1] = fmaf(hv, bv.y, d[i][1]);
-        d[i][2] = fmaf(hv, bv.z, d[i][2]);
-        d[i][3] = fmaf(hv, bv.w, d[i][3]);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm + mt * 16 + g + 8 * hh;
+        rid[mt][hh] = m < M ? seg_id[m / S - b0] : -1;
+      }
+    __syncthreads();  // seg_lead
+
+    float* hs = sm;                // [TM][HS_LD]
+    float* bs = sm + TM * HS_LD;   // [RK][WS_LD]
+    bool h_staged = false;
+    for (int s = 0; s < nseg; ++s) {
+      if (!seg_lead[s]) continue;  // uniform over the block
+      const int id = seg_id[s];
+      if (!h_staged) {  // h = the shrink's partials, added in order
+        for (int c = tid; c < TM * RK / 4; c += THREADS) {
+          const int row = c / (RK / 4), rc = c % (RK / 4) * 4;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (m0 + row < M && rc < R) {
+            const float* p = h + (size_t)(m0 + row) * R + rc;
+            v = *reinterpret_cast<const float4*>(p);
+            for (int z = 1; z < hsplit; ++z) {
+              const float4 u = *reinterpret_cast<const float4*>(p + (size_t)z * M * R);
+              v.x += u.x;
+              v.y += u.y;
+              v.z += u.z;
+              v.w += u.w;
+            }
+          }
+          *reinterpret_cast<float4*>(hs + row * HS_LD + rc) = v;
+        }
+        h_staged = true;
+      } else {
+        __syncthreads();  // the previous id's B tile is consumed
+      }
+      const float* bsrc = lora_b + (size_t)id * R * d_out;
+      if constexpr (V4) {
+        for (int c = tid; c < RK * TN / 4; c += THREADS) {
+          const int rr = c / (TN / 4), nc = c % (TN / 4) * 4;
+          const bool ok = rr < R && n0 + nc < d_out;
+          cp_async16(bs + rr * WS_LD + nc, ok ? bsrc + (size_t)rr * d_out + n0 + nc : lora_b, ok);
+        }
+      } else {
+        for (int c = tid; c < RK * TN; c += THREADS) {
+          const int rr = c / TN, nc = c % TN;
+          const bool ok = rr < R && n0 + nc < d_out;
+          cp_async4(bs + rr * WS_LD + nc, ok ? bsrc + (size_t)rr * d_out + n0 + nc : lora_b, ok);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      unsigned keep = 0;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) keep |= (unsigned)(rid[mt][hh] == id) << (2 * mt + hh);
+      if (__any_sync(0xffffffffu, keep != 0u)) {  // a warp with no row of this id skips
+#pragma unroll
+        for (int kk = 0; kk < RK; kk += 8)
+          mma_k8_3xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * WS_LD + wn, WS_LD,
+                              keep);
       }
     }
   }
 
+  float* out = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * d_out : y;
+
+  // C fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+  const bool pairs = (d_out & 1) == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < d_out) y[(size_t)gm * d_out + gn] = acc[i][j] + scale * d[i][j];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm + mt * 16 + g + 8 * hh;
+      if (m >= M) continue;
+      float* yr = out + (size_t)m * d_out;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + wn + nt * 8 + 2 * t;
+        float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+        if constexpr (HAS_BASE) {
+          const float4 b = total[(mt * NT + nt) * THREADS];
+          v0 += hh ? b.z : b.x;
+          v1 += hh ? b.w : b.y;
+        }
+        if (pairs && n < d_out) {
+          *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
+        } else {
+          if (n < d_out) yr[n] = v0;
+          if (n + 1 < d_out) yr[n + 1] = v1;
+        }
+      }
+    }
+}
+
+// Tiled path with d_in split: y = part[0] + part[1] + ... in that order.
+template <bool V4>
+__global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
+    const float* __restrict__ part, float* __restrict__ y, size_t n, int parts) {
+  const size_t stride = (size_t)gridDim.x * THREADS;
+  if constexpr (V4) {
+    const float4* p = reinterpret_cast<const float4*>(part);
+    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n / 4; i += stride) {
+      float4 v = p[i];
+      for (int z = 1; z < parts; ++z) {
+        const float4 u = p[z * (n / 4) + i];
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      reinterpret_cast<float4*>(y)[i] = v;
+    }
+  } else {
+    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
+      float v = part[i];
+      for (int z = 1; z < parts; ++z) v += part[z * n + i];
+      y[i] = v;
     }
   }
 }
@@ -386,6 +751,37 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
   }
 }
 
+// scratch: the shrink's partials (shrink x M x R), then the base
+// product's partial tiles (base x M x d_out) where base > 1
+template <int R, bool HAS_BASE, bool V4>
+int launch_tiled(const float* x, const float* w, const float* lora_a,
+                 const float* lora_b, const int* ids, float* y, float* scratch,
+                 int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
+  const TiledSplit sp = tiled_split(M, d_in, d_out, HAS_BASE);
+  float* part = scratch + (size_t)sp.shrink * M * R;
+  const dim3 sgrid(M / S, (S + SH_ROWS - 1) / SH_ROWS, sp.shrink);
+  lora_shrink_rows_kernel<R, V4><<<sgrid, THREADS, 0, stream>>>(x, lora_a, ids, scratch, M,
+                                                                S, d_in, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = tiled_smem_bytes<R, HAS_BASE>();
+  err = cudaFuncSetAttribute(fused_sgmv_tiled_kernel<R, HAS_BASE, V4>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d_out + TN - 1) / TN, (M + TM - 1) / TM, sp.base);
+  fused_sgmv_tiled_kernel<R, HAS_BASE, V4><<<grid, THREADS, smem, stream>>>(
+      x, w, lora_b, ids, scratch, sp.shrink, part, sp.kper, y, M, S, d_in, d_out);
+  if (sp.base == 1) return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)M * d_out;
+  const size_t blocks = (n / (V4 ? 4 : 1) + THREADS - 1) / THREADS;
+  const int cap = 4 * sm_count();
+  fused_sgmv_sum_parts_kernel<V4><<<blocks < (size_t)cap ? (int)blocks : cap, THREADS, 0,
+                                    stream>>>(part, y, n, sp.base);
+  return (int)cudaGetLastError();
+}
+
 template <int R, bool HAS_BASE>
 int launch(const float* x, const float* w, const float* lora_a,
            const float* lora_b, const int* ids, float* y, float* scratch,
@@ -404,15 +800,11 @@ int launch(const float* x, const float* w, const float* lora_a,
             x, w, lora_b, ids, scratch, y, M, S, d_in, d_out, scale);
     return (int)cudaGetLastError();
   }
-  const int nseg_max = max_segments(M / S, S);
-  const size_t smem = smem_bytes(nseg_max, R);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_sgmv_kernel<R, HAS_BASE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d_out + BN - 1) / BN, (M + BM - 1) / BM);
-  fused_sgmv_kernel<R, HAS_BASE><<<grid, THREADS, smem, stream>>>(
-      x, w, lora_a, lora_b, ids, y, M, S, d_in, d_out, nseg_max, scale);
-  return (int)cudaGetLastError();
+  if (d_in % 4 == 0 && d_out % 4 == 0)
+    return launch_tiled<R, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
+                                           d_in, d_out, scale, stream);
+  return launch_tiled<R, HAS_BASE, false>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
+                                          d_in, d_out, scale, stream);
 }
 
 template <bool HAS_BASE>
@@ -434,10 +826,13 @@ int dispatch(const float* x, const float* w, const float* lora_a,
 
 }  // namespace
 
-// Floats of scratch the launch needs for these shapes (the skinny path's
-// shrink partials; 0 on the tiled path).
-extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int R) {
-  return use_skinny(M, d_in, d_out) ? shrink_chunks(d_in) * M * R : 0;
+// Floats of scratch a launch needs for these shapes: on the skinny path
+// the shrink's partials per 128-row k chunk; on the tiled path those of
+// its shrink pass and, where d_in is split, the partial output tiles.
+extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int R, int has_base) {
+  if (use_skinny(M, d_in, d_out)) return shrink_chunks(d_in) * M * R;
+  const TiledSplit sp = tiled_split(M, d_in, d_out, has_base != 0);
+  return sp.shrink * M * R + (sp.base > 1 ? sp.base * M * d_out : 0);
 }
 
 extern "C" int fused_sgmv_launch(const float* x, const float* w,

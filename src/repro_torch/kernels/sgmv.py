@@ -24,8 +24,8 @@ _SIGNATURES = {
     "fused_sgmv_launch": "pppppppiiiiifp",
     # x, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, R, scale, stream
     "sgmv_launch": "ppppppiiiiifp",
-    # (M, d_in, d_out, R) -> floats of scratch a launch needs
-    "fused_sgmv_scratch_floats": "iiii",
+    # (M, d_in, d_out, R, has_base) -> floats of scratch a launch needs
+    "fused_sgmv_scratch_floats": "iiiii",
 }
 
 
@@ -61,7 +61,7 @@ def _launch(name, x, w, lora_a, lora_b, adapter_ids, scale):
         return y
     lib = build.load(_SOURCE, _SIGNATURES)
     scratch = torch.empty(
-        (max(1, lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r)),),
+        (max(1, lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, w is not None)),),
         device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if w is None:

@@ -92,6 +92,81 @@ def test_ragged_extend_cuda_matches_plain(cuda, B, S, T, H, Hkv, D):
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # true_lens == 0
 
 
+# The tiled path of fused_sgmv.cu (M > 16, or d_in / d_out no multiple of
+# 4): a shrink pass, then 128 x 128 output tiles on the tensor cores in
+# 3xTF32. Tiles of 128 rows straddle batch rows of different ids wherever S
+# is no multiple of 128. ``ids``: "mixed" draws ids in [-1, N) with batch
+# row 0 at -1; "none" sets every id to -1; "repeat" gives batch rows 0 and 2
+# the same adapter, so one tile meets an id twice.
+_TILED = [
+    # B, S, d_in, d_out, r, N, ids, scale
+    (1, 17, 1024, 1024, 32, 4, "repeat", 1.0),  # M = 17, just past the skinny path
+    (4, 37, 256, 320, 16, 3, "mixed", 0.5),     # tiles straddle 3+ batch rows
+    (4, 37, 256, 320, 16, 3, "repeat", 2.0),
+    (3, 50, 128, 256, 32, 2, "none", 2.0),      # every id -1
+    (2, 100, 256, 256, 4, 3, "mixed", 0.25),    # each compiled rank
+    (2, 100, 256, 256, 8, 3, "mixed", 0.25),
+    (2, 100, 256, 256, 16, 3, "mixed", 0.25),
+    (2, 100, 256, 256, 32, 3, "mixed", 0.25),
+    (2, 100, 256, 256, 64, 3, "mixed", 0.25),
+    (3, 60, 97, 328, 8, 2, "mixed", 1.5),       # d_in % 4 != 0: 4-byte copies
+    (3, 60, 100, 320, 8, 2, "repeat", 1.5),     # a part-filled k slice
+    (3, 60, 100, 330, 8, 2, "mixed", 1.5),      # d_out % 4 != 0
+    (3, 60, 64, 101, 8, 2, "mixed", 1.5),       # odd d_out: scalar stores
+    (8, 256, 1024, 2048, 32, 8, "mixed", 2.0),  # the engine's q projection
+    (8, 64, 1024, 1024, 32, 8, "mixed", 1.0),   # smaller buckets: d_in split
+    (8, 8, 1024, 2048, 32, 8, "repeat", 1.0),   # over blocks, parts added
+    (3, 60, 512, 101, 8, 2, "mixed", 1.5),      # the split with scalar stores
+]
+
+
+def _tiled_inputs(B, S, d_in, d_out, r, N, ids, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, d_in), np.float32)
+    w = rng.standard_normal((d_in, d_out), np.float32) * d_in ** -0.5
+    a = rng.standard_normal((N, d_in, r), np.float32) * d_in ** -0.5
+    b = rng.standard_normal((N, r, d_out), np.float32) * 0.1
+    if ids == "none":
+        idv = np.full((B,), -1, np.int32)
+    else:
+        idv = rng.integers(-1, N, size=(B,)).astype(np.int32)
+        idv[0] = -1
+        if ids == "repeat":
+            idv[0] = N - 1
+            idv[min(2, B - 1)] = N - 1
+    return [_t(v, dev) for v in (x, w, a, b, idv)]
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _TILED)
+def test_fused_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+    x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=6)
+    for ww in (w, torch.zeros_like(w)):
+        before = ops.launch_counts()["fused_sgmv"]
+        got = fused_sgmv(x, ww, a, b, idv, scale=scale)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_sgmv"] == before + 1
+        want = ref.fused_sgmv_ref(x, ww, a, b, idv, scale)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        # one owner per output element, sums in a fixed order
+        assert torch.equal(fused_sgmv(x, ww, a, b, idv, scale=scale), got)
+    dead = idv < 0  # with W zeroed, a row of id -1 is exactly 0
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _TILED)
+def test_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+    x, _, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=7)
+    before = ops.launch_counts()["sgmv"]
+    got = sgmv(x, a, b, idv, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sgmv"] == before + 1
+    want = ref.sgmv_ref(x, a, b, idv, scale)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    dead = idv < 0
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    assert torch.equal(sgmv(x, a, b, idv, scale=scale), got)
+
+
 @pytest.mark.parametrize("B,T,H,Hkv,D,page", [
     (8, 2048, 16, 8, 128, 128),
     (5, 1040, 8, 2, 128, 16),  # 65 pages per row, split over many blocks
