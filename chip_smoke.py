@@ -12,7 +12,8 @@ exits non-zero:
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
               tokens for the fresh prefill, fused_sgmv at both paths'
-              shapes and at the engine's 64-token buckets), timed with
+              shapes and at the engine's 64-token buckets, ragged_extend at
+              the engine's 256-, 64- and 8-token buckets), timed with
               CUDA events beside
               its plain version, one PyTorch library call where one
               computes the same function, and its bound (bytes / 3.35 TB/s
@@ -159,20 +160,34 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     )
 
 
-def ragged_case(ops, ref, gen, dev, B=8, S=256, T=2048, H=16, Hkv=8, D=128):
+# The engine's prefill buckets (256-token chunks, and the 64- and 8-token
+# buckets of short chunks), each with an inactive row, decode riders
+# (true_lens 1) at long starts, part-filled rows and a full chunk at a long
+# prefix: bucket S -> (true_lens, starts) of its 8 rows
+RAGGED_BUCKETS = {
+    256: ([0, 1, 37, 256, 256, 37, 1, 256], [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    64: ([0, 1, 37, 64, 64, 37, 1, 64], [0, 2047, 500, 0, 1984, 1011, 1500, 300]),
+    8: ([0, 1, 5, 8, 8, 5, 1, 8], [0, 2047, 500, 0, 2040, 1011, 1500, 300]),
+}
+
+
+def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
+                D=128):
     q = torch.randn((B, S, H, D), generator=gen, device=dev)
     k = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
     v = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
-    lens = [0, 1, 37, 256, 256, 37, 1, 256]
-    starts = [0, 2047, 500, 0, 1792, 1011, 64, 300]
     tl = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     got = ops.ragged_extend(q, k, v, st, tl)
     want = ref.ragged_extend_ref(q, k, v, st, tl)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    require(err <= ATTN_TOL, f"ragged_extend: max err {err} > {ATTN_TOL}")
-    require(bool((got[0] == 0).all()), "ragged_extend: a true_lens 0 row is not 0")
+    require(err <= ATTN_TOL, f"ragged_extend S={S}: max err {err} > {ATTN_TOL}")
+    for b, n in enumerate(lens):
+        require(bool((got[b, n:] == 0).all()),
+                f"ragged_extend S={S}: row {b} is not 0 past its {n} tokens")
+    require(torch.equal(ops.ragged_extend(q, k, v, st, tl), got),
+            f"ragged_extend S={S}: a repeat launch differs")
     # the same function through one library call: GQA attention with the
     # equivalent boolean mask (padded queries see nothing and give NaN there)
     qpos = st[:, None].long() + torch.arange(S, device=dev)[None, :]
@@ -662,7 +677,9 @@ def main() -> None:
     # d_in over blocks
     sgmv_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev)
                   for S in (256, 1, 2016, 64) for p, di, do in projections]
-    rag = ragged_case(ops, ref, gen, dev)
+    rag_cases = [ragged_case(ops, ref, gen, dev, S, *RAGGED_BUCKETS[S])
+                 for S in (256, 64, 8)]
+    rag = rag_cases[0]
     pag = paged_case(ops, ref, gen, dev)
     delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)
                    for S in (2016, 1)
@@ -674,7 +691,7 @@ def main() -> None:
                      lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016])
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
-          "ragged_extend": rag, "paged_attention": pag, "sgmv": delta_cases,
+          "ragged_extend": rag_cases, "paged_attention": pag, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr,
           "refuse_autograd": grad_guard(ops, dev)})
 
@@ -781,6 +798,10 @@ def main() -> None:
     kernels[0]["generate_path_case"] = {
         k: sgmv_cases[8][k] for k in ("case", "max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
+    # ragged_extend beside the 256-token bucket: the 64- and 8-token ones
+    kernels[2]["bucket_cases"] = [
+        {k: m[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")} for m in rag_cases[1:]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,9 +10,10 @@ code of its launch, ``<source>_error_string`` names it):
 
 The build runs at first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
-name carries a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is reused. All missing libraries compile at once, one
-``nvcc`` process per source.
+name carries a hash of its source, of every header ``csrc/*.cuh`` (the
+sources share them: ``tf32x3.cuh``, ``attention_tc.cuh``) and of the flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+All missing libraries compile at once, one ``nvcc`` process per source.
 
 A source may export more than one kernel (``fused_sgmv.cu`` holds
 ``fused_sgmv`` and ``sgmv``; ``flash_prefill.cu`` holds ``flash_prefill``
@@ -62,9 +63,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / f"{source}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{source}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> dict[str, float]:

@@ -94,6 +94,8 @@
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int THREADS = 256; // every kernel of this file
@@ -121,98 +123,11 @@ constexpr int SK_UNROLL = 8;                   // W loads in flight per thread
 constexpr int SK_MAX_X_BYTES = 160 * 1024;     // x staged in shared memory
 constexpr int SHRINK_KC = 128;                 // k rows per shrink block
 
-// 4-byte global -> shared copy that does not stall the thread; where
-// ``pred`` is false it reads nothing and writes 0 (cp.async zero-fill)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-// the same for 16 bytes, through L2 only
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's committed copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
   acc.x = fmaf(a, b.x, acc.x);
   acc.y = fmaf(a, b.y, acc.y);
   acc.z = fmaf(a, b.z, acc.z);
   acc.w = fmaf(a, b.w, acc.w);
-}
-
-// a rounded to TF32 (10 explicit mantissa bits), to nearest, ties away
-// from zero: cvt.rna.tf32.f32 for finite a, in two integer ops where the
-// cvt compiles to four
-__device__ __forceinline__ unsigned tf32_rna(float a) {
-  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
-}
-
-// a = hi + lo, both TF32; a − hi is exact in f32
-__device__ __forceinline__ void split_tf32(float a, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(a);
-  lo = tf32_rna(a - __uint_as_float(hi));
-}
-
-// d += a·b: one m16n8k8 TF32 product on the tensor cores, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k8 step of a warp's WM x WN tile in 3xTF32: ``as`` points at the
-// warp's first row and this step's k (row pitch lda), ``bs`` at this
-// step's k row and the warp's first column (pitch ldb). Fragments: A
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (t, g), (t + 4, g);
-// g = lane / 4, t = lane % 4. With MASKED, fragment row mt·16 + g + 8·hh
-// reads as zero unless bit 2·mt + hh of ``keep`` is set. The small
-// products go first.
-template <bool MASKED>
-__device__ __forceinline__ void mma_k8_3xtf32(float (&acc)[MT][NT][4], const float* as,
-                                              int lda, const float* bs, int ldb,
-                                              unsigned keep) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  unsigned ahi[MT][4], alo[MT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const float* p = as + (mt * 16 + g) * lda + t;
-    float v[4] = {p[0], p[8 * lda], p[4], p[8 * lda + 4]};
-    if constexpr (MASKED) {
-      if (!((keep >> (2 * mt)) & 1u)) v[0] = v[2] = 0.f;
-      if (!((keep >> (2 * mt + 1)) & 1u)) v[1] = v[3] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(v[i], ahi[mt][i], alo[mt][i]);
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const float* p = bs + t * ldb + nt * 8 + g;
-    unsigned bhi[2], blo[2];
-    split_tf32(p[0], bhi[0], blo[0]);
-    split_tf32(p[4 * ldb], bhi[1], blo[1]);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      mma_tf32(acc[mt][nt], alo[mt], bhi);
-      mma_tf32(acc[mt][nt], ahi[mt], blo);
-      mma_tf32(acc[mt][nt], ahi[mt], bhi);
-    }
-  }
 }
 
 bool use_skinny(int M, int d_in, int d_out) {
@@ -237,18 +152,6 @@ size_t tiled_smem_bytes() {
   const size_t expand = (size_t)TM * (RK + 4) + (size_t)RK * WS_LD;
   const size_t ring = (size_t)STAGES * STAGE_FLOATS;
   return sizeof(float) * (HAS_BASE ? ring + (size_t)TM * TN : expand);
-}
-
-// The SM count of the first device that asks, read once: the port runs on
-// one card per process.
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  return sms;
 }
 
 // How the tiled path splits d_in to fill the card where the rows alone do

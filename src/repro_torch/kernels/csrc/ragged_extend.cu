@@ -8,231 +8,229 @@
 //
 // What bounds it on this card: a prefill chunk of S queries against a
 // prefix of P keys does 4·S·P·D flops per head over (S + 2P)·D·4 bytes per
-// KV head group, so for S of a few dozen and more it is bound by f32 FMA
-// throughput; a decode rider (S = 1) reads its whole prefix once and is
-// bound by bytes.
+// KV head group, so for S of a few dozen and more it is bound by the
+// arithmetic: f32-accurate products at 165 TFLOP/s on the tensor cores. A
+// decode rider (S = 1) reads its whole prefix once and is bound by bytes.
 //
-// What the design does about it: one block per (b, kv head, q tile), so the
-// G query heads of a group share every K/V tile it stages in shared memory.
-// A q tile holds 32 query vectors (32/G tokens x G heads), 8 per warp. The
-// block reads its own start[b] and true_lens[b], and its KV loop stops at
-// min(row frontier, the tile's causal diagonal): Hopper has no revisit-skip
-// as the TPU's block pipeline does, so skipping a tile means not looping
-// over it. Q tiles past true_lens write zeros and return. Scores use one
-// lane per key (8 queries per lane); the online softmax is f32, with masked
-// probabilities set to 0 so fully masked and padded rows keep l == 0; V rows
-// past the frontier are staged as zeros, so no stale value reaches P·V.
-// Q, K and V tiles move with cp.async (zero-filled past the frontier), so
-// every load of a tile is in flight before the block waits. IEEE f32 FMA
-// throughout: no TF32.
+// What the design does about it: one block per (b, kv head, q tile, KV
+// part) runs the tensor-core tile loop of attention_tc.cuh (3xTF32
+// mma.sync for Q·Kᵀ and P·V, a cp.async ring of 64-key K/V tiles, GQA heads
+// packed into the rows of the mma tile). The q tile holds up to 128 query
+// vectors; the engine's small buckets (S·G down to 16) take smaller tiles
+// whose spare warps share the keys. A block reads its own start[b] and
+// true_lens[b], and its KV loop stops at min(row frontier, the tile's
+// causal diagonal): Hopper has no revisit-skip as the TPU's block pipeline
+// does, so skipping a tile means not looping over it.
+//
+// The KV split: the rows of a bucket are ragged (a 256-token chunk at a
+// long prefix beside decode riders that each walk a whole prefix in one
+// block), and the blocks of the live rows alone do not fill the card. So
+// where the q tiles do not give a few waves of blocks, the KV range of a
+// tile is cut into up to MAX_SPLIT parts of about PART_TILES K/V
+// tiles, one block each, with the part count from the SM count. A tile
+// whose range makes one part writes its result directly; the others write
+// (m, l, Σ p·v) partials to a scratch buffer the wrapper allocates, and
+// ragged_extend_combine_kernel merges the parts in a fixed order and
+// writes the zeros of padded queries.
 
 #include <cuda_runtime.h>
 
+#include "attention_tc.cuh"
+
 namespace {
 
-constexpr int NQ = 32;        // query vectors per block
-constexpr int BKV = 32;       // keys per tile: one per lane
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int QPW = NQ / WARPS;  // query vectors per warp
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
+constexpr int MAX_SPLIT = 8;       // KV parts of one q tile, at most
+constexpr int PART_TILES = 4;      // 64-key K/V tiles of a part, about
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
+  const float *q, *k, *v;
+  float* out;
+  int b, hkv, S, T, Hq, Hkv, D, G, part, B;
+  __device__ size_t qrow(int s, int h) const {
+    return ((size_t)b * S + s) * Hq + hkv * G + h;
+  }
+  __device__ const float* q_at(int s, int h) const { return q + qrow(s, h) * D; }
+  __device__ const float* k_at(int t) const {
+    return k + (((size_t)b * T + t) * Hkv + hkv) * D;
+  }
+  __device__ const float* v_at(int t) const {
+    return v + (((size_t)b * T + t) * Hkv + hkv) * D;
+  }
+  __device__ const float* any() const { return q; }
+  __device__ float* o_at(int s, int h) const { return out + qrow(s, h) * D; }
+  // (part, b, s, head) in the scratch buffer's row order
+  __device__ size_t part_at(int s, int h) const {
+    return (size_t)part * B * S * Hq + qrow(s, h);
+  }
+};
+
+// KV parts of a q tile whose keys span ``kv_tiles`` K/V tiles, with up to
+// ``n_split`` parts a tile
+__host__ __device__ inline int kv_parts(int kv_tiles, int n_split) {
+  const int p = (kv_tiles + PART_TILES - 1) / PART_TILES;
+  return p < n_split ? p : n_split;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The keys of row b's q tile holding token s: [0, kv_end)
+__device__ __forceinline__ int tile_kv_end(int st, int n_new, int T, int q_lo, int TQ) {
+  return min(st + min(q_lo + TQ, n_new), T);
 }
 
-__device__ __forceinline__ float4 f4(float a) { return make_float4(a, a, a, a); }
-
-// 16-byte global -> shared copy that does not stall the thread; where
-// ``pred`` is false it reads nothing and writes zeros (cp.async zero-fill)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-__global__ void __launch_bounds__(THREADS) ragged_extend_kernel(
+template <int WR, int DT>
+__global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ start,
-    const int* __restrict__ true_lens, float* __restrict__ out, int S, int T,
-    int Hq, int Hkv, int D) {
+    const int* __restrict__ true_lens, float* __restrict__ out,
+    float* __restrict__ part_o, int B, int S, int T, int Hq, int Hkv, int D,
+    int n_split) {
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [NQ][D]
-  float* Ks = Qs + NQ * D;                       // [BKV][D + 4]
-  float* Vs = Ks + BKV * (D + 4);                // [BKV][D]
-  float* Ps = Vs + BKV * D;                      // [WARPS][QPW][BKV]
-
-  const int G = Hq / Hkv;
-  const int BQ = NQ / G;
+  const int G = Hq / Hkv, TQ = 16 * WR / G;
+  const int tile = blockIdx.x / n_split, part = blockIdx.x % n_split;
   const int b = blockIdx.z, hkv = blockIdx.y;
-  const int q_lo = blockIdx.x * BQ;
+  const RaggedSrc src{q, k, v, out, b, hkv, S, T, Hq, Hkv, D, G, part, B};
+  const int q_lo = tile * TQ;
   const int st = start[b], n_new = true_lens[b];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d4 = lane * 4;
-  const bool dlive = d4 < D;
-  const int D4 = D / 4;
-
-  const int q_hi = min(q_lo + BQ, n_new);  // live queries: [q_lo, q_hi)
+  const int q_hi = min(q_lo + TQ, n_new);  // live queries: [q_lo, q_hi)
   if (q_lo >= q_hi) {
-    // a q tile past the row's live queries (or an inactive row): zeros
-    for (int e = threadIdx.x; e < NQ * D4; e += THREADS) {
-      const int qv = e / D4, c = (e % D4) * 4;
-      const int s = q_lo + qv / G;
-      if (s < S)
-        *reinterpret_cast<float4*>(
-            out + (((size_t)b * S + s) * Hq + hkv * G + qv % G) * D + c) = f4(0.f);
-    }
+    // a q tile past the row's live queries (or an inactive row): zeros,
+    // written by the combine pass when the KV range is split
+    if (n_split == 1) attn::zero_tokens(src, G, D, q_lo, min(q_lo + TQ, S));
     return;
   }
-  const int kv_end = min(st + q_hi, T);  // keys [0, kv_end): frontier ∧ diagonal
+  const int kv_end = tile_kv_end(st, n_new, T, q_lo, TQ);
+  const int kv_tiles = (kv_end + attn::BKV - 1) / attn::BKV;
+  const int parts = kv_parts(kv_tiles, n_split);
+  if (part >= parts) return;
+  const int j0 = part * kv_tiles / parts, j1 = (part + 1) * kv_tiles / parts;
+  // partial sums, then the (m, l) pairs after all n_split·B·S·Hq sums
+  float* po = parts > 1 ? part_o : nullptr;
+  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, q_lo, q_hi, st,
+                       kv_end, j0, j1, po, po ? po + (size_t)n_split * B * S * Hq * D : nullptr);
+}
 
-  for (int e = threadIdx.x; e < NQ * D4; e += THREADS) {
-    const int qv = e / D4, c = (e % D4) * 4;
-    const int s = q_lo + qv / G;
-    const bool ok = s < q_hi;
-    cp_async16(Qs + qv * D + c,
-               ok ? q + (((size_t)b * S + s) * Hq + hkv * G + qv % G) * D + c : q, ok);
+// One warp per (b, s, head) of a split launch: a padded query gets zeros; a
+// live query whose tile made more than one part gets
+// Σ_p w_p·o_p / Σ_p w_p·l_p with w_p = exp(m_p − max m), parts in order.
+__global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
+    const int* __restrict__ start, const int* __restrict__ true_lens,
+    const float* __restrict__ part_o, float* __restrict__ out, int B, int S, int T,
+    int Hq, int D, int n_split, int TQ) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * (attn::THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= (size_t)B * S * Hq) return;
+  const int b = (int)(row / ((size_t)S * Hq)), s = (int)(row / Hq % S);
+  const int c = lane * 4;
+  const int n_new = true_lens[b];
+  float* o = out + row * D + c;
+  if (s >= n_new) {
+    if (c < D) *reinterpret_cast<float4*>(o) = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
   }
-
-  const float sqrt_d = sqrtf((float)D);
-  int qpos[QPW];
-  bool qlive[QPW];
-  float m[QPW], l[QPW];
-  float4 acc[QPW];
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) {
-    const int s = q_lo + (warp * QPW + i) / G;
-    qlive[i] = s < q_hi;
-    qpos[i] = st + s;
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-    acc[i] = f4(0.f);
+  const int q_lo = s / TQ * TQ;
+  const int kv_end = tile_kv_end(start[b], n_new, T, q_lo, TQ);
+  const int parts = kv_parts((kv_end + attn::BKV - 1) / attn::BKV, n_split);
+  if (parts == 1 || c >= D) return;  // written by the attention kernel
+  const size_t stride = (size_t)B * S * Hq;
+  const float* ml = part_o + (size_t)n_split * stride * D + 2 * row;
+  float M = attn::NEG_INF;
+  for (int p = 0; p < parts; ++p) M = fmaxf(M, ml[2 * p * stride]);
+  float L = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int p = 0; p < parts; ++p) {
+    const float w = expf(ml[2 * p * stride] - M);
+    L += ml[2 * p * stride + 1] * w;
+    const float4 x = *reinterpret_cast<const float4*>(part_o + (p * stride + row) * D + c);
+    a.x += x.x * w;
+    a.y += x.y * w;
+    a.z += x.z * w;
+    a.w += x.w * w;
   }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  *reinterpret_cast<float4*>(o) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+}
 
-  for (int t0 = 0; t0 < kv_end; t0 += BKV) {
-    __syncthreads();  // previous tile fully consumed (and Q staged, first time)
-    for (int e = threadIdx.x; e < BKV * D4; e += THREADS) {
-      const int row = e / D4, c = (e % D4) * 4;
-      const int t = t0 + row;
-      const bool ok = t < kv_end;
-      const size_t off = ok ? (((size_t)b * T + t) * Hkv + hkv) * D + c : 0;
-      cp_async16(Ks + row * (D + 4) + c, k + off, ok);
-      cp_async16(Vs + row * D + c, v + off, ok);
-    }
-    cp_async_wait_all();
-    __syncthreads();
+struct Plan {
+  int wr, dt, n_split, n_tiles;
+};
 
-    // scores: lane = key t, QPW queries per lane
-    const int t = t0 + lane;
-    float s[QPW];
-#pragma unroll
-    for (int i = 0; i < QPW; ++i) s[i] = 0.f;
-    const float* krow = Ks + lane * (D + 4);
-    for (int c = 0; c < D; c += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int i = 0; i < QPW; ++i) {
-        const float4 qq =
-            *reinterpret_cast<const float4*>(Qs + (warp * QPW + i) * D + c);
-        s[i] = fmaf(qq.x, kk.x, s[i]);
-        s[i] = fmaf(qq.y, kk.y, s[i]);
-        s[i] = fmaf(qq.z, kk.z, s[i]);
-        s[i] = fmaf(qq.w, kk.w, s[i]);
-      }
-    }
-    float* prow = Ps + warp * QPW * BKV;
-#pragma unroll
-    for (int i = 0; i < QPW; ++i) {
-      const bool valid = qlive[i] && t < kv_end && t <= qpos[i];
-      const float sc = valid ? s[i] / sqrt_d : NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(sc));
-      const float alpha = expf(m[i] - m_new);
-      const float p = valid ? expf(sc - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p);
-      acc[i].x *= alpha;
-      acc[i].y *= alpha;
-      acc[i].z *= alpha;
-      acc[i].w *= alpha;
-      m[i] = m_new;
-      prow[i * BKV + lane] = p;
-    }
-    __syncwarp();
-    if (dlive) {
-      for (int j = 0; j < BKV; j += 4) {
-        float4 vj[4];
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          vj[jj] = *reinterpret_cast<const float4*>(Vs + (j + jj) * D + d4);
-#pragma unroll
-        for (int i = 0; i < QPW; ++i) {
-          const float4 pp = *reinterpret_cast<const float4*>(prow + i * BKV + j);
-          const float pv[4] = {pp.x, pp.y, pp.z, pp.w};
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            acc[i].x = fmaf(pv[jj], vj[jj].x, acc[i].x);
-            acc[i].y = fmaf(pv[jj], vj[jj].y, acc[i].y);
-            acc[i].z = fmaf(pv[jj], vj[jj].z, acc[i].z);
-            acc[i].w = fmaf(pv[jj], vj[jj].w, acc[i].w);
-          }
-        }
-      }
-    }
-    __syncwarp();
-  }
+// The q tile and the KV split of a launch, from the shapes and the SM
+// count (start and true_lens lie on the card): parts until the q tiles give
+// about four blocks per SM, as many as T allows.
+Plan plan(int B, int S, int T, int Hq, int Hkv, int D) {
+  const int G = Hq / Hkv;
+  Plan p{attn::tile_rows(S * G, G) / 16, attn::d_tiles(D), 1, 0};
+  p.n_tiles = (S + 16 * p.wr / G - 1) / (16 * p.wr / G);
+  const int kv_tiles = (T + attn::BKV - 1) / attn::BKV;
+  int most = (kv_tiles + PART_TILES - 1) / PART_TILES;
+  most = most < MAX_SPLIT ? most : MAX_SPLIT;
+  const long long blocks = (long long)B * Hkv * p.n_tiles;
+  const int n_split = (int)((4LL * sm_count() + blocks - 1) / blocks);
+  p.n_split = n_split < 1 ? 1 : (n_split > most ? most : n_split);
+  return p;
+}
 
-  if (!dlive) return;
-#pragma unroll
-  for (int i = 0; i < QPW; ++i) {
-    const int qv = warp * QPW + i;
-    const int s = q_lo + qv / G;
-    if (s >= S) continue;
-    float4 o = f4(0.f);
-    if (qlive[i]) {
-      const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      o = make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv);
-    }
-    *reinterpret_cast<float4*>(
-        out + (((size_t)b * S + s) * Hq + hkv * G + qv % G) * D + d4) = o;
+template <int WR, int DT>
+int launch(const float* q, const float* k, const float* v, const int* start,
+           const int* true_lens, float* out, float* part_o, int B, int S, int T,
+           int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
+  const size_t smem = attn::smem_bytes<WR, DT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ragged_extend_kernel<WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.n_tiles * p.n_split, Hkv, B);
+  ragged_extend_kernel<WR, DT><<<grid, attn::THREADS, smem, stream>>>(
+      q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p.n_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return (int)err;
+  const size_t rows = (size_t)B * S * Hq;
+  const int per_block = attn::THREADS / 32;
+  ragged_extend_combine_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
+                                 attn::THREADS, 0, stream>>>(
+      start, true_lens, part_o, out, B, S, T, Hq, D, p.n_split, 16 * WR / (Hq / Hkv));
+  return (int)cudaGetLastError();
+}
+
+template <int DT>
+int launch_dt(const float* q, const float* k, const float* v, const int* start,
+              const int* true_lens, float* out, float* part_o, int B, int S, int T,
+              int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
+  switch (p.wr) {
+    case 1: return launch<1, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 2: return launch<2, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 4: return launch<4, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    default: return launch<8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
   }
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)NQ * D + (size_t)BKV * (D + 4) + (size_t)BKV * D +
-                          (size_t)WARPS * QPW * BKV);
+bool valid(int B, int S, int T, int Hq, int Hkv, int D) {
+  return B > 0 && S > 0 && T > 0 && Hkv > 0 && Hq % Hkv == 0 && 32 % (Hq / Hkv) == 0 &&
+         D % 4 == 0 && D > 0 && D <= attn::MAX_D;
 }
 
 }  // namespace
 
+// KV parts of a q tile a launch with these shapes runs (1: no split, 0:
+// shapes the kernel does not take). A split launch needs n·B·S·Hq·(D + 2)
+// floats of scratch.
+extern "C" int ragged_extend_kv_parts(int B, int S, int T, int Hq, int Hkv, int D) {
+  return valid(B, S, T, Hq, Hkv, D) ? plan(B, S, T, Hq, Hkv, D).n_split : 0;
+}
+
+// part_o: scratch for a split launch (NULL when ragged_extend_kv_parts is 1).
 extern "C" int ragged_extend_launch(const float* q, const float* k,
                                     const float* v, const int* start,
-                                    const int* true_lens, float* out, int B,
-                                    int S, int T, int Hq, int Hkv, int D,
+                                    const int* true_lens, float* out, float* part_o,
+                                    int B, int S, int T, int Hq, int Hkv, int D,
                                     void* stream) {
-  if (B <= 0 || S <= 0 || T <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
-      NQ % (Hq / Hkv) != 0 || D % 4 != 0 || D > MAX_D)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      ragged_extend_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int BQ = NQ / (Hq / Hkv);
-  const dim3 grid((S + BQ - 1) / BQ, Hkv, B);
-  ragged_extend_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, start, true_lens, out, S, T, Hq, Hkv, D);
-  return (int)cudaGetLastError();
+  if (!valid(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(B, S, T, Hq, Hkv, D);
+  if (p.n_split > 1 && part_o == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (p.dt) {
+    case 4: return launch_dt<4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 8: return launch_dt<8>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    default: return launch_dt<16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+  }
 }
 
 extern "C" const char* ragged_extend_error_string(int err) {

@@ -16,9 +16,13 @@ import torch
 from . import build
 from .ref import ragged_extend_ref
 
-# q, k, v, start, true_lens, out, B, S, T, Hq, Hkv, D, stream
-_SIGNATURES = {"ragged_extend_launch": "ppppppiiiiiip"}
-QUERIES_PER_BLOCK = 32
+_SIGNATURES = {
+    # q, k, v, start, true_lens, out, scratch, B, S, T, Hq, Hkv, D, stream
+    "ragged_extend_launch": "pppppppiiiiiip",
+    # (B, S, T, Hq, Hkv, D) -> KV parts per q tile (1: no scratch)
+    "ragged_extend_kv_parts": "iiiiii",
+}
+QUERIES_PER_BLOCK = 32  # the group size must divide it
 MAX_HEAD_DIM = 128
 
 
@@ -54,10 +58,15 @@ def ragged_extend(
     if B * S == 0:
         return out
     lib = build.load(name, _SIGNATURES)
+    # where the KV range is split over blocks, their partials: a sum of
+    # p·v, a max and a sum of p per part and query vector
+    parts = lib.ragged_extend_kv_parts(B, S, T, Hq, Hkv, D)
+    scratch = (torch.empty((parts * B * S * Hq * (D + 2),), device=dev)
+               if parts > 1 else None)
     code = lib.ragged_extend_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), tl.data_ptr(),
-        out.data_ptr(), B, S, T, Hq, Hkv, D,
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        B, S, T, Hq, Hkv, D, torch.cuda.current_stream(dev).cuda_stream)
     build.check_error(name, name, lib, code)
     build.launches[name] += 1
     return out

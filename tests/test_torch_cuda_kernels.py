@@ -92,6 +92,49 @@ def test_ragged_extend_cuda_matches_plain(cuda, B, S, T, H, Hkv, D):
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # true_lens == 0
 
 
+# The engine's buckets (S = 256, 64, 8 at the smallest) with decode riders
+# (true_lens 1) at long starts, group sizes 1..8, head dims 32..128, and S
+# off the q tile (128 query vectors, 128/G tokens). At these shapes the
+# q tiles do not fill the card, so the KV range of a long row is split over
+# blocks and merged by the combine pass, beside rows too short to split.
+_RAGGED = [
+    # B, S, T, H, Hkv, D, lens, starts
+    (8, 64, 2048, 16, 8, 128, [0, 1, 37, 64, 64, 37, 1, 64],
+     [0, 2047, 500, 0, 1984, 1011, 1500, 300]),
+    (8, 8, 2048, 16, 8, 128, [0, 1, 5, 8, 8, 5, 1, 8],
+     [0, 2047, 500, 0, 2040, 1011, 1500, 300]),
+    (4, 50, 700, 16, 4, 64, [50, 1, 0, 33], [650, 699, 0, 7]),  # G = 4, D = 64
+    (4, 20, 500, 16, 2, 32, [20, 1, 13, 20], [480, 499, 0, 100]),  # G = 8, D = 32
+    (2, 33, 3000, 8, 8, 128, [33, 1], [2967, 2999]),  # G = 1, a 64-row tile
+    (3, 100, 1200, 8, 4, 96, [100, 7, 1], [1100, 0, 1199]),  # D = 96
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,lens,starts", _RAGGED)
+def test_ragged_extend_cuda_engine_shapes(cuda, B, S, T, H, Hkv, D, lens, starts):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ragged_extend import _SIGNATURES
+
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((B, S, H, D), np.float32)
+    k = rng.standard_normal((B, T, Hkv, D), np.float32)
+    v = rng.standard_normal((B, T, Hkv, D), np.float32)
+    args = [_t(a, cuda) for a in (q, k, v, np.asarray(starts, np.int32),
+                                  np.asarray(lens, np.int32))]
+    before = ops.launch_counts()["ragged_extend"]
+    got = ragged_extend(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ragged_extend"] == before + 1
+    want = ref.ragged_extend_ref(*args)
+    assert float((got - want).abs().max()) <= 1e-5
+    for b, n in enumerate(lens):  # padded queries and empty rows are zeros
+        assert torch.equal(got[b, n:], torch.zeros_like(got[b, n:]))
+    # a fixed order of sums, the split's combine included
+    assert torch.equal(ragged_extend(*args), got)
+    lib = build.load("ragged_extend", _SIGNATURES)
+    assert lib.ragged_extend_kv_parts(B, S, T, H, Hkv, D) > 1  # split
+
+
 # The tiled path of fused_sgmv.cu (M > 16, or d_in / d_out no multiple of
 # 4): a shrink pass, then 128 x 128 output tiles on the tensor cores in
 # 3xTF32. Tiles of 128 rows straddle batch rows of different ids wherever S
@@ -220,6 +263,8 @@ def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     (2, 4, 2, 100, 128),
     (3, 8, 1, 33, 64),      # MQA
     (1, 4, 4, 1, 32),       # MHA, one token
+    (2, 8, 8, 2016, 128),   # G = 1 at the generate path's length
+    (2, 4, 1, 300, 36),     # G = 4, a head dim padded to the k8 step
 ])
 def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     rng = np.random.default_rng(4)
