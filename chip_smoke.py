@@ -13,12 +13,16 @@ exits non-zero:
               buckets and a 2048-token cache for the engine; 8 rows of 2016
               tokens for the fresh prefill, fused_sgmv at both paths'
               shapes and at the engine's 64-token buckets, ragged_extend at
-              the engine's 256-, 64- and 8-token buckets), timed with
-              CUDA events beside
+              the engine's 256-, 64- and 8-token buckets, paged_attention
+              at phase 3's lengths and at the engine's decode lengths), a
+              repeat launch bitwise equal, timed with CUDA events beside
               its plain version, one PyTorch library call where one
               computes the same function, and its bound (bytes / 3.35 TB/s
-              or f32 flops / 165 TFLOP/s, the larger); and a check that
-              every wrapper refuses autograd on the card.
+              or f32 flops / 165 TFLOP/s, the larger). The decode kernels
+              (fused_sgmv and sgmv at S=1, paged_attention) are timed warm
+              and with a cold L2, their inputs rotated over copies that
+              exceed twice the 50 MB L2. Then a check that every wrapper
+              refuses autograd on the card.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -42,6 +46,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import random
@@ -54,6 +59,7 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+L2_BYTES = 50e6  # H100 L2 cache
 # H100 SXM: f32-accurate products on the tensor cores, 495 TFLOP/s TF32
 # dense over the three TF32 products of a 3xTF32 split (the CUDA cores'
 # 67 TFLOP/s f32 is not the least time once a kernel uses the split)
@@ -95,6 +101,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, float]:
     return t0.elapsed_time(t1) / iters, host_ms
 
 
+def cold_copies(nbytes: float) -> int:
+    """Copies of a call's inputs to rotate through so that each call finds
+    its ``nbytes`` in device memory, not in L2: more than twice the L2
+    passes between two uses of one copy."""
+    return math.ceil(2 * L2_BYTES / nbytes) + 1
+
+
+def rotating(calls):
+    """One function that makes the next of ``calls`` on each use, in turn:
+    with ``calls`` on :func:`cold_copies` copies, ``time_ms`` of it times
+    each launch with a cold L2, as a decode step finds its weights and its
+    KV (28 layers of them pass between two uses)."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
@@ -109,7 +131,10 @@ def require(cond: bool, msg: str) -> None:
 # ----------------------------------------------------------------- phase 3
 def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
               base=True):
-    """fused_sgmv (``base``) or sgmv, the delta alone, on one projection."""
+    """fused_sgmv (``base``) or sgmv, the delta alone, on one projection.
+    A repeat launch must give the same bits. Decode shapes (S = 1) are also
+    timed with a cold L2 (``cold``: W, A and B rotated over
+    :func:`cold_copies` copies), as a decode step finds them."""
     x = torch.randn((B, S, d_in), generator=gen, device=dev)
     w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
     a = torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5
@@ -118,17 +143,17 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     scale = 1.0
     name = "fused_sgmv" if base else "sgmv"
 
-    def kernel(ww):
+    def kernel(ww, aa=a, bb=b):
         if base:
-            return ops.fused_sgmv(x, ww, a, b, ids, scale=scale)
-        return ops.sgmv(x, a, b, ids, scale=scale)
+            return ops.fused_sgmv(x, ww, aa, bb, ids, scale=scale)
+        return ops.sgmv(x, aa, bb, ids, scale=scale)
 
-    def plain(ww):
+    def plain(ww, aa=a, bb=b):
         if base:
-            return ref.fused_sgmv_ref(x, ww, a, b, ids, scale)
-        return ref.sgmv_ref(x, a, b, ids, scale)
+            return ref.fused_sgmv_ref(x, ww, aa, bb, ids, scale)
+        return ref.sgmv_ref(x, aa, bb, ids, scale)
 
-    errs = []
+    errs, first = [], None
     for ww in ((w, torch.zeros_like(w)) if base else (w,)):
         got, want = kernel(ww), plain(ww)
         torch.cuda.synchronize()
@@ -137,6 +162,9 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         require(err <= tol, f"{name} {proj} S={S} zero_w={ww is not w}: "
                             f"max err {err} > {tol}")
         errs.append(err)
+        first = got if first is None else first
+    require(torch.equal(kernel(w), first), f"{name} {proj} S={S}: a repeat "
+                                           "launch differs")
     live = ids >= 0
     if not base:
         require(bool((got[~live] == 0).all()), f"sgmv {proj} S={S}: a row of "
@@ -152,12 +180,20 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         flops = 2 * M_live * r * (d_in + d_out)
     bnd, by = bound_ms(nbytes, flops)
     ms, host_ms = time_ms(lambda: kernel(w))
-    return dict(
+    out = dict(
         case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}",
         max_abs_err=max(errs), ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: plain(w))[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
+    if S == 1:
+        n = cold_copies(4 * ((d_in * d_out if base else 0) + lora_bytes))
+        copies = [(w.clone() if base else w, a.clone(), b.clone()) for _ in range(n)]
+        ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
+        out["cold"] = dict(copies=n, ms=ms_c, host_ms=host_c, plain_ms=time_ms(
+            rotating([lambda c=c: plain(*c) for c in copies]))[0])
+        del copies
+    return out
 
 
 # The engine's prefill buckets (256-token chunks, and the 64- and 8-token
@@ -211,37 +247,73 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
     )
 
 
-def paged_case(ops, ref, gen, dev, B=8, T=2048, H=16, Hkv=8, D=128, ps=128):
+# paged_attention's lengths: phase 3's first case (an empty row, 1-token
+# rows, rows at the table's width and an idle row past it), then the
+# engine's decode (the trace's 64-1024-token prompts, the 256-token shared
+# prefix, up to 32 generated tokens) in the same 2048-token table
+PAGED_LENGTHS = {
+    "table": [0, 1, 129, 2048, 2048, 129, 1, 2049],  # 2049: an idle row at len T
+    "engine": [0, 64, 97, 300, 545, 790, 1056, 1312],
+}
+
+
+def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
+               ps=128):
+    """paged_attention on full-width qwen3-0.6b heads: checked, a repeat
+    launch bitwise equal, timed warm and with a cold L2 (``cold``: the KV
+    rotated over :func:`cold_copies` copies). The library call is SDPA with
+    the equivalent boolean mask (it reads the whole table)."""
     pages = T // ps
     q = torch.randn((B, H, D), generator=gen, device=dev)
     kc = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
     vc = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
-    kp, vp = kc.view(B * pages, ps, Hkv, D), vc.view(B * pages, ps, Hkv, D)
     tables = torch.arange(B * pages, dtype=torch.int32, device=dev).view(B, pages)
-    lens = [0, 1, 129, 2048, 2048, 129, 1, 2049]  # 2049: an idle row at len T
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
-    got = ops.paged_attention(q, kp, vp, tables, ln)
-    want = ref.paged_attention_ref(q, kp, vp, tables, ln)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(err <= ATTN_TOL, f"paged_attention: max err {err} > {ATTN_TOL}")
-    require(bool((got[0] == 0).all()), "paged_attention: a length 0 row is not 0")
     mask = (torch.arange(T, device=dev)[None, :] < ln[:, None].long())[:, None, None, :]
     qt = q[:, :, None, :]
+
+    def kernel(k, v):
+        return ops.paged_attention(q, k.view(B * pages, ps, Hkv, D),
+                                   v.view(B * pages, ps, Hkv, D), tables, ln)
+
+    def plain(k, v):
+        return ref.paged_attention_ref(q, k.view(B * pages, ps, Hkv, D),
+                                       v.view(B * pages, ps, Hkv, D), tables, ln)
+
+    def library(kt, vt):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    got, want = kernel(kc, vc), plain(kc, vc)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    require(err <= ATTN_TOL, f"paged_attention {lens}: max err {err} > {ATTN_TOL}")
+    for b, n in enumerate(lens):
+        if n == 0:
+            require(bool((got[b] == 0).all()), "paged_attention: a length 0 row is not 0")
+    require(torch.equal(kernel(kc, vc), got),
+            f"paged_attention {lens}: a repeat launch differs")
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))[0]
     kv_tokens = sum(min(n, T) for n in lens)
     nbytes = 4 * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
     flops = 4 * H * D * kv_tokens
     bnd, by = bound_ms(nbytes, flops)
-    ms, host_ms = time_ms(lambda: ops.paged_attention(q, kp, vp, tables, ln))
-    return dict(
+    ms, host_ms = time_ms(lambda: kernel(kc, vc))
+    out = dict(
         case=f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, lengths={lens}",
         max_abs_err=err, ms=ms, host_ms=host_ms,
-        plain_ms=time_ms(lambda: ref.paged_attention_ref(q, kp, vp, tables, ln))[0],
-        bound_ms=bnd, bound_by=by, library_ms=lib,
+        plain_ms=time_ms(lambda: plain(kc, vc))[0],
+        bound_ms=bnd, bound_by=by, library_ms=time_ms(lambda: library(kt, vt))[0],
     )
+    n = cold_copies(8 * kv_tokens * Hkv * D)
+    copies = [(kc.clone(), vc.clone()) for _ in range(n)]
+    ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
+    cold = dict(copies=n, ms=ms_c, host_ms=host_c,
+                plain_ms=time_ms(rotating([lambda c=c: plain(*c) for c in copies]))[0])
+    copies = [tuple(t.transpose(1, 2).contiguous() for t in c) for c in copies]
+    cold["library_ms"] = time_ms(rotating([lambda c=c: library(*c) for c in copies]))[0]
+    out["cold"] = cold
+    return out
 
 
 def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
@@ -405,7 +477,7 @@ def profiled(fn):
         "device_busy_ms": busy / 1e3 if spans else None,
         "device_busy_share": busy / wall_us if spans else None,
         "device_ms_by_group": groups or None,
-        "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8]) or None,
+        "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:16]) or None,
     }
 
 
@@ -680,7 +752,10 @@ def main() -> None:
     rag_cases = [ragged_case(ops, ref, gen, dev, S, *RAGGED_BUCKETS[S])
                  for S in (256, 64, 8)]
     rag = rag_cases[0]
-    pag = paged_case(ops, ref, gen, dev)
+    pag_cases = [paged_case(ops, ref, gen, dev, PAGED_LENGTHS[k])
+                 for k in ("table", "engine")]
+    pag = pag_cases[0]
+    torch.cuda.empty_cache()
     delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)
                    for S in (2016, 1)
                    for p, di, do in (projections[0], projections[3])]
@@ -691,7 +766,7 @@ def main() -> None:
                      lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016])
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
-          "ragged_extend": rag_cases, "paged_attention": pag, "sgmv": delta_cases,
+          "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr,
           "refuse_autograd": grad_guard(ops, dev)})
 
@@ -802,6 +877,15 @@ def main() -> None:
     kernels[2]["bucket_cases"] = [
         {k: m[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")} for m in rag_cases[1:]]
+    # the decode kernels with a cold L2 beside the warm times: fused_sgmv at
+    # the four projections of a decode step, sgmv at q and o, and
+    # paged_attention at the engine's decode lengths
+    keys = ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cold")
+    kernels[0]["decode_cases"] = [{k: m[k] for k in keys} for m in sgmv_cases[4:8]]
+    kernels[1]["decode_cases"] = [{k: m[k] for k in keys} for m in delta_cases[2:]]
+    kernels[3]["cold"] = pag["cold"]
+    kernels[3]["engine_case"] = {k: pag_cases[1][k] for k in keys}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,38 +35,40 @@ from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels.flash_prefill import _SIGNATURES as FLASH_SIG  # noqa: E402
 from repro_torch.kernels.ragged_extend import _SIGNATURES as RAGGED_SIG  # noqa: E402
 
-# name -> (file, text, replacement); the text must occur in the file
+# name -> [(file, text, replacement), ...]; each text must occur in its file
 VARIANTS = {
-    "as built": None,
+    "as built": [],
     # one TF32 product (hi·hi) in place of three: breaks the tolerance
-    "one_tf32_product": ("attention_tc.cuh",
-                         "  mma_tf32(d, alo, bhi);  // the small products first\n"
-                         "  mma_tf32(d, ahi, blo);\n", ""),
+    "one_tf32_product": [("attention_tc.cuh",
+                          "  mma_tf32(d, alo, bhi);  // the small products first\n"
+                          "  mma_tf32(d, ahi, blo);\n", "")],
     # scores divided by √D rather than multiplied by 1/√D
-    "divide_scores": ("attention_tc.cuh", "sc[n][i] * scale",
-                      "sc[n][i] / sqrtf((float)D)"),
+    "divide_scores": [("attention_tc.cuh", "sc[n][i] * scale",
+                       "sc[n][i] / sqrtf((float)D)")],
     # KV parts of about 2 tiles, up to 16 a q tile
-    "finer_kv_split": ("ragged_extend.cu",
-                       "constexpr int MAX_SPLIT = 8;       // KV parts of one q tile, at most\n"
-                       "constexpr int PART_TILES = 4;",
-                       "constexpr int MAX_SPLIT = 16;\nconstexpr int PART_TILES = 2;"),
+    "finer_kv_split": [("ragged_extend.cu",
+                        "constexpr int MAX_SPLIT = 8;       // KV parts of one q tile, at most\n"
+                        "constexpr int PART_TILES = 4;",
+                        "constexpr int MAX_SPLIT = 16;\nconstexpr int PART_TILES = 2;")],
 }
 
 
-def build_variants(tmp: Path) -> dict[str, dict[str, Path]]:
-    """variant -> source -> library, all compiled in parallel"""
+def build_variants(tmp: Path, variants: dict, sources: tuple[str, ...]
+                   ) -> dict[str, dict[str, Path]]:
+    """variant -> source -> library, all compiled in parallel: each variant
+    is a copy of ``csrc`` with its edits."""
     nvcc, procs, libs = build.nvcc_path(), [], {}
-    for i, (name, edit) in enumerate(VARIANTS.items()):
+    for i, (name, edits) in enumerate(variants.items()):
         src = tmp / f"v{i}"
         shutil.copytree(build.CSRC, src)
-        if edit is not None:
-            path = src / edit[0]
+        for file, old, new in edits:
+            path = src / file
             text = path.read_text()
-            if edit[1] not in text:
-                raise SystemExit(f"variant {name}: text not found in {edit[0]}")
-            path.write_text(text.replace(edit[1], edit[2]))
+            if old not in text:
+                raise SystemExit(f"variant {name}: text not found in {file}")
+            path.write_text(text.replace(old, new))
         libs[name] = {}
-        for source in ("flash_prefill", "ragged_extend"):
+        for source in sources:
             out = src / f"lib{source}.so"
             libs[name][source] = out
             procs.append(subprocess.Popen(
@@ -81,7 +83,8 @@ def build_variants(tmp: Path) -> dict[str, dict[str, Path]]:
 
 def load(path: Path, signatures: dict[str, str]):
     lib = ctypes.CDLL(str(path))
-    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64}
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_int64,
+             "f": ctypes.c_float}
     for fname, sig in signatures.items():
         fn = getattr(lib, fname)
         fn.argtypes = [kinds[a] for a in sig]
@@ -110,7 +113,7 @@ def main() -> None:
         st, tl = (torch.tensor(a, dtype=torch.int32, device=dev) for a in (starts, lens))
         ragged[s] = (q, k, v, st, tl, ref.ragged_extend_ref(q, k, v, st, tl))
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_variants(Path(tmp))
+        libs = build_variants(Path(tmp), VARIANTS, ("flash_prefill", "ragged_extend"))
         for name in [*VARIANTS, "as built"]:
             lib = load(libs[name]["flash_prefill"], FLASH_SIG)
             out = torch.empty_like(fq)

@@ -76,16 +76,34 @@
 // the weights in the model. mma.sync fragments are loaded thread by thread,
 // so the [k][n] W tile is read as it lies. wgmma is later work.
 //
-// Skinny (M <= 16, the decode steps): a 64-row tile would leave the card
-// nearly empty (d_out / 64 blocks) and every block would re-read A[id] for
-// all rows, more bytes than W itself. So the shrink runs first, once, as
-// its own small kernel: h partials over 128-row k chunks, one block per
-// (chunk, row), written to a scratch buffer the wrapper allocates. The
-// second kernel gives each block 16 output columns and the whole k range:
-// 64 k-lanes of 4 threads stream W as 16-byte loads, eight in flight per
-// thread, against x staged once in shared memory; lane g < r also adds
-// scale·h[r=g]·B[id][g] for its columns, and the lanes' partial sums meet in
-// a fixed order (warp shuffles, then eight warp partials). All IEEE f32 FMA.
+// Skinny (M <= 16, the decode steps). Bound by the bytes of W: at M = 8
+// the q projection reads 8 MB of W, ~0.9 MB of the live A and ~1.8 MB of
+// the live B for ~3.4 us of device memory time, so the card has to stream
+// W at close to its full rate, and the fixed costs of a launch weigh. Two
+// kernels:
+// 1. fused_sgmv_skinny_kernel, split-K. The grid takes d_out in slabs of
+//    64 columns and d_in in as many k splits as put about two blocks on
+//    every SM (q: 32 slabs x 8 splits; k, v, o: 16 x 16). Each block
+//    streams its W slab (256 bytes of each k row, two whole 128-byte lines)
+//    and its slab of x (M rows x 32 k) through a 4-stage cp.async ring of
+//    32-row stages, all four in flight from the start (32 KB a block: the
+//    whole k range of a q or o block; up to three blocks an SM), and
+//    writes the M x 64 partial sum of its k range. Each of its 16 k
+//    lanes owns two k rows of a stage and 4 columns, M float4 sums in
+//    registers; the lanes meet by one shuffle and then in shared memory
+//    in a fixed order. The same grid holds one more block per (batch row,
+//    k split) for the rank-r shrink: the block of the first batch row with
+//    a given live id streams that k range of A[id] (and of x) through the
+//    same ring and writes h partials for every row carrying the id, so A
+//    is read once per (adapter, k). Blocks of other rows and of id < 0
+//    return at once; rows of id < 0 never touch A or B.
+// 2. fused_sgmv_skinny_merge_kernel, one block per (row, 256 columns):
+//    the k splits' partials in order, then scale·h·B[id] with h the
+//    shrink partials in order. It is launched as a programmatic dependent
+//    of the first kernel: its blocks start as the first kernel's blocks
+//    finish and load their rows of B while the last W slabs stream.
+// No atomics, no counters: two launches on the same inputs give the same
+// bits, and nothing in the launch syncs with the host or allocates.
 //
 // sgmv (no base term) does 2·r·(d_in + d_out) flops per row against
 // 4·(d_in + d_out) bytes of x and y, 16 flop/byte at r = 32: bound by the
@@ -115,13 +133,16 @@ constexpr int STAGE_FLOATS = XS_FLOATS + TK * WS_LD;
 constexpr int SH_ROWS = 64;    // rows per shrink block
 constexpr int MAX_SPLIT = 8;   // parts of d_in, each in its own block, at most
 
-constexpr int SK_MAX_M = 16;                   // skinny path: rows at most
-constexpr int SK_COLS = 16;                    // output columns per block
-constexpr int SK_QUADS = SK_COLS / 4;          // float4 columns per block
-constexpr int SK_KLANES = THREADS / SK_QUADS;  // 64 k lanes
-constexpr int SK_UNROLL = 8;                   // W loads in flight per thread
-constexpr int SK_MAX_X_BYTES = 160 * 1024;     // x staged in shared memory
-constexpr int SHRINK_KC = 128;                 // k rows per shrink block
+constexpr int SK_MAX_M = 16;                 // skinny path: rows at most
+constexpr int SK_CN = 64;                    // output columns of a W block
+constexpr int SK_KS = 32;                    // k rows of a ring stage
+constexpr int SK_STAGES = 4;                 // ring depth, all stages in flight
+constexpr int SK_PANEL = SK_KS * SK_CN;      // floats of a stage's W (or A) panel
+constexpr int SK_STAGE = SK_PANEL + SK_MAX_M * SK_KS;  // panel, then x [M][SK_KS]
+constexpr int SK_MERGE_THREADS = 64;         // merge block: 256 columns of one row
+constexpr int SK_MAX_SPLITS = 16;            // k splits at most
+static_assert(SK_KS * 64 <= SK_PANEL, "an A panel (SK_KS x R, R <= 64) fits a stage");
+static_assert(THREADS * SK_MAX_M <= SK_STAGES * SK_STAGE, "the shrink's k lanes meet in the ring");
 
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
   acc.x = fmaf(a, b.x, acc.x);
@@ -131,11 +152,29 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
 }
 
 bool use_skinny(int M, int d_in, int d_out) {
-  return M <= SK_MAX_M && d_in % 4 == 0 && d_out % 4 == 0 &&
-         (size_t)M * d_in * sizeof(float) <= (size_t)SK_MAX_X_BYTES;
+  return M <= SK_MAX_M && d_in % 4 == 0 && d_out % 4 == 0;
 }
 
-__host__ __device__ inline int shrink_chunks(int d_in) { return (d_in + SHRINK_KC - 1) / SHRINK_KC; }
+// How the skinny path splits its work: ``cols`` W blocks (64-column slabs;
+// none without the base term) and one shrink block per batch row, in each
+// of ``splits`` k splits of ``kper`` ring stages. The splits put about two
+// W blocks on every SM (without the base term, about two shrink blocks per
+// SM, counting one per row: M/S batch rows are at most M), at most 16;
+// no split is empty. The shrink blocks come on top: at most one per adapter works.
+struct SkinnyPlan {
+  int cols, splits, kper;
+};
+
+SkinnyPlan skinny_plan(int M, int d_in, int d_out, bool has_base) {
+  const int KT = (d_in + SK_KS - 1) / SK_KS;
+  const int cols = has_base ? (d_out + SK_CN - 1) / SK_CN : 0;
+  const int per_split = has_base ? cols : M;
+  int splits = (2 * sm_count() + per_split - 1) / per_split;
+  splits = splits < 1 ? 1 : (splits > KT ? KT : splits);
+  splits = splits > SK_MAX_SPLITS ? SK_MAX_SPLITS : splits;
+  const int kper = (KT + splits - 1) / splits;
+  return {cols, (KT + kper - 1) / kper, kper};
+}
 
 // the expand's depth: the rank, at least one k8 step (ranks past R are 0)
 __host__ __device__ constexpr int expand_depth(int R) { return R < 8 ? 8 : R; }
@@ -520,138 +559,226 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
   }
 }
 
-// Skinny path, step 1: hpart[c][m][r] = sum over k in chunk c of
-// x[m, k]·A[id_m, k, r]. One block per (chunk, row); thread (g, r) takes
-// rank r and k rows g, g + THREADS/R, ...; the k lanes meet in shared
-// memory in a fixed order. A row with a negative id writes zeros.
-template <int R>
-__global__ void __launch_bounds__(THREADS) lora_shrink_kernel(
-    const float* __restrict__ x, const float* __restrict__ lora_a,
-    const int* __restrict__ ids, float* __restrict__ hpart, int M, int S,
-    int d_in) {
-  constexpr int G = THREADS / R;  // k lanes
-  __shared__ float red[G][R];
-  const int c = blockIdx.x, m = blockIdx.y;
-  const int id = ids[m / S];
-  const int r = threadIdx.x % R, g = threadIdx.x / R;
-  const int k1 = min((c + 1) * SHRINK_KC, d_in);
-  float acc = 0.f;
-  if (id >= 0) {  // uniform over the block
-    const float* a = lora_a + (size_t)id * d_in * R + r;
-    const float* xr = x + (size_t)m * d_in;
-#pragma unroll 4
-    for (int k = c * SHRINK_KC + g; k < k1; k += G) acc = fmaf(xr[k], a[(size_t)k * R], acc);
+// Skinny path, pass 1 (see the header). Block x < cols is a W block: rows
+// [0, M) times columns [64·x, 64·x + 64) over k split blockIdx.y, written
+// to part[split][M][d_out]. Block x >= cols is the shrink block of batch
+// row b = x − cols: if b is the first batch row with its id and the id is
+// live, it writes hpart[split][m][R] = x[m, k split]·A[id] for every row m
+// carrying that id (unscaled); otherwise it returns. MT: rows the
+// registers hold (M <= MT).
+template <int R, int MT>
+__global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ lora_a, const int* __restrict__ ids,
+    float* __restrict__ part, float* __restrict__ hpart, int M, int S, int d_in,
+    int d_out, int cols, int kper) {
+  __shared__ __align__(16) float ring[SK_STAGES * SK_STAGE];
+  grid_dependents_launch();  // the merge may load B while this grid streams W
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.y;
+  const bool w_block = (int)blockIdx.x < cols;  // uniform over the block
+  int id = -1;
+  if (!w_block) {
+    const int b = blockIdx.x - cols;
+    id = ids[b];
+    bool lead = id >= 0;
+    for (int p = 0; p < b && lead; ++p) lead = ids[p] != id;
+    if (!lead) return;
   }
-  red[g][r] = acc;
-  __syncthreads();
-  if (threadIdx.x < R) {
-    float s = 0.f;
-    for (int j = 0; j < G; ++j) s += red[j][threadIdx.x];
-    hpart[((size_t)c * M + m) * R + threadIdx.x] = s;
+  const int n0 = blockIdx.x * SK_CN;
+  const int KT = (d_in + SK_KS - 1) / SK_KS;
+  const int kt0 = split * kper, kt1 = min(kt0 + kper, KT);  // kt0 < kt1
+  const float* a_id = lora_a + (size_t)(id < 0 ? 0 : id) * d_in * R;
+
+  // stage kt: the panel (W: SK_KS x 64 of the slab; A: SK_KS x R) and
+  // x [M][SK_KS], zero-filled past d_in and d_out
+  auto load = [&](int kt, int slot) {
+    float* ps = ring + slot * SK_STAGE;
+    float* xs = ps + SK_PANEL;
+    const int k0 = kt * SK_KS;
+    if (w_block) {
+#pragma unroll
+      for (int i = 0; i < SK_PANEL / 4 / THREADS; ++i) {
+        const int c = tid + i * THREADS, row = c / (SK_CN / 4), col = c % (SK_CN / 4) * 4;
+        const bool ok = k0 + row < d_in && n0 + col < d_out;
+        cp_async16(ps + row * SK_CN + col, ok ? w + (size_t)(k0 + row) * d_out + n0 + col : w, ok);
+      }
+    } else {
+      for (int c = tid; c < SK_KS * R / 4; c += THREADS) {
+        const bool ok = k0 + c * 4 / R < d_in;
+        cp_async16(ps + c * 4, ok ? a_id + (size_t)k0 * R + c * 4 : lora_a, ok);
+      }
+    }
+    for (int c = tid; c < M * SK_KS / 4; c += THREADS) {
+      const int m = c / (SK_KS / 4), kc = c % (SK_KS / 4) * 4;
+      const bool ok = k0 + kc < d_in;
+      cp_async16(xs + m * SK_KS + kc, ok ? x + (size_t)m * d_in + k0 + kc : x, ok);
+    }
+  };
+
+  // W block: k lane g = 2·warp + lane / 16 owns rows 2g, 2g + 1 of every
+  // stage and float4 column q = lane % 16. Shrink block: k lane g = tid / R
+  // owns rows g, g + THREADS / R, ... and rank r = tid % R.
+  const int q = lane & 15, g = 2 * warp + (lane >> 4);
+  constexpr int SG = THREADS / R;
+  const int r = tid % R, sg = tid / R;
+  float4 acc[MT];
+  float hacc[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    hacc[m] = 0.f;
+  }
+
+  // every slot of the ring in flight from the start (a q or o block's
+  // whole k range); a slot is refilled once the block has consumed it
+#pragma unroll
+  for (int s = 0; s < SK_STAGES; ++s) {
+    if (kt0 + s < kt1) load(kt0 + s, s);
+    cp_async_commit();  // empty groups keep the count uniform
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    if (kt > kt0) {
+      __syncthreads();  // the slot of kt - 1 is consumed: refill it
+      if (kt - 1 + SK_STAGES < kt1) load(kt - 1 + SK_STAGES, (kt - 1 - kt0) % SK_STAGES);
+      cp_async_commit();
+    }
+    cp_async_wait<SK_STAGES - 1>();  // this thread's copies of stage kt landed
+    __syncthreads();                 // everyone's
+    const float* ps = ring + (kt - kt0) % SK_STAGES * SK_STAGE;
+    const float* xs = ps + SK_PANEL;
+    if (w_block) {
+      const float4 w0 = *reinterpret_cast<const float4*>(ps + (2 * g) * SK_CN + 4 * q);
+      const float4 w1 = *reinterpret_cast<const float4*>(ps + (2 * g + 1) * SK_CN + 4 * q);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < M) {
+          const float2 xv = *reinterpret_cast<const float2*>(xs + m * SK_KS + 2 * g);
+          fma4(acc[m], xv.x, w0);
+          fma4(acc[m], xv.y, w1);
+        }
+      }
+    } else {
+      for (int kk = sg; kk < SK_KS; kk += SG) {
+        const float a = ps[kk * R + r];
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+          if (m < M) hacc[m] = fmaf(xs[m * SK_KS + kk], a, hacc[m]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the k lanes' partials
+
+  if (w_block) {
+    float4* red = reinterpret_cast<float4*>(ring);  // [8 warps][MT][16]
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < M) {
+        acc[m].x += __shfl_xor_sync(0xffffffffu, acc[m].x, 16);
+        acc[m].y += __shfl_xor_sync(0xffffffffu, acc[m].y, 16);
+        acc[m].z += __shfl_xor_sync(0xffffffffu, acc[m].z, 16);
+        acc[m].w += __shfl_xor_sync(0xffffffffu, acc[m].w, 16);
+        if (lane < 16) red[(warp * MT + m) * 16 + lane] = acc[m];
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < M * 16; e += THREADS) {
+      const int m = e / 16, qq = e % 16, n = n0 + 4 * qq;
+      if (n >= d_out) continue;
+      float4 v = red[m * 16 + qq];
+      for (int wp = 1; wp < THREADS / 32; ++wp) {
+        const float4 u = red[(wp * MT + m) * 16 + qq];
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      *reinterpret_cast<float4*>(part + ((size_t)split * M + m) * d_out + n) = v;
+    }
+  } else {
+    float* red = ring;  // [SG][MT][R]
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+      if (m < M) red[(sg * MT + m) * R + r] = hacc[m];
+    __syncthreads();
+    for (int e = tid; e < M * R; e += THREADS) {
+      const int m = e / R, rr = e % R;
+      if (ids[m / S] != id) continue;
+      float h = red[m * R + rr];
+      for (int k = 1; k < SG; ++k) h += red[(k * MT + m) * R + rr];
+      hpart[((size_t)split * M + m) * R + rr] = h;
+    }
   }
 }
 
-// Skinny path, step 2: y[:, n0 .. n0+16) for all M rows. Thread (g, q)
-// owns float4 column q and k rows g, g + 64, ...; x rows sit in shared
-// memory, W streams from device memory SK_UNROLL loads at a time. Without
-// the base term neither x nor W is read: only the rank lanes' delta.
+// Skinny path, pass 2: y[m, n .. n+4) = the splits' partials of x·W in
+// order (HAS_BASE), plus, where row m's id is live, scale·h[m]·B[id] with
+// h[m] the splits' shrink partials in order. Without the base term a row
+// of id < 0 is exact zeros. B is an input, so its first rows are loaded
+// before the wait for pass 1; every other load is issued before its first
+// use (the loops over splits and ranks are unrolled), so the pass costs
+// about two round trips to L2 after pass 1 ends.
 template <int R, bool HAS_BASE>
-__global__ void __launch_bounds__(THREADS) fused_sgmv_skinny_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
+__global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kernel(
     const float* __restrict__ lora_b, const int* __restrict__ ids,
-    const float* __restrict__ hpart, float* __restrict__ y, int M, int S,
-    int d_in, int d_out, float scale) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [M][d_in]
-  __shared__ float hs[SK_MAX_M][R];
-  __shared__ int row_id[SK_MAX_M];
-  __shared__ float4 red[THREADS / 32][SK_MAX_M][SK_QUADS];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  if constexpr (HAS_BASE)
-    for (int e = tid; e < M * d_in / 4; e += THREADS)
-      reinterpret_cast<float4*>(xs)[e] = reinterpret_cast<const float4*>(x)[e];
-  const int chunks = shrink_chunks(d_in);
-  for (int e = tid; e < M * R; e += THREADS) {
-    const int m = e / R, r = e % R;
-    float s = 0.f;
-    for (int c = 0; c < chunks; ++c) s += hpart[((size_t)c * M + m) * R + r];
-    hs[m][r] = s;
+    const float* __restrict__ part, const float* __restrict__ hpart,
+    float* __restrict__ y, int M, int S, int d_out, int splits, float scale) {
+  constexpr int RP = R < 32 ? R : 32;  // rows of B loaded before the wait
+  __shared__ float hs[R];
+  const int tid = threadIdx.x, m = blockIdx.y;
+  const int n = (blockIdx.x * SK_MERGE_THREADS + tid) * 4;
+  const bool col = n < d_out;
+  const int id = ids[m / S];  // uniform over the block
+  const float* bp = lora_b + (size_t)(id < 0 ? 0 : id) * R * d_out + n;
+  float4 bv[RP];
+  if (id >= 0 && col) {
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr)
+      bv[rr] = __ldg(reinterpret_cast<const float4*>(bp + (size_t)rr * d_out));
   }
-  if (tid < SK_MAX_M) row_id[tid] = tid < M ? ids[tid / S] : -1;
-  __syncthreads();
-
-  const int q = tid % SK_QUADS, g = tid / SK_QUADS;
-  const int n = blockIdx.x * SK_COLS + q * 4;
-  float4 acc[SK_MAX_M];
+  grid_dependency_wait();  // pass 1's partials are written
+  if (id >= 0 && tid < R) {
+    float hp[SK_MAX_SPLITS];
 #pragma unroll
-  for (int m = 0; m < SK_MAX_M; ++m) acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  if (n < d_out) {
-    if constexpr (HAS_BASE) {
-      const float* wc = w + n;
-      int k = g;
-      for (; k + (SK_UNROLL - 1) * SK_KLANES < d_in; k += SK_UNROLL * SK_KLANES) {
-        float4 wv[SK_UNROLL];
+    for (int s = 0; s < SK_MAX_SPLITS; ++s)
+      hp[s] = s < splits ? hpart[((size_t)s * M + m) * R + tid] : 0.f;
+    float h = hp[0];
 #pragma unroll
-        for (int u = 0; u < SK_UNROLL; ++u)
-          wv[u] = __ldg(reinterpret_cast<const float4*>(wc + (size_t)(k + u * SK_KLANES) * d_out));
+    for (int s = 1; s < SK_MAX_SPLITS; ++s)
+      if (s < splits) h += hp[s];
+    hs[tid] = scale * h;
+  }
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (HAS_BASE) {
+    if (col) {
+      float4 pv[SK_MAX_SPLITS];
 #pragma unroll
-        for (int u = 0; u < SK_UNROLL; ++u)
+      for (int s = 0; s < SK_MAX_SPLITS; ++s)
+        if (s < splits)
+          pv[s] = *reinterpret_cast<const float4*>(part + ((size_t)s * M + m) * d_out + n);
+      v = pv[0];
 #pragma unroll
-          for (int m = 0; m < SK_MAX_M; ++m)
-            if (m < M) fma4(acc[m], xs[m * d_in + k + u * SK_KLANES], wv[u]);
-      }
-      for (; k < d_in; k += SK_KLANES) {
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(wc + (size_t)k * d_out));
-#pragma unroll
-        for (int m = 0; m < SK_MAX_M; ++m)
-          if (m < M) fma4(acc[m], xs[m * d_in + k], wv);
-      }
-    }
-    // the delta: lane g < R adds scale·h[m][g]·B[id_m][g][n .. n+4)
-    if (g < R) {
-#pragma unroll
-      for (int m = 0; m < SK_MAX_M; ++m) {
-        const int id = row_id[m];
-        if (m < M && id >= 0) {
-          const float4 bv = __ldg(reinterpret_cast<const float4*>(
-              lora_b + ((size_t)id * R + g) * d_out + n));
-          fma4(acc[m], scale * hs[m][g], bv);
+      for (int s = 1; s < SK_MAX_SPLITS; ++s) {
+        if (s < splits) {
+          v.x += pv[s].x;
+          v.y += pv[s].y;
+          v.z += pv[s].z;
+          v.w += pv[s].w;
         }
       }
     }
   }
-
-  // k lanes meet: lanes q, q+4, ..., q+28 of a warp by shuffles, then the
-  // eight warps' partials in shared memory, always in the same order
+  __syncthreads();  // hs
+  if (!col) return;
+  if (id >= 0) {
 #pragma unroll
-  for (int m = 0; m < SK_MAX_M; ++m) {
+    for (int rr = 0; rr < RP; ++rr) fma4(v, hs[rr], bv[rr]);
 #pragma unroll
-    for (int o = SK_QUADS; o < 32; o <<= 1) {
-      acc[m].x += __shfl_xor_sync(0xffffffffu, acc[m].x, o);
-      acc[m].y += __shfl_xor_sync(0xffffffffu, acc[m].y, o);
-      acc[m].z += __shfl_xor_sync(0xffffffffu, acc[m].z, o);
-      acc[m].w += __shfl_xor_sync(0xffffffffu, acc[m].w, o);
-    }
-    if (lane < SK_QUADS) red[warp][m][lane] = acc[m];
+    for (int rr = RP; rr < R; ++rr)
+      fma4(v, hs[rr], __ldg(reinterpret_cast<const float4*>(bp + (size_t)rr * d_out)));
   }
-  __syncthreads();
-  for (int e = tid; e < M * SK_QUADS; e += THREADS) {
-    const int m = e / SK_QUADS, qq = e % SK_QUADS;
-    const int nn = blockIdx.x * SK_COLS + qq * 4;
-    if (nn >= d_out) continue;
-    float4 s = red[0][m][qq];
-    for (int wp = 1; wp < THREADS / 32; ++wp) {
-      const float4 p = red[wp][m][qq];
-      s.x += p.x;
-      s.y += p.y;
-      s.z += p.z;
-      s.w += p.w;
-    }
-    *reinterpret_cast<float4*>(y + (size_t)m * d_out + nn) = s;
-  }
+  *reinterpret_cast<float4*>(y + (size_t)m * d_out + n) = v;
 }
 
 // scratch: the shrink's partials (shrink x M x R), then the base
@@ -685,23 +812,33 @@ int launch_tiled(const float* x, const float* w, const float* lora_a,
   return (int)cudaGetLastError();
 }
 
+// scratch: the shrink's partials (splits x M x R), then with the base term
+// the W blocks' partial sums (splits x M x d_out)
+template <int R, int MT, bool HAS_BASE>
+int launch_skinny(const float* x, const float* w, const float* lora_a,
+                  const float* lora_b, const int* ids, float* y, float* scratch,
+                  int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
+  const SkinnyPlan sp = skinny_plan(M, d_in, d_out, HAS_BASE);
+  float* part = scratch + (size_t)sp.splits * M * R;
+  fused_sgmv_skinny_kernel<R, MT><<<dim3(sp.cols + M / S, sp.splits), THREADS, 0, stream>>>(
+      x, w, lora_a, ids, part, scratch, M, S, d_in, d_out, sp.cols, sp.kper);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int col_blocks = (d_out / 4 + SK_MERGE_THREADS - 1) / SK_MERGE_THREADS;
+  err = launch_dependent(fused_sgmv_skinny_merge_kernel<R, HAS_BASE>, dim3(col_blocks, M),
+                         dim3(SK_MERGE_THREADS), 0, stream, lora_b, ids, (const float*)part,
+                         (const float*)scratch, y, M, S, d_out, sp.splits, scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <int R, bool HAS_BASE>
 int launch(const float* x, const float* w, const float* lora_a,
            const float* lora_b, const int* ids, float* y, float* scratch,
            int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
   if (use_skinny(M, d_in, d_out)) {
-    lora_shrink_kernel<R><<<dim3(shrink_chunks(d_in), M), THREADS, 0, stream>>>(
-        x, lora_a, ids, scratch, M, S, d_in);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const size_t smem = HAS_BASE ? (size_t)M * d_in * sizeof(float) : 0;
-    err = cudaFuncSetAttribute(fused_sgmv_skinny_kernel<R, HAS_BASE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_sgmv_skinny_kernel<R, HAS_BASE>
-        <<<(d_out + SK_COLS - 1) / SK_COLS, THREADS, smem, stream>>>(
-            x, w, lora_b, ids, scratch, y, M, S, d_in, d_out, scale);
-    return (int)cudaGetLastError();
+    if (M <= 8) return launch_skinny<R, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, stream);
+    return launch_skinny<R, SK_MAX_M, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, stream);
   }
   if (d_in % 4 == 0 && d_out % 4 == 0)
     return launch_tiled<R, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
@@ -730,10 +867,14 @@ int dispatch(const float* x, const float* w, const float* lora_a,
 }  // namespace
 
 // Floats of scratch a launch needs for these shapes: on the skinny path
-// the shrink's partials per 128-row k chunk; on the tiled path those of
-// its shrink pass and, where d_in is split, the partial output tiles.
+// the k splits' shrink partials and, with the base term, their partial
+// sums of x·W; on the tiled path those of its shrink pass and, where d_in
+// is split, the partial output tiles.
 extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int R, int has_base) {
-  if (use_skinny(M, d_in, d_out)) return shrink_chunks(d_in) * M * R;
+  if (use_skinny(M, d_in, d_out)) {
+    const SkinnyPlan sp = skinny_plan(M, d_in, d_out, has_base != 0);
+    return sp.splits * M * (R + (has_base ? d_out : 0));
+  }
   const TiledSplit sp = tiled_split(M, d_in, d_out, has_base != 0);
   return sp.shrink * M * R + (sp.base > 1 ? sp.base * M * d_out : 0);
 }

@@ -4,38 +4,76 @@
 // Replaces src/repro/kernels/paged_attention.py:paged_attention, the Pallas
 // TPU kernel. Query head h of row b attends the first lengths[b] tokens of
 // the row's pages, block_tables[b, 0..]; a row whose length is 0 writes
-// zeros, not mean(V).
+// zeros, not mean(V). A length past the table (pages_per_seq·page tokens)
+// is clamped to it: an inactive row's length can point past it.
 //
 // What bounds it on this card: each KV element read feeds G (= 2 on the
 // main path) multiply-adds for the scores and G for P·V, under 1 flop/byte,
-// so it is bound by the bytes of the live pages.
+// so it is bound by the bytes of the live pages, and the work of a row
+// grows with its live length, not with the table's width.
 //
-// What the design does about it: one block per (b, kv head, page split)
-// serves the G query heads of the group, so each K/V page is read once, not
-// G times. One block per (b, kv head) alone would put 64 blocks on the 132
-// SMs at the main path's B = 8, so the page range is split in as many
-// pieces as fill the card twice (flash-decoding); the TPU kernel walks the
-// pages in order on one core and needs no split. The page loop runs only to
-// min(ceil(len / page), pages_per_seq): pages past the length are never
-// read (a split that starts past it writes an empty state and returns), and
-// the clamp to the table width matters because an inactive row's length
-// can point past it. Eight warps split a block's keys in chunks of 8 to
-// keep many loads in flight; each warp holds an online f32 softmax (masked
-// probabilities are 0, so l stays 0 on an empty row) and the block merges
-// the eight partial states. A second, small kernel merges the splits in a
-// fixed order, so the result does not change from run to run. Each lane
-// owns 4 of the D channels, so every K/V row is one coalesced 512-byte read
-// per warp. IEEE f32 FMA throughout: no TF32.
+// What the design does about it:
+// - Work follows the live length. The grid cannot read the device-side
+//   lengths without a host sync, so it covers the whole table in chunks of
+//   CT = 64 tokens (half a page at the main path's 128), one block per
+//   (chunk, kv head, b), chunks slowest, so the blocks of late chunks, past
+//   most lengths, come last. A block whose chunk starts at or past the
+//   row's clamped length returns after two loads; every live chunk gets a block
+//   of its own, so a 300-token row spreads over 5 blocks and a 2048-token
+//   row over 32, and no page is read twice. The TPU kernel walks the pages
+//   in order on one core and needs no split.
+// - One block serves the G query heads of its kv head: each K/V row is read
+//   once, not G times.
+// - Loads stay in flight. The block stages its chunk's K rows, then its V
+//   rows, into shared memory as two cp.async groups of 16-byte copies (a
+//   token row of one kv head is D contiguous floats at a stride of Hkv·D;
+//   each warp copies whole 128-byte lines) and computes the scores while V
+//   lands. 32 KB of K and 32 KB of V a block, three blocks an SM: up to
+//   ~190 KB in flight per SM. The page table entry of each token and the
+//   row's length are loaded together, before the copies.
+// - Scores with threads owning keys: four threads per key, each taking a
+//   quarter of D (float4 chunks p, p + 4, ...) against the G query heads in
+//   shared memory, then two shuffles (KPT = 256 / CT threads a key). A row pitch of D rounded up to 32
+//   plus 16 floats puts the two keys of each quarter-warp on disjoint
+//   banks. The tile's softmax is one warp reduction per head (warp g takes
+//   head g), and P·V runs with threads owning D channels (float4 each) and
+//   a share of the keys; the shares meet in shared memory in a fixed order.
+// - A second, small kernel merges the live chunks of each (b, query head)
+//   in order and normalises; it reads only chunks below the clamped length.
+//   It is launched as a programmatic dependent of the first, so its launch
+//   is prepared while the first runs. Every sum runs in a fixed order: two
+//   launches on the same inputs give the same bits.
+// IEEE f32 FMA throughout: no TF32.
 
 #include <cuda_runtime.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int KC = 8;  // keys per warp chunk (page sizes are multiples of 8)
+constexpr int THREADS = 256;
+constexpr int CT = 64;               // tokens per chunk: one block each
+constexpr int KPT = THREADS / CT;    // threads per key for the scores
 constexpr int MAX_D = 128;
+constexpr int PAGE_MULTIPLE = 8;     // page sizes the launch accepts
 constexpr float NEG_INF = -1e30f;
+
+static_assert(KPT * CT == THREADS && 32 % KPT == 0, "a key's threads share a warp");
+
+__device__ __forceinline__ float4 f4(float a) { return make_float4(a, a, a, a); }
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -43,179 +81,196 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float4 f4(float a) { return make_float4(a, a, a, a); }
-
-// How the pages of a row are split over blocks: as many splits as put
-// about two blocks on every SM, at least one page each.
-struct Split {
-  int n;      // splits per row
-  int pages;  // pages per split
-};
-
-// The SM count of the first device that asks, read once: the port runs on
-// one card per process.
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  return sms;
+int chunks_for(int page_size, int pages_per_seq) {
+  return (pages_per_seq * page_size + CT - 1) / CT;
 }
 
-Split split_for(int B, int Hkv, int pages_per_seq) {
-  const int sms = sm_count();
-  const int blocks = B * Hkv;
-  int n = (2 * sms + blocks - 1) / blocks;
-  n = n < 1 ? 1 : (n > pages_per_seq ? pages_per_seq : n);
-  const int pages = (pages_per_seq + n - 1) / n;
-  return {(pages_per_seq + pages - 1) / pages, pages};
+// shared-memory row pitch of the K and V tiles: ≡ 16 (mod 32) floats
+__host__ __device__ inline int tile_ld(int D) { return (D + 31) / 32 * 32 + 16; }
+
+size_t smem_bytes(int G, int D) {
+  return sizeof(float) * ((size_t)2 * CT * tile_ld(D) + (size_t)G * D + (size_t)G * CT);
 }
 
-// Partial softmax state of one (b, query head, split): acc [D] unnormalised
-// and (m, l), in a scratch buffer laid out as acc[B·H·splits][D] followed by
-// ml[B·H·splits][2].
+// Partial softmax state of one (b, query head, chunk): acc [D]
+// unnormalised and (m, l), in a scratch buffer laid out as
+// acc[B·H·chunks][D] followed by ml[B·H·chunks][2].
 template <int G>
-__global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
+__global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pages,
     const float* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ lengths, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int Hkv, int D, int page_size,
-    int pages_per_seq, int pages_per_split) {
-  __shared__ float sm_m[WARPS][G];
-  __shared__ float sm_l[WARPS][G];
-  __shared__ float4 sm_acc[WARPS][G][32];
+    float* __restrict__ part_ml, int Hkv, int D, int page_size, int pages_per_seq) {
+  extern __shared__ float4 smem4[];
+  const int ld = tile_ld(D);
+  float* ks = reinterpret_cast<float*>(smem4);  // [CT][ld]
+  float* vs = ks + CT * ld;                     // [CT][ld]
+  float* qs = vs + CT * ld;                     // [G][D]
+  float* ps = qs + G * D;                       // [G][CT]: scores, then p
+  __shared__ long long tok_row[CT];             // float offset of each token's K/V row
 
-  const int hkv = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
-  const int nsplit = gridDim.z;
+  // chunks slowest: blocks of late chunks, mostly past every length, come last
+  const int hkv = blockIdx.x % Hkv, b = blockIdx.x / Hkv, ch = blockIdx.y;
+  const int nc = gridDim.y;
   const int H = Hkv * G;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d4 = lane * 4;
-  const bool dlive = d4 < D;
-  const int len = min(max(lengths[b], 0), pages_per_seq * page_size);
-  const int t_lo = split * pages_per_split * page_size;
-  const int t_hi = min(len, t_lo + pages_per_split * page_size);
-  const float sqrt_d = sqrtf((float)D);
-  const size_t tok_stride = (size_t)Hkv * D;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = pages_per_seq * page_size;
+  const int t0 = ch * CT;
+  // the token's page and the row's length, loaded together
+  int page = -1;
+  if (tid < CT && t0 + tid < T) page = tables[(size_t)b * pages_per_seq + (t0 + tid) / page_size];
+  const int len = min(max(lengths[b], 0), T);
+  if (t0 >= len) return;  // uniform over the block: a chunk past the length
+  const int live = min(CT, len - t0);
+  if (tid < CT)
+    tok_row[tid] = tid < live ? (((long long)page * page_size + (t0 + tid) % page_size) * Hkv + hkv) * D
+                              : -1;
+  __syncthreads();
 
-  float4 qf[G];
-  float m[G], l[G];
-  float4 acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    qf[g] = dlive ? *reinterpret_cast<const float4*>(
-                        q + ((size_t)b * H + hkv * G + g) * D + d4)
-                  : f4(0.f);
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-    acc[g] = f4(0.f);
+  // group 0: q and K; group 1: V. Rows past the length are zero-filled.
+  const int d4n = D / 4;
+  for (int c = tid; c < G * d4n; c += THREADS)
+    cp_async16(qs + c * 4, q + ((size_t)b * H + hkv * G) * D + c * 4, true);
+  for (int c = tid; c < CT * d4n; c += THREADS) {
+    const int j = c / d4n, c4 = (c % d4n) * 4;
+    const long long row = tok_row[j];
+    cp_async16(ks + j * ld + c4, row >= 0 ? k_pages + row + c4 : k_pages, row >= 0);
   }
+  cp_async_commit();
+  for (int c = tid; c < CT * d4n; c += THREADS) {
+    const int j = c / d4n, c4 = (c % d4n) * 4;
+    const long long row = tok_row[j];
+    cp_async16(vs + j * ld + c4, row >= 0 ? v_pages + row + c4 : v_pages, row >= 0);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
 
-  // keys [t_lo, t_hi) in chunks of KC; t_lo is a multiple of the page size
-  for (int t0 = t_lo + warp * KC; t0 < t_hi; t0 += WARPS * KC) {
-    const int page = tables[(size_t)b * pages_per_seq + t0 / page_size];
-    const float* kb = k_pages + ((size_t)page * page_size + t0 % page_size) * tok_stride +
-                      (size_t)hkv * D + d4;
-    const float* vb = v_pages + ((size_t)page * page_size + t0 % page_size) * tok_stride +
-                      (size_t)hkv * D + d4;
-    float4 kf[KC], vf[KC];
+  // scores: thread (j, p) takes float4 chunks p, p + 4, ... of key j
+  {
+    const int j = tid / KPT, p = tid % KPT;
+    float dot[G];
 #pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      const bool ok = dlive && t0 + kk < t_hi;
-      kf[kk] = ok ? *reinterpret_cast<const float4*>(kb + kk * tok_stride) : f4(0.f);
-      vf[kk] = ok ? *reinterpret_cast<const float4*>(vb + kk * tok_stride) : f4(0.f);
+    for (int g = 0; g < G; ++g) dot[g] = 0.f;
+    for (int c = p; c < d4n; c += KPT) {
+      const float4 kv = *reinterpret_cast<const float4*>(ks + j * ld + c * 4);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 qv = *reinterpret_cast<const float4*>(qs + g * D + c * 4);
+        dot[g] = fmaf(qv.x, kv.x, dot[g]);
+        dot[g] = fmaf(qv.y, kv.y, dot[g]);
+        dot[g] = fmaf(qv.z, kv.z, dot[g]);
+        dot[g] = fmaf(qv.w, kv.w, dot[g]);
+      }
     }
+    const float sqrt_d = sqrtf((float)D);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float s[KC];
-      float mc = NEG_INF;
+      float s = dot[g];
 #pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        float part = qf[g].x * kf[kk].x;
-        part = fmaf(qf[g].y, kf[kk].y, part);
-        part = fmaf(qf[g].z, kf[kk].z, part);
-        part = fmaf(qf[g].w, kf[kk].w, part);
-        const float dot = warp_sum(part);
-        s[kk] = t0 + kk < t_hi ? dot / sqrt_d : NEG_INF;
-        mc = fmaxf(mc, s[kk]);
-      }
-      const float m_new = fmaxf(m[g], mc);
-      const float alpha = expf(m[g] - m_new);
-      float psum = 0.f;
-      float4 pv = f4(0.f);
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const float p = t0 + kk < t_hi ? expf(s[kk] - m_new) : 0.f;
-        psum += p;
-        pv.x = fmaf(p, vf[kk].x, pv.x);
-        pv.y = fmaf(p, vf[kk].y, pv.y);
-        pv.z = fmaf(p, vf[kk].z, pv.z);
-        pv.w = fmaf(p, vf[kk].w, pv.w);
-      }
-      l[g] = l[g] * alpha + psum;
-      acc[g].x = fmaf(acc[g].x, alpha, pv.x);
-      acc[g].y = fmaf(acc[g].y, alpha, pv.y);
-      acc[g].z = fmaf(acc[g].z, alpha, pv.z);
-      acc[g].w = fmaf(acc[g].w, alpha, pv.w);
-      m[g] = m_new;
+      for (int o = 1; o < KPT; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (p == 0) ps[g * CT + j] = j < live ? s / sqrt_d : NEG_INF;
     }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-    sm_acc[warp][g][lane] = acc[g];
   }
   __syncthreads();
 
-  // merge the warps' partial states: warp g writes query head g's state
-  for (int g = warp; g < G; g += WARPS) {
+  // the chunk's softmax: warp g takes head g, keys lane, lane + 32, ...
+  for (int g = warp; g < G; g += THREADS / 32) {
     float mx = NEG_INF;
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float L = 0.f;
-    float4 A = f4(0.f);
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = expf(sm_m[w][g] - mx);
-      L = fmaf(sm_l[w][g], f, L);
-      const float4 a = sm_acc[w][g][lane];
-      A.x = fmaf(a.x, f, A.x);
-      A.y = fmaf(a.y, f, A.y);
-      A.z = fmaf(a.z, f, A.z);
-      A.w = fmaf(a.w, f, A.w);
+    for (int j = lane; j < CT; j += 32) mx = fmaxf(mx, ps[g * CT + j]);
+    mx = warp_max(mx);  // a live chunk has a live key
+    float l = 0.f;
+    for (int j = lane; j < CT; j += 32) {
+      const float e = j < live ? expf(ps[g * CT + j] - mx) : 0.f;
+      ps[g * CT + j] = e;
+      l += e;
     }
-    const size_t row = ((size_t)b * H + hkv * G + g) * nsplit + split;
-    if (dlive) *reinterpret_cast<float4*>(part_acc + row * D + d4) = A;
+    l = warp_sum(l);
     if (lane == 0) {
+      const size_t row = ((size_t)b * H + hkv * G + g) * nc + ch;
       part_ml[2 * row] = mx;
-      part_ml[2 * row + 1] = L;
+      part_ml[2 * row + 1] = l;
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // V landed, p written; K is free for the shares below
+
+  // P·V: thread (kp, o) owns float4 o of the G·D outputs and keys kp,
+  // kp + kparts, ...; the key shares meet in shared memory (over K)
+  const int n_out = G * d4n;
+  const int kparts = THREADS / n_out;
+  float4* red = reinterpret_cast<float4*>(ks);  // [kparts][n_out]
+  if (tid < kparts * n_out) {
+    const int o = tid % n_out, kp = tid / n_out;
+    const int g = o / d4n, c4 = (o % d4n) * 4;
+    float4 acc = f4(0.f);
+    for (int j = kp; j < live; j += kparts)
+      fma4(acc, ps[g * CT + j], *reinterpret_cast<const float4*>(vs + j * ld + c4));
+    red[kp * n_out + o] = acc;
+  }
+  __syncthreads();
+  for (int o = tid; o < n_out; o += THREADS) {
+    float4 a = red[o];
+    for (int kp = 1; kp < kparts; ++kp) {
+      const float4 u = red[kp * n_out + o];
+      a.x += u.x;
+      a.y += u.y;
+      a.z += u.z;
+      a.w += u.w;
+    }
+    const int g = o / d4n, c4 = (o % d4n) * 4;
+    const size_t row = ((size_t)b * H + hkv * G + g) * nc + ch;
+    *reinterpret_cast<float4*>(part_acc + row * D + c4) = a;
   }
 }
 
-// One warp per (b, query head): merge the splits in order and normalise.
-// A row with no keys has l == 0 in every split and writes zeros.
+// One warp per (b, query head): merge the live chunks in order and
+// normalise. A row of length 0 has none and writes zeros. Lane s holds the
+// (m, l) of chunk s of each group of 32 chunks; the sums run over the
+// chunks in order with their weights passed by shuffles. The first
+// group's states and partial outputs are loaded together, right after the
+// wait: one round trip where a row has at most 32 live chunks.
 __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    float* __restrict__ out, int D, int nsplit) {
-  const int bh = blockIdx.x, d4 = threadIdx.x * 4;
-  const size_t row0 = (size_t)bh * nsplit;
-  float mx = NEG_INF;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, part_ml[2 * (row0 + s)]);
+    const int* __restrict__ lengths, float* __restrict__ out, int H, int D, int T, int nc) {
+  const int bh = blockIdx.x, lane = threadIdx.x, d4 = lane * 4;
+  const int len = min(max(lengths[bh / H], 0), T);
+  const int n_live = (len + CT - 1) / CT;
+  const size_t row0 = (size_t)bh * nc;
+  float4 pa[32];
+  // group s0's (m, l) into this lane and its partial outputs into pa
+  auto load_group = [&](int s0, float& m, float& l) {
+    const int cnt = min(32, n_live - s0);
+    m = NEG_INF;
+    l = 0.f;
+    if (lane < cnt) {
+      m = part_ml[2 * (row0 + s0 + lane)];
+      l = part_ml[2 * (row0 + s0 + lane) + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (i < cnt && d4 < D)
+        pa[i] = *reinterpret_cast<const float4*>(part_acc + (row0 + s0 + i) * D + d4);
+  };
+  grid_dependency_wait();  // the chunk kernel's states are written
+  float m, l;
+  load_group(0, m, l);
+  float mx = m;
+  for (int s = lane + 32; s < n_live; s += 32) mx = fmaxf(mx, part_ml[2 * (row0 + s)]);
+  mx = warp_max(mx);
   float L = 0.f;
   float4 A = f4(0.f);
-  for (int s = 0; s < nsplit; ++s) {
-    const float f = expf(part_ml[2 * (row0 + s)] - mx);
-    L = fmaf(part_ml[2 * (row0 + s) + 1], f, L);
-    if (d4 < D) {
-      const float4 a = *reinterpret_cast<const float4*>(part_acc + (row0 + s) * D + d4);
-      A.x = fmaf(a.x, f, A.x);
-      A.y = fmaf(a.y, f, A.y);
-      A.z = fmaf(a.z, f, A.z);
-      A.w = fmaf(a.w, f, A.w);
+  for (int s0 = 0; s0 < n_live; s0 += 32) {
+    if (s0 > 0) load_group(s0, m, l);
+    const int cnt = min(32, n_live - s0);
+    const float f = lane < cnt ? expf(m - mx) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (i < cnt) {  // uniform over the warp
+        const float fi = __shfl_sync(0xffffffffu, f, i);
+        L = fmaf(__shfl_sync(0xffffffffu, l, i), fi, L);
+        if (d4 < D) fma4(A, fi, pa[i]);
+      }
     }
   }
   if (d4 < D) {
@@ -230,26 +285,33 @@ int launch(const float* q, const float* k_pages, const float* v_pages,
            const int* tables, const int* lengths, float* out, float* scratch,
            int B, int Hkv, int D, int page_size, int pages_per_seq,
            cudaStream_t stream) {
-  const Split sp = split_for(B, Hkv, pages_per_seq);
+  const int nc = chunks_for(page_size, pages_per_seq);
+  const int H = Hkv * G;
   float* part_acc = scratch;
-  float* part_ml = scratch + (size_t)B * Hkv * G * sp.n * D;
-  paged_attention_split_kernel<G><<<dim3(Hkv, B, sp.n), THREADS, 0, stream>>>(
-      q, k_pages, v_pages, tables, lengths, part_acc, part_ml, Hkv, D,
-      page_size, pages_per_seq, sp.pages);
-  const cudaError_t err = cudaGetLastError();
+  float* part_ml = scratch + (size_t)B * H * nc * D;
+  const size_t smem = smem_bytes(G, D);
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_chunk_kernel<G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_attention_merge_kernel<<<B * Hkv * G, 32, 0, stream>>>(
-      part_acc, part_ml, out, D, sp.n);
+  paged_attention_chunk_kernel<G><<<dim3(Hkv * B, nc), THREADS, smem, stream>>>(
+      q, k_pages, v_pages, tables, lengths, part_acc, part_ml, Hkv, D, page_size,
+      pages_per_seq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = launch_dependent(paged_attention_merge_kernel, dim3(B * H), dim3(32), 0, stream,
+                         (const float*)part_acc, (const float*)part_ml, lengths, out, H, D,
+                         pages_per_seq * page_size, nc);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of scratch a launch needs: the splits' partial states.
+// Floats of scratch a launch needs: every chunk's partial state.
 extern "C" int paged_attention_scratch_floats(int B, int H, int Hkv, int D,
-                                              int pages_per_seq) {
-  if (B <= 0 || Hkv <= 0 || pages_per_seq <= 0) return 0;
-  return B * H * split_for(B, Hkv, pages_per_seq).n * (D + 2);
+                                              int page_size, int pages_per_seq) {
+  if (B <= 0 || Hkv <= 0 || page_size <= 0 || pages_per_seq <= 0) return 0;
+  return B * H * chunks_for(page_size, pages_per_seq) * (D + 2);
 }
 
 extern "C" int paged_attention_launch(const float* q, const float* k_pages,
@@ -258,8 +320,8 @@ extern "C" int paged_attention_launch(const float* q, const float* k_pages,
                                       float* scratch, int B, int H, int Hkv,
                                       int D, int page_size, int pages_per_seq,
                                       void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D % 4 != 0 || D > MAX_D ||
-      page_size <= 0 || page_size % KC != 0 || pages_per_seq <= 0)
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 4 != 0 ||
+      D > MAX_D || page_size <= 0 || page_size % PAGE_MULTIPLE != 0 || pages_per_seq <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (H / Hkv) {

@@ -1,6 +1,6 @@
 // Helpers shared by the CUDA sources of this directory: cp.async copies
-// into shared memory, and f32-accurate products on the tensor cores as
-// three TF32 products (3xTF32).
+// into shared memory, f32-accurate products on the tensor cores as three
+// TF32 products (3xTF32), and programmatic dependent launch.
 //
 // 3xTF32: an f32 operand a splits into hi = tf32(a) and lo = tf32(a − hi),
 // both rounded to nearest, so a = hi + lo + e with |e| <= 2^-22·|a|. The
@@ -107,6 +107,37 @@ __device__ __forceinline__ void mma_k8_3xtf32(float (&acc)[MT][NT][4], const flo
       mma_tf32(acc[mt][nt], ahi[mt], bhi);
     }
   }
+}
+
+// Programmatic dependent launch (sm_90). A kernel launched with
+// launch_dependent() may be scheduled while the kernel before it on the
+// stream drains; it calls grid_dependency_wait() before it reads anything
+// that kernel wrote (the wait returns once that grid has finished and its
+// writes are visible). The kernel before it calls grid_dependents_launch()
+// where its blocks are done, so the dependent's launch overlaps its tail.
+// Both stay legal under CUDA graph capture.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // The SM count of the first device that asks, read once: the port runs on

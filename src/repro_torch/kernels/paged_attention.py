@@ -19,12 +19,22 @@ _SIGNATURES = {
     # q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
     # page, pages, stream
     "paged_attention_launch": "pppppppiiiiiip",
-    # (B, H, Hkv, D, pages_per_seq) -> floats of scratch a launch needs (the
-    # page splits' partial softmax states)
-    "paged_attention_scratch_floats": "iiiii",
+    # (B, H, Hkv, D, page, pages_per_seq) -> floats of scratch a launch
+    # needs (every chunk's partial softmax state)
+    "paged_attention_scratch_floats": "iiiiii",
 }
 GROUP_SIZES = (1, 2, 4, 8)
 MAX_HEAD_DIM = 128
+# tokens of the table one block of the kernel takes (csrc: CT)
+CHUNK_TOKENS = 64
+
+
+def chunk_plan(page_size: int, pages_per_seq: int) -> int:
+    """Chunks of ``CHUNK_TOKENS`` that cover a row's table, as the kernel's
+    grid does: one block each per (chunk, kv head, row); a block whose
+    chunk starts at or past the row's clamped length returns at once, and
+    the merge reads the first ``ceil(len / CHUNK_TOKENS)`` chunks."""
+    return -(-pages_per_seq * page_size // CHUNK_TOKENS)
 
 
 def paged_attention(
@@ -65,7 +75,7 @@ def paged_attention(
     lib = build.load(name, _SIGNATURES)
     pages = tables.shape[1]
     scratch = torch.empty(
-        (lib.paged_attention_scratch_floats(B, H, Hkv, D, pages),),
+        (lib.paged_attention_scratch_floats(B, H, Hkv, D, page, pages),),
         device=dev, dtype=torch.float32)
     code = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),

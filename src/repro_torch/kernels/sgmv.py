@@ -29,6 +29,29 @@ _SIGNATURES = {
 }
 
 
+# the skinny path's launch plan (csrc/fused_sgmv.cu: use_skinny, skinny_plan)
+SKINNY_MAX_M = 16
+SKINNY_COLS = 64  # output columns of a W block
+SKINNY_KS = 32  # k rows of a ring stage
+SKINNY_MAX_SPLITS = 16
+
+
+def skinny_plan(M: int, d_in: int, d_out: int, has_base: bool, sms: int):
+    """(cols, splits, kper) of the skinny path on a card of ``sms`` SMs:
+    ``cols`` W blocks of 64 columns (none without the base term) and one
+    shrink block per batch row in each of ``splits`` k splits (about two W
+    blocks an SM, or shrink blocks without the base term; at most 16).
+    Split z takes ring stages [z·kper, (z + 1)·kper) of 32 k rows, the last
+    one cut at d_in. The kernel writes ``splits·M·(r + d_out)`` floats of partials
+    (``splits·M·r`` without the base term)."""
+    KT = -(-d_in // SKINNY_KS)
+    cols = -(-d_out // SKINNY_COLS) if has_base else 0
+    splits = min(max(-(-2 * sms // (cols if has_base else M)), 1), KT,
+                 SKINNY_MAX_SPLITS)
+    kper = -(-KT // splits)
+    return cols, -(-KT // kper), kper
+
+
 def _check(name, x, w, lora_a, lora_b, adapter_ids):
     """Shapes (B, S, d_in, d_out, r) of a launch, after the wrapper checks."""
     if not (x.dim() == 3 and lora_a.dim() == 3 and lora_b.dim() == 3

@@ -233,6 +233,134 @@ def test_paged_attention_cuda_matches_plain(cuda, B, T, H, Hkv, D, page):
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # length 0
 
 
+# The skinny path of fused_sgmv.cu (M <= 16): d_in split over blocks with
+# the shrink in the same grid, then a merge pass. d_in off the 32-row ring
+# stage (100, 2048 + 4), d_out that part-fills a 64-column slab, ranks 4
+# and 64, M = 1, 8, 16; ids as in _TILED, plus "one" (every row on one
+# adapter).
+_SKINNY = [
+    # B, S, d_in, d_out, r, N, ids, scale
+    (1, 1, 1024, 2048, 32, 4, "mixed", 1.0),    # M = 1
+    (8, 1, 1024, 2048, 32, 8, "mixed", 1.0),    # the decode projections
+    (8, 1, 1024, 1024, 32, 8, "repeat", 0.5),
+    (8, 1, 2048, 1024, 32, 8, "mixed", 2.0),
+    (8, 1, 100, 68, 4, 3, "mixed", 1.5),        # r = 4, d_in % 32 != 0
+    (8, 1, 2052, 132, 64, 3, "mixed", 0.5),     # r = 64, 2048 + 4 rows
+    (16, 1, 2052, 1028, 64, 5, "repeat", 1.0),  # M = 16
+    (16, 1, 100, 260, 4, 3, "none", 2.0),       # every id -1
+    (8, 1, 1024, 2048, 32, 8, "one", 1.0),      # every row on one adapter
+    (2, 8, 512, 196, 16, 2, "one", 1.0),        # S = 8, 16 rows
+    (4, 4, 256, 64, 8, 3, "mixed", 1.0),
+]
+
+
+def _skinny_ids(idv, ids, N):
+    if ids == "one":
+        idv[:] = N - 1
+    return idv
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _SKINNY)
+def test_fused_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sgmv import _SIGNATURES, skinny_plan
+
+    x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N,
+                                    "mixed" if ids == "one" else ids, cuda, seed=9)
+    idv = _skinny_ids(idv, ids, N)
+    for ww in (w, torch.zeros_like(w)):
+        before = ops.launch_counts()["fused_sgmv"]
+        got = fused_sgmv(x, ww, a, b, idv, scale=scale)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fused_sgmv"] == before + 1
+        want = ref.fused_sgmv_ref(x, ww, a, b, idv, scale)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        # one writer per partial, sums in a fixed order
+        assert torch.equal(fused_sgmv(x, ww, a, b, idv, scale=scale), got)
+    dead = idv < 0  # with W zeroed, a row of id -1 is exactly 0
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    # the Python mirror of the launch plan sizes the scratch as the source does
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, _ = skinny_plan(B * S, d_in, d_out, True, sms)
+    lib = build.load("fused_sgmv", _SIGNATURES)
+    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 1) == splits * B * S * (r + d_out)
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _SKINNY)
+def test_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sgmv import _SIGNATURES, skinny_plan
+
+    x, _, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N,
+                                    "mixed" if ids == "one" else ids, cuda, seed=10)
+    idv = _skinny_ids(idv, ids, N)
+    before = ops.launch_counts()["sgmv"]
+    got = sgmv(x, a, b, idv, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["sgmv"] == before + 1
+    want = ref.sgmv_ref(x, a, b, idv, scale)
+    assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+    dead = idv < 0
+    assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+    assert torch.equal(sgmv(x, a, b, idv, scale=scale), got)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, _ = skinny_plan(B * S, d_in, d_out, False, sms)
+    lib = build.load("fused_sgmv", _SIGNATURES)
+    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 0) == splits * B * S * r
+
+
+# paged_attention.cu's chunks of 64 tokens: group sizes 1..8, D 64 and 128,
+# pages of 8, 16 and 128 tokens, lengths 0, 1, a page boundary ± 1, T and
+# T + 1 (past the table: clamped), permuted tables, and one row of 64 pages
+# of 128 (T = 8192).
+_PAGED = [
+    # B, T, H, Hkv, D, page
+    (8, 2048, 16, 8, 128, 128),  # the main path's shape, G = 2
+    (6, 1024, 8, 8, 128, 16),    # G = 1
+    (6, 512, 16, 4, 64, 8),      # G = 4, D = 64, 8-token pages
+    (6, 768, 16, 2, 128, 128),   # G = 8
+    (6, 256, 8, 1, 64, 16),      # G = 8, D = 64
+    (3, 8192, 16, 8, 128, 128),  # 64 pages a row
+]
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,D,page", _PAGED)
+def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import (
+        _SIGNATURES,
+        CHUNK_TOKENS,
+        chunk_plan,
+    )
+
+    rng = np.random.default_rng(11)
+    pages = T // page
+    P = B * pages + 5
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    tables = rng.permutation(P)[: B * pages].reshape(B, pages).astype(np.int32)
+    lens = [0, 1, page - 1, page + 1, T, T + 1][:B]
+    lens += [T] * (B - len(lens))
+    if B == 3:
+        lens = [T, 2 * page, T + 1]
+    args = [_t(v, cuda) for v in (q, kp, vp, tables, np.asarray(lens, np.int32))]
+    before = ops.launch_counts()["paged_attention"]
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_attention"] == before + 1
+    want = ref.paged_attention_ref(*args)
+    assert float((got - want).abs().max()) <= 1e-5
+    for bb, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[bb], torch.zeros_like(got[bb]))
+    assert torch.equal(paged_attention(*args), got)  # a fixed merge order
+    lib = build.load("paged_attention", _SIGNATURES)
+    nc = chunk_plan(page, pages)
+    assert nc == -(-T // CHUNK_TOKENS)
+    assert lib.paged_attention_scratch_floats(B, H, Hkv, D, page, pages) == B * H * nc * (D + 2)
+
+
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N", [
     (8, 1, 1024, 2048, 32, 8),   # decode rows: the skinny path
     (8, 1, 2048, 1024, 32, 8),
