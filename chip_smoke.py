@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's two paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -21,8 +21,15 @@ exits non-zero:
               or f32 flops / 165 TFLOP/s, the larger). The decode kernels
               (fused_sgmv and sgmv at S=1, paged_attention) are timed warm
               and with a cold L2, their inputs rotated over copies that
-              exceed twice the 50 MB L2. Then a check that every wrapper
-              refuses autograd on the card.
+              exceed twice the 50 MB L2. Then every kernel at the other
+              dense configs' shapes (``arch_cases``): ragged_extend at the
+              256-token bucket and paged_attention at the engine's decode
+              lengths for llama-7b (G = 1), qwen2-vl-7b (G = 7),
+              stablelm-12b (D = 160) and gemma-2b (D = 256, MQA),
+              flash_prefill and flash_prefill_ragged at B = 2, S = 2048 for
+              the last two, fused_sgmv on llama-7b's q projection, and
+              fused_sgmv and sgmv at ranks 1, 12 and 128. Then a check that
+              every wrapper refuses autograd on the card.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -39,6 +46,18 @@ exits non-zero:
               one more prefill and 8 decode steps under ``torch.profiler``;
               forward / prefill / decode held against each other at B=2,
               S=256; the first 8 tokens of two rows against a CPU run.
+7. archs    — the host's MemTotal, then one line per dense config at full
+              width in f32 (``ARCHS``: llama-7b, qwen2-vl-7b, qwen3-4b and
+              gemma-2b at full depth; stablelm-12b, llama-13b and llama-34b
+              at 8 layers), weights drawn on the card from a seeded
+              generator and handed to ``ServingEngine(params=...)``: 12
+              requests on 4 adapters (64-512-token prompts, half behind one
+              128-token shared prompt, 16 new tokens), exact launch counts,
+              TTFT, TPOT and tokens/s, peak device memory; llama-7b's steps
+              under ``torch.profiler``; for stablelm-12b and gemma-2b the
+              static path (prefill of 2 x 512 tokens, 8 greedy steps, the
+              forward / prefill / decode identities); two clean requests
+              teacher-forced on the CPU with the engine's weights.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +65,7 @@ The line before the last is the ``kernels`` JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -360,6 +380,7 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
     for b, n in enumerate(live):
         require(bool((got[b, :, n:] == 0).all()),
                 f"{name}: row {b} is not 0 past its {n} tokens")
+    require(torch.equal(kernel(), got), f"{name}: a repeat launch differs")
     del got, want
     nbytes = 4 * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
     nbytes += 4 * B if lens is not None else 0
@@ -481,10 +502,9 @@ def profiled(fn):
     }
 
 
-def profile_steps(engine, Request, vocab: int, steps: int = 40):
-    """Serve a fresh wave of 12 requests (another seed) and trace the first
-    ``steps`` engine steps (see :func:`profiled`)."""
-    wave = make_trace(Request, vocab, seed=1, N1=12, tag="prof")[0]
+def profile_steps(engine, wave, steps: int = 40):
+    """Serve a fresh ``wave`` of requests and trace the first ``steps``
+    engine steps (see :func:`profiled`)."""
     for r in wave:
         engine.submit(r)
 
@@ -513,30 +533,31 @@ def pick_requests(finished):
     return picked
 
 
-def check_against_cpu(cfg, ecfg, adapters, picked, seed: int = 0):
-    """Rebuild the weights on the CPU (same seed, CPU generators) and run one
+def check_against_cpu(cfg, max_seq_len, picked, adapter_weights, params=None,
+                      seed: int = 0):
+    """On the CPU, with the engine's adapters (``adapter_weights``: {id:
+    host weights}) and ``params`` (CPU tensors; default: the weights of
+    ``seed``, drawn from CPU generators as the engine drew them), run one
     teacher-forced ``extend`` over each request's prompt and generated
     tokens, with its shared span at adapter id -1 as the engine ran it.
     Each card token must be the CPU argmax or trail the CPU's best logit by
     at most ``ARGMAX_TOL``. Returns (tokens, argmax-equal, largest deficit,
     smallest top-2 gap)."""
-    import zlib
-
     from repro_torch.lora import AdapterStore
     from repro_torch.models import build_model
 
     model = build_model(cfg, device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(seed))
+    if params is None:
+        params = model.init_params(torch.Generator().manual_seed(seed))
     store = AdapterStore(model, cfg.lora.max_adapters)
-    for aid in adapters:
-        store.register(aid, generator=torch.Generator().manual_seed(
-            zlib.crc32(aid.encode())))
+    for aid, weights in adapter_weights.items():
+        store.register(aid, weights=weights)
     worst, min_gap, exact, total = 0.0, math.inf, 0, 0
     for r in picked:
         slot = store.load(r.adapter_id)
         full = list(r.prompt) + list(r.generated)
         P, G = len(r.prompt), len(r.generated)
-        cache = model.init_cache(1, ecfg.max_seq_len)
+        cache = model.init_cache(1, max_seq_len)
         sb = min(max(r.shared_prefix_len, 0), P)
         spans = [(0, sb, -1), (sb, P + G - 1, slot)] if sb else [(0, P + G - 1, slot)]
         logits = []
@@ -710,6 +731,243 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
     return line, launches
 
 
+# ------------------------------------------------------------------- archs
+# The dense configs at full width: (name, layers run; None: all of them).
+# stablelm-12b (~48 GB of f32 weights at full depth), llama-13b (~52 GB,
+# and 1.6 MB of f32 KV a token) and llama-34b (~135 GB: no 80 GB card holds
+# it in f32) run 8 of their layers; every kernel sees the same shapes at
+# every depth.
+ARCHS = (("llama-7b", None), ("qwen2-vl-7b", None), ("qwen3-4b", None),
+         ("gemma-2b", None), ("stablelm-12b", 8), ("llama-13b", 8),
+         ("llama-34b", 8))
+STATIC_ARCHS = ("stablelm-12b", "gemma-2b")  # the static path at D = 160, 256
+PROFILE_ARCHS = ("llama-7b",)  # where the time goes, under torch.profiler
+ARCH_POOL_TOKENS = 4096  # device KV pool: the trace's working set, ~3.4k tokens
+ARCH_MAX_SEQ = 640  # 512-token prompts and 16 new tokens; 5 pages of 128
+# phase 3 at the archs' shapes: (config, query heads, kv heads, head dim)
+ARCH_HEADS = (("llama-7b", 32, 32, 128), ("qwen2-vl-7b", 28, 4, 128),
+              ("stablelm-12b", 32, 8, 160), ("gemma-2b", 8, 1, 256))
+
+
+def arch_kernel_cases(ops, ref, gen, dev):
+    """Phase 3 at the shapes of the other dense configs: ragged_extend at
+    the 256-token bucket and paged_attention at the engine's decode lengths
+    for llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160) and
+    gemma-2b (D = 256, MQA); flash_prefill and flash_prefill_ragged at
+    B = 2, S = 2048 for the two wide heads; fused_sgmv on llama-7b's q
+    projection at S = 256 and 1; fused_sgmv and sgmv at ranks 1, 12 and 128
+    on qwen3-0.6b's q projection. Returns {kernel: [case, ...]}."""
+    out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
+                           "flash_prefill", "flash_prefill_ragged")}
+    for arch, H, Hkv, D in ARCH_HEADS:
+        m = ragged_case(ops, ref, gen, dev, 256, *RAGGED_BUCKETS[256], H=H, Hkv=Hkv, D=D)
+        out["ragged_extend"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+        m = paged_case(ops, ref, gen, dev, PAGED_LENGTHS["engine"], H=H, Hkv=Hkv, D=D)
+        out["paged_attention"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+    for arch, H, Hkv, D in ARCH_HEADS[2:]:
+        m = flash_case(ops, ref, gen, dev, B=2, S=2048, H=H, Hkv=Hkv, D=D)
+        out["flash_prefill"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+        m = flash_case(ops, ref, gen, dev, lens=[2048, 1000], B=2, S=2048, H=H,
+                       Hkv=Hkv, D=D)
+        out["flash_prefill_ragged"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+    for S in (256, 1):
+        m = sgmv_case(ops, ref, "q", 4096, 4096, S, gen, dev)
+        out["fused_sgmv"].append({"arch": "llama-7b", **m})
+    for r in (1, 12, 128):
+        for S in (256, 1):
+            m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r)
+            out["fused_sgmv"].append({"arch": "qwen3-0.6b", **m})
+            m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r, base=False)
+            out["sgmv"].append({"arch": "qwen3-0.6b", **m})
+    torch.cuda.empty_cache()
+    return out
+
+
+def arch_trace(Request, vocab: int, seed: int = 0):
+    """Two waves of 6 requests on 4 adapters: prompts of 64-512 tokens, the
+    even ones behind one 128-token shared prompt (declared as
+    ``shared_prefix_len``), 16 new tokens each. The second wave's shared
+    prompts find the first wave's on the trunk."""
+    rng = random.Random(seed)
+    system = tuple(rng.randrange(vocab) for _ in range(128))
+    waves = ([], [])
+    for i in range(12):
+        n = rng.randint(64, 512)
+        if i % 2 == 0:
+            n = max(n, 192)
+            prompt = system + tuple(rng.randrange(vocab) for _ in range(n - 128))
+        else:
+            prompt = tuple(rng.randrange(vocab) for _ in range(n))
+        waves[i // 6].append(Request(f"a{seed}-{i}", f"lora-{i % 4}", prompt,
+                                     max_new_tokens=16,
+                                     shared_prefix_len=128 if i % 2 == 0 else 0))
+    return waves
+
+
+def host_mem_total() -> int:
+    """The host's MemTotal in bytes (/proc/meminfo)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemTotal:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: tree_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def static_path(ops, model, params, seed: int = 0, B: int = 2, S: int = 512,
+                steps: int = 8):
+    """``LM.prefill`` of B prompts of S tokens and ``steps`` greedy decode
+    steps (exact launch counts), then forward / prefill / decode against
+    each other at B = 2, S = 256, on the engine's weights."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    lora = random_lora(model, 8, seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed + 2))
+    ids = torch.tensor([0, -1][:B], dtype=torch.int32)
+    ops.reset_launch_counts()
+    _, prefill_s, decode_s, cache = greedy(model, params, lora, tokens, ids,
+                                           ARCH_MAX_SEQ, steps)
+    launches = ops.launch_counts()
+    del cache
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_prefill=L, fused_sgmv=4 * L * (1 + steps),
+                paged_attention=L * steps)
+    require(launches == want, f"{cfg.name} static launches {launches}, expected {want}")
+    excess, errs = arch_identities(model, params, lora, tokens[:, :256], ids)
+    require(excess <= 0, f"{cfg.name}: forward / prefill / decode disagree on the card: "
+                         f"max errors {errs} over {ARCH_TOL}·(1 + |logit|)")
+    return {"batch": B, "prompt_tokens": S, "decode_steps": steps,
+            "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+            "decode_ms_per_step": decode_s / steps * 1e3, "launches": launches,
+            "arch_identities_max_abs_err": errs}
+
+
+def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
+               layers, seed: int = 0):
+    """One dense config at full width (``layers`` of them, or all): weights
+    drawn on the card from a seeded generator and handed to the engine,
+    which serves :func:`arch_trace`; exact launch counts; the static path
+    for ``STATIC_ARCHS``; two clean requests teacher-forced on the CPU with
+    the engine's weights. Returns (its JSON line, its launch counts)."""
+    from repro_torch.kvcache import KVPoolSpec
+    from repro_torch.models import build_model
+
+    t_start = time.perf_counter()
+    full = configs.get(name)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    kv_token = KVPoolSpec(num_layers=L, block_size=16, kv_heads=cfg.num_kv_heads,
+                          head_dim=cfg.resolved_head_dim,
+                          dtype=torch.float32).bytes_per_token
+    adapters = [f"lora-{i}" for i in range(4)]
+    # the manager's pools hold the adapters beside the KV: 4 adapters of
+    # L·r·Σ(d_in + d_out) floats (81 MB each for qwen2-vl-7b)
+    lora_bytes = len(adapters) * 4 * L * cfg.lora.rank * sum(
+        din + dout for din, dout in model.lora_dims().values())
+    pool = ARCH_POOL_TOKENS * kv_token + lora_bytes
+    ecfg = EngineConfig(hbm_bytes=pool, host_bytes=pool, block_size=16,
+                        max_batch_slots=8, max_seq_len=ARCH_MAX_SEQ, prefill_chunk=256,
+                        step_token_budget=512)
+    engine = ServingEngine(cfg, ecfg, params=params, device=dev)
+    require(engine.params["embed"].data_ptr() == params["embed"].data_ptr(),
+            f"{name}: the engine copied weights drawn on the card")
+    for aid in adapters:
+        engine.register_adapter(aid)
+    wave1, wave2 = arch_trace(Request, cfg.vocab_size, seed)
+    reqs = wave1 + wave2
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in wave1:
+        engine.submit(r)
+    engine.run()
+    for r in wave2:
+        engine.submit(r)
+    report = engine.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    row = report.row()
+    decode_calls, prefill_calls = engine._decode_calls, engine.prefill.stats.calls
+    require(row["n_finished"] == len(reqs) and row["n_unfinished"] == 0,
+            f"{name}: finished {row['n_finished']} of {len(reqs)}")
+    require(row["kv_hit_rate"] > 0, f"{name}: kv_hit_rate is 0")
+    want = dict.fromkeys(launches, 0)
+    want.update(paged_attention=L * decode_calls, ragged_extend=L * prefill_calls,
+                fused_sgmv=4 * L * (decode_calls + prefill_calls))
+    require(launches == want, f"{name}: launches {launches} do not match {decode_calls} "
+                              f"decode and {prefill_calls} prefill calls of {L} layers")
+    generated = sum(len(r.generated) for r in reqs)
+    line = {
+        "phase": "archs", "arch": name, "layers": L, "of_layers": full.num_layers,
+        "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+        "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+        "weights_bytes": weights_bytes, "kv_bytes_per_token": kv_token,
+        "pool_bytes": pool, "setup_s": setup_s, "run_s": run_s,
+        "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "generated_tokens": generated, "generated_tokens_per_s": generated / run_s,
+        "avg_ttft": row["avg_ttft"], "p99_ttft": row["p99_ttft"],
+        "avg_tpot": row["avg_tpot"], "p99_tpot": row["p99_tpot"],
+        "kv_hit_rate": row["kv_hit_rate"], "steps": engine._step_count,
+        "decode_calls": decode_calls, "prefill_calls": prefill_calls,
+        "launches": launches,
+    }
+    picked = pick_two(engine.finished)
+    if name in PROFILE_ARCHS:
+        line["profile"] = profile_steps(engine, arch_trace(Request, cfg.vocab_size,
+                                                           seed + 1)[0], steps=20)
+    if name in STATIC_ARCHS:
+        line["static"] = static_path(ops, engine.model, engine.params, seed)
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # the CPU run of the engine's own weights and adapters
+    t0 = time.perf_counter()
+    cpu_params = tree_cpu(engine.params)
+    adapter_weights = {aid: engine.adapters._host[aid].weights for aid in adapters}
+    del engine, model, params
+    torch.cuda.empty_cache()
+    total, exact, worst, min_gap = check_against_cpu(cfg, ARCH_MAX_SEQ, picked,
+                                                     adapter_weights, cpu_params)
+    del cpu_params
+    line["cpu"] = {"requests": [r.request_id for r in picked],
+                   "shared_prefix": [r.shared_prefix_len for r in picked],
+                   "tokens": total, "argmax_equal": exact, "largest_deficit": worst,
+                   "smallest_top2_gap": min_gap, "seconds": time.perf_counter() - t0}
+    line["seconds"] = time.perf_counter() - t_start
+    return line, launches
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def pick_two(finished):
+    """The shortest finished, never-preempted request with a shared prefix
+    and the shortest without one."""
+    clean = sorted((r for r in finished if r.preempt_count == 0),
+                   key=lambda r: len(r.prompt) + len(r.generated))
+    picked = ([r for r in clean if r.shared_prefix_len > 0][:1]
+              + [r for r in clean if r.shared_prefix_len == 0][:1])
+    require(len(picked) == 2, f"need 2 clean requests, got {len(picked)}")
+    return picked
+
+
 def main() -> None:
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
@@ -765,9 +1023,10 @@ def main() -> None:
     flr = flash_case(ops, ref, gen, dev,
                      lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016])
     torch.cuda.empty_cache()
+    arch_cases = arch_kernel_cases(ops, ref, gen, dev)
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
           "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
-          "flash_prefill": fla, "flash_prefill_ragged": flr,
+          "flash_prefill": fla, "flash_prefill_ragged": flr, "arch_cases": arch_cases,
           "refuse_autograd": grad_guard(ops, dev)})
 
     # ----------------------------------------------------------- 4. engine
@@ -821,13 +1080,16 @@ def main() -> None:
             f"{prefill_calls} prefill calls of {L} layers")
 
     picked = pick_requests(engine.finished)
-    emit({"phase": "profile", **profile_steps(engine, Request, cfg.vocab_size)})
+    wave = make_trace(Request, cfg.vocab_size, seed=1, N1=12, tag="prof")[0]
+    emit({"phase": "profile", **profile_steps(engine, wave)})
 
     # -------------------------------------------------------------- 5. cpu
+    adapter_weights = {aid: engine.adapters._host[aid].weights for aid in adapters}
     del engine
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    total, exact, worst, min_gap = check_against_cpu(cfg, ecfg, adapters, picked)
+    total, exact, worst, min_gap = check_against_cpu(cfg, ecfg.max_seq_len, picked,
+                                                     adapter_weights)
     emit({"phase": "cpu", "requests": [r.request_id for r in picked],
           "shared_prefix": [r.shared_prefix_len for r in picked],
           "matched_tokens": [r.matched_tokens for r in picked],
@@ -841,7 +1103,17 @@ def main() -> None:
     line, gen_launches = generate_phase(ops, cfg, dev)
     emit(line)
 
-    # ----------------------------------------------------------- 7. summary
+    # ------------------------------------------------------------- 7. archs
+    emit({"phase": "archs_host", "mem_total": host_mem_total()})
+    arch_launches = dict.fromkeys(gen_launches, 0)
+    for name, layers in ARCHS:
+        line, counts = arch_phase(ops, configs, EngineConfig, ServingEngine, Request,
+                                  dev, name, layers)
+        emit(line)
+        for k, n in counts.items():
+            arch_launches[k] += n + line.get("static", {}).get("launches", {}).get(k, 0)
+
+    # ----------------------------------------------------------- 8. summary
     kernels = []
     for name, src, tpu, m in (
             # the q projection in a 256-token bucket
@@ -861,9 +1133,10 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
-            "launches": launches[name] + gen_launches[name],
+            "launches": launches[name] + gen_launches[name] + arch_launches[name],
             "launches_by_path": {"engine": launches[name],
-                                 "generate": gen_launches[name]},
+                                 "generate": gen_launches[name],
+                                 "archs": arch_launches[name]},
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -886,6 +1159,10 @@ def main() -> None:
     kernels[1]["decode_cases"] = [{k: m[k] for k in keys} for m in delta_cases[2:]]
     kernels[3]["cold"] = pag["cold"]
     kernels[3]["engine_case"] = {k: pag_cases[1][k] for k in keys}
+    # every kernel at the other dense configs' shapes and ranks (phase 3)
+    for k in kernels:
+        k["arch_cases"] = [{key: m[key] for key in ("arch",) + keys if key in m}
+                           for m in arch_cases[k["name"]]]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

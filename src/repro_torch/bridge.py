@@ -7,7 +7,9 @@ on a leading axis) and its ``AdapterWeights.weights`` ({target: (A, B)},
 already numpy) map leaf by leaf onto the port's identical layout, which
 ``ServingEngine(params=...)``, ``LM.extend`` and
 ``AdapterStore.register(weights=...)`` take. Anything ``numpy.asarray``
-accepts is a leaf; this module imports no JAX.
+accepts is a leaf, and so is a ``torch.Tensor`` (weights drawn on the card
+move to the device and dtype asked for, with no copy through numpy); this
+module imports no JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ def tensor_tree(tree, device=None, dtype=torch.float32):
         return {k: tensor_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tensor_tree(v, device, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor):  # as it is: no copy where it already fits
+        return tree.to(device=device, dtype=dtype)
     arr = np.ascontiguousarray(np.asarray(tree))
     return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
 

@@ -1,7 +1,7 @@
 """Serving-side fault tolerance: :class:`RequestJournal` persists in-flight
 request metadata so a restarted engine can re-enqueue them (a copy of the
 reference's ``repro.distributed.checkpoint.RequestJournal``; the training
-checkpoint manager is ROADMAP Queue 1 item 10)."""
+checkpoint manager is ROADMAP Queue 1 item 7)."""
 
 from __future__ import annotations
 

@@ -141,7 +141,7 @@ def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
         raise NotImplementedError(
             f"{name}: the CUDA kernels have no backward pass yet (training is "
-            "ROADMAP Queue 1 item 9); call under torch.no_grad() or on CPU tensors")
+            "ROADMAP Queue 1 item 5); call under torch.no_grad() or on CPU tensors")
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
@@ -155,6 +155,17 @@ def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+# head dims the attention kernels take: 16-byte rows (a multiple of 4
+# floats) up to 256 (csrc/attention_tc.cuh, csrc/paged_attention.cu)
+MAX_HEAD_DIM = 256
+
+
+def check_head_dim(name: str, D: int) -> None:
+    if D % 4 or not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: head dim {D} must be a multiple of 4 up to {MAX_HEAD_DIM}")
 
 
 def as_int32(t, device):

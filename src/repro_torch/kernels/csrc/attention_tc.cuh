@@ -14,22 +14,29 @@
 // the CUDA cores.
 //
 // The design:
-// - A block is 8 warps. Its q tile holds ROWS = 16·WR query vectors: the G
-//   heads of one KV group times ROWS/G tokens, packed into the rows of the
-//   mma tile, so the G heads share every staged K/V tile. The warps form a
-//   WR x WK grid (WR·WK = 8): warp (wr, wk) owns rows 16·wr .. 16·wr + 15
-//   and keys 8·WR·wk .. 8·WR·(wk + 1) − 1 of every 64-key K/V tile. A large
-//   tile (ROWS = 128, WK = 1) gives each warp all 64 keys; the engine's
-//   small buckets (S·G down to 16 vectors) give the idle row slots' warps a
-//   share of the keys instead, so no 128-row tile runs mostly empty. The
-//   WK partial results of a row meet once, at the end, in shared memory.
-// - Q is staged once in shared memory. K and V tiles of 64 keys move
-//   through a 2-stage cp.async ring (commit_group / wait_group): tile j + 1
-//   loads while tile j computes. Copies past the keys the tile may see are
-//   zero-filled, so no stale or out-of-bounds value (NaN) reaches P·V: the
-//   NaN guard of the TPU kernels. A head dim that is no multiple of 8 is
-//   zero-padded in shared memory to the k8 step. At D = 128 a 128-row block
-//   takes 198 KiB of shared memory, one block per SM.
+// - A block is 8 warps. Its q tile holds ROWS = 16·WR query vectors of one
+//   KV group, packed into the rows of the mma tile so the G heads of the
+//   group share every staged K/V tile. The vectors of a (row, kv head) are
+//   numbered v = s·G + h (token s, head h of the group) and tile i takes
+//   vectors i·ROWS .. i·ROWS + ROWS − 1, so any G fits: where G does not
+//   divide ROWS a token's heads straddle two tiles (G = 7 at 16 rows: 2
+//   tokens and 2 heads of a third), and rows past the S·G vectors are
+//   dead (never live, never written). The warps form a WR x WK grid
+//   (WR·WK = 8) and warp (wr, wk) owns rows 16·wr .. 16·wr + 15.
+// - Narrow heads (D <= 128): warp (wr, wk) takes keys 8·WR·wk ..
+//   8·WR·(wk + 1) − 1 of every 64-key K/V tile. A large tile (ROWS = 128,
+//   WK = 1) gives each warp all 64 keys; the engine's small buckets (S·G
+//   down to 16 vectors) give the idle row slots' warps a share of the keys
+//   instead, so no 128-row tile runs mostly empty. The WK partial results
+//   of a row meet once, at the end, in shared memory.
+// - Wide heads (D = 136 .. 256): a warp's 16 x D share of O and of a tile's
+//   fresh P·V sums would not fit its registers, and a 64-key K/V stage of
+//   D = 256 not the shared memory. So K and V are staged 32 keys at a time
+//   (two stages per 64-key tile of the caller's schedule), q tiles hold at
+//   most 64 rows (WK >= 2), and the WK warps of a row split D instead of
+//   the keys: each computes the row's scores for all 32 keys (the same
+//   bits in every warp of the row) and P·V for its own d-tiles. Q·Kᵀ is
+//   then done WK times over; speed at these widths is later work.
 // - S = Q·Kᵀ: mma.sync.m16n8k8 in 3xTF32 (tf32x3.cuh). K's [t][d] rows are
 //   the column-major B operand as they lie; row pitches of 8·DT + 4 floats
 //   put every fragment load of a warp on 32 banks. Each 32 of D sum in a
@@ -48,14 +55,14 @@
 //   free, so k = t reads key 2t and k = t + 4 key 2t + 1, and V's B
 //   fragment reads rows 2t and 2t + 1 to match. P (in [0, 1]) is split
 //   hi/lo like every operand: one TF32 product misses the 1e-5 tolerance.
-//   A KV tile's P·V sums in fresh accumulators, one per 8 columns (DT
-//   independent chains of mma), then O = α·O + that in f32: the flash
-//   recurrence, and the flush that keeps the tensor cores'
-//   round-toward-zero sums to one 64-key tile.
+//   A staged tile's P·V sums in fresh accumulators, one per 8 columns (DT
+//   independent chains of mma, DT/WK for a wide head), then O = α·O + that
+//   in f32: the flash recurrence, and the flush that keeps the tensor
+//   cores' round-toward-zero sums to one staged tile.
 // - The loop walks only the K/V tiles the caller gives it; callers stop it
-//   at min(row frontier, the q tile's causal diagonal). Rows past the live
-//   tokens come out as exact zeros. Sums run in a fixed order: repeat
-//   launches give the same bits.
+//   at min(row frontier, the q tile's causal diagonal). Rows of tokens past
+//   the live ones come out as exact zeros. Sums run in a fixed order:
+//   repeat launches give the same bits.
 // - Why mma.sync and not wgmma: TF32 wgmma reads B from shared memory
 //   K-major only. For S = Q·Kᵀ the B operand is Kᵀ, and K's [t][d] rows
 //   are K-major: that would fit. For P·V the B operand is V, [t][d] with
@@ -70,7 +77,8 @@
 // product, each issued by a warp, at a rate well below wgmma's, with 8
 // warps to hide their latency. Dropping two of the three products (which
 // breaks the tolerance) nearly halves the loop's time on the card
-// (scripts/attention_variants.py).
+// (scripts/attention_variants.py). A wide head at 64 rows and WK = 2 holds
+// 16 d-tiles of O and of the fresh sums a warp, as D = 128 does.
 
 #pragma once
 
@@ -81,25 +89,33 @@ namespace attn {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int BKV = 64;               // keys per K/V tile
-constexpr int STAGES = 2;             // K/V tiles in the cp.async ring
+constexpr int BKV = 64;               // keys per K/V tile of the callers' schedule
+constexpr int STAGES = 2;             // staged K/V tiles in the cp.async ring
 constexpr int MAX_ROWS = 16 * WARPS;  // query vectors per block, at most
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
+constexpr int NARROW_D = 128;         // wider heads take the wide tiles
 constexpr int QK_FLUSH = 4;           // k8 steps of Q·Kᵀ per tensor-core sum
 constexpr float NEG_INF = -1e30f;
 
-// The q tile's rows for ``vectors`` = S·G query vectors of a row and G heads
-// a group: the smallest of 16, 32, 64 and 128 that holds them (all of them,
-// up to 128), and no fewer than G.
-__host__ __device__ inline int tile_rows(int vectors, int G) {
-  const int want = vectors > G ? vectors : G;
-  int rows = 16;
-  while (rows < MAX_ROWS && rows < want) rows *= 2;
-  return rows;
+// d-tiles of 8 columns compiled for a head dim D (4 <= D <= 256, D % 4 == 0)
+__host__ __device__ inline int d_tiles(int D) {
+  return D <= 32 ? 4 : (D <= 64 ? 8 : (D <= 128 ? 16 : (D <= 160 ? 20 : 32)));
 }
 
-// d-tiles of 8 columns compiled for a head dim D (4 <= D <= 128, D % 4 == 0)
-__host__ __device__ inline int d_tiles(int D) { return D <= 32 ? 4 : (D <= 64 ? 8 : 16); }
+__host__ __device__ constexpr bool is_wide(int DT) { return DT > NARROW_D / 8; }
+
+// keys of a staged K/V tile: half a schedule tile for a wide head
+__host__ __device__ constexpr int stage_keys(int DT) { return is_wide(DT) ? BKV / 2 : BKV; }
+
+// The q tile's rows for ``vectors`` = S·G query vectors of a (row, kv
+// head): the smallest of 16, 32, 64 and 128 that holds them all, up to 128
+// (64 for a wide head).
+__host__ __device__ inline int tile_rows(int vectors, int D) {
+  const int most = D > NARROW_D ? MAX_ROWS / 2 : MAX_ROWS;
+  int rows = 16;
+  while (rows < most && rows < vectors) rows *= 2;
+  return rows;
+}
 
 __host__ __device__ constexpr int row_pitch(int DT) { return 8 * DT + 4; }
 
@@ -107,11 +123,8 @@ __host__ __device__ constexpr int row_pitch(int DT) { return 8 * DT + 4; }
 // epilogue reuses the ring
 template <int WR, int DT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(16 * WR + STAGES * 2 * BKV) * row_pitch(DT);
+  return sizeof(float) * (size_t)(16 * WR + STAGES * 2 * stage_keys(DT)) * row_pitch(DT);
 }
-
-static_assert(MAX_ROWS * row_pitch(4) + 4 * MAX_ROWS <= STAGES * 2 * BKV * row_pitch(4),
-              "the epilogue's partial rows fit in the ring it reuses");
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -135,63 +148,81 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ahi)[
 // the group, 0 .. G − 1):
 //   const float* q_at(int s, int h), k_at(int t), v_at(int t), any();
 //   float* o_at(int s, int h); size_t part_at(int s, int h).
-// Query tokens q_lo .. q_lo + ROWS/G − 1 form the tile; tokens below q_hi
-// are live, and token s sees keys t < kv_end with t <= pos0 + s. The loop
-// walks K/V tiles j0 .. j1 − 1 (keys 64·j0 .. 64·j1 − 1, j1 >= j0 + 1).
-// With part_o == nullptr it writes each live row's attention, and zeros for
-// the other tokens below S, through o_at. Otherwise it writes each live
-// row's unnormalised sum Σ p·v to part_o + part_at(s, h)·D and its max and
-// sum of p to part_ml + 2·part_at(s, h), for a combine pass.
+// Row r of the tile is query vector v_lo + r, token (v_lo + r) / G, head
+// (v_lo + r) % G; tokens below q_hi (<= S) are live, and token s sees keys
+// t < kv_end with t <= pos0 + s. The loop walks K/V tiles j0 .. j1 − 1 of
+// 64 keys (keys 64·j0 .. 64·j1 − 1, j1 >= j0 + 1). With part_o == nullptr
+// it writes each live row's attention, and zeros for the other rows of
+// tokens below S, through o_at. Otherwise it writes each live row's
+// unnormalised sum Σ p·v to part_o + part_at(s, h)·D and its max and sum
+// of p to part_ml + 2·part_at(s, h), for a combine pass.
 template <int WR, int DT, class Src>
 __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D, int S,
-                                       int q_lo, int q_hi, int pos0, int kv_end, int j0,
+                                       int v_lo, int q_hi, int pos0, int kv_end, int j0,
                                        int j1, float* part_o, float* part_ml) {
+  constexpr bool WIDE = is_wide(DT);
   constexpr int ROWS = 16 * WR;
-  constexpr int WK = WARPS / WR;  // warps that share a row, each a part of every tile
-  constexpr int NS = BKV / WK / 8;  // 8-key slices of a warp's part of a tile
+  constexpr int WK = WARPS / WR;  // warps that share a row
+  constexpr int BK = stage_keys(DT);  // keys of a staged K/V tile
+  constexpr int SUB = BKV / BK;       // staged tiles per schedule tile
+  // 8-key slices of a warp's part of a staged tile: a share of the keys
+  // (narrow), all of them (wide)
+  constexpr int NS = WIDE ? BK / 8 : BK / WK / 8;
+  constexpr int DW = WIDE ? (DT + WK - 1) / WK : DT;  // P·V d-tiles of a warp, at most
+  constexpr int WKE = WIDE ? 1 : WK;  // partial rows that meet in the epilogue
   constexpr int LD = row_pitch(DT);
   constexpr int C4 = 2 * DT;  // 16-byte chunks of a staged row
+  static_assert(!WIDE || WK >= 2, "a wide head splits D over the warps of a row");
+  static_assert(WKE * ROWS * LD + (3 * WKE + 1) * ROWS <= STAGES * 2 * BK * LD,
+                "the epilogue's partial rows fit in the ring it reuses");
   float* Qs = smem;                    // [ROWS][LD]
-  float* ring = smem + ROWS * LD;      // STAGES x (K [BKV][LD], V [BKV][LD])
+  float* ring = smem + ROWS * LD;      // STAGES x (K [BK][LD], V [BK][LD])
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int wr = warp / WK, wk = warp % WK;
   const int r0 = 16 * wr + g, r1 = r0 + 8;  // this thread's two rows
-  const int s0 = q_lo + r0 / G, s1 = q_lo + r1 / G;
+  const int s0 = (v_lo + r0) / G, s1 = (v_lo + r1) / G;
   const bool live0 = s0 < q_hi, live1 = s1 < q_hi;
   const int lim0 = min(pos0 + s0 + 1, kv_end), lim1 = min(pos0 + s1 + 1, kv_end);
   const float scale = 1.f / sqrtf((float)D);  // scores times 1/√D: a multiply
+  const int kw0 = WIDE ? 0 : wk * NS * 8;     // this warp's first key of a staged tile
+  // a wide head's d-tiles of this warp: dlo .. dlo + dn − 1
+  const int dlo = WIDE ? wk * DT / WK : 0;
+  const int dn = WIDE ? (wk + 1) * DT / WK - dlo : DT;
 
   for (int e = tid; e < ROWS * C4; e += THREADS) {
-    const int r = e / C4, c = (e % C4) * 4, s = q_lo + r / G;
+    const int r = e / C4, c = (e % C4) * 4, vec = v_lo + r, s = vec / G;
     const bool ok = s < q_hi && c < D;
-    cp_async16(Qs + r * LD + c, ok ? src.q_at(s, r % G) + c : src.any(), ok);
+    cp_async16(Qs + r * LD + c, ok ? src.q_at(s, vec % G) + c : src.any(), ok);
   }
-  auto load_kv = [&](int stage, int j) {
-    float* ks = ring + stage * 2 * BKV * LD;
-    float* vs = ks + BKV * LD;
-    for (int e = tid; e < BKV * C4; e += THREADS) {
-      const int r = e / C4, c = (e % C4) * 4, t = j * BKV + r;
+  auto load_kv = [&](int stage, int u) {  // staged tile u: keys u·BK ..
+    float* ks = ring + stage * 2 * BK * LD;
+    float* vs = ks + BK * LD;
+    for (int e = tid; e < BK * C4; e += THREADS) {
+      const int r = e / C4, c = (e % C4) * 4, t = u * BK + r;
       const bool ok = t < kv_end && c < D;
       cp_async16(ks + r * LD + c, ok ? src.k_at(t) + c : src.any(), ok);
       cp_async16(vs + r * LD + c, ok ? src.v_at(t) + c : src.any(), ok);
     }
   };
-  load_kv(0, j0);
+  const int u0 = j0 * SUB;
+  int u1 = j1 * SUB;
+  if (WIDE) u1 = min(u1, (kv_end + BK - 1) / BK);  // a half tile past the keys: nothing
+  load_kv(0, u0);
   cp_async_commit();  // Q and the first K/V tile
 
-  float o[DT][4] = {};
+  float o[DW][4] = {};
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   const float* qa = Qs + r0 * LD + t4;
-  for (int j = j0; j < j1; ++j) {
-    if (j + 1 < j1) load_kv((j + 1 - j0) % STAGES, j + 1);
+  for (int u = u0; u < u1; ++u) {
+    if (u + 1 < u1) load_kv((u + 1 - u0) % STAGES, u + 1);
     cp_async_commit();  // an empty group at the end keeps the count uniform
-    cp_async_wait<1>();  // tile j (and Q) landed, for this thread's copies
+    cp_async_wait<1>();  // tile u (and Q) landed, for this thread's copies
     __syncthreads();
-    const float* ks = ring + ((j - j0) % STAGES) * 2 * BKV * LD;
-    const float* vs = ks + BKV * LD;
-    const int key0 = j * BKV + wk * NS * 8;  // this warp's first key
+    const float* ks = ring + ((u - u0) % STAGES) * 2 * BK * LD;
+    const float* vs = ks + BK * LD;
+    const int key0 = u * BK + kw0;  // this warp's first key
 
     // S = Q·Kᵀ for 16 rows x NS·8 keys, each QK_FLUSH k8 steps in a fresh
     // accumulator added to the scores in f32. The loop over the chunks
@@ -210,7 +241,7 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
         for (int i = 0; i < 4; ++i) split_tf32(a[i], ahi[i], alo[i]);
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float* kb = ks + ((wk * NS + n) * 8 + g) * LD + kk * 8 + t4;
+          const float* kb = ks + (kw0 + n * 8 + g) * LD + kk * 8 + t4;
           unsigned bhi[2], blo[2];
           split_tf32(kb[0], bhi[0], blo[0]);
           split_tf32(kb[4], bhi[1], blo[1]);
@@ -254,8 +285,8 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     l1 = l1 * al1 + quad_sum(ps1);
 
     // O = α·O + P·V, the tile's P·V in fresh accumulators (one per 8
-    // columns: DT independent chains of mma)
-    float f[DT][4] = {};
+    // columns: independent chains of mma)
+    float f[DW][4] = {};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       // A operand: k = t4 is key 2t4, k = t4 + 4 is key 2t4 + 1
@@ -263,9 +294,10 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
       unsigned phi[4], plo[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) split_tf32(a[i], phi[i], plo[i]);
-      const float* vb = vs + ((wk * NS + n) * 8 + 2 * t4) * LD + g;
+      const float* vb = vs + (kw0 + n * 8 + 2 * t4) * LD + g + dlo * 8;
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
+      for (int dt = 0; dt < DW; ++dt) {
+        if (WIDE && dt >= dn) break;  // uniform over the warp
         unsigned bhi[2], blo[2];
         split_tf32(vb[dt * 8], bhi[0], blo[0]);
         split_tf32(vb[dt * 8 + LD], bhi[1], blo[1]);
@@ -273,62 +305,65 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
       }
     }
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
+    for (int dt = 0; dt < DW; ++dt) {
       o[dt][0] = o[dt][0] * al0 + f[dt][0];
       o[dt][1] = o[dt][1] * al0 + f[dt][1];
       o[dt][2] = o[dt][2] * al1 + f[dt][2];
       o[dt][3] = o[dt][3] * al1 + f[dt][3];
     }
-    __syncthreads();  // the stage is free for the load of tile j + 2
+    __syncthreads();  // the stage is free for the load of tile u + 2
   }
   cp_async_wait<0>();
 
-  // epilogue: the WK partial rows meet in shared memory, in a fixed order
-  float* Os = ring;                    // [WK][ROWS][LD]
-  float* ms = Os + WK * ROWS * LD;     // [WK][ROWS]
-  float* ls = ms + WK * ROWS;          // [WK][ROWS]
-  float* ws = ls + WK * ROWS;          // [WK][ROWS]: exp(m_k − M)
-  float* inv = ws + WK * ROWS;         // [ROWS]
+  // epilogue: the WKE partial rows meet in shared memory, in a fixed order
+  // (a wide head's warps hold disjoint columns of one partial)
+  float* Os = ring;                    // [WKE][ROWS][LD]
+  float* ms = Os + WKE * ROWS * LD;    // [WKE][ROWS]
+  float* ls = ms + WKE * ROWS;         // [WKE][ROWS]
+  float* ws = ls + WKE * ROWS;         // [WKE][ROWS]: exp(m_k − M)
+  float* inv = ws + WKE * ROWS;        // [ROWS]
+  const int ke = WIDE ? 0 : wk;        // this warp's partial
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    float* p = Os + (wk * ROWS + r0) * LD + dt * 8 + 2 * t4;
+  for (int dt = 0; dt < DW; ++dt) {
+    if (WIDE && dt >= dn) break;
+    float* p = Os + (ke * ROWS + r0) * LD + (dlo + dt) * 8 + 2 * t4;
     p[0] = o[dt][0];
     p[1] = o[dt][1];
     p[8 * LD] = o[dt][2];
     p[8 * LD + 1] = o[dt][3];
   }
-  if (t4 == 0) {
-    ms[wk * ROWS + r0] = m0;
-    ls[wk * ROWS + r0] = l0;
-    ms[wk * ROWS + r1] = m1;
-    ls[wk * ROWS + r1] = l1;
+  if (t4 == 0 && (!WIDE || wk == 0)) {
+    ms[ke * ROWS + r0] = m0;
+    ls[ke * ROWS + r0] = l0;
+    ms[ke * ROWS + r1] = m1;
+    ls[ke * ROWS + r1] = l1;
   }
   __syncthreads();
   for (int r = tid; r < ROWS; r += THREADS) {
     float M = NEG_INF, L = 0.f;
 #pragma unroll
-    for (int k = 0; k < WK; ++k) M = fmaxf(M, ms[k * ROWS + r]);
+    for (int k = 0; k < WKE; ++k) M = fmaxf(M, ms[k * ROWS + r]);
 #pragma unroll
-    for (int k = 0; k < WK; ++k) {
+    for (int k = 0; k < WKE; ++k) {
       const float w = expf(ms[k * ROWS + r] - M);
       ws[k * ROWS + r] = w;
       L += ls[k * ROWS + r] * w;
     }
-    const int s = q_lo + r / G;
+    const int vec = v_lo + r, s = vec / G;
     inv[r] = s < q_hi ? 1.f / fmaxf(L, 1e-30f) : 0.f;
     if (part_o != nullptr && s < q_hi) {
-      float* ml = part_ml + 2 * src.part_at(s, r % G);
+      float* ml = part_ml + 2 * src.part_at(s, vec % G);
       ml[0] = M;
       ml[1] = L;
     }
   }
   __syncthreads();
   for (int e = tid; e < ROWS * C4; e += THREADS) {
-    const int r = e / C4, c = (e % C4) * 4, s = q_lo + r / G;
+    const int r = e / C4, c = (e % C4) * 4, vec = v_lo + r, s = vec / G;
     if (c >= D || s >= S) continue;
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int k = 0; k < WK; ++k) {
+    for (int k = 0; k < WKE; ++k) {
       const float4 x = *reinterpret_cast<const float4*>(Os + (k * ROWS + r) * LD + c);
       const float w = ws[k * ROWS + r];
       a.x += x.x * w;
@@ -338,21 +373,27 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     }
     if (part_o == nullptr) {
       const float f = inv[r];  // 0 for a padded query
-      *reinterpret_cast<float4*>(src.o_at(s, r % G) + c) =
+      *reinterpret_cast<float4*>(src.o_at(s, vec % G) + c) =
           make_float4(a.x * f, a.y * f, a.z * f, a.w * f);
     } else if (s < q_hi) {
-      *reinterpret_cast<float4*>(part_o + src.part_at(s, r % G) * D + c) = a;
+      *reinterpret_cast<float4*>(part_o + src.part_at(s, vec % G) * D + c) = a;
     }
   }
 }
 
-// Zeros for the G heads of tokens s_lo .. s_hi − 1.
+// The tokens of q tile v_lo .. v_lo + ROWS − 1: [v_lo / G, s_end), at most S.
+__host__ __device__ inline int tile_token_end(int v_lo, int rows, int G, int S) {
+  const int e = (v_lo + rows + G - 1) / G;
+  return e < S ? e : S;
+}
+
+// Zeros for query vectors v_lo .. v_hi − 1 (token v / G, head v % G).
 template <class Src>
-__device__ __forceinline__ void zero_tokens(const Src& src, int G, int D, int s_lo, int s_hi) {
+__device__ __forceinline__ void zero_vectors(const Src& src, int G, int D, int v_lo, int v_hi) {
   const int D4 = D / 4;
-  for (int e = threadIdx.x; e < (s_hi - s_lo) * G * D4; e += THREADS) {
-    const int r = e / D4, c = (e % D4) * 4;
-    *reinterpret_cast<float4*>(src.o_at(s_lo + r / G, r % G) + c) =
+  for (int e = threadIdx.x; e < (v_hi - v_lo) * D4; e += THREADS) {
+    const int vec = v_lo + e / D4, c = (e % D4) * 4;
+    *reinterpret_cast<float4*>(src.o_at(vec / G, vec % G) + c) =
         make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }

@@ -19,8 +19,9 @@
 // What the design does about it: one block per (q tile, b, kv head) runs
 // the tensor-core tile loop of attention_tc.cuh, which ragged_extend.cu
 // runs too (here with start = 0 and T = S): 3xTF32 mma.sync for Q·Kᵀ and
-// P·V, a cp.async ring of 64-key K/V tiles, the G heads of a group packed
-// into the rows of the mma tile (128 query vectors, 128/G tokens). The KV
+// P·V, a cp.async ring of K/V tiles, the G heads of a group packed into
+// the rows of the mma tile (128 query vectors, 64 for a head dim past 128;
+// any G: a token's heads may straddle two q tiles). The KV
 // loop stops at the q tile's diagonal, which also bounds it by the row's
 // length: the TPU kernel's lower-triangular schedule becomes a loop bound,
 // so tiles above the diagonal are never loaded. Q tiles past the row's
@@ -67,21 +68,22 @@ __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
     float* __restrict__ out, int B, int S, int H, int Hkv, int D, int n_tiles,
     Strides qs, Strides ks, Strides vs) {
   extern __shared__ float4 smem4[];
-  const int G = H / Hkv, TQ = 16 * WR / G;
+  constexpr int ROWS = 16 * WR;
+  const int G = H / Hkv;
   // the q tile is the slowest grid axis, reversed: longest tiles first
   const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hkv));
   const int b = (blockIdx.x % (B * Hkv)) / Hkv, hkv = blockIdx.x % Hkv;
   const FlashSrc src{q, k, v, out, qs, ks, vs, b, hkv, G};
-  const int q_lo = tile * TQ;
+  const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
   const int n = true_lens ? min(max(true_lens[b], 0), S) : S;
-  const int q_hi = min(q_lo + TQ, n);  // live queries: [q_lo, q_hi)
-  if (q_lo >= q_hi) {
+  const int q_hi = min(attn::tile_token_end(v_lo, ROWS, G, S), n);  // live below q_hi
+  if (v_lo / G >= q_hi) {
     // a q tile past the row's length (or a row of length 0): zeros
-    attn::zero_tokens(src, G, D, q_lo, min(q_lo + TQ, S));
+    attn::zero_vectors(src, G, D, v_lo, min(v_lo + ROWS, S * G));
     return;
   }
   // keys [0, q_hi): the tile's diagonal
-  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, q_lo, q_hi, 0, q_hi,
+  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, v_lo, q_hi, 0, q_hi,
                        0, (q_hi + attn::BKV - 1) / attn::BKV, nullptr, nullptr);
 }
 
@@ -93,8 +95,8 @@ int launch(const float* q, const float* k, const float* v, const int* true_lens,
   cudaError_t err = cudaFuncSetAttribute(
       flash_prefill_kernel<WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int TQ = 16 * WR / (H / Hkv);
-  const int n_tiles = (S + TQ - 1) / TQ;
+  const long long vectors = (long long)S * (H / Hkv);  // of one (row, kv head)
+  const int n_tiles = (int)((vectors + 16 * WR - 1) / (16 * WR));
   const long long blocks = (long long)n_tiles * B * Hkv;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_prefill_kernel<WR, DT><<<(unsigned)blocks, attn::THREADS, smem, stream>>>(
@@ -106,11 +108,13 @@ template <int DT>
 int launch_dt(int wr, const float* q, const float* k, const float* v, const int* true_lens,
               float* out, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
               Strides vs, cudaStream_t stream) {
-  switch (wr) {
+  switch (wr) {  // q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
     case 1: return launch<1, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
     case 2: return launch<2, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
     case 4: return launch<4, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
-    default: return launch<8, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
+    default:
+      if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
+      else return launch<8, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
   }
 }
 
@@ -125,17 +129,18 @@ extern "C" int flash_prefill_launch(const float* q, const float* k,
                                     long long qss, long long ksb, long long ksh,
                                     long long kss, long long vsb, long long vsh,
                                     long long vss, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || 32 % (H / Hkv) != 0 ||
-      D % 4 != 0 || D <= 0 || D > attn::MAX_D)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D % 4 != 0 || D <= 0 ||
+      D > attn::MAX_D)
     return (int)cudaErrorInvalidValue;
-  const int G = H / Hkv;
-  const int wr = attn::tile_rows(S * G, G) / 16;
+  const int wr = attn::tile_rows(S * (H / Hkv), D) / 16;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (attn::d_tiles(D)) {
     case 4: return launch_dt<4>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
     case 8: return launch_dt<8>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
-    default: return launch_dt<16>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 16: return launch_dt<16>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 20: return launch_dt<20>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
+    default: return launch_dt<32>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
   }
 }
 

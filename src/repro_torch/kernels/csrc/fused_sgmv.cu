@@ -105,6 +105,16 @@
 // No atomics, no counters: two launches on the same inputs give the same
 // bits, and nothing in the launch syncs with the host or allocates.
 //
+// Ranks. The rank is a template parameter R of every kernel (the staging
+// loops index by it, and a division by a runtime rank costs more than the
+// copy it addresses): 4, 8, 16, 32, 64 and 128 are compiled. Any rank r
+// from 1 to 128 runs on the smallest compiled R >= r, with the ranks past r
+// zero-filled in shared memory and never loaded (A and B keep their own
+// (d_in, r) and (r, d_out) layouts), so h's ranks past r are exact zeros.
+// Ranks past 64 are taken 64 at a time: the shrink blocks split the rank
+// in halves and the expand stages h and B[id] in two chunks, so no tile
+// outgrows the R = 64 one.
+//
 // sgmv (no base term) does 2·r·(d_in + d_out) flops per row against
 // 4·(d_in + d_out) bytes of x and y, 16 flop/byte at r = 32: bound by the
 // bytes of x and y at every M. On the tiled path it is the shrink pass and
@@ -132,6 +142,8 @@ constexpr int XS_FLOATS = TM * XS_LD;
 constexpr int STAGE_FLOATS = XS_FLOATS + TK * WS_LD;
 constexpr int SH_ROWS = 64;    // rows per shrink block
 constexpr int MAX_SPLIT = 8;   // parts of d_in, each in its own block, at most
+constexpr int MAX_RANK = 128;
+constexpr int RANK_CHUNK = 64;  // ranks a shrink block or an expand stage takes
 
 constexpr int SK_MAX_M = 16;                 // skinny path: rows at most
 constexpr int SK_CN = 64;                    // output columns of a W block
@@ -141,7 +153,7 @@ constexpr int SK_PANEL = SK_KS * SK_CN;      // floats of a stage's W (or A) pan
 constexpr int SK_STAGE = SK_PANEL + SK_MAX_M * SK_KS;  // panel, then x [M][SK_KS]
 constexpr int SK_MERGE_THREADS = 64;         // merge block: 256 columns of one row
 constexpr int SK_MAX_SPLITS = 16;            // k splits at most
-static_assert(SK_KS * 64 <= SK_PANEL, "an A panel (SK_KS x R, R <= 64) fits a stage");
+static_assert(SK_KS * RANK_CHUNK <= SK_PANEL, "an A panel (SK_KS x 64 ranks) fits a stage");
 static_assert(THREADS * SK_MAX_M <= SK_STAGES * SK_STAGE, "the shrink's k lanes meet in the ring");
 
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
@@ -176,19 +188,32 @@ SkinnyPlan skinny_plan(int M, int d_in, int d_out, bool has_base) {
   return {cols, (KT + kper - 1) / kper, kper};
 }
 
-// the expand's depth: the rank, at least one k8 step (ranks past R are 0)
+// the compiled rank a rank r in [1, 128] runs on
+int rank_capacity(int r) {
+  int R = 4;
+  while (R < r) R *= 2;
+  return R;
+}
+
+// ranks of a shrink block or an expand stage, and how many a rank holds
+__host__ __device__ constexpr int rank_chunk(int R) { return R < RANK_CHUNK ? R : RANK_CHUNK; }
+__host__ __device__ constexpr int rank_parts(int R) { return R / rank_chunk(R); }
+
+// the expand's depth: the rank, at least one k8 step (ranks past r are 0)
 __host__ __device__ constexpr int expand_depth(int R) { return R < 8 ? 8 : R; }
+// ranks of one expand stage
+__host__ __device__ constexpr int expand_chunk(int R) { return rank_chunk(expand_depth(R)); }
 
 // dynamic shared memory of the tiled kernel: the cp.async ring (reused by
-// the expand's h rows [TM][RK + 4] and B tile [RK][WS_LD]), then with the
-// base term the tile's running f32 sums (TM x TN)
-static_assert(TM * (expand_depth(64) + 4) + expand_depth(64) * WS_LD <= STAGES * STAGE_FLOATS,
+// the expand's h rows [TM][EK + 4] and B tile [EK][WS_LD], EK ranks a
+// stage), then with the base term the tile's running f32 sums (TM x TN)
+static_assert(TM * (RANK_CHUNK + 4) + RANK_CHUNK * WS_LD <= STAGES * STAGE_FLOATS,
               "the expand's tiles fit in the ring it reuses");
 
 template <int R, bool HAS_BASE>
 size_t tiled_smem_bytes() {
-  constexpr int RK = expand_depth(R);
-  const size_t expand = (size_t)TM * (RK + 4) + (size_t)RK * WS_LD;
+  constexpr int EK = expand_chunk(R);
+  const size_t expand = (size_t)TM * (EK + 4) + (size_t)EK * WS_LD;
   const size_t ring = (size_t)STAGES * STAGE_FLOATS;
   return sizeof(float) * (HAS_BASE ? ring + (size_t)TM * TN : expand);
 }
@@ -222,35 +247,38 @@ TiledSplit tiled_split(int M, int d_in, int d_out, bool has_base) {
 }
 
 // Tiled path, pass 1: hpart[z][m, :] = scale·x[m, k part z]·A[id] for
-// SH_ROWS rows of batch row blockIdx.x, part blockIdx.z of gridDim.z
-// (rows of id < 0 get zeros, A unread). The split fills the card where
-// the rows alone would not (32 blocks at M = 2048); the tiled kernel adds
-// the partials in a fixed order. Thread
-// (rg, r) owns rank r of rows rg, rg + THREADS/R, ...; x and the k slice
-// of A[id] come through a two-stage cp.async ring, and each sum runs in k
-// order. The rank R is a template parameter: the staging loops index by
-// it, and a division by a runtime R costs more than the copy it addresses.
-template <int R, bool V4>
+// SH_ROWS rows of batch row blockIdx.x, part z = blockIdx.z / RP of
+// gridDim.z / RP, ranks RC·(blockIdx.z % RP) .. + RC − 1 (rows of id < 0
+// get zeros, A unread). The split fills the card where the rows alone
+// would not (32 blocks at M = 2048); the tiled kernel adds the partials in
+// a fixed order. Thread (rg, rc) owns rank rc of the block's ranks for rows
+// rg, rg + THREADS/RC, ...; x and the k slice of A[id] come through a
+// two-stage cp.async ring, and each sum runs in k order. A rank r < R
+// stages A with 4-byte copies, ranks past r zero-filled.
+template <int R, bool EXACT, bool V4>
 __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
     const float* __restrict__ x, const float* __restrict__ lora_a,
     const int* __restrict__ ids, float* __restrict__ hpart, int M, int S,
-    int d_in, float scale) {
-  constexpr int RG = THREADS / R;    // row groups
+    int d_in, int r_arg, float scale) {
+  constexpr int RC = rank_chunk(R), RP = rank_parts(R);
+  const int r_in = EXACT ? R : r_arg;
+  constexpr int RG = THREADS / RC;   // row groups
   constexpr int RPT = SH_ROWS / RG;  // rows per thread
   __shared__ __align__(16) float xs[2][SH_ROWS][XS_LD];
-  __shared__ __align__(16) float as[2][TK][R];
+  __shared__ __align__(16) float as[2][TK][RC];
   const int tid = threadIdx.x;
   const int b = blockIdx.x, s0 = blockIdx.y * SH_ROWS;
+  const int zpart = blockIdx.z / RP, rk0 = blockIdx.z % RP * RC;  // d_in part, first rank
   const int rows = min(SH_ROWS, S - s0);
   const size_t m0 = (size_t)b * S + s0;
   const int id = ids[b];
-  float* hb = hpart + ((size_t)blockIdx.z * M + m0) * R;
+  float* hb = hpart + ((size_t)zpart * M + m0) * R + rk0;
   if (id < 0) {  // uniform over the block
-    for (int e = tid; e < rows * R; e += THREADS) hb[e] = 0.f;
+    for (int e = tid; e < rows * RC; e += THREADS) hb[e / RC * R + e % RC] = 0.f;
     return;
   }
   const float* xb = x + m0 * d_in;
-  const float* ab = lora_a + (size_t)id * d_in * R;
+  const float* ab = lora_a + (size_t)id * d_in * r_in;
   auto load_slice = [&](int kt, int st) {
     const int k0 = kt * TK;
     if constexpr (V4) {
@@ -266,18 +294,28 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
         cp_async4(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
       }
     }
-    // TK rows of A[id], R contiguous floats each (R % 4 == 0)
-    for (int c = tid; c < TK * R / 4; c += THREADS) {
-      const bool ok = k0 + c * 4 / R < d_in;
-      cp_async16(&as[st][0][0] + c * 4, ok ? ab + (size_t)k0 * R + c * 4 : lora_a, ok);
+    // TK rows of A[id], the block's RC ranks of each
+    if (r_in == R) {  // 16-byte copies (R % 4 == 0)
+      for (int c = tid; c < TK * RC / 4; c += THREADS) {
+        const int kk = c / (RC / 4), rc = c % (RC / 4) * 4;
+        const bool ok = k0 + kk < d_in;
+        cp_async16(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
+      }
+    } else {
+      for (int c = tid; c < TK * RC; c += THREADS) {
+        const int kk = c / RC, rc = c % RC;
+        const bool ok = k0 + kk < d_in && rk0 + rc < r_in;
+        cp_async4(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
+      }
     }
     cp_async_commit();
   };
 
-  const int r = tid % R, rg = tid / R;
+  const int r = tid % RC, rg = tid / RC;
   float acc[RPT] = {};
-  const int per = ((d_in + TK - 1) / TK + gridDim.z - 1) / gridDim.z;  // k slices per part
-  const int KT0 = blockIdx.z * per;
+  const int parts = gridDim.z / RP;
+  const int per = ((d_in + TK - 1) / TK + parts - 1) / parts;  // k slices per part
+  const int KT0 = zpart * per;
   const int KT = min(KT0 + per, (d_in + TK - 1) / TK);
   if (KT0 < KT) load_slice(KT0, 0);
   for (int kt = KT0; kt < KT; ++kt) {
@@ -319,14 +357,16 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
 // sum_parts_kernel to add; otherwise it writes y. V4: d_in and d_out are
 // multiples of 4, so every 16-byte chunk of x, W and B lies wholly inside
 // or outside its matrix.
-template <int R, bool HAS_BASE, bool V4>
+template <int R, bool EXACT, bool HAS_BASE, bool V4>
 __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ lora_b, const int* __restrict__ ids,
     const float* __restrict__ h, int hsplit, float* __restrict__ part, int kper,
-    float* __restrict__ y, int M, int S, int d_in, int d_out) {
+    float* __restrict__ y, int M, int S, int d_in, int d_out, int r_arg) {
+  const int r_in = EXACT ? R : r_arg;
   constexpr int RK = expand_depth(R);
-  constexpr int HS_LD = RK + 4;  // fragment (g, t) -> bank (g·HS_LD + t) % 32, all distinct
+  constexpr int EK = expand_chunk(R);  // ranks of an expand stage
+  constexpr int HS_LD = EK + 4;  // fragment (g, t) -> bank (g·HS_LD + t) % 32, all distinct
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   __shared__ int seg_id[TM];    // adapter id of each batch row in the tile
@@ -421,8 +461,8 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
   }
 
   // The expand (block z = 0 alone): for each adapter id live in the tile,
-  // its rows' h times B[id], into the same accumulator. Rows of id < 0
-  // take no delta.
+  // its rows' h times B[id], into the same accumulator, EK ranks a stage.
+  // Rows of id < 0 take no delta.
   if (blockIdx.z == 0) {  // uniform over the block
     const int b0 = m0 / S;
     const int nseg = (min(m0 + TM, M) - 1) / S - b0 + 1;
@@ -445,59 +485,65 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
     __syncthreads();  // seg_lead
 
     float* hs = sm;                // [TM][HS_LD]
-    float* bs = sm + TM * HS_LD;   // [RK][WS_LD]
+    float* bs = sm + TM * HS_LD;   // [EK][WS_LD]
     bool h_staged = false;
     for (int s = 0; s < nseg; ++s) {
       if (!seg_lead[s]) continue;  // uniform over the block
       const int id = seg_id[s];
-      if (!h_staged) {  // h = the shrink's partials, added in order
-        for (int c = tid; c < TM * RK / 4; c += THREADS) {
-          const int row = c / (RK / 4), rc = c % (RK / 4) * 4;
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (m0 + row < M && rc < R) {
-            const float* p = h + (size_t)(m0 + row) * R + rc;
-            v = *reinterpret_cast<const float4*>(p);
-            for (int z = 1; z < hsplit; ++z) {
-              const float4 u = *reinterpret_cast<const float4*>(p + (size_t)z * M * R);
-              v.x += u.x;
-              v.y += u.y;
-              v.z += u.z;
-              v.w += u.w;
+      // ranks e0 .. e0 + EK − 1; stages past the rank hold only zeros
+      for (int e0 = 0; e0 < RK && e0 < r_in; e0 += EK) {
+        if (!h_staged || EK < RK) {  // h = the shrink's partials, added in order
+          if (h_staged) __syncthreads();  // the previous stage's tiles are consumed
+          for (int c = tid; c < TM * EK / 4; c += THREADS) {
+            const int row = c / (EK / 4), rc = c % (EK / 4) * 4;
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (m0 + row < M && e0 + rc < R) {
+              const float* p = h + (size_t)(m0 + row) * R + e0 + rc;
+              v = *reinterpret_cast<const float4*>(p);
+              for (int z = 1; z < hsplit; ++z) {
+                const float4 u = *reinterpret_cast<const float4*>(p + (size_t)z * M * R);
+                v.x += u.x;
+                v.y += u.y;
+                v.z += u.z;
+                v.w += u.w;
+              }
             }
+            *reinterpret_cast<float4*>(hs + row * HS_LD + rc) = v;
           }
-          *reinterpret_cast<float4*>(hs + row * HS_LD + rc) = v;
+          h_staged = true;
+        } else {
+          __syncthreads();  // the previous id's B tile is consumed
         }
-        h_staged = true;
-      } else {
-        __syncthreads();  // the previous id's B tile is consumed
-      }
-      const float* bsrc = lora_b + (size_t)id * R * d_out;
-      if constexpr (V4) {
-        for (int c = tid; c < RK * TN / 4; c += THREADS) {
-          const int rr = c / (TN / 4), nc = c % (TN / 4) * 4;
-          const bool ok = rr < R && n0 + nc < d_out;
-          cp_async16(bs + rr * WS_LD + nc, ok ? bsrc + (size_t)rr * d_out + n0 + nc : lora_b, ok);
+        const float* bsrc = lora_b + (size_t)id * r_in * d_out;
+        if constexpr (V4) {
+          for (int c = tid; c < EK * TN / 4; c += THREADS) {
+            const int rr = c / (TN / 4), nc = c % (TN / 4) * 4;
+            const bool ok = e0 + rr < r_in && n0 + nc < d_out;
+            cp_async16(bs + rr * WS_LD + nc,
+                       ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
+          }
+        } else {
+          for (int c = tid; c < EK * TN; c += THREADS) {
+            const int rr = c / TN, nc = c % TN;
+            const bool ok = e0 + rr < r_in && n0 + nc < d_out;
+            cp_async4(bs + rr * WS_LD + nc,
+                      ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
+          }
         }
-      } else {
-        for (int c = tid; c < RK * TN; c += THREADS) {
-          const int rr = c / TN, nc = c % TN;
-          const bool ok = rr < R && n0 + nc < d_out;
-          cp_async4(bs + rr * WS_LD + nc, ok ? bsrc + (size_t)rr * d_out + n0 + nc : lora_b, ok);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        unsigned keep = 0;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) keep |= (unsigned)(rid[mt][hh] == id) << (2 * mt + hh);
+        if (__any_sync(0xffffffffu, keep != 0u)) {  // a warp with no row of this id skips
+#pragma unroll
+          for (int kk = 0; kk < EK; kk += 8)
+            mma_k8_3xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * WS_LD + wn, WS_LD,
+                                keep);
         }
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      unsigned keep = 0;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) keep |= (unsigned)(rid[mt][hh] == id) << (2 * mt + hh);
-      if (__any_sync(0xffffffffu, keep != 0u)) {  // a warp with no row of this id skips
-#pragma unroll
-        for (int kk = 0; kk < RK; kk += 8)
-          mma_k8_3xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * WS_LD + wn, WS_LD,
-                              keep);
       }
     }
   }
@@ -561,25 +607,29 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
 
 // Skinny path, pass 1 (see the header). Block x < cols is a W block: rows
 // [0, M) times columns [64·x, 64·x + 64) over k split blockIdx.y, written
-// to part[split][M][d_out]. Block x >= cols is the shrink block of batch
-// row b = x − cols: if b is the first batch row with its id and the id is
-// live, it writes hpart[split][m][R] = x[m, k split]·A[id] for every row m
+// to part[split][M][d_out]. Block x >= cols is a shrink block: ranks
+// RC·(y % RP) .. + RC − 1 of batch row b = y / RP, y = x − cols. If b is the
+// first batch row with its id and the id is live, it writes
+// hpart[split][m][those ranks] = x[m, k split]·A[id] for every row m
 // carrying that id (unscaled); otherwise it returns. MT: rows the
 // registers hold (M <= MT).
-template <int R, int MT>
+template <int R, bool EXACT, int MT>
 __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ lora_a, const int* __restrict__ ids,
     float* __restrict__ part, float* __restrict__ hpart, int M, int S, int d_in,
-    int d_out, int cols, int kper) {
+    int d_out, int cols, int kper, int r_arg) {
+  constexpr int RC = rank_chunk(R), RP = rank_parts(R);
+  const int r_in = EXACT ? R : r_arg;
   __shared__ __align__(16) float ring[SK_STAGES * SK_STAGE];
   grid_dependents_launch();  // the merge may load B while this grid streams W
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.y;
   const bool w_block = (int)blockIdx.x < cols;  // uniform over the block
-  int id = -1;
+  int id = -1, rk0 = 0;
   if (!w_block) {
-    const int b = blockIdx.x - cols;
+    const int b = (blockIdx.x - cols) / RP;
+    rk0 = (blockIdx.x - cols) % RP * RC;
     id = ids[b];
     bool lead = id >= 0;
     for (int p = 0; p < b && lead; ++p) lead = ids[p] != id;
@@ -588,9 +638,9 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
   const int n0 = blockIdx.x * SK_CN;
   const int KT = (d_in + SK_KS - 1) / SK_KS;
   const int kt0 = split * kper, kt1 = min(kt0 + kper, KT);  // kt0 < kt1
-  const float* a_id = lora_a + (size_t)(id < 0 ? 0 : id) * d_in * R;
+  const float* a_id = lora_a + (size_t)(id < 0 ? 0 : id) * d_in * r_in;
 
-  // stage kt: the panel (W: SK_KS x 64 of the slab; A: SK_KS x R) and
+  // stage kt: the panel (W: SK_KS x 64 of the slab; A: SK_KS x RC) and
   // x [M][SK_KS], zero-filled past d_in and d_out
   auto load = [&](int kt, int slot) {
     float* ps = ring + slot * SK_STAGE;
@@ -603,10 +653,17 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
         const bool ok = k0 + row < d_in && n0 + col < d_out;
         cp_async16(ps + row * SK_CN + col, ok ? w + (size_t)(k0 + row) * d_out + n0 + col : w, ok);
       }
-    } else {
-      for (int c = tid; c < SK_KS * R / 4; c += THREADS) {
-        const bool ok = k0 + c * 4 / R < d_in;
-        cp_async16(ps + c * 4, ok ? a_id + (size_t)k0 * R + c * 4 : lora_a, ok);
+    } else if (r_in == R) {  // 16-byte copies (R % 4 == 0)
+      for (int c = tid; c < SK_KS * RC / 4; c += THREADS) {
+        const int kk = c / (RC / 4), rc = c % (RC / 4) * 4;
+        const bool ok = k0 + kk < d_in;
+        cp_async16(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
+      }
+    } else {  // ranks past r zero-filled, never loaded
+      for (int c = tid; c < SK_KS * RC; c += THREADS) {
+        const int kk = c / RC, rc = c % RC;
+        const bool ok = k0 + kk < d_in && rk0 + rc < r_in;
+        cp_async4(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
       }
     }
     for (int c = tid; c < M * SK_KS / 4; c += THREADS) {
@@ -617,11 +674,11 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
   };
 
   // W block: k lane g = 2·warp + lane / 16 owns rows 2g, 2g + 1 of every
-  // stage and float4 column q = lane % 16. Shrink block: k lane g = tid / R
-  // owns rows g, g + THREADS / R, ... and rank r = tid % R.
+  // stage and float4 column q = lane % 16. Shrink block: k lane g = tid / RC
+  // owns rows g, g + THREADS / RC, ... and rank r = tid % RC of its ranks.
   const int q = lane & 15, g = 2 * warp + (lane >> 4);
-  constexpr int SG = THREADS / R;
-  const int r = tid % R, sg = tid / R;
+  constexpr int SG = THREADS / RC;
+  const int r = tid % RC, sg = tid / RC;
   float4 acc[MT];
   float hacc[MT];
 #pragma unroll
@@ -660,7 +717,7 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
       }
     } else {
       for (int kk = sg; kk < SK_KS; kk += SG) {
-        const float a = ps[kk * R + r];
+        const float a = ps[kk * RC + r];
 #pragma unroll
         for (int m = 0; m < MT; ++m)
           if (m < M) hacc[m] = fmaf(xs[m * SK_KS + kk], a, hacc[m]);
@@ -697,57 +754,68 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
       *reinterpret_cast<float4*>(part + ((size_t)split * M + m) * d_out + n) = v;
     }
   } else {
-    float* red = ring;  // [SG][MT][R]
+    float* red = ring;  // [SG][MT][RC]
 #pragma unroll
     for (int m = 0; m < MT; ++m)
-      if (m < M) red[(sg * MT + m) * R + r] = hacc[m];
+      if (m < M) red[(sg * MT + m) * RC + r] = hacc[m];
     __syncthreads();
-    for (int e = tid; e < M * R; e += THREADS) {
-      const int m = e / R, rr = e % R;
+    for (int e = tid; e < M * RC; e += THREADS) {
+      const int m = e / RC, rr = e % RC;
       if (ids[m / S] != id) continue;
-      float h = red[m * R + rr];
-      for (int k = 1; k < SG; ++k) h += red[(k * MT + m) * R + rr];
-      hpart[((size_t)split * M + m) * R + rr] = h;
+      float h = red[m * RC + rr];
+      for (int k = 1; k < SG; ++k) h += red[(k * MT + m) * RC + rr];
+      hpart[((size_t)split * M + m) * R + rk0 + rr] = h;
     }
   }
 }
 
 // Skinny path, pass 2: y[m, n .. n+4) = the splits' partials of x·W in
 // order (HAS_BASE), plus, where row m's id is live, scale·h[m]·B[id] with
-// h[m] the splits' shrink partials in order. Without the base term a row
-// of id < 0 is exact zeros. B is an input, so its first rows are loaded
-// before the wait for pass 1; every other load is issued before its first
-// use (the loops over splits and ranks are unrolled), so the pass costs
-// about two round trips to L2 after pass 1 ends.
-template <int R, bool HAS_BASE>
+// h[m] the splits' shrink partials in order (0 past the rank r_in: those
+// ranks read B's last row, times 0). Without the base term a row of id < 0
+// is exact zeros. B is an input, so
+// its first rows are loaded before the wait for pass 1; every other load is
+// issued before its first use (the loops over splits and ranks are
+// unrolled), so the pass costs about two round trips to L2 after pass 1
+// ends.
+template <int R, bool EXACT, bool HAS_BASE>
 __global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kernel(
     const float* __restrict__ lora_b, const int* __restrict__ ids,
     const float* __restrict__ part, const float* __restrict__ hpart,
-    float* __restrict__ y, int M, int S, int d_out, int splits, float scale) {
+    float* __restrict__ y, int M, int S, int d_out, int splits, float scale, int r_arg) {
+  const int r_in = EXACT ? R : r_arg;
   constexpr int RP = R < 32 ? R : 32;  // rows of B loaded before the wait
   __shared__ float hs[R];
   const int tid = threadIdx.x, m = blockIdx.y;
   const int n = (blockIdx.x * SK_MERGE_THREADS + tid) * 4;
   const bool col = n < d_out;
   const int id = ids[m / S];  // uniform over the block
-  const float* bp = lora_b + (size_t)(id < 0 ? 0 : id) * R * d_out + n;
+  const float* bp = lora_b + (size_t)(id < 0 ? 0 : id) * r_in * d_out + n;
+  // row rr of B, or a row B has where rr is past the rank: h is 0 there
+  auto brow = [&](int rr) {
+    return __ldg(reinterpret_cast<const float4*>(bp + (size_t)min(rr, r_in - 1) * d_out));
+  };
   float4 bv[RP];
   if (id >= 0 && col) {
 #pragma unroll
-    for (int rr = 0; rr < RP; ++rr)
-      bv[rr] = __ldg(reinterpret_cast<const float4*>(bp + (size_t)rr * d_out));
+    for (int rr = 0; rr < RP; ++rr) bv[rr] = brow(rr);
   }
   grid_dependency_wait();  // pass 1's partials are written
-  if (id >= 0 && tid < R) {
+  auto merge_h = [&](int rk) {  // h[rk]: the splits' shrink partials in order
     float hp[SK_MAX_SPLITS];
 #pragma unroll
     for (int s = 0; s < SK_MAX_SPLITS; ++s)
-      hp[s] = s < splits ? hpart[((size_t)s * M + m) * R + tid] : 0.f;
+      hp[s] = s < splits ? hpart[((size_t)s * M + m) * R + rk] : 0.f;
     float h = hp[0];
 #pragma unroll
     for (int s = 1; s < SK_MAX_SPLITS; ++s)
       if (s < splits) h += hp[s];
-    hs[tid] = scale * h;
+    hs[rk] = scale * h;
+  };
+  if constexpr (R <= SK_MERGE_THREADS) {
+    if (id >= 0 && tid < R) merge_h(tid);
+  } else {
+    for (int rk = tid; id >= 0 && rk < R; rk += SK_MERGE_THREADS) merge_h(rk);
   }
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if constexpr (HAS_BASE) {
@@ -775,32 +843,31 @@ __global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kern
 #pragma unroll
     for (int rr = 0; rr < RP; ++rr) fma4(v, hs[rr], bv[rr]);
 #pragma unroll
-    for (int rr = RP; rr < R; ++rr)
-      fma4(v, hs[rr], __ldg(reinterpret_cast<const float4*>(bp + (size_t)rr * d_out)));
+    for (int rr = RP; rr < R; ++rr) fma4(v, hs[rr], brow(rr));
   }
   *reinterpret_cast<float4*>(y + (size_t)m * d_out + n) = v;
 }
 
 // scratch: the shrink's partials (shrink x M x R), then the base
 // product's partial tiles (base x M x d_out) where base > 1
-template <int R, bool HAS_BASE, bool V4>
+template <int R, bool EXACT, bool HAS_BASE, bool V4>
 int launch_tiled(const float* x, const float* w, const float* lora_a,
                  const float* lora_b, const int* ids, float* y, float* scratch,
-                 int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
+                 int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   const TiledSplit sp = tiled_split(M, d_in, d_out, HAS_BASE);
   float* part = scratch + (size_t)sp.shrink * M * R;
-  const dim3 sgrid(M / S, (S + SH_ROWS - 1) / SH_ROWS, sp.shrink);
-  lora_shrink_rows_kernel<R, V4><<<sgrid, THREADS, 0, stream>>>(x, lora_a, ids, scratch, M,
-                                                                S, d_in, scale);
+  const dim3 sgrid(M / S, (S + SH_ROWS - 1) / SH_ROWS, sp.shrink * rank_parts(R));
+  lora_shrink_rows_kernel<R, EXACT, V4><<<sgrid, THREADS, 0, stream>>>(x, lora_a, ids, scratch, M,
+                                                                S, d_in, r, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = tiled_smem_bytes<R, HAS_BASE>();
-  err = cudaFuncSetAttribute(fused_sgmv_tiled_kernel<R, HAS_BASE, V4>,
+  err = cudaFuncSetAttribute(fused_sgmv_tiled_kernel<R, EXACT, HAS_BASE, V4>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d_out + TN - 1) / TN, (M + TM - 1) / TM, sp.base);
-  fused_sgmv_tiled_kernel<R, HAS_BASE, V4><<<grid, THREADS, smem, stream>>>(
-      x, w, lora_b, ids, scratch, sp.shrink, part, sp.kper, y, M, S, d_in, d_out);
+  fused_sgmv_tiled_kernel<R, EXACT, HAS_BASE, V4><<<grid, THREADS, smem, stream>>>(
+      x, w, lora_b, ids, scratch, sp.shrink, part, sp.kper, y, M, S, d_in, d_out, r);
   if (sp.base == 1) return (int)cudaGetLastError();
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -814,53 +881,66 @@ int launch_tiled(const float* x, const float* w, const float* lora_a,
 
 // scratch: the shrink's partials (splits x M x R), then with the base term
 // the W blocks' partial sums (splits x M x d_out)
-template <int R, int MT, bool HAS_BASE>
+template <int R, bool EXACT, int MT, bool HAS_BASE>
 int launch_skinny(const float* x, const float* w, const float* lora_a,
                   const float* lora_b, const int* ids, float* y, float* scratch,
-                  int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
+                  int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   const SkinnyPlan sp = skinny_plan(M, d_in, d_out, HAS_BASE);
   float* part = scratch + (size_t)sp.splits * M * R;
-  fused_sgmv_skinny_kernel<R, MT><<<dim3(sp.cols + M / S, sp.splits), THREADS, 0, stream>>>(
-      x, w, lora_a, ids, part, scratch, M, S, d_in, d_out, sp.cols, sp.kper);
+  const dim3 grid(sp.cols + M / S * rank_parts(R), sp.splits);
+  fused_sgmv_skinny_kernel<R, EXACT, MT><<<grid, THREADS, 0, stream>>>(
+      x, w, lora_a, ids, part, scratch, M, S, d_in, d_out, sp.cols, sp.kper, r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int col_blocks = (d_out / 4 + SK_MERGE_THREADS - 1) / SK_MERGE_THREADS;
-  err = launch_dependent(fused_sgmv_skinny_merge_kernel<R, HAS_BASE>, dim3(col_blocks, M),
+  err = launch_dependent(fused_sgmv_skinny_merge_kernel<R, EXACT, HAS_BASE>, dim3(col_blocks, M),
                          dim3(SK_MERGE_THREADS), 0, stream, lora_b, ids, (const float*)part,
-                         (const float*)scratch, y, M, S, d_out, sp.splits, scale);
+                         (const float*)scratch, y, M, S, d_out, sp.splits, scale, r);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int R, bool HAS_BASE>
+// EXACT: the rank is the compiled R (every config's rank 32, the reduced
+// configs' 4), and the kernels index A and B by it at compile time; a rank
+// between compiled ones runs with it as a runtime bound
+template <int R, bool EXACT, bool HAS_BASE>
 int launch(const float* x, const float* w, const float* lora_a,
            const float* lora_b, const int* ids, float* y, float* scratch,
-           int M, int S, int d_in, int d_out, float scale, cudaStream_t stream) {
+           int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   if (use_skinny(M, d_in, d_out)) {
-    if (M <= 8) return launch_skinny<R, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, stream);
-    return launch_skinny<R, SK_MAX_M, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, stream);
+    if (M <= 8) return launch_skinny<R, EXACT, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+    return launch_skinny<R, EXACT, SK_MAX_M, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
   }
   if (d_in % 4 == 0 && d_out % 4 == 0)
-    return launch_tiled<R, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
-                                           d_in, d_out, scale, stream);
-  return launch_tiled<R, HAS_BASE, false>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
-                                          d_in, d_out, scale, stream);
+    return launch_tiled<R, EXACT, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M,
+                                                  S, d_in, d_out, r, scale, stream);
+  return launch_tiled<R, EXACT, HAS_BASE, false>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
+                                                 d_in, d_out, r, scale, stream);
+}
+
+template <int R, bool HAS_BASE>
+int launch_rank(const float* x, const float* w, const float* lora_a,
+                const float* lora_b, const int* ids, float* y, float* scratch,
+                int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
+  if (r == R)
+    return launch<R, true, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+  return launch<R, false, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
 }
 
 template <bool HAS_BASE>
 int dispatch(const float* x, const float* w, const float* lora_a,
              const float* lora_b, const int* ids, float* y, float* scratch,
-             int M, int S, int d_in, int d_out, int R, float scale, void* stream) {
-  if (M <= 0 || S <= 0 || M % S != 0 || d_in <= 0 || d_out <= 0)
+             int M, int S, int d_in, int d_out, int r, float scale, void* stream) {
+  if (M <= 0 || S <= 0 || M % S != 0 || d_in <= 0 || d_out <= 0 || r <= 0 || r > MAX_RANK)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (R) {
-    case 4: return launch<4, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 8: return launch<8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 16: return launch<16, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 32: return launch<32, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    case 64: return launch<64, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+  switch (rank_capacity(r)) {
+    case 4: return launch_rank<4, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 8: return launch_rank<8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 16: return launch_rank<16, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 32: return launch_rank<32, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 64: return launch_rank<64, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    default: return launch_rank<128, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
   }
 }
 
@@ -869,8 +949,11 @@ int dispatch(const float* x, const float* w, const float* lora_a,
 // Floats of scratch a launch needs for these shapes: on the skinny path
 // the k splits' shrink partials and, with the base term, their partial
 // sums of x·W; on the tiled path those of its shrink pass and, where d_in
-// is split, the partial output tiles.
-extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int R, int has_base) {
+// is split, the partial output tiles. The shrink partials hold the
+// compiled rank the rank r runs on.
+extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int r, int has_base) {
+  if (r <= 0 || r > MAX_RANK) return 0;
+  const int R = rank_capacity(r);
   if (use_skinny(M, d_in, d_out)) {
     const SkinnyPlan sp = skinny_plan(M, d_in, d_out, has_base != 0);
     return sp.splits * M * (R + (has_base ? d_out : 0));
@@ -882,9 +965,9 @@ extern "C" int fused_sgmv_scratch_floats(int M, int d_in, int d_out, int R, int 
 extern "C" int fused_sgmv_launch(const float* x, const float* w,
                                  const float* lora_a, const float* lora_b,
                                  const int* ids, float* y, float* scratch,
-                                 int M, int S, int d_in, int d_out, int R,
+                                 int M, int S, int d_in, int d_out, int r,
                                  float scale, void* stream) {
-  return dispatch<true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, R,
+  return dispatch<true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r,
                         scale, stream);
 }
 
@@ -892,9 +975,9 @@ extern "C" int fused_sgmv_launch(const float* x, const float* w,
 extern "C" int sgmv_launch(const float* x, const float* lora_a,
                            const float* lora_b, const int* ids, float* y,
                            float* scratch, int M, int S, int d_in, int d_out,
-                           int R, float scale, void* stream) {
+                           int r, float scale, void* stream) {
   return dispatch<false>(x, nullptr, lora_a, lora_b, ids, y, scratch, M, S, d_in,
-                         d_out, R, scale, stream);
+                         d_out, r, scale, stream);
 }
 
 extern "C" const char* fused_sgmv_error_string(int err) {

@@ -15,7 +15,8 @@
 // What the design does about it:
 // - Work follows the live length. The grid cannot read the device-side
 //   lengths without a host sync, so it covers the whole table in chunks of
-//   CT = 64 tokens (half a page at the main path's 128), one block per
+//   CT = 64 tokens (half a page at the main path's 128; 32 for a head dim
+//   past 128, so a chunk's K and V stay under 70 KB), one block per
 //   (chunk, kv head, b), chunks slowest, so the blocks of late chunks, past
 //   most lengths, come last. A block whose chunk starts at or past the
 //   row's clamped length returns after two loads; every live chunk gets a block
@@ -23,7 +24,9 @@
 //   row over 32, and no page is read twice. The TPU kernel walks the pages
 //   in order on one core and needs no split.
 // - One block serves the G query heads of its kv head: each K/V row is read
-//   once, not G times.
+//   once, not G times. The group sizes 1, 2, 4 and 8 are compiled; any
+//   other G up to 128 (7 for qwen2-vl) takes its heads in blocks of 8 with
+//   the dead heads of the last block masked.
 // - Loads stay in flight. The block stages its chunk's K rows, then its V
 //   rows, into shared memory as two cp.async groups of 16-byte copies (a
 //   token row of one kv head is D contiguous floats at a stride of Hkv·D;
@@ -33,15 +36,19 @@
 //   row's length are loaded together, before the copies.
 // - Scores with threads owning keys: four threads per key, each taking a
 //   quarter of D (float4 chunks p, p + 4, ...) against the G query heads in
-//   shared memory, then two shuffles (KPT = 256 / CT threads a key). A row pitch of D rounded up to 32
+//   shared memory, then two shuffles (KPT = 256 / CT threads a key: eight
+//   at CT = 32). A row pitch of D rounded up to 32
 //   plus 16 floats puts the two keys of each quarter-warp on disjoint
 //   banks. The tile's softmax is one warp reduction per head (warp g takes
 //   head g), and P·V runs with threads owning D channels (float4 each) and
-//   a share of the keys; the shares meet in shared memory in a fixed order.
+//   a share of the keys; the shares meet in shared memory in a fixed order
+//   (where the G·D/4 channels outnumber the threads, each thread walks all
+//   keys for its channels instead).
 // - A second, small kernel merges the live chunks of each (b, query head)
 //   in order and normalises; it reads only chunks below the clamped length.
 //   It is launched as a programmatic dependent of the first, so its launch
-//   is prepared while the first runs. Every sum runs in a fixed order: two
+//   is prepared while the first runs; a warp takes 128 columns of D. Every
+//   sum runs in a fixed order: two
 //   launches on the same inputs give the same bits.
 // IEEE f32 FMA throughout: no TF32.
 
@@ -52,13 +59,15 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CT = 64;               // tokens per chunk: one block each
-constexpr int KPT = THREADS / CT;    // threads per key for the scores
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
+constexpr int NARROW_D = 128;        // wider heads take chunks of 32 tokens
+constexpr int MAX_GROUP = 128;       // query heads per kv head, at most
+constexpr int GB_ANY = 8;            // heads of a block where G is not compiled
 constexpr int PAGE_MULTIPLE = 8;     // page sizes the launch accepts
 constexpr float NEG_INF = -1e30f;
 
-static_assert(KPT * CT == THREADS && 32 % KPT == 0, "a key's threads share a warp");
+// tokens per chunk, one block each
+__host__ __device__ constexpr int chunk_tokens(int D) { return D > NARROW_D ? 32 : 64; }
 
 __device__ __forceinline__ float4 f4(float a) { return make_float4(a, a, a, a); }
 
@@ -81,26 +90,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-int chunks_for(int page_size, int pages_per_seq) {
-  return (pages_per_seq * page_size + CT - 1) / CT;
+int chunks_for(int page_size, int pages_per_seq, int D) {
+  const int ct = chunk_tokens(D);
+  return (pages_per_seq * page_size + ct - 1) / ct;
 }
 
 // shared-memory row pitch of the K and V tiles: ≡ 16 (mod 32) floats
 __host__ __device__ inline int tile_ld(int D) { return (D + 31) / 32 * 32 + 16; }
 
+// at most 212 KB (G = 128, D = 256) of the 227 KB a block may take
 size_t smem_bytes(int G, int D) {
-  return sizeof(float) * ((size_t)2 * CT * tile_ld(D) + (size_t)G * D + (size_t)G * CT);
+  const int ct = chunk_tokens(D);
+  return sizeof(float) * ((size_t)2 * ct * tile_ld(D) + (size_t)G * D + (size_t)G * ct);
 }
 
 // Partial softmax state of one (b, query head, chunk): acc [D]
 // unnormalised and (m, l), in a scratch buffer laid out as
-// acc[B·H·chunks][D] followed by ml[B·H·chunks][2].
-template <int G>
+// acc[B·H·chunks][D] followed by ml[B·H·chunks][2]. GF: the group size,
+// or 0 for any (g_any heads, taken in blocks of GB_ANY).
+template <int GF, int CT>
 __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pages,
     const float* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ lengths, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int Hkv, int D, int page_size, int pages_per_seq) {
+    float* __restrict__ part_ml, int Hkv, int D, int page_size, int pages_per_seq,
+    int g_any) {
+  constexpr int KPT = THREADS / CT;  // threads per key for the scores
+  constexpr int GB = GF > 0 ? GF : GB_ANY;  // heads of a block of the scores
+  static_assert(KPT * CT == THREADS && 32 % KPT == 0, "a key's threads share a warp");
+  const int G = GF > 0 ? GF : g_any;
   extern __shared__ float4 smem4[];
   const int ld = tile_ld(D);
   float* ks = reinterpret_cast<float*>(smem4);  // [CT][ld]
@@ -146,30 +164,35 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
   cp_async_wait<1>();
   __syncthreads();
 
-  // scores: thread (j, p) takes float4 chunks p, p + 4, ... of key j
+  // scores: thread (j, p) takes float4 chunks p, p + KPT, ... of key j,
+  // against the heads in blocks of GB (one block where G is compiled)
   {
     const int j = tid / KPT, p = tid % KPT;
-    float dot[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g) dot[g] = 0.f;
-    for (int c = p; c < d4n; c += KPT) {
-      const float4 kv = *reinterpret_cast<const float4*>(ks + j * ld + c * 4);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + g * D + c * 4);
-        dot[g] = fmaf(qv.x, kv.x, dot[g]);
-        dot[g] = fmaf(qv.y, kv.y, dot[g]);
-        dot[g] = fmaf(qv.z, kv.z, dot[g]);
-        dot[g] = fmaf(qv.w, kv.w, dot[g]);
-      }
-    }
     const float sqrt_d = sqrtf((float)D);
+    for (int g0 = 0; g0 < G; g0 += GB) {
+      float dot[GB];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s = dot[g];
+      for (int g = 0; g < GB; ++g) dot[g] = 0.f;
+      for (int c = p; c < d4n; c += KPT) {
+        const float4 kv = *reinterpret_cast<const float4*>(ks + j * ld + c * 4);
 #pragma unroll
-      for (int o = 1; o < KPT; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (p == 0) ps[g * CT + j] = j < live ? s / sqrt_d : NEG_INF;
+        for (int g = 0; g < GB; ++g) {
+          if (GF == 0 && g0 + g >= G) break;  // uniform over the block
+          const float4 qv = *reinterpret_cast<const float4*>(qs + (g0 + g) * D + c * 4);
+          dot[g] = fmaf(qv.x, kv.x, dot[g]);
+          dot[g] = fmaf(qv.y, kv.y, dot[g]);
+          dot[g] = fmaf(qv.z, kv.z, dot[g]);
+          dot[g] = fmaf(qv.w, kv.w, dot[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (GF == 0 && g0 + g >= G) break;
+        float s = dot[g];
+#pragma unroll
+        for (int o = 1; o < KPT; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (p == 0) ps[(g0 + g) * CT + j] = j < live ? s / sqrt_d : NEG_INF;
+      }
     }
   }
   __syncthreads();
@@ -196,8 +219,23 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
   __syncthreads();  // V landed, p written; K is free for the shares below
 
   // P·V: thread (kp, o) owns float4 o of the G·D outputs and keys kp,
-  // kp + kparts, ...; the key shares meet in shared memory (over K)
+  // kp + kparts, ...; the key shares meet in shared memory (over K). Where
+  // the outputs outnumber the threads, thread o takes outputs o, o + 256,
+  // ... over all the live keys.
   const int n_out = G * d4n;
+  // at most 8 heads of 128 columns: 256 outputs, one a thread
+  constexpr bool MANY_OUT = GF == 0 || CT < chunk_tokens(NARROW_D);
+  if (MANY_OUT && n_out > THREADS) {
+    for (int o = tid; o < n_out; o += THREADS) {
+      const int g = o / d4n, c4 = (o % d4n) * 4;
+      float4 acc = f4(0.f);
+      for (int j = 0; j < live; ++j)
+        fma4(acc, ps[g * CT + j], *reinterpret_cast<const float4*>(vs + j * ld + c4));
+      const size_t row = ((size_t)b * H + hkv * G + g) * nc + ch;
+      *reinterpret_cast<float4*>(part_acc + row * D + c4) = acc;
+    }
+    return;
+  }
   const int kparts = THREADS / n_out;
   float4* red = reinterpret_cast<float4*>(ks);  // [kparts][n_out]
   if (tid < kparts * n_out) {
@@ -224,16 +262,17 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
   }
 }
 
-// One warp per (b, query head): merge the live chunks in order and
-// normalise. A row of length 0 has none and writes zeros. Lane s holds the
-// (m, l) of chunk s of each group of 32 chunks; the sums run over the
+// One warp per (b, query head, 128 columns of D): merge the live chunks in
+// order and normalise. A row of length 0 has none and writes zeros. Lane s holds the (m, l) of chunk s of each group of 32
+// chunks; the sums run over the
 // chunks in order with their weights passed by shuffles. The first
 // group's states and partial outputs are loaded together, right after the
 // wait: one round trip where a row has at most 32 live chunks.
+template <int CT>
 __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     const int* __restrict__ lengths, float* __restrict__ out, int H, int D, int T, int nc) {
-  const int bh = blockIdx.x, lane = threadIdx.x, d4 = lane * 4;
+  const int bh = blockIdx.x, lane = threadIdx.x, d4 = blockIdx.y * 128 + lane * 4;
   const int len = min(max(lengths[bh / H], 0), T);
   const int n_live = (len + CT - 1) / CT;
   const size_t row0 = (size_t)bh * nc;
@@ -280,29 +319,43 @@ __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
   }
 }
 
-template <int G>
+template <int GF, int CT>
 int launch(const float* q, const float* k_pages, const float* v_pages,
            const int* tables, const int* lengths, float* out, float* scratch,
-           int B, int Hkv, int D, int page_size, int pages_per_seq,
+           int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
            cudaStream_t stream) {
-  const int nc = chunks_for(page_size, pages_per_seq);
-  const int H = Hkv * G;
+  const int nc = chunks_for(page_size, pages_per_seq, D);
+  const int G = H / Hkv;
   float* part_acc = scratch;
   float* part_ml = scratch + (size_t)B * H * nc * D;
   const size_t smem = smem_bytes(G, D);
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_chunk_kernel<G>,
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_chunk_kernel<GF, CT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_attention_chunk_kernel<G><<<dim3(Hkv * B, nc), THREADS, smem, stream>>>(
+  paged_attention_chunk_kernel<GF, CT><<<dim3(Hkv * B, nc), THREADS, smem, stream>>>(
       q, k_pages, v_pages, tables, lengths, part_acc, part_ml, Hkv, D, page_size,
-      pages_per_seq);
+      pages_per_seq, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = launch_dependent(paged_attention_merge_kernel, dim3(B * H), dim3(32), 0, stream,
-                         (const float*)part_acc, (const float*)part_ml, lengths, out, H, D,
-                         pages_per_seq * page_size, nc);
+  err = launch_dependent(paged_attention_merge_kernel<CT>, dim3(B * H, (D + 127) / 128),
+                         dim3(32), 0, stream, (const float*)part_acc, (const float*)part_ml,
+                         lengths, out, H, D, pages_per_seq * page_size, nc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int CT>
+int launch_g(const float* q, const float* k_pages, const float* v_pages,
+             const int* tables, const int* lengths, float* out, float* scratch,
+             int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
+             cudaStream_t s) {
+  switch (H / Hkv) {
+    case 1: return launch<1, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 2: return launch<2, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 4: return launch<4, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 8: return launch<8, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    default: return launch<0, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  }
 }
 
 }  // namespace
@@ -311,7 +364,7 @@ int launch(const float* q, const float* k_pages, const float* v_pages,
 extern "C" int paged_attention_scratch_floats(int B, int H, int Hkv, int D,
                                               int page_size, int pages_per_seq) {
   if (B <= 0 || Hkv <= 0 || page_size <= 0 || pages_per_seq <= 0) return 0;
-  return B * H * chunks_for(page_size, pages_per_seq) * (D + 2);
+  return B * H * chunks_for(page_size, pages_per_seq, D) * (D + 2);
 }
 
 extern "C" int paged_attention_launch(const float* q, const float* k_pages,
@@ -320,17 +373,12 @@ extern "C" int paged_attention_launch(const float* q, const float* k_pages,
                                       float* scratch, int B, int H, int Hkv,
                                       int D, int page_size, int pages_per_seq,
                                       void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D % 4 != 0 ||
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || D <= 0 || D % 4 != 0 ||
       D > MAX_D || page_size <= 0 || page_size % PAGE_MULTIPLE != 0 || pages_per_seq <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (H / Hkv) {
-    case 1: return launch<1>(q, k_pages, v_pages, tables, lengths, out, scratch, B, Hkv, D, page_size, pages_per_seq, s);
-    case 2: return launch<2>(q, k_pages, v_pages, tables, lengths, out, scratch, B, Hkv, D, page_size, pages_per_seq, s);
-    case 4: return launch<4>(q, k_pages, v_pages, tables, lengths, out, scratch, B, Hkv, D, page_size, pages_per_seq, s);
-    case 8: return launch<8>(q, k_pages, v_pages, tables, lengths, out, scratch, B, Hkv, D, page_size, pages_per_seq, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (D > NARROW_D) return launch_g<chunk_tokens(MAX_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  return launch_g<chunk_tokens(NARROW_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

@@ -14,10 +14,11 @@
 //
 // What the design does about it: one block per (b, kv head, q tile, KV
 // part) runs the tensor-core tile loop of attention_tc.cuh (3xTF32
-// mma.sync for Q·Kᵀ and P·V, a cp.async ring of 64-key K/V tiles, GQA heads
-// packed into the rows of the mma tile). The q tile holds up to 128 query
-// vectors; the engine's small buckets (S·G down to 16) take smaller tiles
-// whose spare warps share the keys. A block reads its own start[b] and
+// mma.sync for Q·Kᵀ and P·V, a cp.async ring of K/V tiles, GQA heads
+// packed into the rows of the mma tile, any group size: a token's heads
+// may straddle two q tiles). The q tile holds up to 128 query vectors (64
+// for a head dim past 128); the engine's small buckets (S·G down to 16)
+// take smaller tiles whose spare warps share the keys. A block reads its own start[b] and
 // true_lens[b], and its KV loop stops at min(row frontier, the tile's
 // causal diagonal): Hopper has no revisit-skip as the TPU's block pipeline
 // does, so skipping a tile means not looping over it.
@@ -71,9 +72,9 @@ __host__ __device__ inline int kv_parts(int kv_tiles, int n_split) {
   return p < n_split ? p : n_split;
 }
 
-// The keys of row b's q tile holding token s: [0, kv_end)
-__device__ __forceinline__ int tile_kv_end(int st, int n_new, int T, int q_lo, int TQ) {
-  return min(st + min(q_lo + TQ, n_new), T);
+// The keys of a q tile of row b whose tokens end at s_end: [0, kv_end)
+__device__ __forceinline__ int tile_kv_end(int st, int n_new, int T, int s_end) {
+  return min(st + min(s_end, n_new), T);
 }
 
 template <int WR, int DT>
@@ -84,69 +85,74 @@ __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
     float* __restrict__ part_o, int B, int S, int T, int Hq, int Hkv, int D,
     int n_split) {
   extern __shared__ float4 smem4[];
-  const int G = Hq / Hkv, TQ = 16 * WR / G;
+  constexpr int ROWS = 16 * WR;
+  const int G = Hq / Hkv;
   const int tile = blockIdx.x / n_split, part = blockIdx.x % n_split;
   const int b = blockIdx.z, hkv = blockIdx.y;
   const RaggedSrc src{q, k, v, out, b, hkv, S, T, Hq, Hkv, D, G, part, B};
-  const int q_lo = tile * TQ;
-  const int st = start[b], n_new = true_lens[b];
-  const int q_hi = min(q_lo + TQ, n_new);  // live queries: [q_lo, q_hi)
-  if (q_lo >= q_hi) {
+  const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
+  const int s_end = attn::tile_token_end(v_lo, ROWS, G, S);
+  const int st = start[b], n_new = min(true_lens[b], S);
+  const int q_hi = min(s_end, n_new);  // live queries below q_hi
+  if (v_lo / G >= q_hi) {
     // a q tile past the row's live queries (or an inactive row): zeros,
     // written by the combine pass when the KV range is split
-    if (n_split == 1) attn::zero_tokens(src, G, D, q_lo, min(q_lo + TQ, S));
+    if (n_split == 1) attn::zero_vectors(src, G, D, v_lo, min(v_lo + ROWS, S * G));
     return;
   }
-  const int kv_end = tile_kv_end(st, n_new, T, q_lo, TQ);
+  const int kv_end = tile_kv_end(st, n_new, T, s_end);
   const int kv_tiles = (kv_end + attn::BKV - 1) / attn::BKV;
   const int parts = kv_parts(kv_tiles, n_split);
   if (part >= parts) return;
   const int j0 = part * kv_tiles / parts, j1 = (part + 1) * kv_tiles / parts;
   // partial sums, then the (m, l) pairs after all n_split·B·S·Hq sums
   float* po = parts > 1 ? part_o : nullptr;
-  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, q_lo, q_hi, st,
+  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, v_lo, q_hi, st,
                        kv_end, j0, j1, po, po ? po + (size_t)n_split * B * S * Hq * D : nullptr);
 }
 
 // One warp per (b, s, head) of a split launch: a padded query gets zeros; a
 // live query whose tile made more than one part gets
 // Σ_p w_p·o_p / Σ_p w_p·l_p with w_p = exp(m_p − max m), parts in order.
+// A lane takes float4 columns lane, lane + 32, ... of D.
 __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
     const int* __restrict__ start, const int* __restrict__ true_lens,
     const float* __restrict__ part_o, float* __restrict__ out, int B, int S, int T,
-    int Hq, int D, int n_split, int TQ) {
+    int Hq, int G, int D, int n_split, int rows) {
   const int lane = threadIdx.x & 31;
   const size_t row = (size_t)blockIdx.x * (attn::THREADS / 32) + (threadIdx.x >> 5);
   if (row >= (size_t)B * S * Hq) return;
   const int b = (int)(row / ((size_t)S * Hq)), s = (int)(row / Hq % S);
-  const int c = lane * 4;
-  const int n_new = true_lens[b];
-  float* o = out + row * D + c;
+  const int n_new = min(true_lens[b], S);
+  float* o = out + row * D;
   if (s >= n_new) {
-    if (c < D) *reinterpret_cast<float4*>(o) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = lane * 4; c < D; c += 128)
+      *reinterpret_cast<float4*>(o + c) = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
-  const int q_lo = s / TQ * TQ;
-  const int kv_end = tile_kv_end(start[b], n_new, T, q_lo, TQ);
+  const int v_lo = (s * G + (int)(row % Hq) % G) / rows * rows;  // the vector's q tile
+  const int kv_end = tile_kv_end(start[b], n_new, T, attn::tile_token_end(v_lo, rows, G, S));
   const int parts = kv_parts((kv_end + attn::BKV - 1) / attn::BKV, n_split);
-  if (parts == 1 || c >= D) return;  // written by the attention kernel
+  if (parts == 1) return;  // written by the attention kernel
   const size_t stride = (size_t)B * S * Hq;
   const float* ml = part_o + (size_t)n_split * stride * D + 2 * row;
   float M = attn::NEG_INF;
   for (int p = 0; p < parts; ++p) M = fmaxf(M, ml[2 * p * stride]);
   float L = 0.f;
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int p = 0; p < parts; ++p) {
-    const float w = expf(ml[2 * p * stride] - M);
-    L += ml[2 * p * stride + 1] * w;
-    const float4 x = *reinterpret_cast<const float4*>(part_o + (p * stride + row) * D + c);
-    a.x += x.x * w;
-    a.y += x.y * w;
-    a.z += x.z * w;
-    a.w += x.w * w;
-  }
+  for (int p = 0; p < parts; ++p) L += ml[2 * p * stride + 1] * expf(ml[2 * p * stride] - M);
   const float inv = 1.f / fmaxf(L, 1e-30f);
-  *reinterpret_cast<float4*>(o) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  for (int c = lane * 4; c < D; c += 128) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < parts; ++p) {
+      const float w = expf(ml[2 * p * stride] - M);
+      const float4 x = *reinterpret_cast<const float4*>(part_o + (p * stride + row) * D + c);
+      a.x += x.x * w;
+      a.y += x.y * w;
+      a.z += x.z * w;
+      a.w += x.w * w;
+    }
+    *reinterpret_cast<float4*>(o + c) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  }
 }
 
 struct Plan {
@@ -157,9 +163,9 @@ struct Plan {
 // count (start and true_lens lie on the card): parts until the q tiles give
 // about four blocks per SM, as many as T allows.
 Plan plan(int B, int S, int T, int Hq, int Hkv, int D) {
-  const int G = Hq / Hkv;
-  Plan p{attn::tile_rows(S * G, G) / 16, attn::d_tiles(D), 1, 0};
-  p.n_tiles = (S + 16 * p.wr / G - 1) / (16 * p.wr / G);
+  const int vectors = S * (Hq / Hkv);  // of one (row, kv head)
+  Plan p{attn::tile_rows(vectors, D) / 16, attn::d_tiles(D), 1, 0};
+  p.n_tiles = (vectors + 16 * p.wr - 1) / (16 * p.wr);
   const int kv_tiles = (T + attn::BKV - 1) / attn::BKV;
   int most = (kv_tiles + PART_TILES - 1) / PART_TILES;
   most = most < MAX_SPLIT ? most : MAX_SPLIT;
@@ -186,10 +192,11 @@ int launch(const float* q, const float* k, const float* v, const int* start,
   const int per_block = attn::THREADS / 32;
   ragged_extend_combine_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
                                  attn::THREADS, 0, stream>>>(
-      start, true_lens, part_o, out, B, S, T, Hq, D, p.n_split, 16 * WR / (Hq / Hkv));
+      start, true_lens, part_o, out, B, S, T, Hq, Hq / Hkv, D, p.n_split, 16 * WR);
   return (int)cudaGetLastError();
 }
 
+// q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
 template <int DT>
 int launch_dt(const float* q, const float* k, const float* v, const int* start,
               const int* true_lens, float* out, float* part_o, int B, int S, int T,
@@ -198,13 +205,15 @@ int launch_dt(const float* q, const float* k, const float* v, const int* start,
     case 1: return launch<1, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
     case 2: return launch<2, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
     case 4: return launch<4, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
-    default: return launch<8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    default:
+      if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
+      else return launch<8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
   }
 }
 
 bool valid(int B, int S, int T, int Hq, int Hkv, int D) {
-  return B > 0 && S > 0 && T > 0 && Hkv > 0 && Hq % Hkv == 0 && 32 % (Hq / Hkv) == 0 &&
-         D % 4 == 0 && D > 0 && D <= attn::MAX_D;
+  return B > 0 && S > 0 && T > 0 && Hkv > 0 && Hq % Hkv == 0 && D % 4 == 0 && D > 0 &&
+         D <= attn::MAX_D;
 }
 
 }  // namespace
@@ -229,7 +238,9 @@ extern "C" int ragged_extend_launch(const float* q, const float* k,
   switch (p.dt) {
     case 4: return launch_dt<4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
     case 8: return launch_dt<8>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    default: return launch_dt<16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 16: return launch_dt<16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 20: return launch_dt<20>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    default: return launch_dt<32>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
   }
 }
 

@@ -5,7 +5,8 @@
 head-major layout ``q (B, H, S, D)``, ``k/v (B, Hkv, S, D)``.
 ``flash_prefill_ragged`` is the counterpart of ``flash_prefill_ragged``:
 the same with ``true_lens`` (B,) live tokens per row; padded queries and
-rows of length 0 come out as zeros. The inputs may be strided views (a
+rows of length 0 come out as zeros. Any group size and any head dim that is
+a multiple of 4 up to 256 is taken. The inputs may be strided views (a
 ``(B, S, H, D)`` tensor transposed to head-major is read in place) as long
 as D has unit stride; the output has q's strides. A tensor on the CPU takes
 the plain version (:func:`~repro_torch.kernels.ref.flash_prefill_ref`,
@@ -34,8 +35,9 @@ def _launch(name, q, k, v, true_lens):
     Hkv = k.shape[1]
     if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D:
         raise ValueError(f"{name}: k/v must be (B, Hkv, S, D) of q's B, S, D")
-    # a group size or head dim the kernel's tiles do not take comes back as
-    # the launch's CUDA error
+    if H % Hkv:
+        raise ValueError(f"{name}: {H} query heads over {Hkv} kv heads")
+    build.check_head_dim(name, D)
     build.check_cuda_f32(name, dev, rows=True, q=q, k=k, v=v)
     lens = None
     if true_lens is not None:

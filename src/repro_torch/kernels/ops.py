@@ -6,7 +6,7 @@ built at first use by ``kernels/build.py``, or raises. Nothing falls back.
 
 The kernels have no backward pass: on the card, a wrapper called under
 autograd with an input that requires grad raises ``NotImplementedError``
-(training is ROADMAP Queue 1 item 9). The plain versions on the CPU keep
+(training is ROADMAP Queue 1 item 5). The plain versions on the CPU keep
 autograd.
 """
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.kernels.paged_attention.paged_attention``: one query
 token per row attends the first ``lengths[b]`` tokens of its pages
-``k_pages[block_tables[b, p]]``; a row of length 0 gives zeros. A tensor on
+``k_pages[block_tables[b, p]]``; a row of length 0 gives zeros. Group
+sizes up to 128 and head dims that are a multiple of 4 up to 256 are
+taken. A tensor on
 the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.paged_attention_ref`); a CUDA tensor
 launches the kernel or raises.
@@ -23,18 +25,21 @@ _SIGNATURES = {
     # needs (every chunk's partial softmax state)
     "paged_attention_scratch_floats": "iiiiii",
 }
-GROUP_SIZES = (1, 2, 4, 8)
-MAX_HEAD_DIM = 128
-# tokens of the table one block of the kernel takes (csrc: CT)
-CHUNK_TOKENS = 64
+MAX_GROUP = 128  # query heads per kv head (csrc: the q heads' shared memory)
 
 
-def chunk_plan(page_size: int, pages_per_seq: int) -> int:
-    """Chunks of ``CHUNK_TOKENS`` that cover a row's table, as the kernel's
-    grid does: one block each per (chunk, kv head, row); a block whose
-    chunk starts at or past the row's clamped length returns at once, and
-    the merge reads the first ``ceil(len / CHUNK_TOKENS)`` chunks."""
-    return -(-pages_per_seq * page_size // CHUNK_TOKENS)
+def chunk_tokens(head_dim: int) -> int:
+    """Tokens of the table one block of the kernel takes (csrc:
+    chunk_tokens): 64, and 32 for a head dim past 128."""
+    return 32 if head_dim > 128 else 64
+
+
+def chunk_plan(page_size: int, pages_per_seq: int, head_dim: int) -> int:
+    """Chunks of :func:`chunk_tokens` that cover a row's table, as the
+    kernel's grid does: one block each per (chunk, kv head, row); a block
+    whose chunk starts at or past the row's clamped length returns at once,
+    and the merge reads the first ``ceil(len / chunk_tokens)`` chunks."""
+    return -(-pages_per_seq * page_size // chunk_tokens(head_dim))
 
 
 def paged_attention(
@@ -55,11 +60,11 @@ def paged_attention(
     _, page, Hkv, kd = k_pages.shape
     if kd != D:
         raise ValueError(f"{name}: head dim mismatch")
-    if H % Hkv or H // Hkv not in GROUP_SIZES:
-        raise ValueError(f"{name}: group size {H}/{Hkv} not in {GROUP_SIZES}")
-    if D % 4 or D > MAX_HEAD_DIM:
+    if H % Hkv or H // Hkv > MAX_GROUP:
         raise ValueError(
-            f"{name}: head dim {D} must be a multiple of 4 up to {MAX_HEAD_DIM}")
+            f"{name}: {H} query heads over {Hkv} kv heads: the group size must "
+            f"be a whole number up to {MAX_GROUP}")
+    build.check_head_dim(name, D)
     if page % 8:
         raise ValueError(f"{name}: page size {page} must be a multiple of 8")
     if block_tables.dim() != 2 or block_tables.shape[0] != B:

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.ragged_extend.ragged_extend``: causal GQA
 attention of padded suffix chunks ``q (B, S, Hq, D)`` against the dense
 cache ``(B, T, Hkv, D)``; query ``s`` of row ``b`` sees keys
 ``0 .. start[b] + s`` for ``s < true_lens[b]``, and padded queries are
-zeros. A tensor on the CPU takes the plain version
+zeros. Any group size and any head dim that is a multiple of 4 up to 256
+is taken. A tensor on the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.ragged_extend_ref`); a CUDA tensor launches
 the kernel or raises.
 """
@@ -22,8 +23,6 @@ _SIGNATURES = {
     # (B, S, T, Hq, Hkv, D) -> KV parts per q tile (1: no scratch)
     "ragged_extend_kv_parts": "iiiiii",
 }
-QUERIES_PER_BLOCK = 32  # the group size must divide it
-MAX_HEAD_DIM = 128
 
 
 def ragged_extend(
@@ -43,12 +42,9 @@ def ragged_extend(
     T, Hkv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"{name}: cache shape")
-    if Hq % Hkv or QUERIES_PER_BLOCK % (Hq // Hkv):
-        raise ValueError(
-            f"{name}: group size {Hq}/{Hkv} must divide {QUERIES_PER_BLOCK}")
-    if D % 4 or D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name}: head dim {D} must be a multiple of 4 up to {MAX_HEAD_DIM}")
+    if Hq % Hkv:
+        raise ValueError(f"{name}: {Hq} query heads over {Hkv} kv heads")
+    build.check_head_dim(name, D)
     if tuple(start.shape) != (B,) or tuple(true_lens.shape) != (B,):
         raise ValueError(f"{name}: start/true_lens must be (B,)")
     build.check_cuda_f32(name, dev, q=q, k=k, v=v)

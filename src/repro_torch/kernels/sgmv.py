@@ -8,7 +8,7 @@ row. Both run the same source with the base term compiled in or out. A
 tensor on the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.fused_sgmv_ref`,
 :func:`~repro_torch.kernels.ref.sgmv_ref`); a CUDA tensor launches the
-kernel or raises.
+kernel or raises. Every rank from 1 to ``MAX_RANK`` is taken.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from . import build
 from .ref import fused_sgmv_ref, sgmv_ref
 
 _SOURCE = "fused_sgmv"
+MAX_RANK = 128  # csrc: ranks 4, 8, .., 128 compiled, a rank between runs on the next
 _SIGNATURES = {
     # x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, R, scale, stream
     "fused_sgmv_launch": "pppppppiiiiifp",
@@ -66,8 +67,8 @@ def _check(name, x, w, lora_a, lora_b, adapter_ids):
         raise ValueError(f"{name}: lora_b shape")
     if tuple(adapter_ids.shape) != (B,):
         raise ValueError(f"{name}: adapter_ids shape")
-    # a rank the kernel is not compiled for, or a tile over the shared
-    # memory of a block, comes back as the launch's CUDA error
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"{name}: rank {r} must be in 1..{MAX_RANK}")
     tensors = dict(x=x, lora_a=lora_a, lora_b=lora_b)
     if w is not None:
         tensors["w"] = w

@@ -1,5 +1,5 @@
 """Paged KV cache (PyTorch counterpart of ``repro.kvcache``; the recurrent
-state cache is ROADMAP Queue 1 item 7)."""
+state cache is ROADMAP Queue 1 item 3)."""
 
 from .paged import KVPoolSpec, PagedKVPool
 

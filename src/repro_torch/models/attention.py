@@ -3,8 +3,16 @@
 Conventions follow the reference: ``p`` is one layer's parameter dict,
 ``lora`` maps a target to ``(A (slots, d_in, r), B (slots, r, d_out))`` and
 ``adapter_ids`` (B,) picks the slot per row. Only the dense GQA layout is
-ported; sliding windows, int8 KV, logit softcap and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8).
+ported, with RoPE or Qwen2-VL's M-RoPE; sliding windows, int8 KV and logit
+softcap (ROADMAP Queue 1 item 1), MLA and MoE (item 2), the recurrent
+layouts (item 3) and encoder-decoder models (item 4) raise
+``NotImplementedError``.
+
+The rotary tables of a step are built once (:func:`step_rope`) and every
+layer's :func:`_qkv` rotates q and k by them: M-RoPE tables where the
+config has ``mrope_sections`` and the caller gives ``mrope_positions``
+(3, B, S), as the reference's ``_qkv`` applies ``apply_mrope`` there, and
+plain RoPE tables at the token positions otherwise.
 
 :func:`gqa_full` is the fresh full-sequence path (``LM.forward`` and
 ``LM.prefill``): causal attention through ``flash_prefill``.
@@ -26,9 +34,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kernel_ops
-from .common import dense_init, init_rms, rms_norm, rope_tables, rotate
+from .common import dense_init, init_rms, mrope_tables, rms_norm, rope_tables, rotate
 
-_UNPORTED = "not ported yet (ROADMAP Queue 1 item 8)"
+_UNPORTED = "not ported yet (ROADMAP Queue 1 item {})"
 
 
 def _proj(x, w, lora, name, adapter_ids, scale):
@@ -53,20 +61,28 @@ def _page_size_for(T: int) -> int:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the layouts this package does not run yet."""
     if cfg.mla is not None:
-        raise NotImplementedError(f"MLA attention is {_UNPORTED}")
+        raise NotImplementedError("MLA attention is " + _UNPORTED.format(2))
     if cfg.rwkv is not None or cfg.rglru is not None:
-        raise NotImplementedError(
-            "recurrent layouts are not ported yet (ROADMAP Queue 1 item 7)")
+        raise NotImplementedError("recurrent layouts are " + _UNPORTED.format(3))
     if cfg.moe is not None:
-        raise NotImplementedError(f"the MoE FFN is {_UNPORTED}")
+        raise NotImplementedError("the MoE FFN is " + _UNPORTED.format(2))
     if cfg.window_size:
-        raise NotImplementedError(f"sliding-window attention is {_UNPORTED}")
+        raise NotImplementedError("sliding-window attention is " + _UNPORTED.format(1))
     if cfg.logit_softcap:
-        raise NotImplementedError(f"logit softcap is {_UNPORTED}")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {_UNPORTED}")
+        raise NotImplementedError("logit softcap is " + _UNPORTED.format(1))
     if cfg.is_encdec:
-        raise NotImplementedError(f"encoder-decoder models are {_UNPORTED}")
+        raise NotImplementedError("encoder-decoder models are " + _UNPORTED.format(4))
+
+
+def step_rope(cfg: ModelConfig, positions: torch.Tensor, mrope_positions=None):
+    """The (cos, sin) tables every layer of a step rotates q and k by:
+    M-RoPE at ``mrope_positions`` (3, B, S) where the config has sections
+    and the caller gives them, else RoPE at ``positions`` (..., S)."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope_sections is not None and mrope_positions is not None:
+        mpos = torch.as_tensor(mrope_positions).to(positions.device, torch.int64)
+        return mrope_tables(mpos, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_tables(positions, hd, cfg.rope_theta)
 
 
 # =============================================================== GQA / MQA
@@ -134,13 +150,15 @@ def gqa_full(
     the (cos, sin) tables at positions 0 .. S-1, so causality by index is
     causality by position, as the reference's kernel path assumes.
 
+    With M-RoPE, ``rope`` holds its tables (:func:`step_rope`).
     Attention goes through ``flash_prefill`` in the head-major layout; the
     transposes are views, which the kernel reads by their strides. Returns
     ``(out, (k, v))`` with k/v ``(B, S, Hkv, D)``, so a caller can seed a
     decode cache. The reference's ``q_chunk`` (blockwise attention, a
     training memory knob) is not ported: the kernel is already blockwise."""
     if window or cfg.logit_softcap:
-        raise NotImplementedError(f"windowed / softcapped attention is {_UNPORTED}")
+        raise NotImplementedError("windowed / softcapped attention is "
+                                  + _UNPORTED.format(1))
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale)
     out = kernel_ops.flash_prefill(
@@ -155,7 +173,7 @@ class CachedStep:
     """Where one ``extend`` call reads and writes the dense cache, shared by
     every layer. Index tensors live on the model's device."""
 
-    rope: tuple[torch.Tensor, torch.Tensor]  # (cos, sin) at the positions
+    rope: tuple[torch.Tensor, torch.Tensor]  # (cos, sin): step_rope
     start: torch.Tensor  # (B,) int32 — cache length before the chunk
     true_lens: Optional[torch.Tensor]  # (B,) int32; None: no token mask
     dst: torch.Tensor  # (n,) flat b·T + position of every written token
@@ -166,9 +184,10 @@ class CachedStep:
 
 
 def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
-                true_lens=None, keep_rows=None) -> CachedStep:
+                true_lens=None, keep_rows=None, mrope_positions=None) -> CachedStep:
     """Plan one ``extend`` of S tokens per row at offsets ``start``, with
-    the RoPE tables of ``cfg`` at those positions.
+    the rotary tables of ``cfg`` at those positions (M-RoPE at
+    ``mrope_positions`` (3, B, S) where given, see :func:`step_rope`).
 
     ``start``, ``true_lens`` (B,) and ``keep_rows`` (B,) bool are host-side
     values (numpy or CPU tensors; a CUDA tensor is copied to the host), so
@@ -197,7 +216,7 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
         return None if t is None else t.to(device, non_blocking=True)
 
     return CachedStep(
-        rope=rope_tables(dev(pos), cfg.resolved_head_dim, cfg.rope_theta),
+        rope=step_rope(cfg, dev(pos), mrope_positions),
         start=dev(start_h.to(torch.int32)),
         true_lens=None if true_lens is None else dev(tl_h.to(torch.int32)),
         dst=dev(b_idx * T + pos[b_idx, s_idx]),
@@ -229,7 +248,8 @@ def gqa_cached(
     cache viewed as contiguous pages (tables = arange, lengths = start + 1);
     every other case goes through ``ragged_extend``."""
     if window or cfg.logit_softcap:
-        raise NotImplementedError(f"windowed / softcapped attention is {_UNPORTED}")
+        raise NotImplementedError("windowed / softcapped attention is "
+                                  + _UNPORTED.format(1))
     B, S, _ = x.shape
     T, Hkv, Dh = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
     q, k, v = _qkv(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)

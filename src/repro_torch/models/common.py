@@ -57,6 +57,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
 
 
+def mrope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of Qwen2-VL's multimodal RoPE, each (B, seq, 1,
+    head_dim/2), for ``positions`` (3, B, seq) int: temporal, height and
+    width position ids. The head_dim/2 frequency slots fall into 3
+    ``sections``; slot i of section j rotates by ``positions[j]``. With the
+    three streams equal this is :func:`rope_tables` (text only)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)  # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=positions.device)
+                     for i, s in enumerate(sections)])  # (hd/2,) in {0, 1, 2}
+    pos = positions[sec].movedim(0, -1)  # (B, seq, hd/2)
+    angles = pos.float() * freqs
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE of x (B, seq, heads, head_dim) at
+    ``positions`` (3, B, seq); see :func:`mrope_tables`."""
+    return rotate(x, *mrope_tables(positions, x.shape[-1], theta, sections))
+
+
 # ------------------------------------------------------------------- inits
 def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype=torch.float32,
                device=None) -> torch.Tensor:

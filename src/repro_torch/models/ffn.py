@@ -1,5 +1,5 @@
 """Gated dense feed-forward (PyTorch counterpart of ``repro.models.ffn``;
-the MoE FFN is ROADMAP Queue 1 item 8)."""
+the MoE FFN is ROADMAP Queue 1 item 2)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Model facade (PyTorch counterpart of ``repro.models.model``): the dense
 decoder and its static-batch prefill and decode steps; training steps are
-ROADMAP Queue 1 item 9."""
+ROADMAP Queue 1 item 5."""
 
 from __future__ import annotations
 
@@ -22,12 +22,15 @@ def build_model(cfg: ModelConfig, dtype=torch.float32, device=None) -> LM:
 def make_prefill_step(model: LM) -> Callable:
     """prefill_step(params, lora, batch) -> (last-token logits, cache): a
     fresh prefill of ``batch["tokens"]`` (B, S) into a cache of exactly S
-    positions, with ``batch.get("adapter_ids")`` (B,)."""
+    positions, with ``batch.get("adapter_ids")`` (B,), and the batch's
+    ``extra_embeds`` and ``mrope_positions`` where it has them."""
 
     def prefill_step(params, lora, batch):
         return model.prefill(params, batch["tokens"],
                              max_len=batch["tokens"].shape[1], lora=lora,
-                             adapter_ids=batch.get("adapter_ids"))
+                             adapter_ids=batch.get("adapter_ids"),
+                             extra_embeds=batch.get("extra_embeds"),
+                             mrope_positions=batch.get("mrope_positions"))
 
     return prefill_step
 

@@ -26,7 +26,11 @@ into a new cache in place, where the reference pads; ``extend`` updates the
 cache in place and returns it: only the real tokens of kept rows are
 written, and ``len`` advances only for kept rows. ``cache["len"]`` is a
 host-side (CPU) int32 tensor, so planning a step never waits on the device.
-Remat, ``q_chunk`` and int8 KV are not ported.
+As in the reference, ``forward``, ``prefill``, ``extend`` and ``decode``
+take ``mrope_positions`` (3, B, S), which rotate q and k by M-RoPE on a
+config with ``mrope_sections``, and all but ``decode`` take
+``extra_embeds`` (B, S, d), added to the token embeddings (the modality
+frontend's stub). Remat, ``q_chunk`` and int8 KV are not ported.
 """
 
 from __future__ import annotations
@@ -37,8 +41,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import cached_step, check_supported, gqa_cached, gqa_full, init_gqa
-from .common import dense_init, embed_init, init_rms, rms_norm, rope_tables
+from .attention import (cached_step, check_supported, gqa_cached, gqa_full, init_gqa,
+                        step_rope)
+from .common import dense_init, embed_init, init_rms, rms_norm
 from .ffn import dense_ffn, init_dense_ffn
 
 
@@ -122,8 +127,11 @@ class LM:
         }
 
     # ------------------------------------------------------------ embeddings
-    def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.dtype)
+    def _embed(self, params, tokens, extra_embeds=None):
+        x = params["embed"][tokens].to(self.dtype)
+        if extra_embeds is not None:  # the modality frontend's stub
+            x = x + torch.as_tensor(extra_embeds).to(x.device, self.dtype)
+        return x
 
     def _unembed(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -142,7 +150,8 @@ class LM:
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
         return x + dense_ffn(lp["ffn"], h2, cfg.activation), kv
 
-    def _run_full(self, params, tokens, lora, adapter_ids, cache=None):
+    def _run_full(self, params, tokens, lora, adapter_ids, cache=None,
+                  extra_embeds=None, mrope_positions=None):
         """Embed ``tokens`` (B, S) and run every layer over the fresh
         sequence (positions 0 .. S-1); with ``cache``, layer i's K/V go into
         ``cache["k"][i, :, :S]`` / ``cache["v"][i, :, :S]``. Returns the
@@ -150,9 +159,8 @@ class LM:
         cfg, dev = self.cfg, self.device
         tokens = torch.as_tensor(tokens).to(dev, torch.int64, non_blocking=True)
         B, S = tokens.shape
-        x = self._embed(params, tokens)
-        rope = rope_tables(torch.arange(S, device=dev), cfg.resolved_head_dim,
-                           cfg.rope_theta)
+        x = self._embed(params, tokens, extra_embeds)
+        rope = step_rope(cfg, torch.arange(S, device=dev), mrope_positions)
         ids = None
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
@@ -176,17 +184,19 @@ class LM:
         return x + dense_ffn(lp["ffn"], h2, cfg.activation)
 
     # ================================================================ train
-    def forward(self, params, tokens, *, lora=None, adapter_ids=None):
+    def forward(self, params, tokens, *, lora=None, adapter_ids=None,
+                extra_embeds=None, mrope_positions=None):
         """Full causal forward over ``tokens`` (B, S); returns
         ``(logits (B, S, vocab), aux)`` with the MoE auxiliary loss ``aux``
         0 (a dense model has none)."""
-        x = self._run_full(params, tokens, lora, adapter_ids)
+        x = self._run_full(params, tokens, lora, adapter_ids,
+                           extra_embeds=extra_embeds, mrope_positions=mrope_positions)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return self._unembed(params, x), aux
 
     # ============================================================== prefill
     def prefill(self, params, tokens, max_len: int, *, lora=None,
-                adapter_ids=None):
+                adapter_ids=None, extra_embeds=None, mrope_positions=None):
         """Fresh full prefill of ``tokens`` (B, S) into a new cache of
         ``max_len`` positions: returns (last-token logits (B, 1, vocab),
         cache) with ``cache["len"]`` S in every row."""
@@ -194,14 +204,16 @@ class LM:
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
         cache = self.init_cache(B, max_len)
-        x = self._run_full(params, tokens, lora, adapter_ids, cache=cache)
+        x = self._run_full(params, tokens, lora, adapter_ids, cache=cache,
+                           extra_embeds=extra_embeds, mrope_positions=mrope_positions)
         cache["len"] = torch.full((B,), S, dtype=torch.int32)  # host side
         return self._unembed(params, x[:, -1:, :]), cache
 
     # ====================================================== extend / decode
     def extend(self, params, cache, tokens, start, *, lora=None,
-               adapter_ids=None, all_logits=False, true_lens=None,
-               keep_rows=None, logit_positions=None):
+               adapter_ids=None, extra_embeds=None, mrope_positions=None,
+               all_logits=False, true_lens=None, keep_rows=None,
+               logit_positions=None):
         """Write ``tokens`` (B, S) at per-row offsets ``start`` and return
         logits for the chunk (chunked prefill / decode are S>1 / S=1).
 
@@ -221,8 +233,9 @@ class LM:
         B, S = tokens.shape
         T = cache["k"].shape[2]
         step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
-                           keep_rows=keep_rows)
-        x = self._embed(params, tokens.to(dev, torch.int64, non_blocking=True))
+                           keep_rows=keep_rows, mrope_positions=mrope_positions)
+        x = self._embed(params, tokens.to(dev, torch.int64, non_blocking=True),
+                        extra_embeds)
         ids = None
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
@@ -245,8 +258,10 @@ class LM:
             x = x[:, -1:, :]
         return self._unembed(params, x), cache
 
-    def decode(self, params, cache, tokens, *, lora=None, adapter_ids=None):
+    def decode(self, params, cache, tokens, *, lora=None, adapter_ids=None,
+               mrope_positions=None):
         """One-token decode step: ``tokens`` (B, 1) at the offsets
         ``cache["len"]``."""
         return self.extend(params, cache, tokens, cache["len"], lora=lora,
-                           adapter_ids=adapter_ids)
+                           adapter_ids=adapter_ids,
+                           mrope_positions=mrope_positions)

@@ -24,7 +24,7 @@ Where the reference computes a new cache and keeps some rows of it, this
 engine writes in place: ``extend`` writes only the rows it keeps
 (``keep_rows``) and advances ``len`` only there, so a catch-up decode never
 touches a prefilling row's KV. The recurrent-state and MLA layouts raise
-``NotImplementedError`` (ROADMAP Queue 1 items 7 and 8).
+``NotImplementedError`` (ROADMAP Queue 1 items 2 and 3).
 
 With ``schedule_mode="mixed"`` each engine step is ONE row-masked batched
 ``extend``: active decode slots ride as 1-token rows next to prefill chunk

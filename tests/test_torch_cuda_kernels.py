@@ -135,6 +135,47 @@ def test_ragged_extend_cuda_engine_shapes(cuda, B, S, T, H, Hkv, D, lens, starts
     assert lib.ragged_extend_kv_parts(B, S, T, H, Hkv, D) > 1  # split
 
 
+# Head dims and group sizes past the qwen3 shapes: D = 20 (no multiple of
+# 8, padded to the k8 step), 160 and 256 (wide heads: 32-key stages, q
+# tiles of at most 64 rows, D split over the warps of a row), G = 1, 3, 7
+# (a token's heads straddle two q tiles; dead rows past S·G) and 8, each
+# with decode riders, empty rows and part-filled chunks.
+_RAGGED_WIDE = [
+    # B, S, T, H, Hkv, D, lens, starts
+    (4, 64, 700, 8, 8, 20, [64, 1, 0, 33], [600, 699, 0, 7]),       # D = 20, G = 1
+    (4, 64, 900, 12, 4, 160, [64, 1, 0, 50], [800, 899, 0, 300]),   # D = 160, G = 3
+    (4, 50, 1200, 14, 2, 256, [50, 1, 17, 0], [1100, 1199, 0, 5]),  # D = 256, G = 7
+    (8, 256, 2048, 28, 4, 128, [0, 1, 37, 256, 256, 37, 1, 256],    # qwen2-vl: G = 7
+     [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    (8, 256, 2048, 8, 1, 256, [0, 1, 37, 256, 256, 37, 1, 256],     # gemma-2b: G = 8
+     [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    (8, 256, 2048, 32, 8, 160, [0, 1, 37, 256, 256, 37, 1, 256],    # stablelm-12b
+     [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    (3, 8, 300, 16, 16, 256, [8, 1, 5], [292, 299, 0]),             # G = 1, D = 256
+    (2, 1, 4000, 7, 1, 160, [1, 1], [3999, 10]),                    # decode riders alone
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,lens,starts", _RAGGED_WIDE)
+def test_ragged_extend_cuda_wide_heads_and_any_group(cuda, B, S, T, H, Hkv, D, lens,
+                                                     starts):
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((B, S, H, D), np.float32)
+    k = rng.standard_normal((B, T, Hkv, D), np.float32)
+    v = rng.standard_normal((B, T, Hkv, D), np.float32)
+    args = [_t(a, cuda) for a in (q, k, v, np.asarray(starts, np.int32),
+                                  np.asarray(lens, np.int32))]
+    before = ops.launch_counts()["ragged_extend"]
+    got = ragged_extend(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ragged_extend"] == before + 1
+    want = ref.ragged_extend_ref(*args)
+    assert float((got - want).abs().max()) <= 1e-5
+    for b, n in enumerate(lens):
+        assert torch.equal(got[b, n:], torch.zeros_like(got[b, n:]))
+    assert torch.equal(ragged_extend(*args), got)
+
+
 # The tiled path of fused_sgmv.cu (M > 16, or d_in / d_out no multiple of
 # 4): a shrink pass, then 128 x 128 output tiles on the tensor cores in
 # 3xTF32. Tiles of 128 rows straddle batch rows of different ids wherever S
@@ -160,6 +201,12 @@ _TILED = [
     (8, 64, 1024, 1024, 32, 8, "mixed", 1.0),   # smaller buckets: d_in split
     (8, 8, 1024, 2048, 32, 8, "repeat", 1.0),   # over blocks, parts added
     (3, 60, 512, 101, 8, 2, "mixed", 1.5),      # the split with scalar stores
+    (2, 100, 256, 256, 1, 3, "mixed", 0.25),    # ranks between the compiled ones:
+    (2, 100, 256, 256, 12, 3, "repeat", 0.25),  # A and B staged with 4-byte copies,
+    (2, 100, 256, 256, 128, 3, "mixed", 0.25),  # ranks past r zero; 128 in halves
+    (3, 60, 97, 330, 12, 2, "mixed", 1.5),      # r = 12 with scalar stores
+    (8, 256, 4096, 4096, 32, 8, "mixed", 1.0),  # llama-7b's q projection
+    (8, 64, 1024, 2048, 128, 8, "repeat", 1.0), # r = 128 with d_in split
 ]
 
 
@@ -251,7 +298,17 @@ _SKINNY = [
     (8, 1, 1024, 2048, 32, 8, "one", 1.0),      # every row on one adapter
     (2, 8, 512, 196, 16, 2, "one", 1.0),        # S = 8, 16 rows
     (4, 4, 256, 64, 8, 3, "mixed", 1.0),
+    (8, 1, 1024, 2048, 1, 8, "mixed", 1.0),     # r = 1, 12 and 128 at decode
+    (8, 1, 1024, 2048, 12, 8, "repeat", 1.0),
+    (8, 1, 1024, 2048, 128, 8, "mixed", 1.0),
+    (16, 1, 100, 260, 12, 3, "one", 2.0),       # r = 12, M = 16
+    (8, 1, 4096, 4096, 32, 8, "mixed", 1.0),    # llama-7b's q projection
 ]
+
+
+def _capacity(r):
+    """The compiled rank (4, 8, .., 128) a rank r runs on."""
+    return max(4, 1 << (r - 1).bit_length())
 
 
 def _skinny_ids(idv, ids, N):
@@ -283,7 +340,8 @@ def test_fused_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     _, splits, _ = skinny_plan(B * S, d_in, d_out, True, sms)
     lib = build.load("fused_sgmv", _SIGNATURES)
-    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 1) == splits * B * S * (r + d_out)
+    R = _capacity(r)  # the compiled rank r runs on
+    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 1) == splits * B * S * (R + d_out)
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _SKINNY)
@@ -306,7 +364,7 @@ def test_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     _, splits, _ = skinny_plan(B * S, d_in, d_out, False, sms)
     lib = build.load("fused_sgmv", _SIGNATURES)
-    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 0) == splits * B * S * r
+    assert lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 0) == splits * B * S * _capacity(r)
 
 
 # paged_attention.cu's chunks of 64 tokens: group sizes 1..8, D 64 and 128,
@@ -321,17 +379,21 @@ _PAGED = [
     (6, 768, 16, 2, 128, 128),   # G = 8
     (6, 256, 8, 1, 64, 16),      # G = 8, D = 64
     (3, 8192, 16, 8, 128, 128),  # 64 pages a row
+    (6, 640, 28, 4, 128, 128),   # qwen2-vl-7b: G = 7, heads in blocks of 8
+    (6, 640, 8, 1, 256, 128),    # gemma-2b: D = 256, 32-token chunks, G = 8
+    (6, 640, 32, 8, 160, 128),   # stablelm-12b: D = 160, G = 4
+    (6, 640, 32, 32, 128, 128),  # llama-7b: G = 1
+    (4, 256, 24, 8, 20, 16),     # G = 3, D = 20
+    (3, 512, 16, 16, 256, 8),    # G = 1, D = 256
+    (2, 128, 128, 1, 256, 16),   # G = 128 at D = 256: the largest block
+    (3, 192, 96, 1, 64, 32),     # G = 96: 1536 outputs, more than the threads
 ]
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,D,page", _PAGED)
 def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_attention import (
-        _SIGNATURES,
-        CHUNK_TOKENS,
-        chunk_plan,
-    )
+    from repro_torch.kernels.paged_attention import _SIGNATURES, chunk_plan, chunk_tokens
 
     rng = np.random.default_rng(11)
     pages = T // page
@@ -356,8 +418,8 @@ def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
             assert torch.equal(got[bb], torch.zeros_like(got[bb]))
     assert torch.equal(paged_attention(*args), got)  # a fixed merge order
     lib = build.load("paged_attention", _SIGNATURES)
-    nc = chunk_plan(page, pages)
-    assert nc == -(-T // CHUNK_TOKENS)
+    nc = chunk_plan(page, pages, D)
+    assert nc == -(-T // chunk_tokens(D))
     assert lib.paged_attention_scratch_floats(B, H, Hkv, D, page, pages) == B * H * nc * (D + 2)
 
 
@@ -393,6 +455,12 @@ def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     (1, 4, 4, 1, 32),       # MHA, one token
     (2, 8, 8, 2016, 128),   # G = 1 at the generate path's length
     (2, 4, 1, 300, 36),     # G = 4, a head dim padded to the k8 step
+    (2, 32, 8, 2048, 160),  # stablelm-12b: a wide head, G = 4
+    (2, 8, 1, 2048, 256),   # gemma-2b: D = 256, MQA (G = 8)
+    (2, 28, 4, 300, 128),   # qwen2-vl-7b: G = 7
+    (2, 6, 2, 77, 20),      # G = 3, D = 20
+    (1, 14, 2, 130, 256),   # G = 7 at D = 256
+    (2, 4, 4, 65, 160),     # G = 1 at D = 160
 ])
 def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     rng = np.random.default_rng(4)
@@ -412,12 +480,16 @@ def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     assert torch.equal(got_t, got)
 
 
-@pytest.mark.parametrize("S,lens", [
-    (2016, [0, 1, 37, 1000, 2015, 2016, 2016, 2016]),
-    (100, [100, 0, 17]),
+@pytest.mark.parametrize("S,lens,H,Hkv,D", [
+    (2016, [0, 1, 37, 1000, 2015, 2016, 2016, 2016], 16, 8, 128),
+    (100, [100, 0, 17], 16, 8, 128),
+    (2048, [2048, 0, 1, 1000], 32, 8, 160),  # stablelm-12b
+    (2048, [0, 2048, 513, 1], 8, 1, 256),    # gemma-2b
+    (300, [300, 1, 0, 129], 28, 4, 128),     # G = 7
+    (77, [77, 5, 0], 8, 8, 20),              # G = 1, D = 20
 ])
-def test_flash_prefill_ragged_cuda_matches_plain(cuda, S, lens):
-    B, H, Hkv, D = len(lens), 16, 8, 128
+def test_flash_prefill_ragged_cuda_matches_plain(cuda, S, lens, H, Hkv, D):
+    B = len(lens)
     rng = np.random.default_rng(5)
     q = rng.standard_normal((B, H, S, D), np.float32)
     k = rng.standard_normal((B, Hkv, S, D), np.float32)
@@ -463,7 +535,7 @@ def test_cuda_launch_under_autograd_raises(cuda, name):
     same call launches."""
     shape, call = _grad_cases(cuda)[name]
     x = torch.randn(shape, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         call(x)
     with torch.no_grad():
         before = ops.launch_counts()[name]
@@ -479,3 +551,28 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
     b = torch.zeros((1, 4, 4), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         fused_sgmv(x, w, a, b, torch.zeros(2, dtype=torch.int64))
+
+
+def test_cuda_wrappers_name_the_shape_limits(cuda):
+    """Shapes the kernels do not take raise ValueError naming the limit,
+    before any launch."""
+    before = ops.launch_counts()
+    f = lambda *shape: torch.zeros(shape, device=cuda)  # noqa: E731
+    ids = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="rank 129 must be in 1..128"):
+        fused_sgmv(f(2, 3, 8), f(8, 8), f(1, 8, 129), f(1, 129, 8), ids)
+    with pytest.raises(ValueError, match="rank 0 must be in 1..128"):
+        sgmv(f(2, 3, 8), f(1, 8, 0), f(1, 0, 8), ids)
+    with pytest.raises(ValueError, match="head dim 264 must be a multiple of 4 up to 256"):
+        ragged_extend(f(2, 3, 2, 264), f(2, 8, 1, 264), f(2, 8, 1, 264), ids, ids + 3)
+    with pytest.raises(ValueError, match="head dim 18 must be a multiple of 4"):
+        flash_prefill(f(2, 2, 3, 18), f(2, 1, 3, 18), f(2, 1, 3, 18))
+    with pytest.raises(ValueError, match="head dim 18 must be a multiple of 4"):
+        flash_prefill_ragged(f(2, 2, 3, 18), f(2, 1, 3, 18), f(2, 1, 3, 18), ids)
+    with pytest.raises(ValueError, match="group size must be a whole number up to 128"):
+        paged_attention(f(2, 129, 4), f(2, 8, 1, 4), f(2, 8, 1, 4),
+                        torch.arange(2, device=cuda).view(2, 1), ids + 5)
+    with pytest.raises(ValueError, match="head dim 260 must be a multiple of 4 up to 256"):
+        paged_attention(f(2, 2, 260), f(2, 8, 1, 260), f(2, 8, 1, 260),
+                        torch.arange(2, device=cuda).view(2, 1), ids + 5)
+    assert ops.launch_counts() == before

@@ -5,9 +5,10 @@ blocks: each k split writes a partial of x·W per 64-column slab and, from
 the block of the first batch row carrying each live adapter id, a partial
 of x·A[id] for every row of that id; a second kernel adds the partials in
 split order and then scale·h·B[id]. ``csrc/paged_attention.cu`` covers
-each row's table in chunks of 64 tokens, one block per (chunk, kv head,
-row); a live chunk writes its softmax state (m, l, Σp·v) and a second
-kernel merges the live chunks in order.
+each row's table in chunks of 64 tokens (32 for a head dim past 128), one
+block per (chunk, kv head, row), with the group's heads in blocks of 8
+where G is not 1, 2, 4 or 8; a live chunk writes its softmax state (m, l,
+Σp·v) and a second kernel merges the live chunks in order.
 
 The emulations below follow those plans (``sgmv.skinny_plan``,
 ``paged_attention.chunk_plan``, mirrors of the CUDA sources' own) and are
@@ -28,7 +29,7 @@ from repro.kernels import fused_sgmv as jax_fused_sgmv
 from repro.kernels import paged_attention as jax_paged_attention
 from repro.kernels import sgmv as jax_sgmv
 from repro_torch.kernels import ref
-from repro_torch.kernels.paged_attention import CHUNK_TOKENS, chunk_plan
+from repro_torch.kernels.paged_attention import chunk_plan, chunk_tokens
 from repro_torch.kernels.sgmv import SKINNY_COLS, SKINNY_KS, skinny_plan
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -192,7 +193,8 @@ def paged_emulate(q, kp, vp, tables, lengths):
     _, page, Hkv, _ = kp.shape
     pages = tables.shape[1]
     G, T = H // Hkv, pages * page
-    nc = chunk_plan(page, pages)
+    nc, ct = chunk_plan(page, pages, D), chunk_tokens(D)
+    gb = G if G in (1, 2, 4, 8) else 8  # heads of a block of the scores
     out = torch.zeros((B, H, D))
     seen = {}
     for bb in range(B):
@@ -200,15 +202,18 @@ def paged_emulate(q, kp, vp, tables, lengths):
         for h in range(Hkv):
             states = []
             for c in range(nc):
-                t0 = c * CHUNK_TOKENS
+                t0 = c * ct
                 if t0 >= n:  # the block returns at once
                     continue
-                toks = list(range(t0, min(t0 + CHUNK_TOKENS, n)))
+                toks = list(range(t0, min(t0 + ct, n)))
                 seen.setdefault((bb, h), []).extend(toks)
                 rows = [(int(tables[bb, t // page]), t % page) for t in toks]
                 k = torch.stack([kp[p, o, h] for p, o in rows])  # (live, D)
                 v = torch.stack([vp[p, o, h] for p, o in rows])
-                s = (q[bb, h * G:(h + 1) * G] @ k.T) / math.sqrt(D)  # (G, live)
+                # the scores of the heads block by block, the last one cut at G
+                qg = q[bb, h * G:(h + 1) * G]
+                s = torch.cat([qg[g0:g0 + gb] @ k.T for g0 in range(0, G, gb)])
+                s = s / math.sqrt(D)  # (G, live)
                 m = s.max(-1).values
                 p = torch.exp(s - m[:, None])
                 states.append((m, p.sum(-1), p @ v))
@@ -232,6 +237,10 @@ _PAGED = [
     (5, 4, 4, 16, 8, 10, [79, 80, 81, 7, 0]),        # 8-token pages, G = 1
     (2, 8, 2, 64, 24, 6, [143, 100]),                # chunks straddle 24-token pages
     (3, 4, 1, 12, 16, 9, [144, 63, 1000]),           # D = 12, G = 4, a table of 144
+    (3, 14, 2, 16, 16, 6, [0, 33, 96]),              # G = 7: heads in blocks of 8
+    (2, 24, 2, 8, 8, 5, [40, 17]),                   # G = 12: two blocks, one cut
+    (3, 8, 1, 256, 16, 5, [80, 31, 33]),             # D = 256: 32-token chunks, G = 8
+    (2, 7, 1, 160, 32, 3, [96, 65]),                 # D = 160, G = 7
 ]
 
 
@@ -258,16 +267,18 @@ def test_paged_chunks_match_pallas(B, H, Hkv, D, page, pages, lens):
             assert torch.equal(got[bb], torch.zeros_like(got[bb]))
 
 
-@pytest.mark.parametrize("page,pages", [(128, 16), (16, 65), (8, 3), (24, 5),
-                                        (128, 64), (8, 1)])
-def test_paged_chunk_plan_covers_every_page_once(page, pages):
-    nc = chunk_plan(page, pages)
+@pytest.mark.parametrize("page,pages,D", [(128, 16, 128), (16, 65, 128), (8, 3, 64),
+                                          (24, 5, 128), (128, 64, 128), (8, 1, 16),
+                                          (128, 5, 256), (16, 65, 160), (8, 3, 256)])
+def test_paged_chunk_plan_covers_every_page_once(page, pages, D):
+    nc, ct = chunk_plan(page, pages, D), chunk_tokens(D)
+    assert ct == (32 if D > 128 else 64)
     T = page * pages
-    assert (nc - 1) * CHUNK_TOKENS < T <= nc * CHUNK_TOKENS
-    for n in (0, 1, CHUNK_TOKENS, T - 1, T):
-        live = -(-n // CHUNK_TOKENS)  # the chunks the merge reads
+    assert (nc - 1) * ct < T <= nc * ct
+    for n in (0, 1, ct, T - 1, T):
+        live = -(-n // ct)  # the chunks the merge reads
         toks = [t for c in range(live)
-                for t in range(c * CHUNK_TOKENS, min((c + 1) * CHUNK_TOKENS, n))]
+                for t in range(c * ct, min((c + 1) * ct, n))]
         assert toks == list(range(n))
         touched = sorted({t // page for t in toks})
         assert touched == list(range(-(-n // page)))  # each live page, none past
