@@ -22,14 +22,18 @@ exits non-zero:
               (fused_sgmv and sgmv at S=1, paged_attention) are timed warm
               and with a cold L2, their inputs rotated over copies that
               exceed twice the 50 MB L2. Then every kernel at the other
-              dense configs' shapes (``arch_cases``): ragged_extend at the
+              configs' shapes (``arch_cases``): ragged_extend at the
               256-token bucket and paged_attention at the engine's decode
               lengths for llama-7b (G = 1), qwen2-vl-7b (G = 7),
-              stablelm-12b (D = 160) and gemma-2b (D = 256, MQA),
-              flash_prefill and flash_prefill_ragged at B = 2, S = 2048 for
-              the last two, fused_sgmv on llama-7b's q projection, and
-              fused_sgmv and sgmv at ranks 1, 12 and 128. Then a check that
-              every wrapper refuses autograd on the card.
+              stablelm-12b (D = 160), gemma-2b (D = 256, MQA) and
+              phi3.5-moe (32/8 heads), flash_prefill and
+              flash_prefill_ragged at B = 2, S = 2048 for stablelm-12b and
+              gemma-2b and flash_prefill at phi3.5-moe's static prefill,
+              fused_sgmv on llama-7b's q projection, on deepseek-v2-lite's
+              kv_a (2048->576), q (2048->3072) and o and phi3.5-moe's k
+              (4096->1024), warm and cold, and fused_sgmv and sgmv at ranks
+              1, 12 and 128. Then a check that every wrapper refuses
+              autograd on the card.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -46,18 +50,28 @@ exits non-zero:
               one more prefill and 8 decode steps under ``torch.profiler``;
               forward / prefill / decode held against each other at B=2,
               S=256; the first 8 tokens of two rows against a CPU run.
-7. archs    — the host's MemTotal, then one line per dense config at full
-              width in f32 (``ARCHS``: llama-7b, qwen2-vl-7b, qwen3-4b and
+6b. variants — the static path on the same model with an int8 KV cache and
+              with Gemma 2's attention logit softcap (50.0): prefill of 2 x
+              256 tokens and 8 greedy steps each, exact launch counts
+              (their cached attention runs the plain version, as the
+              reference routes it), the tokens teacher-forced on the CPU.
+7. archs    — the host's MemTotal, then one line per config at full width
+              in f32 (``ARCHS``: llama-7b, qwen2-vl-7b, qwen3-4b and
               gemma-2b at full depth; stablelm-12b, llama-13b and llama-34b
-              at 8 layers), weights drawn on the card from a seeded
-              generator and handed to ``ServingEngine(params=...)``: 12
-              requests on 4 adapters (64-512-token prompts, half behind one
-              128-token shared prompt, 16 new tokens), exact launch counts,
-              TTFT, TPOT and tokens/s, peak device memory; llama-7b's steps
-              under ``torch.profiler``; for stablelm-12b and gemma-2b the
-              static path (prefill of 2 x 512 tokens, 8 greedy steps, the
-              forward / prefill / decode identities); two clean requests
-              teacher-forced on the CPU with the engine's weights.
+              at 8 layers; deepseek-v2-lite-16b (MLA, 64 experts) at 8 and
+              phi3.5-moe (16 experts) at 4), weights drawn on the card from a
+              seeded generator and handed to ``ServingEngine(params=...)``:
+              12 requests on 4 adapters (64-512-token prompts, half behind
+              one 128-token shared prompt, 16 new tokens), exact launch
+              counts, TTFT, TPOT and tokens/s, peak device memory; llama-7b's
+              and deepseek's steps under ``torch.profiler``; for
+              stablelm-12b, gemma-2b, deepseek and phi3.5-moe the static
+              path (prefill of 2 x 512 tokens, 8 greedy steps, the forward /
+              prefill / decode identities, with no token dropped); two clean
+              requests teacher-forced on the CPU with the engine's weights,
+              or for the MoE configs three engine steps chosen by kind
+              before the run (``REPLAY``) replayed on the CPU from the
+              card's inputs and cache.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -150,11 +164,12 @@ def require(cond: bool, msg: str) -> None:
 
 # ----------------------------------------------------------------- phase 3
 def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
-              base=True):
+              base=True, cold=False):
     """fused_sgmv (``base``) or sgmv, the delta alone, on one projection.
-    A repeat launch must give the same bits. Decode shapes (S = 1) are also
-    timed with a cold L2 (``cold``: W, A and B rotated over
-    :func:`cold_copies` copies), as a decode step finds them."""
+    A repeat launch must give the same bits. Decode shapes (S = 1), and any
+    shape with ``cold``, are also timed with a cold L2 (``cold``: W, A and
+    B rotated over :func:`cold_copies` copies), as a decode step finds
+    them."""
     x = torch.randn((B, S, d_in), generator=gen, device=dev)
     w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
     a = torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5
@@ -206,7 +221,7 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         plain_ms=time_ms(lambda: plain(w))[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
-    if S == 1:
+    if S == 1 or cold:
         n = cold_copies(4 * ((d_in * d_out if base else 0) + lora_bytes))
         copies = [(w.clone() if base else w, a.clone(), b.clone()) for _ in range(n)]
         ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
@@ -731,32 +746,128 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
     return line, launches
 
 
+# ---------------------------------------------------------------- variants
+SOFTCAP = 50.0  # Gemma 2's published attention logit softcap
+
+
+def variants_phase(ops, cfg, dev, seed: int = 0, B: int = 2, S: int = 256,
+                   steps: int = 8):
+    """The static path on full-width qwen3-0.6b with an int8 KV cache
+    (``kv_quant``) and with the attention logits capped at :data:`SOFTCAP`
+    (no config of the repo sets one): ``LM.prefill`` of B prompts of S
+    tokens and ``steps`` greedy decode steps, launch counts reset just
+    before and read just after each. The reference routes both variants'
+    cached attention to its plain attention, and the softcap's fresh
+    prefill too: ``paged_attention`` never runs, ``flash_prefill`` only for
+    the int8 cache's prefill. Then the card's tokens teacher-forced on the
+    CPU (prefill of the prompts, one extend over the generated tokens) with
+    the same weights: each must be the CPU argmax or trail its best logit
+    by at most ARGMAX_TOL. Returns (its JSON line, the summed launches)."""
+    from repro_torch.models import build_model
+
+    cpu = build_model(cfg, device="cpu")
+    cpu_params = cpu.init_params(torch.Generator().manual_seed(seed))
+    params = tree_to(cpu_params, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed + 2))
+    ids = torch.tensor([0, -1][:B], dtype=torch.int32)
+    L, line, total = cfg.num_layers, {"phase": "variants", "arch": cfg.name,
+                                      "batch": B, "prompt_tokens": S,
+                                      "decode_steps": steps}, None
+    for name, vcfg, kv_quant in (("kv_quant", cfg, True),
+                                 ("softcap", dataclasses.replace(cfg, logit_softcap=SOFTCAP),
+                                  False)):
+        model = build_model(vcfg, device=dev, kv_quant=kv_quant)
+        lora = random_lora(model, 8, seed + 1)
+        ops.reset_launch_counts()
+        gen, prefill_s, decode_s, cache = greedy(model, params, lora, tokens, ids,
+                                                 S + steps, steps)
+        launches = ops.launch_counts()
+        del cache, model, lora
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_sgmv=4 * L * (1 + steps), flash_prefill=L * kv_quant)
+        require(launches == want, f"{name}: launches {launches}, expected {want}")
+        total = dict(launches) if total is None else {
+            k: total[k] + n for k, n in launches.items()}
+        t0 = time.perf_counter()
+        cm = build_model(vcfg, device="cpu", kv_quant=kv_quant)
+        cl = random_lora(cm, 8, seed + 1)
+        last, cache = cm.prefill(cpu_params, tokens, S + steps, lora=cl, adapter_ids=ids)
+        rest, _ = cm.extend(cpu_params, cache, gen[:, :-1], cache["len"], lora=cl,
+                            adapter_ids=ids, all_logits=True)
+        lg = torch.cat([last, rest], 1)  # (B, steps + 1, vocab)
+        picked = lg.gather(-1, gen[:, :, None].long())[..., 0]
+        deficit = float((lg.max(-1).values - picked).max())
+        require(deficit <= ARGMAX_TOL,
+                f"{name}: a card token trails the CPU max logit by {deficit}")
+        line[name] = {
+            "prefill_s": prefill_s, "decode_ms_per_step": decode_s / steps * 1e3,
+            "launches": launches, "tokens": gen.tolist(),
+            "cpu": {"tokens": gen.numel(),
+                    "argmax_equal": int((lg.argmax(-1) == gen).sum()),
+                    "largest_deficit": deficit,
+                    "smallest_top2_gap": float(top2_gap(lg).min()),
+                    "seconds": time.perf_counter() - t0}}
+        if name == "softcap":
+            line[name]["softcap"] = SOFTCAP
+    return line, total
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
 # ------------------------------------------------------------------- archs
-# The dense configs at full width: (name, layers run; None: all of them).
+# The configs at full width: (name, layers run; None: all of them).
 # stablelm-12b (~48 GB of f32 weights at full depth), llama-13b (~52 GB,
 # and 1.6 MB of f32 KV a token) and llama-34b (~135 GB: no 80 GB card holds
-# it in f32) run 8 of their layers; every kernel sees the same shapes at
-# every depth.
+# it in f32) run 8 of their layers; deepseek-v2-lite-16b 8 of 27 (~20 GB;
+# ~65 GB at full depth, too much beside the check's CPU copy) and
+# phi3.5-moe 4 of 32 (~21 GB; ~167 GB at full depth). Every kernel sees the
+# same shapes at every depth.
 ARCHS = (("llama-7b", None), ("qwen2-vl-7b", None), ("qwen3-4b", None),
          ("gemma-2b", None), ("stablelm-12b", 8), ("llama-13b", 8),
-         ("llama-34b", 8))
-STATIC_ARCHS = ("stablelm-12b", "gemma-2b")  # the static path at D = 160, 256
-PROFILE_ARCHS = ("llama-7b",)  # where the time goes, under torch.profiler
+         ("llama-34b", 8), ("deepseek-v2-lite-16b", 8),
+         ("phi3.5-moe-42b-a6.6b", 4))
+# the static path at D = 160, 256, and on MLA and the MoE FFN
+STATIC_ARCHS = ("stablelm-12b", "gemma-2b", "deepseek-v2-lite-16b",
+                "phi3.5-moe-42b-a6.6b")
+PROFILE_ARCHS = ("llama-7b", "deepseek-v2-lite-16b")  # under torch.profiler
 ARCH_POOL_TOKENS = 4096  # device KV pool: the trace's working set, ~3.4k tokens
 ARCH_MAX_SEQ = 640  # 512-token prompts and 16 new tokens; 5 pages of 128
 # phase 3 at the archs' shapes: (config, query heads, kv heads, head dim)
 ARCH_HEADS = (("llama-7b", 32, 32, 128), ("qwen2-vl-7b", 28, 4, 128),
-              ("stablelm-12b", 32, 8, 160), ("gemma-2b", 8, 1, 256))
+              ("stablelm-12b", 32, 8, 160), ("gemma-2b", 8, 1, 256),
+              ("phi3.5-moe-42b-a6.6b", 32, 8, 128))
+# flash_prefill at the static path's shapes: (config, B, S, heads, kv heads, D)
+ARCH_FLASH = (("stablelm-12b", 2, 2048, 32, 8, 160), ("gemma-2b", 2, 2048, 8, 1, 256),
+              ("phi3.5-moe-42b-a6.6b", 2, 512, 32, 8, 128))
+# fused_sgmv at the LoRA projections of the MLA and MoE configs (rank 32):
+# deepseek's kv_a is the first d_out that is no multiple of the 128-column
+# tile; all warm and with a cold L2
+ARCH_SGMV = (("deepseek-v2-lite-16b", "kv_a", 2048, 576),
+             ("deepseek-v2-lite-16b", "q", 2048, 3072),
+             ("deepseek-v2-lite-16b", "o", 2048, 2048),
+             ("phi3.5-moe-42b-a6.6b", "k", 4096, 1024))
+# the MoE configs' card-against-CPU check replays these extend calls of the
+# engine trace, each chosen by its kind before the run: the first mixed
+# step (prefill chunks with decode riders) and the first two pure decode
+# calls after it
+REPLAY = ("mixed", "decode", "decode")
 
 
 def arch_kernel_cases(ops, ref, gen, dev):
-    """Phase 3 at the shapes of the other dense configs: ragged_extend at
-    the 256-token bucket and paged_attention at the engine's decode lengths
-    for llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160) and
-    gemma-2b (D = 256, MQA); flash_prefill and flash_prefill_ragged at
-    B = 2, S = 2048 for the two wide heads; fused_sgmv on llama-7b's q
-    projection at S = 256 and 1; fused_sgmv and sgmv at ranks 1, 12 and 128
-    on qwen3-0.6b's q projection. Returns {kernel: [case, ...]}."""
+    """Phase 3 at the shapes of the other configs: ragged_extend at the
+    256-token bucket and paged_attention at the engine's decode lengths for
+    llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160), gemma-2b
+    (D = 256, MQA) and phi3.5-moe (32/8 heads); flash_prefill and
+    flash_prefill_ragged at B = 2, S = 2048 for the two wide heads,
+    flash_prefill at phi3.5-moe's static prefill; fused_sgmv on llama-7b's
+    q projection at S = 256 and 1 and at :data:`ARCH_SGMV`; fused_sgmv and
+    sgmv at ranks 1, 12 and 128 on qwen3-0.6b's q projection. Returns
+    {kernel: [case, ...]}."""
     out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
                            "flash_prefill", "flash_prefill_ragged")}
     for arch, H, Hkv, D in ARCH_HEADS:
@@ -766,17 +877,23 @@ def arch_kernel_cases(ops, ref, gen, dev):
         m = paged_case(ops, ref, gen, dev, PAGED_LENGTHS["engine"], H=H, Hkv=Hkv, D=D)
         out["paged_attention"].append({"arch": arch, **m})
         torch.cuda.empty_cache()
-    for arch, H, Hkv, D in ARCH_HEADS[2:]:
-        m = flash_case(ops, ref, gen, dev, B=2, S=2048, H=H, Hkv=Hkv, D=D)
+    for arch, B, S, H, Hkv, D in ARCH_FLASH:
+        m = flash_case(ops, ref, gen, dev, B=B, S=S, H=H, Hkv=Hkv, D=D)
         out["flash_prefill"].append({"arch": arch, **m})
         torch.cuda.empty_cache()
-        m = flash_case(ops, ref, gen, dev, lens=[2048, 1000], B=2, S=2048, H=H,
-                       Hkv=Hkv, D=D)
-        out["flash_prefill_ragged"].append({"arch": arch, **m})
-        torch.cuda.empty_cache()
+        if S == 2048:
+            m = flash_case(ops, ref, gen, dev, lens=[2048, 1000], B=B, S=S, H=H,
+                           Hkv=Hkv, D=D)
+            out["flash_prefill_ragged"].append({"arch": arch, **m})
+            torch.cuda.empty_cache()
     for S in (256, 1):
         m = sgmv_case(ops, ref, "q", 4096, 4096, S, gen, dev)
         out["fused_sgmv"].append({"arch": "llama-7b", **m})
+    for arch, proj, d_in, d_out in ARCH_SGMV:
+        for S in (256, 1):
+            m = sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, cold=True)
+            out["fused_sgmv"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
     for r in (1, 12, 128):
         for S in (256, 1):
             m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r)
@@ -819,15 +936,50 @@ def host_mem_total() -> int:
 def tree_cpu(tree):
     if isinstance(tree, dict):
         return {k: tree_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_cpu(v) for v in tree)
     return tree.cpu()
+
+
+def expected_launches(model, launches, prefill_calls: int, decode_calls: int,
+                      fresh_prefills: int = 0) -> dict:
+    """The launch counts a run must give: every LoRA target of every layer
+    through fused_sgmv on each call; GQA attention through ragged_extend in
+    each prefill call, paged_attention in each decode call and
+    flash_prefill in each fresh prefill (``LM.prefill``), as the reference
+    routes it; MLA through none of them."""
+    L, gqa = model.cfg.num_layers, model.cfg.mla is None
+    n_targets = len(model.lora_dims())
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_sgmv=n_targets * L * (prefill_calls + decode_calls + fresh_prefills),
+                ragged_extend=L * prefill_calls * gqa,
+                paged_attention=L * decode_calls * gqa,
+                flash_prefill=L * fresh_prefills * gqa)
+    return want
+
+
+def no_drop_model(model):
+    """The same LM with ``capacity_factor = E`` (C == T·k: no token is
+    dropped), as the reference's smoke tests set it; ``model`` itself where
+    there is no MoE FFN."""
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    if cfg.moe is None:
+        return model
+    moe = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts))
+    return build_model(dataclasses.replace(cfg, moe=moe), device=model.device)
 
 
 def static_path(ops, model, params, seed: int = 0, B: int = 2, S: int = 512,
                 steps: int = 8):
     """``LM.prefill`` of B prompts of S tokens and ``steps`` greedy decode
     steps (exact launch counts), then forward / prefill / decode against
-    each other at B = 2, S = 256, on the engine's weights."""
-    cfg, L = model.cfg, model.cfg.num_layers
+    each other at B = 2, S = 256, on the engine's weights. With an MoE FFN
+    the identities run at ``capacity_factor = E`` (:func:`no_drop_model`):
+    at the published factor the tokens a step drops depend on the whole
+    batch, which differs between the three calls."""
+    cfg = model.cfg
     lora = random_lora(model, 8, seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
                            generator=torch.Generator().manual_seed(seed + 2))
@@ -837,28 +989,122 @@ def static_path(ops, model, params, seed: int = 0, B: int = 2, S: int = 512,
                                            ARCH_MAX_SEQ, steps)
     launches = ops.launch_counts()
     del cache
-    want = dict.fromkeys(launches, 0)
-    want.update(flash_prefill=L, fused_sgmv=4 * L * (1 + steps),
-                paged_attention=L * steps)
+    want = expected_launches(model, launches, 0, steps, fresh_prefills=1)
     require(launches == want, f"{cfg.name} static launches {launches}, expected {want}")
-    excess, errs = arch_identities(model, params, lora, tokens[:, :256], ids)
+    excess, errs = arch_identities(no_drop_model(model), params, lora, tokens[:, :256], ids)
     require(excess <= 0, f"{cfg.name}: forward / prefill / decode disagree on the card: "
                          f"max errors {errs} over {ARCH_TOL}·(1 + |logit|)")
-    return {"batch": B, "prompt_tokens": S, "decode_steps": steps,
-            "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
-            "decode_ms_per_step": decode_s / steps * 1e3, "launches": launches,
-            "arch_identities_max_abs_err": errs}
+    out = {"batch": B, "prompt_tokens": S, "decode_steps": steps,
+           "prefill_s": prefill_s, "prefill_tokens_per_s": B * S / prefill_s,
+           "decode_ms_per_step": decode_s / steps * 1e3, "launches": launches,
+           "arch_identities_max_abs_err": errs}
+    if cfg.moe is not None:
+        out["identities_capacity_factor"] = float(cfg.moe.num_experts)
+    return out
+
+
+class ExtendRecorder:
+    """Stands in for ``model.extend`` (an instance attribute, which the
+    engine and its prefill subsystem both look up): passes every call
+    through and, for the calls :data:`REPLAY` names by kind, keeps on the
+    host the inputs (tokens, offsets, token mask, kept rows, adapter ids,
+    the adapter slots) and the whole cache before the call, and the logits
+    and cache after it. ``close`` puts the model's own method back."""
+
+    def __init__(self, model):
+        self.model, self.extend = model, model.extend
+        self.calls, self.records, self.wanted = 0, [], list(REPLAY)
+        model.extend = self
+
+    @staticmethod
+    def kind(tokens, kw) -> str:
+        tl = kw.get("true_lens")
+        if tl is None:
+            return "decode" if tokens.shape[1] == 1 else "chunk"
+        tl = torch.as_tensor(tl)
+        return "mixed" if bool((tl == 1).any() and (tl > 1).any()) else "prefill"
+
+    def __call__(self, params, cache, tokens, start, **kw):
+        index, kind = self.calls, self.kind(tokens, kw)
+        self.calls += 1
+        take = bool(self.wanted) and self.wanted[0] == kind
+        if take:
+            self.wanted.pop(0)
+            rec = {"index": index, "kind": kind, "bucket": int(tokens.shape[1]),
+                   "tokens": torch.as_tensor(tokens).cpu().clone(),
+                   "start": torch.as_tensor(start).cpu().clone(),
+                   "kw": {k: tree_cpu(v) if isinstance(v, dict) else
+                          torch.as_tensor(v).cpu().clone() for k, v in kw.items()},
+                   "cache": {k: v.cpu().clone() for k, v in cache.items()}}
+        logits, cache = self.extend(params, cache, tokens, start, **kw)
+        if take:
+            rec["logits"] = logits.cpu()
+            rec["cache_after"] = {k: v.cpu().clone() for k, v in cache.items()}
+            self.records.append(rec)
+        return logits, cache
+
+    def close(self):
+        del self.model.extend
+
+
+def replay_on_cpu(cfg, records, cpu_params):
+    """Rerun each recorded ``extend`` on the CPU (the kernels' plain
+    versions) from the recorded cache, with the engine's weights and
+    adapter slots, and hold the card's logits (kept rows; every row's last
+    real token), updated cache and argmax against it: |card − CPU| within
+    ARCH_TOL·(1 + |CPU|), and each card argmax the CPU's or trailing its
+    best logit by at most ARGMAX_TOL."""
+    from repro_torch.models import build_model
+
+    require(len(records) == len(REPLAY),
+            f"{cfg.name}: replayed {[r['kind'] for r in records]}, wanted {REPLAY}")
+    model = build_model(cfg, device="cpu")
+    out = []
+    for rec in records:
+        t0 = time.perf_counter()
+        kw = dict(rec["kw"])
+        logits, cache = model.extend(cpu_params, dict(rec["cache"]), rec["tokens"],
+                                     rec["start"], **kw)
+        keep = kw.get("keep_rows")
+        rows = (torch.arange(logits.shape[0]) if keep is None
+                else keep.nonzero()[:, 0])
+        want, got = logits[rows, -1], rec["logits"][rows, -1]
+        excess = float(((got - want).abs() - ARCH_TOL * (1 + want.abs())).max())
+        card_tok = got.argmax(-1)
+        deficit = float((want.max(-1).values - want[torch.arange(len(rows)), card_tok]).max())
+        cache_excess = max(
+            float(((rec["cache_after"][k] - cache[k]).abs()
+                   - ARCH_TOL * (1 + cache[k].abs())).max())
+            for k in cache if k != "len")
+        require(torch.equal(cache["len"], rec["cache_after"]["len"]),
+                f"{cfg.name}: call {rec['index']}: len differs")
+        require(excess <= 0 and cache_excess <= 0 and deficit <= ARGMAX_TOL,
+                f"{cfg.name}: call {rec['index']} ({rec['kind']}): logits over tolerance "
+                f"by {excess}, cache by {cache_excess}, argmax deficit {deficit}")
+        out.append({"call": rec["index"], "kind": rec["kind"], "bucket": rec["bucket"],
+                    "rows": len(rows), "logits_max_abs_err": float((got - want).abs().max()),
+                    "cache_max_abs_err": max(
+                        float((rec["cache_after"][k] - cache[k]).abs().max())
+                        for k in cache if k != "len"),
+                    "argmax_equal": int((card_tok == want.argmax(-1)).sum()),
+                    "largest_deficit": deficit,
+                    "smallest_top2_gap": float(top2_gap(want).min()),
+                    "seconds": time.perf_counter() - t0})
+    return out
 
 
 def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
                layers, seed: int = 0):
-    """One dense config at full width (``layers`` of them, or all): weights
+    """One config at full width (``layers`` of them, or all): weights
     drawn on the card from a seeded generator and handed to the engine,
     which serves :func:`arch_trace`; exact launch counts; the static path
-    for ``STATIC_ARCHS``; two clean requests teacher-forced on the CPU with
-    the engine's weights. Returns (its JSON line, its launch counts)."""
-    from repro_torch.kvcache import KVPoolSpec
+    for ``STATIC_ARCHS``; then the CPU check with the engine's weights: two
+    clean requests teacher-forced, or, with an MoE FFN, the :data:`REPLAY`
+    steps replayed (at the published capacity factor the tokens dropped
+    depend on the whole padded batch, so one request alone would not
+    reproduce them). Returns (its JSON line, its launch counts)."""
     from repro_torch.models import build_model
+    from repro_torch.serving.engine import kv_pool_spec
 
     t_start = time.perf_counter()
     full = configs.get(name)
@@ -869,9 +1115,8 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
     model = build_model(cfg, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
-    kv_token = KVPoolSpec(num_layers=L, block_size=16, kv_heads=cfg.num_kv_heads,
-                          head_dim=cfg.resolved_head_dim,
-                          dtype=torch.float32).bytes_per_token
+    spec = kv_pool_spec(cfg, 16)
+    kv_token = spec.bytes_per_token
     adapters = [f"lora-{i}" for i in range(4)]
     # the manager's pools hold the adapters beside the KV: 4 adapters of
     # L·r·Σ(d_in + d_out) floats (81 MB each for qwen2-vl-7b)
@@ -884,10 +1129,12 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
     engine = ServingEngine(cfg, ecfg, params=params, device=dev)
     require(engine.params["embed"].data_ptr() == params["embed"].data_ptr(),
             f"{name}: the engine copied weights drawn on the card")
+    require(engine.kv_spec == spec, f"{name}: the engine's pool is {engine.kv_spec}")
     for aid in adapters:
         engine.register_adapter(aid)
     wave1, wave2 = arch_trace(Request, cfg.vocab_size, seed)
     reqs = wave1 + wave2
+    recorder = ExtendRecorder(engine.model) if cfg.moe is not None else None
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_start
     ops.reset_launch_counts()
@@ -901,14 +1148,14 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = ops.launch_counts()
+    if recorder is not None:
+        recorder.close()
     row = report.row()
     decode_calls, prefill_calls = engine._decode_calls, engine.prefill.stats.calls
     require(row["n_finished"] == len(reqs) and row["n_unfinished"] == 0,
             f"{name}: finished {row['n_finished']} of {len(reqs)}")
     require(row["kv_hit_rate"] > 0, f"{name}: kv_hit_rate is 0")
-    want = dict.fromkeys(launches, 0)
-    want.update(paged_attention=L * decode_calls, ragged_extend=L * prefill_calls,
-                fused_sgmv=4 * L * (decode_calls + prefill_calls))
+    want = expected_launches(model, launches, prefill_calls, decode_calls)
     require(launches == want, f"{name}: launches {launches} do not match {decode_calls} "
                               f"decode and {prefill_calls} prefill calls of {L} layers")
     generated = sum(len(r.generated) for r in reqs)
@@ -916,6 +1163,7 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
         "phase": "archs", "arch": name, "layers": L, "of_layers": full.num_layers,
         "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
         "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+        "lora_targets": sorted(model.lora_dims()),
         "weights_bytes": weights_bytes, "kv_bytes_per_token": kv_token,
         "pool_bytes": pool, "setup_s": setup_s, "run_s": run_s,
         "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
@@ -926,7 +1174,11 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
         "decode_calls": decode_calls, "prefill_calls": prefill_calls,
         "launches": launches,
     }
-    picked = pick_two(engine.finished)
+    if cfg.mla is not None:
+        line["mla"] = dataclasses.asdict(cfg.mla)
+    if cfg.moe is not None:
+        line["moe"] = dataclasses.asdict(cfg.moe)
+    picked = pick_two(engine.finished) if recorder is None else None
     if name in PROFILE_ARCHS:
         line["profile"] = profile_steps(engine, arch_trace(Request, cfg.vocab_size,
                                                            seed + 1)[0], steps=20)
@@ -940,13 +1192,18 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
     adapter_weights = {aid: engine.adapters._host[aid].weights for aid in adapters}
     del engine, model, params
     torch.cuda.empty_cache()
-    total, exact, worst, min_gap = check_against_cpu(cfg, ARCH_MAX_SEQ, picked,
-                                                     adapter_weights, cpu_params)
+    if recorder is not None:
+        line["cpu"] = {"replayed": replay_on_cpu(cfg, recorder.records, cpu_params),
+                       "rule": list(REPLAY)}
+    else:
+        total, exact, worst, min_gap = check_against_cpu(cfg, ARCH_MAX_SEQ, picked,
+                                                         adapter_weights, cpu_params)
+        line["cpu"] = {"requests": [r.request_id for r in picked],
+                       "shared_prefix": [r.shared_prefix_len for r in picked],
+                       "tokens": total, "argmax_equal": exact, "largest_deficit": worst,
+                       "smallest_top2_gap": min_gap}
     del cpu_params
-    line["cpu"] = {"requests": [r.request_id for r in picked],
-                   "shared_prefix": [r.shared_prefix_len for r in picked],
-                   "tokens": total, "argmax_equal": exact, "largest_deficit": worst,
-                   "smallest_top2_gap": min_gap, "seconds": time.perf_counter() - t0}
+    line["cpu"]["seconds"] = time.perf_counter() - t0
     line["seconds"] = time.perf_counter() - t_start
     return line, launches
 
@@ -1102,6 +1359,9 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     line, gen_launches = generate_phase(ops, cfg, dev)
     emit(line)
+    torch.cuda.empty_cache()
+    line, var_launches = variants_phase(ops, cfg, dev)
+    emit(line)
 
     # ------------------------------------------------------------- 7. archs
     emit({"phase": "archs_host", "mem_total": host_mem_total()})
@@ -1133,9 +1393,11 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
-            "launches": launches[name] + gen_launches[name] + arch_launches[name],
+            "launches": (launches[name] + gen_launches[name] + var_launches[name]
+                         + arch_launches[name]),
             "launches_by_path": {"engine": launches[name],
                                  "generate": gen_launches[name],
+                                 "variants": var_launches[name],
                                  "archs": arch_launches[name]},
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

@@ -14,6 +14,10 @@ Running queries use the model's dense per-sequence cache; the pool is
 touched at admission (``gather`` matched prefix blocks into the dense rows)
 and at commit (``scatter`` the new suffix into blocks), as in the
 reference.
+
+MLA stores (latent ‖ k_rope) in the k tensors as one pseudo-head per token
+(``kv_heads`` 1, ``head_dim`` kv_lora_rank + rope dim) and has no v tensors
+(``use_v=False``).
 """
 
 from __future__ import annotations
@@ -32,10 +36,12 @@ class KVPoolSpec:
     kv_heads: int
     head_dim: int
     dtype: torch.dtype = torch.float32
+    use_v: bool = True  # False for MLA (latent only)
 
     @property
     def bytes_per_token(self) -> int:
-        per = 2 * self.num_layers * self.kv_heads * self.head_dim
+        per = self.num_layers * self.kv_heads * self.head_dim
+        per *= 2 if self.use_v else 1
         return per * torch.empty((), dtype=self.dtype).element_size()
 
     @property
@@ -54,9 +60,13 @@ class PagedKVPool:
         blk = (s.num_layers, s.block_size, s.kv_heads, s.head_dim)
         pin = self.device.type == "cuda"  # pin_memory raises on CPU-only torch
         self.k_hbm = torch.zeros((n_hbm_blocks, *blk), dtype=s.dtype, device=self.device)
-        self.v_hbm = torch.zeros((n_hbm_blocks, *blk), dtype=s.dtype, device=self.device)
         self.k_host = torch.zeros((n_host_blocks, *blk), dtype=s.dtype, pin_memory=pin)
-        self.v_host = torch.zeros((n_host_blocks, *blk), dtype=s.dtype, pin_memory=pin)
+        self.v_hbm = self.v_host = None
+        if s.use_v:
+            self.v_hbm = torch.zeros((n_hbm_blocks, *blk), dtype=s.dtype,
+                                     device=self.device)
+            self.v_host = torch.zeros((n_host_blocks, *blk), dtype=s.dtype,
+                                      pin_memory=pin)
         self.swap_in_bytes = 0
         self.swap_out_bytes = 0
 
@@ -66,7 +76,7 @@ class PagedKVPool:
 
     # ------------------------------------------------------------- gather
     def gather(self, block_ids: Sequence[int]) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Device blocks -> dense (L, T, Hkv, D)."""
+        """Device blocks -> dense (L, T, Hkv, D) k and v (None without v)."""
         s = self.spec
         idx = self._idx(block_ids)
 
@@ -74,7 +84,7 @@ class PagedKVPool:
             rows = pool.index_select(0, idx)  # (n, L, bs, H, D)
             return rows.transpose(0, 1).reshape(s.num_layers, -1, s.kv_heads, s.head_dim)
 
-        return dense(self.k_hbm), dense(self.v_hbm)
+        return dense(self.k_hbm), None if self.v_hbm is None else dense(self.v_hbm)
 
     # ------------------------------------------------------------ scatter
     def scatter(self, block_ids: Sequence[int], k_dense: torch.Tensor,
@@ -89,7 +99,7 @@ class PagedKVPool:
                                  s.head_dim).transpose(0, 1).to(s.dtype)
 
         self.k_hbm.index_copy_(0, idx, blocks(k_dense))
-        if v_dense is not None:
+        if self.v_hbm is not None and v_dense is not None:
             self.v_hbm.index_copy_(0, idx, blocks(v_dense))
 
     # --------------------------------------------------------------- swaps
@@ -98,7 +108,8 @@ class PagedKVPool:
         pairs = list(zip(hbm_blocks, host_blocks))
         for src, dst in pairs:
             self.k_host[dst].copy_(self.k_hbm[src], non_blocking=True)
-            self.v_host[dst].copy_(self.v_hbm[src], non_blocking=True)
+            if self.v_host is not None:
+                self.v_host[dst].copy_(self.v_hbm[src], non_blocking=True)
         self.swap_out_bytes += len(pairs) * self.spec.block_bytes
 
     def swap_in(self, host_blocks: Sequence[int], hbm_blocks: Sequence[int]) -> None:
@@ -106,5 +117,6 @@ class PagedKVPool:
         pairs = list(zip(host_blocks, hbm_blocks))
         for src, dst in pairs:
             self.k_hbm[dst].copy_(self.k_host[src], non_blocking=True)
-            self.v_hbm[dst].copy_(self.v_host[src], non_blocking=True)
+            if self.v_hbm is not None:
+                self.v_hbm[dst].copy_(self.v_host[src], non_blocking=True)
         self.swap_in_bytes += len(pairs) * self.spec.block_bytes

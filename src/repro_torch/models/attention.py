@@ -1,27 +1,34 @@
-"""Cache-aware GQA attention (PyTorch counterpart of ``repro.models.attention``).
+"""Cache-aware attention (PyTorch counterpart of ``repro.models.attention``):
+GQA/MQA with RoPE or Qwen2-VL's M-RoPE, qk-norm, an int8 KV cache, a
+logit softcap and a sliding window with its ring of slots, and DeepSeek's
+multi-head latent attention (MLA).
 
 Conventions follow the reference: ``p`` is one layer's parameter dict,
 ``lora`` maps a target to ``(A (slots, d_in, r), B (slots, r, d_out))`` and
-``adapter_ids`` (B,) picks the slot per row. Only the dense GQA layout is
-ported, with RoPE or Qwen2-VL's M-RoPE; sliding windows, int8 KV and logit
-softcap (ROADMAP Queue 1 item 1), MLA and MoE (item 2), the recurrent
-layouts (item 3) and encoder-decoder models (item 4) raise
-``NotImplementedError``.
+``adapter_ids`` (B,) picks the slot per row. The recurrent layouts (ROADMAP
+Queue 1 item 3) and encoder-decoder models (item 4) raise
+``NotImplementedError`` (:func:`check_supported`).
 
 The rotary tables of a step are built once (:func:`step_rope`) and every
-layer's :func:`_qkv` rotates q and k by them: M-RoPE tables where the
-config has ``mrope_sections`` and the caller gives ``mrope_positions``
-(3, B, S), as the reference's ``_qkv`` applies ``apply_mrope`` there, and
-plain RoPE tables at the token positions otherwise.
+layer rotates q and k by them: M-RoPE tables
+where the config has ``mrope_sections`` and the caller gives
+``mrope_positions`` (3, B, S), as the reference's ``_qkv`` applies
+``apply_mrope`` there, and plain RoPE tables at the token positions
+otherwise; MLA rotates only its rope slice of q and the shared k_rope.
 
-:func:`gqa_full` is the fresh full-sequence path (``LM.forward`` and
-``LM.prefill``): causal attention through ``flash_prefill``.
+Kernel routing is the reference's: plain causal GQA goes through
+``flash_prefill`` (:func:`gqa_full`) and ``paged_attention`` /
+``ragged_extend`` (:func:`gqa_cached`); a window, an int8 cache or a
+softcap goes to the plain :func:`sdpa`, and MLA is einsums and
+:func:`sdpa`, as the reference computes them outside every kernel. Every
+LoRA-targeted projection goes through ``fused_sgmv`` (:func:`_proj`).
 
-Unlike the reference, which returns a new cache, :func:`gqa_cached` writes
-the new K/V rows into the cache in place. Where it writes is decided once
-per ``extend`` call by :func:`cached_step`, on the host: only real tokens of
-kept rows, and only positions inside the cache (the reference's scatter
-drops out-of-range rows without a word; torch indexing would raise).
+Unlike the reference, which returns a new cache, :func:`gqa_cached` and
+:func:`mla_cached` write the new rows into the cache in place. Where they
+write is decided once per ``extend`` call by :func:`cached_step`, on the
+host: only real tokens of kept rows, and only slots inside the cache (the
+reference's scatter drops out-of-range rows without a word; torch
+indexing would raise).
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kernel_ops
-from .common import dense_init, init_rms, mrope_tables, rms_norm, rope_tables, rotate
+from .common import (causal_mask, dense_init, init_rms, mrope_tables, rms_norm,
+                     rope_tables, rotate, window_mask)
 
 _UNPORTED = "not ported yet (ROADMAP Queue 1 item {})"
 
@@ -60,16 +68,8 @@ def _page_size_for(T: int) -> int:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the layouts this package does not run yet."""
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is " + _UNPORTED.format(2))
     if cfg.rwkv is not None or cfg.rglru is not None:
         raise NotImplementedError("recurrent layouts are " + _UNPORTED.format(3))
-    if cfg.moe is not None:
-        raise NotImplementedError("the MoE FFN is " + _UNPORTED.format(2))
-    if cfg.window_size:
-        raise NotImplementedError("sliding-window attention is " + _UNPORTED.format(1))
-    if cfg.logit_softcap:
-        raise NotImplementedError("logit softcap is " + _UNPORTED.format(1))
     if cfg.is_encdec:
         raise NotImplementedError("encoder-decoder models are " + _UNPORTED.format(4))
 
@@ -77,8 +77,10 @@ def check_supported(cfg: ModelConfig) -> None:
 def step_rope(cfg: ModelConfig, positions: torch.Tensor, mrope_positions=None):
     """The (cos, sin) tables every layer of a step rotates q and k by:
     M-RoPE at ``mrope_positions`` (3, B, S) where the config has sections
-    and the caller gives them, else RoPE at ``positions`` (..., S)."""
-    hd = cfg.resolved_head_dim
+    and the caller gives them, else RoPE at ``positions`` (..., S). They
+    are as wide as the head dim, or as MLA's ``qk_rope_head_dim`` (MLA
+    rotates only that slice of q and the shared k_rope)."""
+    hd = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
     if cfg.mrope_sections is not None and mrope_positions is not None:
         mpos = torch.as_tensor(mrope_positions).to(positions.device, torch.int64)
         return mrope_tables(mpos, hd, cfg.rope_theta, cfg.mrope_sections)
@@ -119,16 +121,20 @@ def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale):
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: torch.Tensor) -> torch.Tensor:
-    """GQA scaled-dot-product attention, written out (the plain form).
+         mask: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    """GQA scaled-dot-product attention, written out (the plain form), with
+    the logits capped at ``softcap`` (tanh) where it is set.
 
-    q: (B,S,Hq,D)  k/v: (B,T,Hkv,D)  mask: (B,S,T) or (1,S,T) bool.
+    q: (B,S,Hq,D)  k/v: (B,T,Hkv,D)  mask: (B,S,T) or (1,S,T) bool. The v
+    head dim may differ from D (MLA).
     """
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     q = q.reshape(B, S, Hkv, G, D)
     logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() / math.sqrt(D)
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
     logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
@@ -150,22 +156,36 @@ def gqa_full(
     the (cos, sin) tables at positions 0 .. S-1, so causality by index is
     causality by position, as the reference's kernel path assumes.
 
-    With M-RoPE, ``rope`` holds its tables (:func:`step_rope`).
-    Attention goes through ``flash_prefill`` in the head-major layout; the
-    transposes are views, which the kernel reads by their strides. Returns
-    ``(out, (k, v))`` with k/v ``(B, S, Hkv, D)``, so a caller can seed a
-    decode cache. The reference's ``q_chunk`` (blockwise attention, a
-    training memory knob) is not ported: the kernel is already blockwise."""
-    if window or cfg.logit_softcap:
-        raise NotImplementedError("windowed / softcapped attention is "
-                                  + _UNPORTED.format(1))
+    With M-RoPE, ``rope`` holds its tables (:func:`step_rope`). Plain
+    causal attention goes through ``flash_prefill`` in the head-major
+    layout (the transposes are views, which the kernel reads by their
+    strides); a sliding ``window`` or a logit softcap goes to the plain
+    :func:`sdpa`, as the reference routes them. Returns ``(out, (k, v))``
+    with k/v ``(B, S, Hkv, D)``, so a caller can seed a decode cache. The
+    reference's ``q_chunk`` (blockwise attention, a training memory knob)
+    is not ported: the kernel is already blockwise."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale)
-    out = kernel_ops.flash_prefill(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ).transpose(1, 2)
+    if window == 0 and cfg.logit_softcap == 0.0:
+        out = kernel_ops.flash_prefill(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        ).transpose(1, 2)
+    else:
+        pos = torch.arange(S, device=x.device)
+        mask = (window_mask(pos, pos, window) if window > 0
+                else causal_mask(pos, pos))
+        out = sdpa(q, k, v, mask[None], cfg.logit_softcap)
     out = out.reshape(B, S, -1)
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale), (k, v)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 quantization of K/V rows: (int8
+    values, f32 scales of shape ``x.shape[:-1]``)."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / s[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), s
 
 
 @dataclasses.dataclass
@@ -174,17 +194,23 @@ class CachedStep:
     every layer. Index tensors live on the model's device."""
 
     rope: tuple[torch.Tensor, torch.Tensor]  # (cos, sin): step_rope
+    positions: torch.Tensor  # (B, S) int64 — absolute position of each token
     start: torch.Tensor  # (B,) int32 — cache length before the chunk
     true_lens: Optional[torch.Tensor]  # (B,) int32; None: no token mask
-    dst: torch.Tensor  # (n,) flat b·T + position of every written token
+    last: torch.Tensor  # (B, 1) int64 — each row's last real position
+    dst: torch.Tensor  # (n,) flat b·T + slot of every written token
     src: torch.Tensor  # (n,) flat b·S + s of the same tokens
+    restore: Optional[torch.Tensor]  # (m,) flat b·T + slot put back after the step
+    window: int  # > 0: sliding window
+    ring: bool  # slots are positions modulo T (window == T)
     page_size: int  # > 0: S == 1 without mask decodes through the pages
     tables: Optional[torch.Tensor]  # (B, T / page_size) int32
     lengths: Optional[torch.Tensor]  # (B,) int32 = start + 1
 
 
 def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
-                true_lens=None, keep_rows=None, mrope_positions=None) -> CachedStep:
+                true_lens=None, keep_rows=None, mrope_positions=None,
+                window: int = 0) -> CachedStep:
     """Plan one ``extend`` of S tokens per row at offsets ``start``, with
     the rotary tables of ``cfg`` at those positions (M-RoPE at
     ``mrope_positions`` (3, B, S) where given, see :func:`step_rope`).
@@ -193,17 +219,47 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
     values (numpy or CPU tensors; a CUDA tensor is copied to the host), so
     the plan costs no device round trip. A token is written iff it is real
     (``s < true_lens[b]``, or all S without ``true_lens``), its row is kept,
-    and its position lies inside the cache."""
+    and its slot lies inside the cache: its position, or with a ``window``
+    equal to T the position modulo T (a ring; the reference refuses a
+    row-masked chunk wider than the ring, whose pads would land on its own
+    writes, and of an unmasked one only the last T tokens survive).
+
+    On an MoE config the rows of a step are coupled (the experts' capacity
+    is shared by every token of the batch, pads and idle rows included), so
+    a row that is not kept must reach the experts with the hidden states the
+    reference gives it: its tokens are written as the reference writes them
+    and the slots they overwrote are put back after the step (``restore``).
+    On every other config a row's outputs depend on that row alone, and an
+    unkept row is simply not written."""
     start_h = torch.as_tensor(start).to("cpu", torch.int64)
     B = start_h.shape[0]
     ar = torch.arange(S)
     pos = start_h[:, None] + ar[None, :]  # (B, S)
-    write = pos < T
+    ring = window > 0 and T == window
+    if ring:
+        if true_lens is not None and S > window:
+            raise ValueError(
+                f"row-masked chunk of {S} tokens exceeds ring window {window}")
+        slots = pos % window
+        write = (ar >= S - window)[None, :].expand(B, S).clone()
+    else:
+        slots = pos
+        write = pos < T
     if true_lens is not None:
         tl_h = torch.as_tensor(true_lens).to("cpu", torch.int64)
         write &= ar[None, :] < tl_h[:, None]
+        last = start_h + tl_h.clamp_min(1) - 1
+    else:
+        last = pos[:, -1]
+    restore = None
     if keep_rows is not None:
-        write &= torch.as_tensor(keep_rows).to("cpu", torch.bool)[:, None]
+        keep = torch.as_tensor(keep_rows).to("cpu", torch.bool)
+        if cfg.moe is not None:
+            rb, rs = (write & ~keep[:, None]).nonzero(as_tuple=True)
+            if len(rb):
+                restore = rb * T + slots[rb, rs]
+        else:
+            write &= keep[:, None]
     b_idx, s_idx = write.nonzero(as_tuple=True)
     ps = _page_size_for(T) if (S == 1 and true_lens is None) else 0
     tables = lengths = None
@@ -215,66 +271,241 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
     def dev(t):
         return None if t is None else t.to(device, non_blocking=True)
 
+    pos_d = dev(pos)
     return CachedStep(
-        rope=step_rope(cfg, dev(pos), mrope_positions),
+        rope=step_rope(cfg, pos_d, mrope_positions),
+        positions=pos_d,
         start=dev(start_h.to(torch.int32)),
         true_lens=None if true_lens is None else dev(tl_h.to(torch.int32)),
-        dst=dev(b_idx * T + pos[b_idx, s_idx]),
+        last=dev(last[:, None]),
+        dst=dev(b_idx * T + slots[b_idx, s_idx]),
         src=dev(b_idx * S + s_idx),
+        restore=dev(restore),
+        window=window,
+        ring=ring,
         page_size=ps,
         tables=dev(tables),
         lengths=dev(lengths),
     )
 
 
+def _write(step: CachedStep, pairs) -> list:
+    """Write each ``(cache (B, T, ...), new (B, S, ...))`` pair as ``step``
+    says, in place; returns what the writes overwrote at ``step.restore``
+    (see :func:`cached_step`), for :func:`_restore`."""
+    saved = []
+    for cache, new in pairs:
+        B, T = cache.shape[:2]
+        flat = cache.view(B * T, *cache.shape[2:])
+        if step.restore is not None:
+            saved.append(flat.index_select(0, step.restore))
+        S = new.shape[1]
+        flat.index_copy_(0, step.dst, new.reshape(B * S, *new.shape[2:])
+                         .index_select(0, step.src).to(cache.dtype))
+    return saved
+
+
+def _restore(step: CachedStep, caches, saved) -> None:
+    for cache, old in zip(caches, saved):
+        B, T = cache.shape[:2]
+        cache.view(B * T, *cache.shape[2:]).index_copy_(0, step.restore, old)
+
+
+def _key_positions(step: CachedStep, T: int) -> torch.Tensor:
+    """(B, T) absolute position of every cache slot: the slot index, or on
+    a ring the largest position <= the row's last real one that maps to
+    the slot. Under a token mask the trailing pads wrote nothing, so the
+    labels anchor on each row's last REAL position (``step.last``)."""
+    j = torch.arange(T, device=step.last.device)[None, :]
+    if step.ring:
+        return step.last - ((step.last - j) % step.window)
+    return j.expand(step.last.shape[0], T)
+
+
 def gqa_cached(
     p: dict,
     x: torch.Tensor,  # (B, S, d)
     step: CachedStep,
-    cache_k: torch.Tensor,  # (B, T, Hkv, D) — updated in place
+    cache_k: torch.Tensor,  # (B, T, Hkv, D), f32 or int8 — updated in place
     cache_v: torch.Tensor,
     cfg: ModelConfig,
     *,
     lora=None,
     adapter_ids=None,
     lora_scale: float = 1.0,
-    window: int = 0,
+    cache_k_scale: Optional[torch.Tensor] = None,  # (B, T, Hkv): int8 KV
+    cache_v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Suffix attention against the dense cache (decode S=1, or chunked
-    prefill). Writes the chunk's K/V into the cache as ``step`` says, then
-    attends through the kernels on the reference's own routing
-    (``repro.models.attention.gqa_cached``): S == 1 without a token mask and
-    a page size dividing T decodes through ``paged_attention`` over the
-    cache viewed as contiguous pages (tables = arange, lengths = start + 1);
-    every other case goes through ``ragged_extend``."""
-    if window or cfg.logit_softcap:
-        raise NotImplementedError("windowed / softcapped attention is "
-                                  + _UNPORTED.format(1))
+    prefill). Writes the chunk's K/V into the cache as ``step`` says (int8
+    with per-(token, head) scales where the scale arrays are given; ring
+    slots under ``step.ring``), then attends on the reference's own routing
+    (``repro.models.attention.gqa_cached``). Plain causal attention goes
+    through the kernels: S == 1 without a token mask and a page size
+    dividing T decodes through ``paged_attention`` over the cache viewed as
+    contiguous pages (tables = arange, lengths = start + 1), every other
+    case through ``ragged_extend``. A sliding window, an int8 cache
+    (dequantised first) or a logit softcap goes to the plain :func:`sdpa`
+    over the whole cache, with keys past each row's last real position
+    masked."""
     B, S, _ = x.shape
     T, Hkv, Dh = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
+    quant = cache_k_scale is not None
     q, k, v = _qkv(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
-    for cache, new in ((cache_k, k), (cache_v, v)):
-        cache.view(B * T, Hkv, Dh).index_copy_(
-            0, step.dst, new.reshape(B * S, Hkv, Dh).index_select(0, step.src))
-    if S == 1 and step.true_lens is None:
+    if quant:
+        (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+        caches = (cache_k, cache_v, cache_k_scale, cache_v_scale)
+        saved = _write(step, zip(caches, (kq, vq, ks, vs)))
+        k_eff = cache_k.to(x.dtype) * cache_k_scale[..., None].to(x.dtype)
+        v_eff = cache_v.to(x.dtype) * cache_v_scale[..., None].to(x.dtype)
+    else:
+        caches = (cache_k, cache_v)
+        saved = _write(step, zip(caches, (k, v)))
+        k_eff, v_eff = cache_k, cache_v
+    use_kernels = step.window == 0 and not quant and cfg.logit_softcap == 0.0
+    if use_kernels and S == 1 and step.true_lens is None:
         ps = step.page_size
         if ps > 0:
             pages = T // ps
             out = kernel_ops.paged_attention(
                 q[:, 0],
-                cache_k.view(B * pages, ps, Hkv, Dh),
-                cache_v.view(B * pages, ps, Hkv, Dh),
+                k_eff.view(B * pages, ps, Hkv, Dh),
+                v_eff.view(B * pages, ps, Hkv, Dh),
                 step.tables,
                 step.lengths,
             )[:, None]
         else:
             out = kernel_ops.ragged_extend(
-                q, cache_k, cache_v, step.start,
+                q, k_eff, v_eff, step.start,
                 torch.ones_like(step.start))
-    else:
+    elif use_kernels:
         true_lens = step.true_lens
         if true_lens is None:
             true_lens = torch.full_like(step.start, S)
-        out = kernel_ops.ragged_extend(q, cache_k, cache_v, step.start, true_lens)
+        out = kernel_ops.ragged_extend(q, k_eff, v_eff, step.start, true_lens)
+    else:
+        kpos = _key_positions(step, T)
+        valid = (kpos <= step.last) & (kpos >= 0)
+        if step.window > 0:
+            mask = window_mask(step.positions, kpos, step.window) & valid[:, None, :]
+        else:
+            mask = causal_mask(step.positions, kpos, valid)
+        out = sdpa(q, k_eff, v_eff, mask, cfg.logit_softcap)
+    if saved:
+        _restore(step, caches, saved)
     out = out.reshape(B, S, -1)
+    return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale)
+
+
+# ====================================================================== MLA
+def init_mla(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+             dtype=torch.float32, device=None) -> dict:
+    """Layer-stacked DeepSeek-V2 latent attention parameters."""
+    m = cfg.mla
+    if m is None:
+        raise ValueError("init_mla requires cfg.mla to be configured")
+    d, H, L = cfg.d_model, cfg.num_heads, n_layers
+    return {
+        "wq": dense_init(gen, (L, d, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                         dtype, device),
+        "w_kv_a": dense_init(gen, (L, d, m.kv_lora_rank + m.qk_rope_head_dim),
+                             dtype, device),
+        "kv_norm": init_rms(m.kv_lora_rank, dtype, device).expand(
+            L, m.kv_lora_rank).contiguous(),
+        "w_kv_b": dense_init(gen, (L, m.kv_lora_rank,
+                                   H * (m.qk_nope_head_dim + m.v_head_dim)),
+                             dtype, device),
+        "wo": dense_init(gen, (L, H * m.v_head_dim, d), dtype, device),
+    }
+
+
+def _mla_q(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale):
+    """(q_nope, q_rope) (B, S, H, ·); ``rope`` is the rope slice's width."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = _proj(x, p["wq"], lora, "q", adapter_ids, lora_scale)
+    q = q.reshape(B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, rotate(q_rope, *rope)
+
+
+def _mla_latent(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale):
+    """The normed latent (B, S, kv_lora) and the shared rotated k_rope
+    (B, S, rope)."""
+    m = cfg.mla
+    ckv = _proj(x, p["w_kv_a"], lora, "kv_a", adapter_ids, lora_scale)
+    latent = rms_norm(ckv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = rotate(ckv[..., m.kv_lora_rank:][:, :, None, :], *rope)[:, :, 0, :]
+    return latent, k_rope
+
+
+def mla_full(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    rope: tuple[torch.Tensor, torch.Tensor],
+    cfg: ModelConfig,
+    *,
+    lora=None,
+    adapter_ids=None,
+    lora_scale: float = 1.0,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence MLA in the expanded form (the reference's
+    ``mla_full``): the latent is up-projected to per-head K and V and
+    attended through the plain :func:`sdpa` (score scale 1/√(nope + rope);
+    the v head dim differs), as the reference computes it outside every
+    kernel. Returns ``(out, (latent, k_rope))``, the cache's layout."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, rope, lora, adapter_ids, lora_scale)
+    latent, k_rope = _mla_latent(p, x, cfg, rope, lora, adapter_ids, lora_scale)
+    kv = (latent @ p["w_kv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    pos = torch.arange(S, device=x.device)
+    out = sdpa(q, k, v, causal_mask(pos, pos)[None]).reshape(B, S, -1)
+    return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale), (latent, k_rope)
+
+
+def mla_cached(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    step: CachedStep,
+    cache_latent: torch.Tensor,  # (B, T, kv_lora) — updated in place
+    cache_krope: torch.Tensor,  # (B, T, rope)
+    cfg: ModelConfig,
+    *,
+    lora=None,
+    adapter_ids=None,
+    lora_scale: float = 1.0,
+) -> torch.Tensor:
+    """Cached MLA in the ABSORBED form (the reference's ``mla_cached``):
+    ``w_kv_b`` folds into the query and output sides, so the step attends
+    the compressed latent directly. The chunk's latent and k_rope are
+    written in place through ``step`` (its rope tables are
+    ``qk_rope_head_dim`` wide); keys past each row's last real position are
+    masked."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, T = cfg.num_heads, cache_latent.shape[1]
+    q_nope, q_rope = _mla_q(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
+    latent, k_rope = _mla_latent(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
+    caches = (cache_latent, cache_krope)
+    saved = _write(step, zip(caches, (latent, k_rope)))
+    w_b = p["w_kv_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    w_bk, w_bv = w_b[..., :m.qk_nope_head_dim], w_b[..., m.qk_nope_head_dim:]
+    q_eff = torch.einsum("bshn,lhn->bshl", q_nope, w_bk)
+    scores = torch.einsum("bshl,btl->bhst", q_eff, cache_latent)
+    scores = scores + torch.einsum("bshr,btr->bhst", q_rope, cache_krope)
+    scores = scores.float() / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    kpos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    mask = causal_mask(step.positions, kpos, kpos <= step.last)  # (B, S, T)
+    scores = torch.where(mask[:, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btl->bshl", w, cache_latent)
+    if saved:
+        _restore(step, caches, saved)
+    out = torch.einsum("bshl,lhv->bshv", ctx, w_bv).reshape(B, S, -1)
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale)

@@ -122,3 +122,9 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
         m = m & k_valid[..., None, :]
     return m
 
+
+def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.Tensor:
+    """:func:`causal_mask` restricted to the last ``window`` positions:
+    key visible iff q_pos - window < k_pos <= q_pos."""
+    m = causal_mask(q_pos, k_pos)
+    return m & (k_pos[..., None, :] > q_pos[..., :, None] - window)

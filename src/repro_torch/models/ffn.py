@@ -1,10 +1,12 @@
-"""Gated dense feed-forward (PyTorch counterpart of ``repro.models.ffn``;
-the MoE FFN is ROADMAP Queue 1 item 2)."""
+"""Feed-forward variants (PyTorch counterpart of ``repro.models.ffn``):
+the gated dense FFN and the capacity-based MoE."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..configs.base import ModelConfig
 from .common import activation, dense_init
 
 
@@ -21,3 +23,73 @@ def init_dense_ffn(gen: torch.Generator, n_layers: int, d: int, d_ff: int,
 def dense_ffn(p: dict, x: torch.Tensor, act_name: str) -> torch.Tensor:
     act = activation(act_name)
     return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------- MoE
+def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
+             dtype=torch.float32, device=None) -> dict:
+    """Layer-stacked MoE weights: {"router" (L, d, E) f32, "w_gate"/"w_up"
+    (L, E, d, ff), "w_down" (L, E, ff, d), ["shared": a dense FFN of
+    ff·num_shared]}, the reference's tree.
+
+    Unlike the reference, whose init repeats ONE expert E times (so every
+    routing gives the same output), each expert is drawn on its own: with
+    random weights, a routing fault then shows in the outputs. Tests that
+    hold the port against the reference bridge the reference's weights."""
+    m = cfg.moe
+    if m is None:
+        raise ValueError("init_moe requires cfg.moe to be configured")
+    d, ff, E, L = cfg.d_model, m.d_ff_expert, m.num_experts, n_layers
+    p = {
+        "router": dense_init(gen, (L, d, E), torch.float32, device),
+        "w_gate": dense_init(gen, (L, E, d, ff), dtype, device),
+        "w_up": dense_init(gen, (L, E, d, ff), dtype, device),
+        "w_down": dense_init(gen, (L, E, ff, d), dtype, device),
+    }
+    if m.num_shared:
+        p["shared"] = init_dense_ffn(gen, L, d, ff * m.num_shared, dtype, device)
+    return p
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE with the reference's dropping dispatch
+    (``repro.models.ffn.moe_ffn``). Returns ``(out, aux_loss)``.
+
+    Every one of the T = B·S tokens is routed, pads and idle rows included,
+    and each expert takes at most ``C = max(1, int(T·k·cf / E))`` of the
+    (token, k) pairs, in the row-major order of the flattened (T·k) pairs;
+    the rest are dropped. Kept pairs have distinct (expert, slot) places,
+    so the dispatch is a plain indexed write, and the combine is a gather
+    to (T, k, d) summed over k: no atomics, so a repeated step gives the
+    same bits on the card, and nothing waits on the device. Shared experts
+    add a dense FFN; ``aux_loss`` is the Switch load-balancing loss
+    ``E·Σ_e f_e·p_e``."""
+    m = cfg.moe
+    act = activation(cfg.activation)
+    B, S, d = x.shape
+    T, E, k = B * S, m.num_experts, m.top_k
+    xt = x.reshape(T, d)
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)  # (T, E)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)  # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    C = max(1, int(T * k * m.capacity_factor / E))
+    flat_e = expert_ids.reshape(-1)  # (T·k,)
+    onehot = F.one_hot(flat_e, E)  # (T·k, E) int64
+    slot = (onehot.cumsum(0) * onehot).sum(-1) - 1  # place in its expert's queue
+    keep = slot < C
+    # dropped pairs all go to one spare place past the queue, which no kept
+    # pair reads: no boolean indexing, so no wait on the device
+    slot = torch.where(keep, slot, C)
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    disp = x.new_zeros((E, C + 1, d))
+    disp[flat_e, slot] = xt[tok]
+    h = act(torch.bmm(disp, p["w_gate"])) * torch.bmm(disp, p["w_up"])
+    eout = torch.bmm(h, p["w_down"])  # (E, C + 1, d)
+    gathered = torch.where(keep[:, None], eout[flat_e, slot], 0)  # (T·k, d)
+    w = gate_vals.reshape(-1, 1).to(x.dtype)
+    out = (gathered * w).reshape(T, k, d).sum(1)
+    if "shared" in p:
+        out = out + dense_ffn(p["shared"], xt, cfg.activation)
+    density = F.one_hot(expert_ids, E).float().mean(dim=(0, 1))
+    aux = E * torch.sum(density * probs.mean(0))
+    return out.reshape(B, S, d), aux

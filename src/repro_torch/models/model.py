@@ -1,6 +1,7 @@
-"""Model facade (PyTorch counterpart of ``repro.models.model``): the dense
-decoder and its static-batch prefill and decode steps; training steps are
-ROADMAP Queue 1 item 5."""
+"""Model facade (PyTorch counterpart of ``repro.models.model``): the
+decoder LM (dense GQA, MLA and MoE, with int8 KV as an option) and its
+static-batch prefill and decode steps; training steps are ROADMAP Queue 1
+item 5, the recurrent and encoder-decoder layouts items 3 and 4."""
 
 from __future__ import annotations
 
@@ -12,11 +13,13 @@ from ..configs.base import ModelConfig
 from .transformer import LM
 
 
-def build_model(cfg: ModelConfig, dtype=torch.float32, device=None) -> LM:
-    """The dense decoder LM for ``cfg`` on ``device`` (default: the card,
-    raising without one); other families raise ``NotImplementedError``
-    naming their ROADMAP item."""
-    return LM(cfg, dtype=dtype, device=device)
+def build_model(cfg: ModelConfig, dtype=torch.float32, device=None,
+                kv_quant: bool = False) -> LM:
+    """The decoder LM for ``cfg`` on ``device`` (default: the card, raising
+    without one), with an int8 KV cache under ``kv_quant``; the recurrent
+    and encoder-decoder families raise ``NotImplementedError`` naming their
+    ROADMAP item."""
+    return LM(cfg, dtype=dtype, device=device, kv_quant=bool(kv_quant))
 
 
 def make_prefill_step(model: LM) -> Callable:

@@ -1,5 +1,5 @@
-"""Dense decoder-only LM (PyTorch counterpart of the dense branch of
-``repro.models.transformer.LM``).
+"""Decoder-only LM (PyTorch counterpart of ``repro.models.transformer.LM``
+for the dense GQA, MLA and MoE families).
 
 Parameters keep the reference's pytree layout as nested dicts of tensors,
 with the layers stacked on a leading axis, so :mod:`repro_torch.bridge`
@@ -7,30 +7,42 @@ maps one onto the other leaf by leaf:
 
   {"embed", "final_norm", ["lm_head"],
    "layers": {"norm1", "norm2",
-              "mixer": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]},
-              "ffn": {"w_gate", "w_up", "w_down"}}}
+              "mixer": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]}
+                    or {"wq", "w_kv_a", "kv_norm", "w_kv_b", "wo"} (MLA),
+              "ffn": {"w_gate", "w_up", "w_down"}
+                  or {"router", "w_gate", "w_up", "w_down", ["shared"]} (MoE)}}
 
 Public surface (functions of the params, as in the reference):
   init_params(gen)                          -> params
   init_lora(gen, n_slots)                   -> stacked multi-LoRA params
-  init_cache(batch, max_len)                -> dense decode cache
+  init_cache(batch, max_len)                -> decode cache
   forward(params, tokens, ...)              -> (logits, aux)
   prefill(params, tokens, max_len, ...)     -> (last logits, cache)
   extend(params, cache, tokens, start, ...) -> (logits, cache)
   decode(params, cache, tokens, ...)        -> (logits, cache)
 
-``forward`` and ``prefill`` run a fresh sequence through ``flash_prefill``;
-``extend`` (and ``decode``, which is ``extend`` at ``cache["len"]`` with one
-token per row) runs against the cache. ``prefill`` writes each layer's K/V
-into a new cache in place, where the reference pads; ``extend`` updates the
-cache in place and returns it: only the real tokens of kept rows are
-written, and ``len`` advances only for kept rows. ``cache["len"]`` is a
-host-side (CPU) int32 tensor, so planning a step never waits on the device.
-As in the reference, ``forward``, ``prefill``, ``extend`` and ``decode``
-take ``mrope_positions`` (3, B, S), which rotate q and k by M-RoPE on a
-config with ``mrope_sections``, and all but ``decode`` take
-``extra_embeds`` (B, S, d), added to the token embeddings (the modality
-frontend's stub). Remat, ``q_chunk`` and int8 KV are not ported.
+The cache is {"k", "v"} (L, B, T, Hkv, D), int8 with f32 "k_scale" and
+"v_scale" (L, B, T, Hkv) under ``kv_quant``, or MLA's {"latent" (L, B, T,
+kv_lora), "krope" (L, B, T, rope)}, plus "len". ``forward`` and
+``prefill`` run a fresh sequence (GQA through ``flash_prefill`` unless the
+config sets a logit softcap; MLA expanded, through the plain attention);
+``extend`` (and ``decode``, which is ``extend`` at ``cache["len"]`` with
+one token per row) runs against the cache. ``prefill`` writes each
+layer's cache rows into a new cache in place, where the reference pads;
+``extend`` updates the cache in place and returns it: only the real tokens
+of kept rows are written (on an MoE config an unkept row's tokens reach
+the experts as the reference's do, see ``attention.cached_step``), and
+``len`` advances only for kept rows. ``cache["len"]`` is a host-side (CPU)
+int32 tensor, so planning a step never waits on the device. As in the
+reference, ``forward``, ``prefill``, ``extend`` and ``decode`` take
+``mrope_positions`` (3, B, S), which rotate q and k by M-RoPE on a config
+with ``mrope_sections``, and all but ``decode`` take ``extra_embeds`` (B,
+S, d), added to the token embeddings (the modality frontend's stub). The
+MoE auxiliary loss is summed over the layers by ``forward``. Remat and
+``q_chunk`` are not ported; the recurrent and encoder-decoder layouts raise
+``NotImplementedError`` (ROADMAP Queue 1 items 3 and 4). As in the
+reference's ``LM``, attention runs without a sliding window (the reference
+passes one only to the recurrent hybrid's layers).
 """
 
 from __future__ import annotations
@@ -42,9 +54,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import (cached_step, check_supported, gqa_cached, gqa_full, init_gqa,
-                        step_rope)
+                        init_mla, mla_cached, mla_full, quantize_kv_rows, step_rope)
 from .common import dense_init, embed_init, init_rms, rms_norm
-from .ffn import dense_ffn, init_dense_ffn
+from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
 
 
 def layer_slice(tree, i: int):
@@ -61,6 +73,7 @@ class LM:
     cfg: ModelConfig
     dtype: torch.dtype = torch.float32
     device: torch.device | str | None = None  # None: the card, raising without one
+    kv_quant: bool = False  # int8 KV cache with per-(token, head) f32 scales
 
     def __post_init__(self):
         check_supported(self.cfg)
@@ -81,8 +94,10 @@ class LM:
         params["layers"] = {
             "norm1": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
             "norm2": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
-            "mixer": init_gqa(gen, cfg, L, dt, dev),
-            "ffn": init_dense_ffn(gen, L, cfg.d_model, cfg.d_ff, dt, dev),
+            "mixer": (init_mla(gen, cfg, L, dt, dev) if cfg.mla is not None
+                      else init_gqa(gen, cfg, L, dt, dev)),
+            "ffn": (init_moe(gen, cfg, L, dt, dev) if cfg.moe is not None
+                    else init_dense_ffn(gen, L, cfg.d_model, cfg.d_ff, dt, dev)),
         }
         return params
 
@@ -90,12 +105,20 @@ class LM:
     def lora_dims(self) -> dict[str, tuple[int, int]]:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        dims = {
-            "q": (d, cfg.num_heads * hd),
-            "k": (d, cfg.num_kv_heads * hd),
-            "v": (d, cfg.num_kv_heads * hd),
-            "o": (cfg.num_heads * hd, d),
-        }
+        if cfg.mla is not None:
+            m = cfg.mla
+            dims = {
+                "q": (d, cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                "kv_a": (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                "o": (cfg.num_heads * m.v_head_dim, d),
+            }
+        else:
+            dims = {
+                "q": (d, cfg.num_heads * hd),
+                "k": (d, cfg.num_kv_heads * hd),
+                "v": (d, cfg.num_kv_heads * hd),
+                "o": (cfg.num_heads * hd, d),
+            }
         return {t: dims[t] for t in cfg.lora.targets if t in dims}
 
     def init_lora(self, gen: torch.Generator, n_slots: int) -> dict:
@@ -117,14 +140,27 @@ class LM:
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "len": torch.zeros((batch,), dtype=torch.int32),  # host side
-        }
+        cfg, dev = self.cfg, self.device
+        L = cfg.num_layers
+        if cfg.mla is not None:
+            m = cfg.mla
+            cache = {
+                "latent": torch.zeros((L, batch, max_len, m.kv_lora_rank),
+                                      dtype=self.dtype, device=dev),
+                "krope": torch.zeros((L, batch, max_len, m.qk_rope_head_dim),
+                                     dtype=self.dtype, device=dev),
+            }
+        else:
+            shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            kv_dtype = torch.int8 if self.kv_quant else self.dtype
+            cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
+            if self.kv_quant:
+                for key in ("k_scale", "v_scale"):
+                    cache[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                             device=dev)
+        cache["len"] = torch.zeros((batch,), dtype=torch.int32)  # host side
+        return cache
 
     # ------------------------------------------------------------ embeddings
     def _embed(self, params, tokens, extra_embeds=None):
@@ -140,22 +176,43 @@ class LM:
         return x @ params["lm_head"]
 
     # ---------------------------------------------------------- layer bodies
+    def _ffn(self, lp, h2):
+        """The layer's FFN: (out, MoE aux loss, or None for a dense FFN)."""
+        if self.cfg.moe is not None:
+            return moe_ffn(lp["ffn"], h2, self.cfg)
+        return dense_ffn(lp["ffn"], h2, self.cfg.activation), None
+
     def _layer_full(self, lp, lora_slice, x, rope, adapter_ids):
-        """One layer over a fresh sequence; returns (x, (k, v))."""
+        """One layer over a fresh sequence; returns (x, aux, cache rows):
+        (k, v), or MLA's (latent, k_rope)."""
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
-                             adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+        mixer = mla_full if cfg.mla is not None else gqa_full
+        mixed, kv = mixer(lp["mixer"], h, rope, cfg, lora=lora_slice,
+                          adapter_ids=adapter_ids, lora_scale=self.lora_scale)
         x = x + mixed
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + dense_ffn(lp["ffn"], h2, cfg.activation), kv
+        out, aux = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+        return x + out, aux, kv
+
+    def _write_full(self, cache, i: int, S: int, kv) -> None:
+        """Layer ``i``'s rows of a fresh sequence into ``cache[..][i, :, :S]``
+        (quantised under ``kv_quant``)."""
+        if self.cfg.mla is not None:
+            names, rows = ("latent", "krope"), kv
+        elif self.kv_quant:
+            (kq, ks), (vq, vs) = map(quantize_kv_rows, kv)
+            names, rows = ("k", "v", "k_scale", "v_scale"), (kq, vq, ks, vs)
+        else:
+            names, rows = ("k", "v"), kv
+        for name, row in zip(names, rows):
+            cache[name][i, :, :S] = row
 
     def _run_full(self, params, tokens, lora, adapter_ids, cache=None,
                   extra_embeds=None, mrope_positions=None):
         """Embed ``tokens`` (B, S) and run every layer over the fresh
-        sequence (positions 0 .. S-1); with ``cache``, layer i's K/V go into
-        ``cache["k"][i, :, :S]`` / ``cache["v"][i, :, :S]``. Returns the
-        final hidden states (B, S, d)."""
+        sequence (positions 0 .. S-1); with ``cache``, layer i's rows go
+        into its first S positions. Returns the final hidden states (B, S,
+        d) and the summed MoE aux loss (0 without MoE)."""
         cfg, dev = self.cfg, self.device
         tokens = torch.as_tensor(tokens).to(dev, torch.int64, non_blocking=True)
         B, S = tokens.shape
@@ -164,34 +221,42 @@ class LM:
         ids = None
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(cfg.num_layers):
-            x, (k, v) = self._layer_full(layer_slice(params["layers"], i),
-                                         layer_slice(lora, i) if lora else None,
-                                         x, rope, ids)
+            x, a, kv = self._layer_full(layer_slice(params["layers"], i),
+                                        layer_slice(lora, i) if lora else None,
+                                        x, rope, ids)
+            if a is not None:
+                aux = aux + a
             if cache is not None:
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
-        return x
+                self._write_full(cache, i, S, kv)
+        return x, aux
 
-    def _layer_cached(self, lp, lora_slice, cache_k, cache_v, x, step,
-                      adapter_ids):
+    def _layer_cached(self, lp, lora_slice, lcache, x, step, adapter_ids):
+        """One layer against its cache ``lcache`` (layer i of every array)."""
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + gqa_cached(lp["mixer"], h, step, cache_k, cache_v, cfg,
-                           lora=lora_slice, adapter_ids=adapter_ids,
-                           lora_scale=self.lora_scale)
-        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + dense_ffn(lp["ffn"], h2, cfg.activation)
+        kw = dict(lora=lora_slice, adapter_ids=adapter_ids,
+                  lora_scale=self.lora_scale)
+        if cfg.mla is not None:
+            x = x + mla_cached(lp["mixer"], h, step, lcache["latent"],
+                               lcache["krope"], cfg, **kw)
+        else:
+            x = x + gqa_cached(lp["mixer"], h, step, lcache["k"], lcache["v"], cfg,
+                               cache_k_scale=lcache.get("k_scale"),
+                               cache_v_scale=lcache.get("v_scale"), **kw)
+        out, _ = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+        return x + out
 
     # ================================================================ train
     def forward(self, params, tokens, *, lora=None, adapter_ids=None,
                 extra_embeds=None, mrope_positions=None):
         """Full causal forward over ``tokens`` (B, S); returns
-        ``(logits (B, S, vocab), aux)`` with the MoE auxiliary loss ``aux``
-        0 (a dense model has none)."""
-        x = self._run_full(params, tokens, lora, adapter_ids,
-                           extra_embeds=extra_embeds, mrope_positions=mrope_positions)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        ``(logits (B, S, vocab), aux)`` with ``aux`` the MoE auxiliary loss
+        summed over the layers (0 for a dense FFN)."""
+        x, aux = self._run_full(params, tokens, lora, adapter_ids,
+                                extra_embeds=extra_embeds,
+                                mrope_positions=mrope_positions)
         return self._unembed(params, x), aux
 
     # ============================================================== prefill
@@ -204,8 +269,9 @@ class LM:
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
         cache = self.init_cache(B, max_len)
-        x = self._run_full(params, tokens, lora, adapter_ids, cache=cache,
-                           extra_embeds=extra_embeds, mrope_positions=mrope_positions)
+        x, _ = self._run_full(params, tokens, lora, adapter_ids, cache=cache,
+                              extra_embeds=extra_embeds,
+                              mrope_positions=mrope_positions)
         cache["len"] = torch.full((B,), S, dtype=torch.int32)  # host side
         return self._unembed(params, x[:, -1:, :]), cache
 
@@ -231,7 +297,7 @@ class LM:
         dev = self.device
         tokens = torch.as_tensor(tokens)
         B, S = tokens.shape
-        T = cache["k"].shape[2]
+        T = (cache["latent"] if cfg.mla is not None else cache["k"]).shape[2]
         step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
                            keep_rows=keep_rows, mrope_positions=mrope_positions)
         x = self._embed(params, tokens.to(dev, torch.int64, non_blocking=True),
@@ -240,10 +306,11 @@ class LM:
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
         lora = lora or {}
+        arrays = {k: v for k, v in cache.items() if k != "len"}
         for i in range(cfg.num_layers):
             x = self._layer_cached(layer_slice(params["layers"], i),
                                    layer_slice(lora, i) if lora else None,
-                                   cache["k"][i], cache["v"][i], x, step, ids)
+                                   layer_slice(arrays, i), x, step, ids)
         n_real = (torch.full((B,), S) if true_lens is None
                   else torch.as_tensor(true_lens).to("cpu", torch.int64))
         new_len = torch.as_tensor(start).to("cpu", torch.int64) + n_real

@@ -1,5 +1,6 @@
 """PyTorch multi-LoRA serving engine with FASTLIBRA cache management
-(counterpart of ``repro.serving.engine``, dense GQA layout).
+(counterpart of ``repro.serving.engine``: the dense GQA, MLA and MoE
+layouts).
 
 Continuous-batching engine that executes prefill/decode in PyTorch on the
 card (CUDA kernels for the LoRA projections and attention) or, when the
@@ -23,8 +24,11 @@ prefill`; the exact-shape eager path survives as ``prefill_mode="eager"``.
 Where the reference computes a new cache and keeps some rows of it, this
 engine writes in place: ``extend`` writes only the rows it keeps
 (``keep_rows``) and advances ``len`` only there, so a catch-up decode never
-touches a prefilling row's KV. The recurrent-state and MLA layouts raise
-``NotImplementedError`` (ROADMAP Queue 1 items 2 and 3).
+touches a prefilling row's KV. The KV pool holds the model's cache rows:
+K and V per head, or for MLA the latent and the rope key as one
+pseudo-head per token with no V, as in the reference. The recurrent-state
+and encoder-decoder layouts raise ``NotImplementedError`` (ROADMAP Queue 1
+items 3 and 4).
 
 With ``schedule_mode="mixed"`` each engine step is ONE row-masked batched
 ``extend``: active decode slots ride as 1-token rows next to prefill chunk
@@ -85,6 +89,21 @@ def _default_schedule_mode() -> str:
     # the ablation pin. The env override lets CI pin either mode without
     # touching every test's EngineConfig construction.
     return os.environ.get("REPRO_SCHEDULE_MODE", "mixed")
+
+
+def kv_pool_spec(model_cfg, block_size: int) -> KVPoolSpec:
+    """The KV pool's layout for ``model_cfg``: K and V per head, or for MLA
+    the compressed latent and the rope key as ONE pseudo-head per token
+    (what ``_read_dense``/``_write_dense`` move) with no V, not the
+    expanded num_kv_heads × head_dim layout."""
+    if model_cfg.mla is not None:
+        m = model_cfg.mla
+        kv_heads, head_dim = 1, m.kv_lora_rank + m.qk_rope_head_dim
+    else:
+        kv_heads, head_dim = model_cfg.num_kv_heads, model_cfg.resolved_head_dim
+    return KVPoolSpec(num_layers=model_cfg.num_layers, block_size=block_size,
+                      kv_heads=kv_heads, head_dim=head_dim, dtype=torch.float32,
+                      use_v=model_cfg.mla is None)
 
 
 @dataclasses.dataclass
@@ -166,7 +185,7 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = config
         self.model_cfg = model_cfg
-        # raises NotImplementedError for the recurrent / MLA / MoE layouts
+        # raises NotImplementedError for the recurrent and enc-dec layouts
         self.model = build_model(model_cfg, dtype=torch.float32, device=self.device)
         if params is None:
             params = self.model.init_params(torch.Generator().manual_seed(seed))
@@ -175,13 +194,7 @@ class ServingEngine:
 
             params = tensor_tree(params, self.device)
         self.params = params
-        spec = KVPoolSpec(
-            num_layers=model_cfg.num_layers,
-            block_size=config.block_size,
-            kv_heads=model_cfg.num_kv_heads,
-            head_dim=model_cfg.resolved_head_dim,
-            dtype=torch.float32,
-        )
+        spec = kv_pool_spec(model_cfg, config.block_size)
         self.kv_spec = spec
         B, T = config.max_batch_slots, config.max_seq_len
         self.tracer = (
@@ -1009,13 +1022,24 @@ class ServingEngine:
         self.cache["len"][slot] = value
 
     def _write_dense(self, slot: int, start: int, k, v) -> None:
-        """Place gathered prefix KV (L, T, H, D) into the dense cache rows."""
+        """Place gathered prefix KV (L, T, H, D) into the dense cache rows;
+        for MLA, k is (latent ‖ k_rope) as one pseudo-head and v is None."""
         T = k.shape[1]
+        if self.model_cfg.mla is not None:
+            r = self.model_cfg.mla.kv_lora_rank
+            self.cache["latent"][:, slot, start:start + T] = k[..., 0, :r]
+            self.cache["krope"][:, slot, start:start + T] = k[..., 0, r:]
+            return
         self.cache["k"][:, slot, start:start + T] = k
         self.cache["v"][:, slot, start:start + T] = v
 
     def _read_dense(self, slot: int, start: int, end: int):
-        """Read dense cache rows back as (L, T, H, D) for pool scatter."""
+        """Read dense cache rows back as (L, T, H, D) for pool scatter (for
+        MLA: (latent ‖ k_rope) (L, T, 1, kv_lora + rope) and None)."""
+        if self.model_cfg.mla is not None:
+            k = torch.cat([self.cache["latent"][:, slot, start:end],
+                           self.cache["krope"][:, slot, start:end]], dim=-1)
+            return k[:, :, None, :], None
         return (self.cache["k"][:, slot, start:end],
                 self.cache["v"][:, slot, start:end])
 

@@ -199,7 +199,8 @@ def test_extend_skips_writes_past_the_cache():
 
 
 def test_unported_layouts_raise():
-    for arch in ("rwkv6-1.6b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
-                 "phi3.5-moe-42b-a6.6b"):
+    """The recurrent and encoder-decoder layouts (ROADMAP Queue 1 items 3
+    and 4); MLA and MoE are held in ``tests/test_torch_moe_mla.py``."""
+    for arch in ("rwkv6-1.6b", "recurrentgemma-2b", "seamless-m4t-large-v2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(configs.reduced(configs.get(arch)), device="cpu")
