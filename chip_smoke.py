@@ -32,8 +32,18 @@ exits non-zero:
               fused_sgmv on llama-7b's q projection, on deepseek-v2-lite's
               kv_a (2048->576), q (2048->3072) and o and phi3.5-moe's k
               (4096->1024), warm and cold, and fused_sgmv and sgmv at ranks
-              1, 12 and 128. Then a check that every wrapper refuses
-              autograd on the card.
+              1, 12 and 128; and the recurrent and enc-dec configs'
+              shapes: fused_sgmv (rank 32, S = 256 and 1, warm and
+              cold) on recurrentgemma-2b's q (2560->2560) and k (2560->256),
+              rwkv6-1.6b's r (2048->2048) and seamless-m4t's decoder q
+              (1024->1024), and at seamless-m4t's 16/16 heads of 64
+              ragged_extend at the 256 bucket and paged_attention at the
+              engine's lengths; then phase 7c's own inputs: its prefill's
+              ragged_extend (B = 2, S = 512, T = 520), its first and last
+              greedy step's paged_attention (T = 520 in pages of 8), both
+              warm and cold, flash_prefill at its identities' forward (2 x
+              256), fused_sgmv on its decoder q at B = 2 (S = 512 and 1).
+              Then a check that every wrapper refuses autograd on the card.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -72,9 +82,29 @@ exits non-zero:
               or for the MoE configs three engine steps chosen by kind
               before the run (``REPLAY``) replayed on the CPU from the
               card's inputs and cache.
+7b. state   — rwkv6-1.6b and recurrentgemma-2b at full width and depth,
+              served with state snapshots: 18 requests in three waves
+              (prompts; repeats, continued conversations and fresh prompts;
+              repeats whose snapshots went to the host meanwhile) on a
+              device pool that holds 4 adapters, the 8 running rows and 3
+              spare snapshots, so snapshots go to the host and come back;
+              state hit rate, snapshot bytes, swap counts, exact launch
+              counts (fused_sgmv only), two requests teacher-forced on the
+              CPU (one resumed from a snapshot); the static path and its
+              identities; recurrentgemma's ring (prefill of 2 x 2048, its
+              window, and 8 decode steps onto ring slots 0-7, against
+              windowed forward over 2056 tokens); one prefill-chunk and one
+              decode call profiled beside the recurrence alone
+              (``wkv_scan`` / ``linear_scan``); rwkv6's engine steps under
+              ``torch.profiler``.
+7c. encdec  — seamless-m4t-large-v2 at full width (24 + 24 layers): frames
+              of 2 x 512 x 1024 from a seeded generator, prefill of 2 x 512
+              tokens and 8 greedy steps with exact launch counts, forward /
+              prefill / decode identities, the card's tokens teacher-forced
+              on the CPU.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Then the script's seconds. The line before the last is the ``kernels``
+JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,7 +204,7 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
     a = torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5
     b = torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1
-    ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7], dtype=torch.int32, device=dev)
+    ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7][:B], dtype=torch.int32, device=dev)
     scale = 1.0
     name = "fused_sgmv" if base else "sgmv"
 
@@ -243,7 +273,10 @@ RAGGED_BUCKETS = {
 
 
 def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
-                D=128):
+                D=128, cold=False):
+    """ragged_extend on one bucket: checked, zeros past every row's length,
+    a repeat launch bitwise equal, timed warm and, with ``cold``, with a
+    cold L2 (q and the KV rotated over :func:`cold_copies` copies)."""
     q = torch.randn((B, S, H, D), generator=gen, device=dev)
     k = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
     v = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
@@ -274,12 +307,21 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
     flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, lens) for j in range(n))
     bnd, by = bound_ms(nbytes, flops)
     ms, host_ms = time_ms(lambda: ops.ragged_extend(q, k, v, st, tl))
-    return dict(
+    out = dict(
         case=f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, true_lens={lens}",
         max_abs_err=err, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: ref.ragged_extend_ref(q, k, v, st, tl))[0],
         bound_ms=bnd, bound_by=by, library_ms=lib,
     )
+    if cold:
+        n = cold_copies(4 * (q.numel() + k.numel() + v.numel()))
+        copies = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
+        ms_c, host_c = time_ms(rotating(
+            [lambda c=c: ops.ragged_extend(*c, st, tl) for c in copies]))
+        out["cold"] = dict(copies=n, ms=ms_c, host_ms=host_c, plain_ms=time_ms(rotating(
+            [lambda c=c: ref.ragged_extend_ref(*c, st, tl) for c in copies]))[0])
+        del copies
+    return out
 
 
 # paged_attention's lengths: phase 3's first case (an empty row, 1-token
@@ -834,23 +876,35 @@ ARCHS = (("llama-7b", None), ("qwen2-vl-7b", None), ("qwen3-4b", None),
 # the static path at D = 160, 256, and on MLA and the MoE FFN
 STATIC_ARCHS = ("stablelm-12b", "gemma-2b", "deepseek-v2-lite-16b",
                 "phi3.5-moe-42b-a6.6b")
-PROFILE_ARCHS = ("llama-7b", "deepseek-v2-lite-16b")  # under torch.profiler
+PROFILE_ARCHS = ("llama-7b", "deepseek-v2-lite-16b",  # under torch.profiler
+                 "rwkv6-1.6b")
 ARCH_POOL_TOKENS = 4096  # device KV pool: the trace's working set, ~3.4k tokens
 ARCH_MAX_SEQ = 640  # 512-token prompts and 16 new tokens; 5 pages of 128
 # phase 3 at the archs' shapes: (config, query heads, kv heads, head dim)
 ARCH_HEADS = (("llama-7b", 32, 32, 128), ("qwen2-vl-7b", 28, 4, 128),
               ("stablelm-12b", 32, 8, 160), ("gemma-2b", 8, 1, 256),
-              ("phi3.5-moe-42b-a6.6b", 32, 8, 128))
+              ("phi3.5-moe-42b-a6.6b", 32, 8, 128),
+              ("seamless-m4t-large-v2", 16, 16, 64))
+# seamless-m4t-large-v2's static path (phase 7c): B rows of S prompt
+# tokens after S_SRC frames, STEPS greedy steps, the identities' forward
+# over FORWARD tokens
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_B, ENCDEC_S, ENCDEC_S_SRC, ENCDEC_STEPS, ENCDEC_FORWARD = 2, 512, 512, 8, 256
 # flash_prefill at the static path's shapes: (config, B, S, heads, kv heads, D)
 ARCH_FLASH = (("stablelm-12b", 2, 2048, 32, 8, 160), ("gemma-2b", 2, 2048, 8, 1, 256),
-              ("phi3.5-moe-42b-a6.6b", 2, 512, 32, 8, 128))
+              ("phi3.5-moe-42b-a6.6b", 2, 512, 32, 8, 128),
+              (ENCDEC_ARCH, ENCDEC_B, ENCDEC_FORWARD, 16, 16, 64))
 # fused_sgmv at the LoRA projections of the MLA and MoE configs (rank 32):
 # deepseek's kv_a is the first d_out that is no multiple of the 128-column
 # tile; all warm and with a cold L2
 ARCH_SGMV = (("deepseek-v2-lite-16b", "kv_a", 2048, 576),
              ("deepseek-v2-lite-16b", "q", 2048, 3072),
              ("deepseek-v2-lite-16b", "o", 2048, 2048),
-             ("phi3.5-moe-42b-a6.6b", "k", 4096, 1024))
+             ("phi3.5-moe-42b-a6.6b", "k", 4096, 1024),
+             ("recurrentgemma-2b", "q", 2560, 2560),
+             ("recurrentgemma-2b", "k", 2560, 256),
+             ("rwkv6-1.6b", "r", 2048, 2048),
+             ("seamless-m4t-large-v2", "q", 1024, 1024))
 # the MoE configs' card-against-CPU check replays these extend calls of the
 # engine trace, each chosen by its kind before the run: the first mixed
 # step (prefill chunks with decode riders) and the first two pure decode
@@ -901,7 +955,33 @@ def arch_kernel_cases(ops, ref, gen, dev):
             m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r, base=False)
             out["sgmv"].append({"arch": "qwen3-0.6b", **m})
     torch.cuda.empty_cache()
+    for kernel, m in encdec_kernel_cases(ops, ref, gen, dev):
+        out[kernel].append({"arch": ENCDEC_ARCH, "path": "encdec", **m})
+    torch.cuda.empty_cache()
     return out
+
+
+def encdec_kernel_cases(ops, ref, gen, dev):
+    """The kernels at phase 7c's own inputs (its counted launches): the
+    prefill's ``ragged_extend`` (start 0, every token real, a cache of T =
+    S + steps), the first and last greedy step's ``paged_attention`` over
+    the page size that T takes, both warm and cold; the decoder's
+    ``fused_sgmv`` on q at B rows of S and of 1 token. Yields (kernel,
+    case)."""
+    from repro_torch.models.attention import _page_size_for
+
+    H, Hkv, D = next((h, g, d) for a, h, g, d in ARCH_HEADS if a == ENCDEC_ARCH)
+    B, S, T = ENCDEC_B, ENCDEC_S, ENCDEC_S + ENCDEC_STEPS
+    yield "ragged_extend", ragged_case(ops, ref, gen, dev, S, [S] * B, [0] * B, B=B,
+                                       T=T, H=H, Hkv=Hkv, D=D, cold=True)
+    ps = _page_size_for(T)
+    require(ps > 0, f"{ENCDEC_ARCH}: no page size divides T = {T}")
+    for n in (S + 1, T):
+        yield "paged_attention", paged_case(ops, ref, gen, dev, [n] * B, B=B, T=T, H=H,
+                                            Hkv=Hkv, D=D, ps=ps)
+    for rows in (S, 1):
+        yield "fused_sgmv", sgmv_case(ops, ref, "q", H * D, H * D, rows, gen, dev, B=B,
+                                      cold=True)
 
 
 def arch_trace(Request, vocab: int, seed: int = 0):
@@ -944,11 +1024,17 @@ def tree_cpu(tree):
 def expected_launches(model, launches, prefill_calls: int, decode_calls: int,
                       fresh_prefills: int = 0) -> dict:
     """The launch counts a run must give: every LoRA target of every layer
-    through fused_sgmv on each call; GQA attention through ragged_extend in
-    each prefill call, paged_attention in each decode call and
-    flash_prefill in each fresh prefill (``LM.prefill``), as the reference
-    routes it; MLA through none of them."""
-    L, gqa = model.cfg.num_layers, model.cfg.mla is None
+    that has them through fused_sgmv on each call; GQA attention through
+    ragged_extend in each prefill call, paged_attention in each decode call
+    and flash_prefill in each fresh prefill (``LM.prefill``), as the
+    reference routes it; MLA, RWKV (LoRA on r/k/v/o, no attention) and the
+    hybrid (LoRA and a windowed, plain attention on its attention layers
+    only) through none of the attention kernels."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    if cfg.rglru is not None:
+        L = model._layer_types().count("attn")
+    gqa = cfg.mla is None and not model.recurrent
     n_targets = len(model.lora_dims())
     want = dict.fromkeys(launches, 0)
     want.update(fused_sgmv=n_targets * L * (prefill_calls + decode_calls + fresh_prefills),
@@ -1225,7 +1311,372 @@ def pick_two(finished):
     return picked
 
 
+# ---------------------------------------------------------- recurrent archs
+# rwkv6-1.6b (24 layers, ~6.3 GB of f32 weights) and recurrentgemma-2b (26
+# layers, ~11.6 GB), both at full depth, served with state snapshots
+STATE_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b")
+STATE_SPARE = 3  # snapshots the device pool holds beside the running rows
+
+
+def state_trace(Request, vocab: int, seed: int = 0):
+    """The first wave, 8 prompts of 128-384 tokens on 4 adapters, 16 new
+    tokens each; and a function that builds a later wave from the first
+    once the waves before it have run. Wave 2: the first two prompts again,
+    two continued conversations (a first-wave request's prompt and output,
+    then 64 new tokens) and two fresh prompts; its running rows and new
+    snapshots push the untouched first-wave snapshots to the host. Wave 3:
+    the last four first-wave prompts again, which find their snapshots
+    there and swap them back in."""
+    rng = random.Random(seed)
+
+    def fresh(tag):
+        n = rng.randint(128, 384)
+        return tuple(rng.randrange(vocab) for _ in range(n))
+
+    wave1 = [Request(f"s{seed}-a{i}", f"lora-{i % 4}", fresh(i), max_new_tokens=16)
+             for i in range(8)]
+
+    def later(wave):
+        if wave == 3:
+            return [Request(f"s{seed}-late{i}", r.adapter_id, r.prompt, max_new_tokens=16)
+                    for i, r in enumerate(wave1[4:])]
+        out = [Request(f"s{seed}-again{i}", r.adapter_id, r.prompt, max_new_tokens=16)
+               for i, r in enumerate(wave1[:2])]
+        out += [Request(f"s{seed}-turn2-{i}", r.adapter_id,
+                        r.full_tokens + tuple(rng.randrange(vocab) for _ in range(64)),
+                        max_new_tokens=16) for i, r in enumerate(wave1[2:4])]
+        out += [Request(f"s{seed}-b{i}", f"lora-{i + 1}", fresh(i), max_new_tokens=16)
+                for i in range(2)]
+        return out
+
+    return wave1, later
+
+
+def pick_resumed(finished):
+    """The shortest finished, never-preempted request that resumed from a
+    snapshot and the shortest one that started cold."""
+    clean = sorted((r for r in finished if r.preempt_count == 0),
+                   key=lambda r: len(r.prompt) + len(r.generated))
+    picked = ([r for r in clean if r.matched_tokens > 0][:1]
+              + [r for r in clean if r.matched_tokens == 0][:1])
+    require(len(picked) == 2, f"need a resumed and a cold request, got {len(picked)}")
+    return picked
+
+
+def ring_wrap(model, params, lora, seed: int = 0, B: int = 2, steps: int = 8):
+    """recurrentgemma's ring of window slots: prefill of B x W tokens (W the
+    window) into a cache of W + ``steps`` positions, which holds W slots,
+    then ``steps`` decode steps of the next tokens, writing positions W ..
+    W + steps - 1 onto ring slots 0 .. steps - 1. Each step's logits (and
+    the prefill's last) against windowed ``forward`` over all W + steps
+    tokens, within ARCH_TOL·(1 + |forward|)."""
+    W = model.cfg.window_size
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, W + steps),
+                           generator=torch.Generator().manual_seed(seed + 4))
+    ids = torch.tensor([0, -1][:B], dtype=torch.int32)
+    full, _ = model.forward(params, tokens, lora=lora, adapter_ids=ids)
+    want = full[:, W - 1:].clone()
+    del full
+    last, cache = model.prefill(params, tokens[:, :W], W + steps, lora=lora,
+                                adapter_ids=ids)
+    require(cache["k"].shape[2] == W, f"ring of {cache['k'].shape[2]} slots, not {W}")
+    got = [last[:, 0]]
+    for j in range(steps):
+        dec, cache = model.decode(params, cache, tokens[:, W + j:W + j + 1], lora=lora,
+                                  adapter_ids=ids)
+        got.append(dec[:, 0])
+    got = torch.stack(got, 1)
+    diff = (got - want).abs()
+    excess = float((diff - ARCH_TOL * (1 + want.abs())).max())
+    require(excess <= 0, f"{model.cfg.name}: ring decode against windowed forward: "
+                         f"max error {float(diff.max())} over ARCH_TOL")
+    return {"window": W, "prefill_tokens": W, "decode_steps": steps,
+            "ring_slots_written": list(range(steps)),
+            "max_abs_err": float(diff.max()),
+            "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
+            "tokens_checked": got.shape[0] * got.shape[1]}
+
+
+def step_breakdown(model, params, lora, B: int = 8, S: int = 256):
+    """Where one engine call's device time goes: a prefill-chunk call (B
+    rows of S tokens from a zero state) and a decode call (one token a
+    row), each under ``torch.profiler``, beside the recurrence alone at the
+    same shapes (``wkv_scan`` a layer for RWKV, ``linear_scan`` a recurrent
+    layer for the hybrid), warmed up and then profiled over ``reps`` calls
+    (the profiler loses the kernels of a window of a few): the WKV loop is
+    bound by the host's launches, so CUDA events around it would time the
+    host. ``scan_share`` is layers x the scan's device busy ms a call over
+    the engine call's; ``scan_launch_share`` the same for the device's
+    kernel count."""
+    from repro_torch.models import recurrent
+
+    cfg, dev = model.cfg, model.device
+    ids = torch.tensor([0, 1, 2, 3, -1, 0, 1, 2][:B], dtype=torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if cfg.rwkv is not None:
+        H, N = cfg.d_model // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        layers, name = cfg.num_layers, "wkv_scan"
+
+        def scan_fn(s):
+            r, k, v = (torch.randn((B, s, H, N), generator=gen, device=dev)
+                       for _ in range(3))
+            w = torch.rand((B, s, H, N), generator=gen, device=dev)
+            wkv = torch.zeros((B, H, N, N), device=dev)
+            return lambda: recurrent.wkv_scan(r, k, v, w, wkv)
+    else:
+        Wd = cfg.rglru.lru_width or cfg.d_model
+        layers, name = model._layer_types().count("rec"), "linear_scan"
+
+        def scan_fn(s):
+            a = torch.rand((B, s + 1, Wd), generator=gen, device=dev)
+            b = torch.randn((B, s + 1, Wd), generator=gen, device=dev)
+            return lambda: recurrent.linear_scan(a, b)
+    out = {"scan": name, "scan_layers": layers, "batch": B}
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(6))
+    for kind, s in (("prefill_chunk", S), ("decode", 1)):
+        cache = model.init_cache(B, ARCH_MAX_SEQ)
+        if kind == "decode":
+            _, cache = model.extend(params, cache, tokens, cache["len"], lora=lora,
+                                    adapter_ids=ids)
+        call = profiled(lambda: model.extend(params, cache, tokens[:, :s], cache["len"],
+                                             lora=lora, adapter_ids=ids))
+        fn = scan_fn(s)
+        fn()  # warm
+        reps = 1 if cfg.rwkv is not None and s > 1 else 50
+
+        def scans():
+            for _ in range(reps):
+                fn()
+
+        scan = profiled(scans)
+        busy = call["device_busy_ms"]
+        scan_busy = scan["device_busy_ms"] and scan["device_busy_ms"] / reps
+        scan_events = scan["device_events"] / reps
+        out[kind] = {
+            "tokens_per_row": s, "call": call, "scan_reps": reps, "scan_busy_ms": scan_busy,
+            "scan_wall_ms": scan["wall_ms"] / reps, "scan_device_events": scan_events,
+            "scan_share": layers * scan_busy / busy if busy and scan_busy else None,
+            "scan_launch_share": (layers * scan_events / call["device_events"]
+                                  if call["device_events"] else None),
+        }
+        del cache
+    return out
+
+
+def state_arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
+                     seed: int = 0):
+    """One recurrent config at full width and depth: weights drawn on the
+    card, a device pool of 4 adapters, the 8 running rows (one snapshot's
+    blocks each, the engine's admission throttle) and :data:`STATE_SPARE`
+    snapshots, and the host tier as large; :func:`state_trace` served,
+    launch counts exact, state hits and swaps both ways required; then the
+    static path, the ring (recurrentgemma), the step breakdown, and two
+    requests teacher-forced on the CPU with the engine's weights. Returns
+    (its JSON line, its launch counts)."""
+    from repro_torch.kvcache import flat_state_elems
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import kv_pool_spec
+
+    t_start = time.perf_counter()
+    cfg = configs.get(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    block = kv_pool_spec(cfg, 16).block_bytes
+    adapters = [f"lora-{i}" for i in range(4)]
+    adapter_bytes = 4 * cfg.num_layers * cfg.lora.rank * sum(
+        din + dout for din, dout in model.lora_dims().values())
+    snapshot_bytes = 4 * flat_state_elems(model.init_cache(1, ARCH_MAX_SEQ))
+
+    def blocks(n):
+        return -(-n // block)
+
+    pool = block * (len(adapters) * blocks(adapter_bytes)
+                    + (8 + STATE_SPARE) * blocks(snapshot_bytes))
+    ecfg = EngineConfig(hbm_bytes=pool, host_bytes=2 * pool, block_size=16,
+                        max_batch_slots=8, max_seq_len=ARCH_MAX_SEQ, prefill_chunk=256,
+                        step_token_budget=512)
+    engine = ServingEngine(cfg, ecfg, params=params, device=dev)
+    require(engine.kv_pool is None and engine.state_cache is not None,
+            f"{name}: the engine has no state cache")
+    require(engine.state_spec.snapshot_bytes == snapshot_bytes,
+            f"{name}: snapshot of {engine.state_spec.snapshot_bytes} bytes")
+    for aid in adapters:
+        engine.register_adapter(aid)
+    wave1, later = state_trace(Request, cfg.vocab_size, seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_start
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = []
+    for wave in (wave1, 2, 3):
+        wave = later(wave) if isinstance(wave, int) else wave
+        for r in wave:
+            engine.submit(r)
+        report = engine.run()
+        reqs += wave
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    row = report.row()
+    sc = engine.state_cache
+    decode_calls, prefill_calls = engine._decode_calls, engine.prefill.stats.calls
+    require(row["n_finished"] == len(reqs) and row["n_unfinished"] == 0,
+            f"{name}: finished {row['n_finished']} of {len(reqs)}")
+    require(row["state_hit_rate"] > 0, f"{name}: state_hit_rate is 0")
+    require(sc.swap_outs > 0 and sc.swap_ins > 0,
+            f"{name}: {sc.swap_outs} snapshots swapped out, {sc.swap_ins} in")
+    want = expected_launches(model, launches, prefill_calls, decode_calls)
+    require(launches == want, f"{name}: launches {launches}, expected {want} for "
+                              f"{decode_calls} decode and {prefill_calls} prefill calls")
+    generated = sum(len(r.generated) for r in reqs)
+    line = {
+        "phase": "state", "arch": name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "lora_targets": sorted(model.lora_dims()), "weights_bytes": weights_bytes,
+        "snapshot_bytes": snapshot_bytes, "block_bytes": block,
+        "snapshot_blocks": blocks(snapshot_bytes), "pool_bytes": pool,
+        "setup_s": setup_s, "run_s": run_s, "requests": len(reqs),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "generated_tokens": generated, "generated_tokens_per_s": generated / run_s,
+        "avg_ttft": row["avg_ttft"], "p99_ttft": row["p99_ttft"],
+        "avg_tpot": row["avg_tpot"], "p99_tpot": row["p99_tpot"],
+        "state_hit_rate": row["state_hit_rate"],
+        "resumed": {r.request_id: r.matched_tokens for r in reqs if r.matched_tokens},
+        "snapshot_swap_outs": sc.swap_outs, "snapshot_swap_ins": sc.swap_ins,
+        "swap_out_bytes": sc.swap_out_bytes, "swap_in_bytes": sc.swap_in_bytes,
+        "steps": engine._step_count, "decode_calls": decode_calls,
+        "prefill_calls": prefill_calls, "launches": launches,
+    }
+    picked = pick_resumed(engine.finished)
+    if name in PROFILE_ARCHS:
+        line["profile"] = profile_steps(engine, state_trace(Request, cfg.vocab_size,
+                                                            seed + 1)[0], steps=20)
+    line["static"] = static_path(ops, engine.model, engine.params, seed)
+    lora = random_lora(engine.model, 8, seed + 1)
+    if cfg.rglru is not None:
+        line["ring"] = ring_wrap(engine.model, engine.params, lora, seed)
+        torch.cuda.empty_cache()
+    line["breakdown"] = step_breakdown(engine.model, engine.params, lora)
+    line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    # the CPU run of the engine's own weights and adapters
+    t0 = time.perf_counter()
+    cpu_params = tree_cpu(engine.params)
+    adapter_weights = {aid: engine.adapters._host[aid].weights for aid in adapters}
+    del engine, model, params, lora
+    torch.cuda.empty_cache()
+    total, exact, worst, min_gap = check_against_cpu(cfg, ARCH_MAX_SEQ, picked,
+                                                     adapter_weights, cpu_params)
+    line["cpu"] = {"requests": [r.request_id for r in picked],
+                   "matched_tokens": [r.matched_tokens for r in picked],
+                   "tokens": total, "argmax_equal": exact, "largest_deficit": worst,
+                   "smallest_top2_gap": min_gap, "seconds": time.perf_counter() - t0}
+    del cpu_params
+    line["seconds"] = time.perf_counter() - t_start
+    return line, {k: n + line["static"]["launches"].get(k, 0) for k, n in launches.items()}
+
+
+# ------------------------------------------------------------------ encdec
+def encdec_phase(ops, configs, dev, seed: int = 0, B: int = ENCDEC_B, S: int = ENCDEC_S,
+                 S_src: int = ENCDEC_S_SRC, steps: int = ENCDEC_STEPS):
+    """seamless-m4t-large-v2 at full width: frames (B, S_src, d_model) and
+    prompts (B, S) from seeded CPU generators, ``prefill`` (encode, the
+    cross K/V, the decoder through ``ragged_extend``) and ``steps`` greedy
+    ``make_decode_step`` steps (``paged_attention``), launch counts reset
+    just before and read just after; forward (``flash_prefill``) / prefill
+    / decode identities at S = 256; then the card's tokens teacher-forced
+    on the CPU with the same weights (each the CPU argmax or trailing its
+    best logit by at most ARGMAX_TOL). Returns (its JSON line, launches)."""
+    from repro_torch.models import build_model, make_decode_step
+
+    t_start = time.perf_counter()
+    cfg = configs.get(ENCDEC_ARCH)
+    L = cfg.num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+    weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    lora = random_lora(model, 8, seed + 1)
+    frames = torch.randn((B, S_src, cfg.d_model),
+                         generator=torch.Generator().manual_seed(seed + 3))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(seed + 2))
+    ids = torch.tensor([0, -1][:B], dtype=torch.int32)
+
+    def run(m, p, lo, forced=None):
+        """Prefill then ``steps`` decode steps: greedy, or fed ``forced``
+        (B, steps + 1) and returning every step's logits."""
+        step = make_decode_step(m)
+        logits, cache = m.prefill(p, frames, tokens, S + steps, lora=lo, adapter_ids=ids)
+        outs = [logits[:, -1]]
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        toks = [tok]
+        for j in range(steps):
+            if forced is None:
+                tok, cache = step(p, lo, cache, {"tokens": tok[:, None], "adapter_ids": ids})
+                toks.append(tok)
+            else:
+                lg, cache = m.decode(p, cache, forced[:, j:j + 1], lora=lo, adapter_ids=ids)
+                outs.append(lg[:, -1])
+        return torch.stack(toks, 1).cpu(), torch.stack(outs, 1)
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen_tokens, _ = run(model, params, lora)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_sgmv=4 * L * (1 + steps), ragged_extend=L, paged_attention=L * steps)
+    require(launches == want, f"{ENCDEC_ARCH}: launches {launches}, expected {want}")
+    # forward / prefill / decode against each other at S = 256
+    n = min(ENCDEC_FORWARD, S)
+    full, _ = model.forward(params, frames, tokens[:, :n], lora=lora, adapter_ids=ids)
+    last, cache = model.prefill(params, frames, tokens[:, :n - 1], n, lora=lora,
+                                adapter_ids=ids)
+    dec, _ = model.decode(params, cache, tokens[:, n - 1:n], lora=lora, adapter_ids=ids)
+    errs, excess = [], -math.inf
+    for got, wnt in ((last[:, 0], full[:, n - 2]), (dec[:, 0], full[:, n - 1])):
+        diff = (got - wnt).abs()
+        errs.append(float(diff.max()))
+        excess = max(excess, float((diff - ARCH_TOL * (1 + wnt.abs())).max()))
+    require(excess <= 0, f"{ENCDEC_ARCH}: forward / prefill / decode disagree on the "
+                         f"card: max errors {errs} over ARCH_TOL")
+    line = {"phase": "encdec", "arch": ENCDEC_ARCH, "encoder_layers": cfg.encoder_layers,
+            "decoder_layers": L, "d_model": cfg.d_model,
+            "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.resolved_head_dim,
+            "vocab": cfg.vocab_size, "weights_bytes": weights_bytes, "batch": B,
+            "frames": S_src, "prompt_tokens": S, "decode_steps": steps,
+            "greedy_s": greedy_s, "launches": launches,
+            "arch_identities_max_abs_err": errs, "tokens": gen_tokens.tolist(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    cpu_params, cpu_lora = tree_cpu(params), tree_cpu(lora)
+    del model, params, lora, full, cache
+    torch.cuda.empty_cache()
+
+    # the card's tokens teacher-forced on the CPU: the kernels' plain versions
+    t0 = time.perf_counter()
+    _, lg = run(build_model(cfg, device="cpu"), cpu_params, cpu_lora, forced=gen_tokens)
+    picked = lg.gather(-1, gen_tokens[:, :, None].long())[..., 0]
+    deficit = float((lg.max(-1).values - picked).max())
+    require(deficit <= ARGMAX_TOL,
+            f"{ENCDEC_ARCH}: a card token trails the CPU max logit by {deficit}")
+    line["cpu"] = {"tokens": gen_tokens.numel(),
+                   "argmax_equal": int((lg.argmax(-1) == gen_tokens).sum()),
+                   "largest_deficit": deficit, "smallest_top2_gap": float(top2_gap(lg).min()),
+                   "seconds": time.perf_counter() - t0}
+    line["seconds"] = time.perf_counter() - t_start
+    return line, launches
+
+
 def main() -> None:
+    t_script = time.perf_counter()
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1373,6 +1824,17 @@ def main() -> None:
         for k, n in counts.items():
             arch_launches[k] += n + line.get("static", {}).get("launches", {}).get(k, 0)
 
+    # -------------------------------------------------- 7b. state, 7c. encdec
+    state_launches = dict.fromkeys(gen_launches, 0)
+    for name in STATE_ARCHS:
+        line, counts = state_arch_phase(ops, configs, EngineConfig, ServingEngine,
+                                        Request, dev, name)
+        emit(line)
+        for k, n in counts.items():
+            state_launches[k] += n
+    line, encdec_launches = encdec_phase(ops, configs, dev)
+    emit(line)
+
     # ----------------------------------------------------------- 8. summary
     kernels = []
     for name, src, tpu, m in (
@@ -1394,11 +1856,14 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
             "launches": (launches[name] + gen_launches[name] + var_launches[name]
-                         + arch_launches[name]),
+                         + arch_launches[name] + state_launches[name]
+                         + encdec_launches[name]),
             "launches_by_path": {"engine": launches[name],
                                  "generate": gen_launches[name],
                                  "variants": var_launches[name],
-                                 "archs": arch_launches[name]},
+                                 "archs": arch_launches[name],
+                                 "state": state_launches[name],
+                                 "encdec": encdec_launches[name]},
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -1423,8 +1888,9 @@ def main() -> None:
     kernels[3]["engine_case"] = {k: pag_cases[1][k] for k in keys}
     # every kernel at the other dense configs' shapes and ranks (phase 3)
     for k in kernels:
-        k["arch_cases"] = [{key: m[key] for key in ("arch",) + keys if key in m}
+        k["arch_cases"] = [{key: m[key] for key in ("arch", "path") + keys if key in m}
                            for m in arch_cases[k["name"]]]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

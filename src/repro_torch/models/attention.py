@@ -5,9 +5,7 @@ multi-head latent attention (MLA).
 
 Conventions follow the reference: ``p`` is one layer's parameter dict,
 ``lora`` maps a target to ``(A (slots, d_in, r), B (slots, r, d_out))`` and
-``adapter_ids`` (B,) picks the slot per row. The recurrent layouts (ROADMAP
-Queue 1 item 3) and encoder-decoder models (item 4) raise
-``NotImplementedError`` (:func:`check_supported`).
+``adapter_ids`` (B,) picks the slot per row.
 
 The rotary tables of a step are built once (:func:`step_rope`) and every
 layer rotates q and k by them: M-RoPE tables
@@ -44,8 +42,6 @@ from ..kernels import ops as kernel_ops
 from .common import (causal_mask, dense_init, init_rms, mrope_tables, rms_norm,
                      rope_tables, rotate, window_mask)
 
-_UNPORTED = "not ported yet (ROADMAP Queue 1 item {})"
-
 
 def _proj(x, w, lora, name, adapter_ids, scale):
     """Base projection plus optional multi-LoRA delta. LoRA-targeted
@@ -64,14 +60,6 @@ def _page_size_for(T: int) -> int:
         if T % ps == 0:
             return ps
     return 0  # no clean paging — caller falls back to ragged_extend
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the layouts this package does not run yet."""
-    if cfg.rwkv is not None or cfg.rglru is not None:
-        raise NotImplementedError("recurrent layouts are " + _UNPORTED.format(3))
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder models are " + _UNPORTED.format(4))
 
 
 def step_rope(cfg: ModelConfig, positions: torch.Tensor, mrope_positions=None):

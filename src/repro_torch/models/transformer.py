@@ -1,5 +1,5 @@
-"""Decoder-only LM (PyTorch counterpart of ``repro.models.transformer.LM``
-for the dense GQA, MLA and MoE families).
+"""Decoder-only LM (PyTorch counterpart of ``repro.models.transformer.LM``):
+the dense GQA, MLA, MoE, RWKV-6 and RG-LRU hybrid layouts.
 
 Parameters keep the reference's pytree layout as nested dicts of tensors,
 with the layers stacked on a leading axis, so :mod:`repro_torch.bridge`
@@ -8,9 +8,15 @@ maps one onto the other leaf by leaf:
   {"embed", "final_norm", ["lm_head"],
    "layers": {"norm1", "norm2",
               "mixer": {"wq", "wk", "wv", "wo", ["q_norm", "k_norm"]}
-                    or {"wq", "w_kv_a", "kv_norm", "w_kv_b", "wo"} (MLA),
+                    or {"wq", "w_kv_a", "kv_norm", "w_kv_b", "wo"} (MLA)
+                    or RWKV's time and channel mix (no "ffn"),
               "ffn": {"w_gate", "w_up", "w_down"}
                   or {"router", "w_gate", "w_up", "w_down", ["shared"]} (MoE)}}
+
+and for the RG-LRU hybrid (recurrentgemma) ``{"rec_layers",
+"attn_layers", "ffn_layers", "norms"}`` in place of "layers", each stacked
+over the layers of its kind (``_layer_types`` gives the pattern; the
+hybrid's LoRA is indexed by the global layer).
 
 Public surface (functions of the params, as in the reference):
   init_params(gen)                          -> params
@@ -23,26 +29,32 @@ Public surface (functions of the params, as in the reference):
 
 The cache is {"k", "v"} (L, B, T, Hkv, D), int8 with f32 "k_scale" and
 "v_scale" (L, B, T, Hkv) under ``kv_quant``, or MLA's {"latent" (L, B, T,
-kv_lora), "krope" (L, B, T, rope)}, plus "len". ``forward`` and
-``prefill`` run a fresh sequence (GQA through ``flash_prefill`` unless the
-config sets a logit softcap; MLA expanded, through the plain attention);
-``extend`` (and ``decode``, which is ``extend`` at ``cache["len"]`` with
-one token per row) runs against the cache. ``prefill`` writes each
-layer's cache rows into a new cache in place, where the reference pads;
-``extend`` updates the cache in place and returns it: only the real tokens
-of kept rows are written (on an MoE config an unkept row's tokens reach
-the experts as the reference's do, see ``attention.cached_step``), and
-``len`` advances only for kept rows. ``cache["len"]`` is a host-side (CPU)
-int32 tensor, so planning a step never waits on the device. As in the
-reference, ``forward``, ``prefill``, ``extend`` and ``decode`` take
-``mrope_positions`` (3, B, S), which rotate q and k by M-RoPE on a config
-with ``mrope_sections``, and all but ``decode`` take ``extra_embeds`` (B,
-S, d), added to the token embeddings (the modality frontend's stub). The
-MoE auxiliary loss is summed over the layers by ``forward``. Remat and
-``q_chunk`` are not ported; the recurrent and encoder-decoder layouts raise
-``NotImplementedError`` (ROADMAP Queue 1 items 3 and 4). As in the
-reference's ``LM``, attention runs without a sliding window (the reference
-passes one only to the recurrent hybrid's layers).
+kv_lora), "krope" (L, B, T, rope)}, or RWKV's state {"tm_x", "wkv" (f32),
+"cm_x"} (L, B, ...), or the hybrid's {"h" (f32), "conv"} (recurrent
+layers, B, ...) and {"k", "v"} (attention layers, B, W, Hkv, D) with W =
+min(max_len, window), a ring of slots where W is the window; plus "len".
+``forward`` and ``prefill`` run a fresh sequence (GQA through
+``flash_prefill`` unless the config sets a logit softcap; MLA expanded,
+through the plain attention); ``extend`` (and ``decode``, which is
+``extend`` at ``cache["len"]`` with one token per row) runs against the
+cache. ``prefill`` writes each layer's cache rows into a new cache in
+place, where the reference pads; the recurrent layouts prefill as
+``extend`` from a zero state, as the reference's hybrid does, and RWKV's
+``forward`` is that ``extend`` with every position's logits. ``extend``
+updates the cache in place and returns it: only the real tokens of kept
+rows are written (on an MoE config an unkept row's tokens reach the
+experts as the reference's do, see ``attention.cached_step``), a recurrent
+state changes only in kept rows, and ``len`` advances only for kept rows.
+``cache["len"]`` is a host-side (CPU) int32 tensor, so planning a step
+never waits on the device. As in the reference, ``forward``, ``prefill``,
+``extend`` and ``decode`` take ``mrope_positions`` (3, B, S), which rotate
+q and k by M-RoPE on a config with ``mrope_sections``, and all but
+``decode`` take ``extra_embeds`` (B, S, d), added to the token embeddings
+(the modality frontend's stub). The MoE auxiliary loss is summed over the
+layers by ``forward``. Remat and ``q_chunk`` are not ported. As in the
+reference's ``LM``, attention runs without a sliding window except in the
+hybrid's attention layers, which take the config's window (and so the
+plain attention, as the reference routes a window).
 """
 
 from __future__ import annotations
@@ -53,10 +65,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import (cached_step, check_supported, gqa_cached, gqa_full, init_gqa,
-                        init_mla, mla_cached, mla_full, quantize_kv_rows, step_rope)
+from .attention import (cached_step, gqa_cached, gqa_full, init_gqa, init_mla,
+                        mla_cached, mla_full, quantize_kv_rows, step_rope)
 from .common import dense_init, embed_init, init_rms, rms_norm
 from .ffn import dense_ffn, init_dense_ffn, init_moe, moe_ffn
+from .recurrent import (init_rglru_layers, init_rwkv_layers, rglru_block,
+                        rglru_state_init, rwkv_channel_mix, rwkv_state_init,
+                        rwkv_time_mix)
 
 
 def layer_slice(tree, i: int):
@@ -76,7 +91,6 @@ class LM:
     kv_quant: bool = False  # int8 KV cache with per-(token, head) f32 scales
 
     def __post_init__(self):
-        check_supported(self.cfg)
         self.device = resolve_device(self.device)
 
     # ------------------------------------------------------------------ init
@@ -91,9 +105,16 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt, dev)
+        if cfg.rglru is not None:
+            params.update(self._init_hybrid_layers(gen))
+            return params
+        norms = {"norm1": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
+                 "norm2": torch.zeros((L, cfg.d_model), dtype=dt, device=dev)}
+        if cfg.rwkv is not None:  # RWKV carries its own channel mix, no FFN
+            params["layers"] = {**norms, "mixer": init_rwkv_layers(gen, cfg, L, dt, dev)}
+            return params
         params["layers"] = {
-            "norm1": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
-            "norm2": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
+            **norms,
             "mixer": (init_mla(gen, cfg, L, dt, dev) if cfg.mla is not None
                       else init_gqa(gen, cfg, L, dt, dev)),
             "ffn": (init_moe(gen, cfg, L, dt, dev) if cfg.moe is not None
@@ -101,11 +122,29 @@ class LM:
         }
         return params
 
+    def _layer_types(self) -> list[str]:
+        """The hybrid's layer kinds, "rec" or "attn", by its block pattern."""
+        pat = self.cfg.rglru.block_pattern
+        return [pat[i % len(pat)] for i in range(self.cfg.num_layers)]
+
+    def _init_hybrid_layers(self, gen: torch.Generator) -> dict:
+        cfg, L, dt, dev = self.cfg, self.cfg.num_layers, self.dtype, self.device
+        types = self._layer_types()
+        return {
+            "rec_layers": init_rglru_layers(gen, cfg, types.count("rec"), dt, dev),
+            "attn_layers": init_gqa(gen, cfg, types.count("attn"), dt, dev),
+            "ffn_layers": init_dense_ffn(gen, L, cfg.d_model, cfg.d_ff, dt, dev),
+            "norms": {"norm1": torch.zeros((L, cfg.d_model), dtype=dt, device=dev),
+                      "norm2": torch.zeros((L, cfg.d_model), dtype=dt, device=dev)},
+        }
+
     # ------------------------------------------------------------------ LoRA
     def lora_dims(self) -> dict[str, tuple[int, int]]:
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        if cfg.mla is not None:
+        if cfg.rwkv is not None:
+            dims = {"r": (d, d), "k": (d, d), "v": (d, d), "o": (d, d)}
+        elif cfg.mla is not None:
             m = cfg.mla
             dims = {
                 "q": (d, cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
@@ -142,7 +181,18 @@ class LM:
     def init_cache(self, batch: int, max_len: int) -> dict:
         cfg, dev = self.cfg, self.device
         L = cfg.num_layers
-        if cfg.mla is not None:
+        if cfg.rwkv is not None:
+            cache = rwkv_state_init(cfg, batch, self.dtype, dev, n_layers=L)
+        elif cfg.rglru is not None:
+            types = self._layer_types()
+            cache = rglru_state_init(cfg, batch, self.dtype, dev,
+                                     n_layers=types.count("rec"))
+            W = min(max_len, cfg.window_size or max_len)
+            shape = (types.count("attn"), batch, W, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["k"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        elif cfg.mla is not None:
             m = cfg.mla
             cache = {
                 "latent": torch.zeros((L, batch, max_len, m.kv_lora_rank),
@@ -194,6 +244,108 @@ class LM:
         out, aux = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
         return x + out, aux, kv
 
+    @property
+    def recurrent(self) -> bool:
+        """RWKV or the RG-LRU hybrid: a state per row, not a per-token KV."""
+        return self.cfg.rwkv is not None or self.cfg.rglru is not None
+
+    def _rwkv_layer(self, lp, lora_slice, x, state, adapter_ids, token_mask=None):
+        """One RWKV layer (time mix, then channel mix) from ``state``;
+        returns (x, new state)."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        mixed, state = rwkv_time_mix(lp["mixer"], h, state, cfg, lora_slice,
+                                     adapter_ids, self.lora_scale, token_mask)
+        x = x + mixed
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        out, state = rwkv_channel_mix(lp["mixer"], h2, state, cfg, token_mask)
+        return x + out, state
+
+    def _hybrid_layers(self, params, x, mixer):
+        """Run the hybrid's layers in order: ``mixer(kind, index of its
+        kind, layer params, global index, h)`` gives each layer's mixed
+        output; the dense FFN follows every layer."""
+        cfg = self.cfg
+        seen = {"rec": 0, "attn": 0}
+        for i, kind in enumerate(self._layer_types()):
+            norms = layer_slice(params["norms"], i)
+            h = rms_norm(x, norms["norm1"], cfg.norm_eps)
+            j = seen[kind]
+            seen[kind] += 1
+            lp = layer_slice(params["rec_layers" if kind == "rec" else "attn_layers"], j)
+            x = x + mixer(kind, j, lp, i, h)
+            h2 = rms_norm(x, norms["norm2"], cfg.norm_eps)
+            x = x + dense_ffn(layer_slice(params["ffn_layers"], i), h2, cfg.activation)
+        return x
+
+    def _hybrid_full(self, params, x, lora, adapter_ids):
+        """Every layer of the hybrid over a fresh sequence (zero state,
+        positions 0 .. S-1), the attention layers through ``gqa_full`` with
+        the config's window. (RWKV's ``forward`` is ``extend`` from a zero
+        state: its state is O(1) a row.)"""
+        cfg, dev = self.cfg, self.device
+        B, S, _ = x.shape
+        rope = step_rope(cfg, torch.arange(S, device=dev))
+
+        def mixer(kind, j, lp, i, h):
+            if kind == "rec":
+                return rglru_block(lp, h, rglru_state_init(cfg, B, self.dtype, dev),
+                                   cfg)[0]
+            return gqa_full(lp, h, rope, cfg, lora=layer_slice(lora, i) if lora else None,
+                            adapter_ids=adapter_ids, lora_scale=self.lora_scale,
+                            window=cfg.window_size)[0]
+
+        return self._hybrid_layers(params, x, mixer)
+
+    def _recurrent_cached(self, params, cache, x, start, lora, adapter_ids,
+                          true_lens=None, keep_rows=None):
+        """Every layer of a recurrent layout against ``cache``, updated in
+        place: a layer's new state is written for the kept rows only (all
+        rows without ``keep_rows``); the hybrid's attention layers write
+        their window as ``cached_step`` plans it."""
+        cfg, dev = self.cfg, self.device
+        B, S, _ = x.shape
+        keep = None
+        if keep_rows is not None:
+            keep = torch.as_tensor(keep_rows).to(dev, torch.bool, non_blocking=True)
+
+        def store(leaf, i, old, new):
+            if keep is not None:
+                new = torch.where(keep.view(B, *(1,) * (new.dim() - 1)), new, old)
+            leaf[i].copy_(new)
+
+        if cfg.rwkv is not None:
+            mask = None
+            if true_lens is not None:
+                tl = torch.as_tensor(true_lens).to(dev, torch.int64, non_blocking=True)
+                mask = torch.arange(S, device=dev)[None, :] < tl[:, None]
+            for i in range(cfg.num_layers):
+                st = {k: cache[k][i] for k in ("tm_x", "wkv", "cm_x")}
+                x, new = self._rwkv_layer(layer_slice(params["layers"], i),
+                                          layer_slice(lora, i) if lora else None,
+                                          x, st, adapter_ids, mask)
+                for k in st:
+                    store(cache[k], i, st[k], new[k])
+            return x
+        step = cached_step(start, S, cache["k"].shape[2], dev, cfg, true_lens=true_lens,
+                           keep_rows=keep_rows, window=cfg.window_size)
+        mask = None
+        if step.true_lens is not None:
+            mask = torch.arange(S, device=dev)[None, :] < step.true_lens[:, None]
+
+        def mixer(kind, j, lp, i, h):
+            if kind == "rec":
+                st = {"h": cache["h"][j], "conv": cache["conv"][j]}
+                out, new = rglru_block(lp, h, st, cfg, mask)
+                for k in st:
+                    store(cache[k], j, st[k], new[k])
+                return out
+            return gqa_cached(lp, h, step, cache["k"][j], cache["v"][j], cfg,
+                              lora=layer_slice(lora, i) if lora else None,
+                              adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+
+        return self._hybrid_layers(params, x, mixer)
+
     def _write_full(self, cache, i: int, S: int, kv) -> None:
         """Layer ``i``'s rows of a fresh sequence into ``cache[..][i, :, :S]``
         (quantised under ``kv_quant``)."""
@@ -222,6 +374,8 @@ class LM:
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.recurrent:
+            return self._hybrid_full(params, x, lora, ids), aux
         for i in range(cfg.num_layers):
             x, a, kv = self._layer_full(layer_slice(params["layers"], i),
                                         layer_slice(lora, i) if lora else None,
@@ -254,6 +408,13 @@ class LM:
         """Full causal forward over ``tokens`` (B, S); returns
         ``(logits (B, S, vocab), aux)`` with ``aux`` the MoE auxiliary loss
         summed over the layers (0 for a dense FFN)."""
+        if self.cfg.rwkv is not None:  # extend from a zero state
+            B, S = torch.as_tensor(tokens).shape
+            logits, _ = self.extend(params, self.init_cache(B, S), tokens,
+                                    torch.zeros((B,), dtype=torch.int32), lora=lora,
+                                    adapter_ids=adapter_ids, extra_embeds=extra_embeds,
+                                    all_logits=True)
+            return logits, torch.zeros((), dtype=torch.float32, device=self.device)
         x, aux = self._run_full(params, tokens, lora, adapter_ids,
                                 extra_embeds=extra_embeds,
                                 mrope_positions=mrope_positions)
@@ -269,6 +430,10 @@ class LM:
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
         cache = self.init_cache(B, max_len)
+        if self.recurrent:  # the reference's hybrid: extend from a zero state
+            return self.extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
+                               lora=lora, adapter_ids=adapter_ids,
+                               extra_embeds=extra_embeds)
         x, _ = self._run_full(params, tokens, lora, adapter_ids, cache=cache,
                               extra_embeds=extra_embeds,
                               mrope_positions=mrope_positions)
@@ -297,20 +462,24 @@ class LM:
         dev = self.device
         tokens = torch.as_tensor(tokens)
         B, S = tokens.shape
-        T = (cache["latent"] if cfg.mla is not None else cache["k"]).shape[2]
-        step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
-                           keep_rows=keep_rows, mrope_positions=mrope_positions)
         x = self._embed(params, tokens.to(dev, torch.int64, non_blocking=True),
                         extra_embeds)
         ids = None
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
         lora = lora or {}
-        arrays = {k: v for k, v in cache.items() if k != "len"}
-        for i in range(cfg.num_layers):
-            x = self._layer_cached(layer_slice(params["layers"], i),
-                                   layer_slice(lora, i) if lora else None,
-                                   layer_slice(arrays, i), x, step, ids)
+        if self.recurrent:
+            x = self._recurrent_cached(params, cache, x, start, lora, ids,
+                                       true_lens=true_lens, keep_rows=keep_rows)
+        else:
+            T = (cache["latent"] if cfg.mla is not None else cache["k"]).shape[2]
+            step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
+                               keep_rows=keep_rows, mrope_positions=mrope_positions)
+            arrays = {k: v for k, v in cache.items() if k != "len"}
+            for i in range(cfg.num_layers):
+                x = self._layer_cached(layer_slice(params["layers"], i),
+                                       layer_slice(lora, i) if lora else None,
+                                       layer_slice(arrays, i), x, step, ids)
         n_real = (torch.full((B,), S) if true_lens is None
                   else torch.as_tensor(true_lens).to("cpu", torch.int64))
         new_len = torch.as_tensor(start).to("cpu", torch.int64) + n_real

@@ -1,6 +1,6 @@
 """PyTorch multi-LoRA serving engine with FASTLIBRA cache management
-(counterpart of ``repro.serving.engine``: the dense GQA, MLA and MoE
-layouts).
+(counterpart of ``repro.serving.engine``: the dense GQA, MLA, MoE, RWKV-6
+and RG-LRU hybrid layouts).
 
 Continuous-batching engine that executes prefill/decode in PyTorch on the
 card (CUDA kernels for the LoRA projections and attention) or, when the
@@ -12,6 +12,12 @@ engine is its data plane:
 * matched prefix nodes → ``PagedKVPool.gather`` into the dense running cache,
 * newly computed suffixes → ``PagedKVPool.scatter`` into pool blocks at
   commit (paper: "new KVs are retained in HBM directly"),
+* recurrent layouts (RWKV / RG-LRU): the prefix cache is the state-snapshot
+  subsystem instead — a matched STATE node seeds the slot's recurrent state
+  row via ``StateCache.load``/``unflatten_state`` so prefill covers only the
+  un-snapshotted suffix, and prefill captures the state at ``len(prompt)-1``
+  (chunks are clamped to land on the boundary) for ``commit_state`` to fold
+  into the same unified pool,
 * swap ops from the performance-driven swapper → physical host↔device copies
   (``PagedKVPool.swap_in/out``) and adapter slot loads (:class:`AdapterStore`),
 * dependency-tree bookkeeping (lookup → admit → pin → commit → unpin).
@@ -24,11 +30,11 @@ prefill`; the exact-shape eager path survives as ``prefill_mode="eager"``.
 Where the reference computes a new cache and keeps some rows of it, this
 engine writes in place: ``extend`` writes only the rows it keeps
 (``keep_rows``) and advances ``len`` only there, so a catch-up decode never
-touches a prefilling row's KV. The KV pool holds the model's cache rows:
-K and V per head, or for MLA the latent and the rope key as one
-pseudo-head per token with no V, as in the reference. The recurrent-state
-and encoder-decoder layouts raise ``NotImplementedError`` (ROADMAP Queue 1
-items 3 and 4).
+touches a prefilling row's KV or state. The KV pool holds the model's
+cache rows: K and V per head, or for MLA the latent and the rope key as
+one pseudo-head per token with no V, as in the reference. A recurrent
+layout has no KV pool (``kv_pool`` is None) and a ``StateCache`` in its
+place. The encoder-decoder layout is not served, as in the reference.
 
 With ``schedule_mode="mixed"`` each engine step is ONE row-masked batched
 ``extend``: active decode slots ride as 1-token rows next to prefill chunk
@@ -50,7 +56,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import NodeKind, SwapKind, make_fastlibra
+from ..core import NodeKind, Residency, SwapKind, make_fastlibra
 from ..device import resolve_device
 from ..obs import (
     ATTRIB_CATEGORIES,
@@ -74,7 +80,15 @@ from ..obs import (
     slot_track,
     trace_env_enabled,
 )
-from ..kvcache import KVPoolSpec, PagedKVPool
+from ..kvcache import (
+    KVPoolSpec,
+    PagedKVPool,
+    StateCache,
+    StateSpec,
+    flat_state_elems,
+    flatten_state,
+    unflatten_state,
+)
 from ..lora import AdapterStore
 from ..models import build_model
 from .metrics import ServingReport, summarize
@@ -185,7 +199,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = config
         self.model_cfg = model_cfg
-        # raises NotImplementedError for the recurrent and enc-dec layouts
+        if model_cfg.is_encdec:
+            raise NotImplementedError(
+                "the engine serves decoder-only layouts, as the reference's does")
         self.model = build_model(model_cfg, dtype=torch.float32, device=self.device)
         if params is None:
             params = self.model.init_params(torch.Generator().manual_seed(seed))
@@ -197,6 +213,21 @@ class ServingEngine:
         spec = kv_pool_spec(model_cfg, config.block_size)
         self.kv_spec = spec
         B, T = config.max_batch_slots, config.max_seq_len
+        # dense running cache: fixed decode slots
+        self.cache = self.model.init_cache(B, T)
+        # recurrent layouts (RWKV / RG-LRU hybrid) carry fixed-size state
+        # snapshots instead of a per-token dense KV: their prefix cache is
+        # the state-snapshot subsystem (kvcache/state_cache.py + STATE nodes
+        # in the dependency tree), sized from the actual cache row layout
+        self._state_reusable = self.model.recurrent
+        state_bytes = 0
+        if self._state_reusable:
+            self.state_spec = StateSpec(
+                state_elems=flat_state_elems(self.cache),
+                block_bytes=config.block_size * spec.bytes_per_token,
+                dtype=torch.float32,  # engine cache dtype (widest leaf)
+            )
+            state_bytes = self.state_spec.snapshot_bytes
         self.tracer = (
             Tracer(capacity=config.trace_capacity) if config.trace else NULL_TRACER
         )
@@ -206,15 +237,22 @@ class ServingEngine:
             kv_bytes_per_token=spec.bytes_per_token,
             block_size=config.block_size,
             variant=config.variant,
+            state_bytes=state_bytes,
             share_prefix_kv=config.share_prefix_kv,
             tracer=self.tracer,
         )
-        self.kv_pool = PagedKVPool(spec, self.manager.kv_pool.num_hbm_blocks,
-                                   self.manager.kv_pool.num_host_blocks,
-                                   device=self.device)
+        pool_blocks = self.manager.kv_pool.num_hbm_blocks
+        host_blocks = self.manager.kv_pool.num_host_blocks
+        self.kv_pool = self.state_cache = None
+        if self._state_reusable:
+            # one data plane per layout: snapshots for recurrent archs (the
+            # paged per-token pool would be dead weight)
+            self.state_cache = StateCache(self.state_spec, pool_blocks, host_blocks,
+                                          device=self.device)
+        else:
+            self.kv_pool = PagedKVPool(spec, pool_blocks, host_blocks,
+                                       device=self.device)
         self.adapters = AdapterStore(self.model, model_cfg.lora.max_adapters)
-        # dense running cache: fixed decode slots
-        self.cache = self.model.init_cache(B, T)
         self._slot_req: list[Optional[Request]] = [None] * B
         self._free_slots = deque(range(B))
         self.waiting: deque[Request] = deque()
@@ -222,6 +260,10 @@ class ServingEngine:
         self.aborted: list[Request] = []
         self._decode_calls = 0
         chunk = min(config.prefill_chunk, config.max_seq_len)
+        if model_cfg.rglru is not None and model_cfg.window_size:
+            # ring-indexed window caches: a padded chunk wider than the ring
+            # would wrap pad slots onto the chunk's own real writes
+            chunk = min(chunk, model_cfg.window_size)
         self.prefill = BatchPrefill(
             self.model, make_buckets(config.prefill_min_bucket, chunk)
         )
@@ -302,7 +344,7 @@ class ServingEngine:
 
     def abort(self, request: Request) -> None:
         """Release everything ``request`` holds — admission pins, running
-        blocks, decode slot — and move it to ``Phase.ABORTED``.
+        blocks, decode slot, staged state — and move it to ``Phase.ABORTED``.
         Safe in any phase; FINISHED/ABORTED requests are left untouched. The
         request keeps whatever tokens it produced but never counts as
         finished; ``run()`` drains leftover in-flight requests through this
@@ -327,6 +369,7 @@ class ServingEngine:
                 self._slot_req[request.slot] = None
                 self._free_slots.append(request.slot)
                 request.slot = -1
+            request.staged_state = None
         request.phase = Phase.ABORTED
         request.finish_time = self._now()
         self.aborted.append(request)
@@ -458,7 +501,8 @@ class ServingEngine:
             return n, n, budget
         by_slot = {r.slot: r for r in prefill_rows}
         chunks = dict(plan.prefill_chunks)
-        clipped = self._clamp_shared_chunks(chunks, by_slot)
+        clipped = self._clamp_state_chunks(chunks, by_slot)
+        clipped += self._clamp_shared_chunks(chunks, by_slot)
         transitioned = self._run_chunks(by_slot, chunks, decode_rows)
         # catch-up decode: rows that completed prefill THIS step get their
         # second token from one S=1 dispatch, matching the per-request step
@@ -468,6 +512,24 @@ class ServingEngine:
         catchup = self._decode_once(transitioned) if transitioned else 0
         tokens = plan.tokens - clipped
         return tokens + catchup, tokens, budget
+
+    def _clamp_state_chunks(self, chunks: dict[int, int],
+                            by_slot: dict[int, Request]) -> int:
+        """Recurrent layouts: a chunk may not stride across a row's snapshot
+        boundary — the state must be observable at exactly
+        ``state_capture_at`` for :meth:`_run_chunks` to capture it (the
+        recurrence is destructive; an intermediate state cannot be recovered
+        later). Shrinks chunks in place; returns the clipped token count."""
+        if not self._state_reusable:
+            return 0
+        clipped = 0
+        for s, c in list(chunks.items()):
+            r = by_slot[s]
+            q = r.state_capture_at
+            if r.staged_state is None and r.prefill_pos < q < r.prefill_pos + c:
+                chunks[s] = q - r.prefill_pos
+                clipped += c - chunks[s]
+        return clipped
 
     def _shared_bound(self, req: Request) -> int:
         """Absolute prompt position where ``req``'s declared adapter-
@@ -546,6 +608,12 @@ class ServingEngine:
                                  pos=r.prefill_pos, tokens=c)
             r.prefill_pos += c
             r.prefill_chunks += 1
+            if (self._state_reusable and r.staged_state is None
+                    and r.prefill_pos == r.state_capture_at):
+                # the row's recurrence now sits exactly at the snapshot
+                # boundary (chunks were clamped to land here): capture the
+                # flat state, staged until commit folds it into the pool
+                r.staged_state = self._flatten_row(s)
             if r.prefill_pos >= len(r.prompt):
                 r.phase = Phase.DECODE
                 r.generated.append(int(toks[r.slot]))
@@ -603,7 +671,9 @@ class ServingEngine:
         """lookup → admit/pin → allocate → slot → begin prefill; False (with
         pins rolled back) when HBM or running-block space is exhausted."""
         # match against prompt[:-1]: the last token is always recomputed
-        # so prefill yields logits for it (vLLM semantics)
+        # so prefill yields logits for it (vLLM semantics). Recurrent
+        # layouts match state-snapshot boundaries instead of per-token KV
+        # — the resumable prefix is the deepest payload snapshot.
         history = req.prompt[:-1]
         if self.tracer.enabled and req.ttft_predicted is None:
             # calibration series: sample the admission cost model's TTFT
@@ -612,15 +682,27 @@ class ServingEngine:
             req.ttft_predicted = self.manager.estimate_ttft(
                 req.adapter_id, history,
                 shared_prefix_len=req.shared_prefix_len)
-        lk = self.manager.lookup(
-            req.adapter_id, history, now,
-            shared_prefix_len=req.shared_prefix_len)
-        matched = lk.match.matched_tokens
+        if self._state_reusable:
+            lk = self.manager.lookup_state(req.adapter_id, history, now)
+            matched = lk.state_tokens
+        else:
+            lk = self.manager.lookup(
+                req.adapter_id, history, now,
+                shared_prefix_len=req.shared_prefix_len)
+            matched = lk.match.matched_tokens
         adm = self.manager.admit(lk, now)
         if adm.queued:
             self._execute_swaps(self.manager.drain_ops())
             return False  # HBM saturated; retry next step
-        total_new = len(req.prompt) - matched + req.max_new_tokens
+        if self._state_reusable:
+            # recurrent running memory is ONE fixed-size state row, not
+            # per-token KV: reserve a single snapshot's blocks as the
+            # admission throttle. Per-token phantom blocks would evict
+            # real snapshots from the same pool to back bytes that the
+            # architecture never allocates.
+            total_new = self.manager.config.state_blocks * self.cfg.block_size
+        else:
+            total_new = len(req.prompt) - matched + req.max_new_tokens
         blocks = self.manager.allocate_running(req.request_id, total_new, now)
         if blocks is None:
             self.manager.unpin(adm.pinned)
@@ -682,7 +764,8 @@ class ServingEngine:
         Unlike discard-preemption, the victim's computed work survives: its
         block-aligned computed KV is scattered into its running blocks and
         folded into the dependency tree via :meth:`CacheManager.
-        preempt_running` — ordinary evictable nodes
+        preempt_running` (recurrent layouts fold a state snapshot captured at
+        the current recurrence position instead) — ordinary evictable nodes
         the performance-driven swapper demotes to host under pressure. The
         tokens it generated fold into the prompt (kept in ``carried``), so
         the resume lookup matches the demoted prefix exactly: a decode-phase
@@ -703,26 +786,29 @@ class ServingEngine:
             self.tracer.instant(slot_track(slot), EV_PREEMPT, now,
                                 rid=victim.request_id,
                                 phase=victim.phase.value, folded=folded)
-        m = victim.lookup.match
-        prefix_len = m.matched_tokens
-        if victim.phase is Phase.DECODE:
-            # cache covers full_tokens[:-1]; generated[-1] is the
-            # pending decode input, not yet attended — not committable
-            computed = victim.prompt + tuple(victim.generated[:-1])
+        if self._state_reusable:
+            self._preempt_state(victim, now)
         else:
-            computed = victim.prompt[: victim.prefill_pos]
-        bs = self.cfg.block_size
-        cache_tokens = ((len(computed) - prefix_len) // bs) * bs
-        if cache_tokens > 0 and self.manager.config.reuse_history_kv:
-            blocks = self.manager.running_blocks(victim.request_id)
-            keep = blocks[: cache_tokens // bs]
-            k, v = self._read_dense(
-                slot, prefix_len, prefix_len + cache_tokens)
-            self.kv_pool.scatter(keep, k, v)
-        self.manager.preempt_running(
-            victim.request_id, victim.lookup, computed, now)
-        self.manager.unpin(victim.pinned)
-        self._execute_swaps(self.manager.drain_ops())
+            m = victim.lookup.match
+            prefix_len = m.matched_tokens
+            if victim.phase is Phase.DECODE:
+                # cache covers full_tokens[:-1]; generated[-1] is the
+                # pending decode input, not yet attended — not committable
+                computed = victim.prompt + tuple(victim.generated[:-1])
+            else:
+                computed = victim.prompt[: victim.prefill_pos]
+            bs = self.cfg.block_size
+            cache_tokens = ((len(computed) - prefix_len) // bs) * bs
+            if cache_tokens > 0 and self.manager.config.reuse_history_kv:
+                blocks = self.manager.running_blocks(victim.request_id)
+                keep = blocks[: cache_tokens // bs]
+                k, v = self._read_dense(
+                    slot, prefix_len, prefix_len + cache_tokens)
+                self.kv_pool.scatter(keep, k, v)
+            self.manager.preempt_running(
+                victim.request_id, victim.lookup, computed, now)
+            self.manager.unpin(victim.pinned)
+            self._execute_swaps(self.manager.drain_ops())
         # requeue: generated tokens fold into the prompt so the resume
         # lookup matches the demoted KV/state; they live on in `carried`
         # and max_new_tokens shrinks by the same count
@@ -736,6 +822,7 @@ class ServingEngine:
         victim.matched_tokens = 0
         victim.hbm_hit_tokens = 0
         victim.prefill_pos = 0
+        victim.state_capture_at = -1
         victim.phase = Phase.WAITING
         victim.preempt_count += 1
         victim.recompute_boundary = max(victim.recompute_boundary,
@@ -746,19 +833,54 @@ class ServingEngine:
         victim.slot = -1
         self.waiting.append(victim)
 
+    def _preempt_state(self, victim: Request, now: float) -> None:
+        """Recurrent layouts: fold the victim's state into the pool as a
+        snapshot. The resumable boundary is wherever the recurrence actually
+        sits: full_tokens[:-1] for a decode row (captured NOW — the
+        recurrence is destructive), or the already-staged capture boundary
+        mid-prefill; an uncrossed boundary has no snapshot and the victim
+        re-prefills from its admission-time match."""
+        if victim.phase is Phase.DECODE:
+            snap = self._flatten_row(victim.slot)
+            snap_at = len(victim.prompt) + len(victim.generated) - 1
+        elif victim.staged_state is not None:
+            snap, snap_at = victim.staged_state, victim.state_capture_at
+        else:
+            snap, snap_at = None, -1
+        self.manager.preempt_running(victim.request_id, None, (), now)
+        self.manager.unpin(victim.pinned)
+        if snap is not None:
+            prefix = (victim.prompt + tuple(victim.generated))[:snap_at]
+            self._fold_snapshot(victim.adapter_id, prefix, snap, now)
+        victim.staged_state = None
+
+    def _fold_snapshot(self, adapter_id: str, prefix, snap: torch.Tensor,
+                       now: float) -> None:
+        """Fold one flattened state row into the pool as the STATE node of
+        ``prefix`` (none where the pool has no room for it)."""
+        node = self.manager.commit_state(adapter_id, prefix, now)
+        # demand evictions that freed the snapshot's blocks must hit the
+        # data plane BEFORE the store overwrites those rows
+        self._execute_swaps(self.manager.drain_ops())
+        if node is not None:
+            self.state_cache.store(node.hbm_blocks, snap)
+
     def _begin_prefill(self, req: Request) -> None:
         """Gather the matched prefix into the slot's dense cache rows and
         stage the suffix for prefill. In bucketed mode the suffix is consumed
         chunk-by-chunk by :meth:`_prefill_once` (coalesced across requests);
         eager mode runs the whole suffix immediately at its exact shape."""
         slot = req.slot
-        m = req.lookup.match
-        prefix_len = m.matched_tokens
-        # load matched prefix KV from pool blocks into the dense cache
-        if prefix_len > 0:
-            block_ids = [b for n in m.kv_nodes for b in n.hbm_blocks]
-            k, v = self.kv_pool.gather(block_ids)
-            self._write_dense(slot, 0, k, v)
+        if self._state_reusable:
+            prefix_len = self._seed_state_row(req)
+        else:
+            m = req.lookup.match
+            prefix_len = m.matched_tokens
+            # load matched prefix KV from pool blocks into the dense cache
+            if prefix_len > 0:
+                block_ids = [b for n in m.kv_nodes for b in n.hbm_blocks]
+                k, v = self.kv_pool.gather(block_ids)
+                self._write_dense(slot, 0, k, v)
         # ensure adapter slot present — unless the request starts inside its
         # shared span: base-model rows need no slot, so a shared-prefix hit
         # lets prefill begin while the adapter is still cold (_adapter_ids
@@ -777,17 +899,53 @@ class ServingEngine:
         else:
             req.phase = Phase.PREFILLING
 
+    def _seed_state_row(self, req: Request) -> int:
+        """Recurrent layouts: reset the slot's carried state (the dense row
+        still holds the previous occupant's recurrence) and, on a snapshot
+        hit, seed it from the pool so prefill covers only the un-snapshotted
+        suffix. Also decides the capture boundary: ``len(prompt) - 1``, so an
+        identical repeat matches the snapshot against ``prompt[:-1]`` and
+        still recomputes its last token for first-token logits. Returns the
+        resume boundary (0 = cold prefix)."""
+        n_elems = self.state_spec.state_elems
+        prefix_len = 0
+        snode = req.lookup.state_node
+        if (snode is not None and snode.tier is Residency.HBM
+                and snode.hbm_blocks):
+            # seeding writes every snapshot leaf of the row, so it doubles
+            # as the reset of the previous occupant's carried state
+            flat = self.state_cache.load(snode.hbm_blocks, n_elems)
+            prefix_len = req.lookup.state_tokens
+        else:
+            flat = torch.zeros((n_elems,), dtype=self.state_spec.dtype,
+                               device=self.device)
+        unflatten_state(self.cache, req.slot, flat)
+        req.matched_tokens = prefix_len
+        q = len(req.prompt) - 1
+        req.state_capture_at = q if q > prefix_len else -1
+        return prefix_len
+
+    def _flatten_row(self, slot: int) -> torch.Tensor:
+        """The slot's state snapshot (a new device tensor)."""
+        return flatten_state(self.cache, slot, dtype=self.state_spec.dtype)
+
     def _prefill_eager(self, req: Request) -> None:
         """Seed path: exact-shape ``model.extend`` over the full suffix. Kept
         as the correctness pin and ablation baseline for the bucketed
-        subsystem. A suffix that crosses the shared-prefix boundary runs as
-        two spans split there."""
+        subsystem. The suffix runs as spans split at the snapshot boundary
+        of a recurrent layout, capturing the state in between (the
+        recurrence is destructive), and at the shared-prefix boundary."""
         slot = req.slot
         pos0 = req.prefill_pos
         t_entry = self._now()
-        # span cut point: the shared-prefix boundary (base-model rows cannot
-        # share a dispatch with adapter rows — the SGMV id is per row per call)
+        # span cut points: the snapshot boundary (recurrent layouts) and the
+        # shared-prefix boundary (base-model rows cannot share a dispatch
+        # with adapter rows — the SGMV id is per row per call)
         cuts = set()
+        q = req.state_capture_at
+        if (self._state_reusable and req.staged_state is None
+                and req.prefill_pos < q):
+            cuts.add(q)
         sb = self._shared_bound(req)
         if req.prefill_pos < sb < len(req.prompt):
             cuts.add(sb)
@@ -805,6 +963,8 @@ class ServingEngine:
                 self.cache["len"], lora=self.adapters.slots, adapter_ids=ids,
                 keep_rows=keep,
             )
+            if hi == q and req.staged_state is None:
+                req.staged_state = self._flatten_row(slot)
         req.prefill_pos = len(req.prompt)
         req.phase = Phase.DECODE
         # first sampled token must reach Python (eager fallback path,
@@ -841,6 +1001,7 @@ class ServingEngine:
             return 0
         chunks = {r.slot: min(len(r.prompt) - r.prefill_pos, self._prefill_chunk)
                   for r in rows}
+        self._clamp_state_chunks(chunks, {r.slot: r for r in rows})
         self._clamp_shared_chunks(chunks, {r.slot: r for r in rows})
         self._run_chunks({r.slot: r for r in rows}, chunks, [])
         return sum(chunks.values())
@@ -922,6 +1083,17 @@ class ServingEngine:
     def _commit(self, req: Request, now: float) -> None:
         """Scatter the request's new KV into its running blocks and fold them
         into the dependency tree."""
+        if self._state_reusable:
+            # recurrent state is not per-token pool KV: release the running
+            # blocks and fold the staged boundary snapshot (if any) into the
+            # unified pool as a STATE node instead
+            self.manager.abort_running(req.request_id)
+            if req.staged_state is not None:
+                self._fold_snapshot(req.adapter_id, req.prompt[: req.state_capture_at],
+                                    req.staged_state, now)
+                req.staged_state = None
+            self.manager.unpin(req.pinned)
+            return
         m = req.lookup.match
         prefix = m.matched_tokens
         full = req.full_tokens
@@ -945,6 +1117,17 @@ class ServingEngine:
                     self.adapters.load(op.lora_id)
                 elif op.kind in (SwapKind.SWAP_OUT, SwapKind.DROP):
                     self.adapters.unload(op.lora_id)
+            elif op.node_kind is NodeKind.STATE:
+                # whole-snapshot moves through the two-tier StateCache
+                if op.kind is SwapKind.SWAP_IN:
+                    self.state_cache.swap_in(op.src_blocks, op.dst_blocks)
+                elif op.kind is SwapKind.SWAP_OUT:
+                    self.state_cache.swap_out(op.src_blocks, op.dst_blocks)
+                # DROP: nothing physical to do
+            elif op.kind is not SwapKind.DROP and self.kv_pool is None:
+                raise RuntimeError(
+                    f"a KV swap ({op.kind.value}, node {op.node_id}) on a "
+                    f"recurrent layout, which has no KV pool")
             else:
                 if op.kind is SwapKind.SWAP_IN:
                     self.kv_pool.swap_in(op.src_blocks, op.dst_blocks)

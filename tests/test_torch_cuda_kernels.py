@@ -153,6 +153,9 @@ _RAGGED_WIDE = [
      [0, 2047, 500, 0, 1792, 1011, 64, 300]),
     (3, 8, 300, 16, 16, 256, [8, 1, 5], [292, 299, 0]),             # G = 1, D = 256
     (2, 1, 4000, 7, 1, 160, [1, 1], [3999, 10]),                    # decode riders alone
+    (8, 256, 2048, 16, 16, 64, [0, 1, 37, 256, 256, 37, 1, 256],    # seamless-m4t
+     [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    (2, 512, 520, 16, 16, 64, [512, 512], [0, 0]),                  # its static prefill
 ]
 
 
@@ -207,6 +210,11 @@ _TILED = [
     (3, 60, 97, 330, 12, 2, "mixed", 1.5),      # r = 12 with scalar stores
     (8, 256, 4096, 4096, 32, 8, "mixed", 1.0),  # llama-7b's q projection
     (8, 64, 1024, 2048, 128, 8, "repeat", 1.0), # r = 128 with d_in split
+    (8, 256, 2560, 2560, 32, 8, "mixed", 1.0),  # recurrentgemma-2b q
+    (8, 256, 2560, 256, 32, 8, "repeat", 1.0),  # recurrentgemma-2b k (MQA)
+    (8, 256, 2048, 2048, 32, 8, "mixed", 1.0),  # rwkv6-1.6b r
+    (8, 256, 1024, 1024, 32, 8, "mixed", 1.0),  # seamless-m4t decoder q
+    (2, 512, 1024, 1024, 32, 8, "mixed", 1.0),  # the same at its static prefill
 ]
 
 
@@ -298,6 +306,11 @@ _SKINNY = [
     (8, 1, 1024, 2048, 32, 8, "one", 1.0),      # every row on one adapter
     (2, 8, 512, 196, 16, 2, "one", 1.0),        # S = 8, 16 rows
     (4, 4, 256, 64, 8, 3, "mixed", 1.0),
+    (8, 1, 2560, 2560, 32, 8, "mixed", 1.0),    # recurrentgemma-2b q, decode
+    (8, 1, 2560, 256, 32, 8, "repeat", 1.0),    # recurrentgemma-2b k
+    (8, 1, 2048, 2048, 32, 8, "mixed", 1.0),    # rwkv6-1.6b r
+    (8, 1, 1024, 1024, 32, 8, "mixed", 1.0),    # seamless-m4t decoder q
+    (2, 1, 1024, 1024, 32, 8, "mixed", 1.0),    # the same at its static decode
     (8, 1, 1024, 2048, 1, 8, "mixed", 1.0),     # r = 1, 12 and 128 at decode
     (8, 1, 1024, 2048, 12, 8, "repeat", 1.0),
     (8, 1, 1024, 2048, 128, 8, "mixed", 1.0),
@@ -387,6 +400,7 @@ _PAGED = [
     (3, 512, 16, 16, 256, 8),    # G = 1, D = 256
     (2, 128, 128, 1, 256, 16),   # G = 128 at D = 256: the largest block
     (3, 192, 96, 1, 64, 32),     # G = 96: 1536 outputs, more than the threads
+    (6, 520, 16, 16, 64, 8),     # seamless-m4t's static decode: G = 1, D = 64
 ]
 
 
@@ -461,6 +475,8 @@ def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     (2, 6, 2, 77, 20),      # G = 3, D = 20
     (1, 14, 2, 130, 256),   # G = 7 at D = 256
     (2, 4, 4, 65, 160),     # G = 1 at D = 160
+    (2, 16, 16, 512, 64),   # seamless-m4t's decoder at its static prefill
+    (2, 16, 16, 256, 64),   # the same at its identities' forward
 ])
 def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     rng = np.random.default_rng(4)

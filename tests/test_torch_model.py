@@ -198,9 +198,21 @@ def test_extend_skips_writes_past_the_cache():
     assert torch.any(cache["k"][:, 1, 2] != 0)
 
 
-def test_unported_layouts_raise():
-    """The recurrent and encoder-decoder layouts (ROADMAP Queue 1 items 3
-    and 4); MLA and MoE are held in ``tests/test_torch_moe_mla.py``."""
-    for arch in ("rwkv6-1.6b", "recurrentgemma-2b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(configs.reduced(configs.get(arch)), device="cpu")
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b",
+                                  "seamless-m4t-large-v2"])
+def test_recurrent_and_encdec_layouts_extend(arch):
+    """The recurrent and encoder-decoder layouts build on the CPU and run
+    one ``extend``; they are held against the reference in
+    ``tests/test_torch_recurrent.py`` and ``tests/test_torch_encdec.py``."""
+    cfg = configs.reduced(configs.get(arch))
+    tm = build_model(cfg, device="cpu")
+    params = tm.init_params(torch.Generator().manual_seed(0))
+    if cfg.is_encdec:
+        cache = tm.init_cache(2, 16, 6)
+    else:
+        cache = tm.init_cache(2, 16)
+    tokens = torch.tensor([[1, 2, 3], [4, 5, 6]])
+    logits, cache = tm.extend(params, cache, tokens, torch.tensor([0, 5], dtype=torch.int32))
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert cache["len"].tolist() == [3, 8]
