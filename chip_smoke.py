@@ -8,7 +8,7 @@ exits non-zero:
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 2. build    — nvcc builds every kernel source from ``src/repro_torch/
               kernels/csrc`` (one process per source, in parallel).
-3. kernels  — each of the six kernels against its plain PyTorch version at
+3. kernels  — each of the eight kernels against its plain PyTorch version at
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
               tokens for the fresh prefill, fused_sgmv at both paths'
@@ -43,7 +43,15 @@ exits non-zero:
               greedy step's paged_attention (T = 520 in pages of 8), both
               warm and cold, flash_prefill at its identities' forward (2 x
               256), fused_sgmv on its decoder q at B = 2 (S = 512 and 1).
-              Then a check that every wrapper refuses autograd on the card.
+              Then the backward kernels (phase 8's shapes):
+              flash_prefill_bwd at qwen3-0.6b's B = 8, S = 512 and at each
+              ``ARCH_HEADS`` shape (B = 2), from the forward's own out and
+              log-sum-exp (out the same bits with and without it), beside
+              SDPA's f32 backward; lora_grad at qwen3-0.6b's q/k/v/o and at
+              ranks 1, 12, 128, with a row of id -1 and repeated ids. Then
+              a check that the four serving-only kernels refuse autograd on
+              the card and that fused_sgmv and flash_prefill return the
+              plain backward's gradients.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -103,6 +111,19 @@ exits non-zero:
               prefill / decode identities, the card's tokens teacher-forced
               on the CPU.
 
+8. train   — qwen3-0.6b at full width in f32, weights drawn on the card,
+              rank-32 LoRA on 4 slots, B = 8 rows of 512 tokens (four
+              adapters and a base row): 10 full-parameter steps with exact
+              launches a step (fused_sgmv and lora_grad 4 per layer,
+              flash_prefill and flash_prefill_bwd 1), steps/s, tokens/s,
+              peak memory; 2 steps under remat (the forward's launches
+              double); 20 LoRA-only steps on one fixed batch (the loss
+              falls, the base weights keep their bits, no dW is formed);
+              one step's loss and gradients at B = 2, S = 256 against the
+              CPU's (the plain versions); ``CheckpointManager.save_async``
+              and ``restore`` bitwise; one full step under
+              ``torch.profiler``.
+
 Then the script's seconds. The line before the last is the ``kernels``
 JSON; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -110,10 +131,12 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import itertools
 import json
 import math
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -131,6 +154,12 @@ F32_FLOPS = 495e12 / 3
 SGMV_TOL = 1e-4  # times max|ref|: f32 sums of up to 2048 terms, other order
 ATTN_TOL = 1e-5  # absolute: softmax-weighted unit-scale values
 ARGMAX_TOL = 1e-3  # a card token may trail the CPU's best logit by this
+# the backward kernels: times max|plain grad| (sums over S or B·S terms)
+GRAD_TOL = 1e-4
+# phase 8: a full-width gradient leaf on the card against the CPU's, times
+# max|CPU leaf| (28 layers of f32 sums in other orders, 3xTF32 forwards)
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_TOL = 1e-4  # relative
 # forward / prefill / decode logits of one model against each other: the
 # tolerance of tests/test_arch_smoke.py (other kernels, other sum orders)
 ARCH_TOL = 2e-4
@@ -453,34 +482,171 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
     )
 
 
-def grad_guard(ops, dev):
-    """Every wrapper refuses autograd on the card: an input that requires
-    grad raises instead of coming back without a gradient."""
+def grad_guard(ops, ref, dev):
+    """The serving-only kernels refuse autograd on the card (an input that
+    requires grad raises instead of coming back without a gradient); the
+    two training kernels, ``fused_sgmv`` and ``flash_prefill``, return the
+    plain backward's gradients within ``GRAD_TOL`` of their largest
+    magnitude. Returns (refused, {training kernel: largest error})."""
     x = torch.randn((2, 3, 8), device=dev, requires_grad=True)
     qh = torch.randn((2, 2, 3, 4), device=dev, requires_grad=True)
     qs = torch.randn((2, 3, 2, 4), device=dev, requires_grad=True)
     kv = torch.randn((2, 8, 1, 4), device=dev)
-    kvh = torch.randn((2, 1, 3, 4), device=dev)
-    w, a, b = (torch.randn(s, device=dev) for s in ((8, 8), (1, 8, 4), (1, 4, 8)))
-    ids = torch.zeros((2,), dtype=torch.int32, device=dev)
-    calls = {
-        "fused_sgmv": lambda: ops.fused_sgmv(x, w, a, b, ids),
+    kvh = torch.randn((2, 1, 3, 4), device=dev, requires_grad=True)
+    w, a, b = (torch.randn(s, device=dev, requires_grad=True)
+               for s in ((8, 8), (2, 8, 4), (2, 4, 8)))
+    ids = torch.tensor([1, -1], dtype=torch.int32, device=dev)
+    serving = {
         "sgmv": lambda: ops.sgmv(x, a, b, ids),
-        "ragged_extend": lambda: ops.ragged_extend(qs, kv, kv, ids, ids + 3),
+        "ragged_extend": lambda: ops.ragged_extend(qs, kv, kv, ids.abs(), ids.abs() + 3),
         "paged_attention": lambda: ops.paged_attention(
-            qs[:, 0], kv, kv, torch.arange(2, device=dev).view(2, 1), ids + 5),
-        "flash_prefill": lambda: ops.flash_prefill(qh, kvh, kvh),
-        "flash_prefill_ragged": lambda: ops.flash_prefill_ragged(qh, kvh, kvh, ids + 2),
+            qs[:, 0], kv, kv, torch.arange(2, device=dev).view(2, 1), ids.abs() + 5),
+        "flash_prefill_ragged": lambda: ops.flash_prefill_ragged(qh, kvh, kvh,
+                                                                 ids.abs() + 2),
     }
     refused = []
-    for name, call in calls.items():
+    for name, call in serving.items():
         try:
             call()
         except NotImplementedError:
             refused.append(name)
-    require(sorted(refused) == sorted(calls),
-            f"only {refused} refused an input that requires grad")
-    return refused
+    require(sorted(refused) == sorted(serving),
+            f"only {refused} of the serving-only kernels refused autograd")
+    training = {
+        "fused_sgmv": ((x, w, a, b), lambda *t: ops.fused_sgmv(*t, ids, scale=0.5),
+                       lambda *t: ref.fused_sgmv_ref(*t, ids, 0.5)),
+        "flash_prefill": ((qh, kvh, kvh.detach().clone().requires_grad_(True)),
+                          ops.flash_prefill, ref.flash_prefill_ref),
+    }
+    errors = {}
+    for name, (inputs, kernel, plain) in training.items():
+        out = kernel(*inputs)
+        dy = torch.randn_like(out)
+        got = torch.autograd.grad(out, inputs, dy)
+        want = torch.autograd.grad(plain(*inputs), inputs, dy)
+        errs = [float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                for g, w_ in zip(got, want)]
+        require(max(errs) <= GRAD_TOL, f"{name}: card gradients off the plain "
+                                       f"backward's by {max(errs)} of max")
+        errors[name] = max(errs)
+    return refused, errors
+
+
+def flash_bwd_case(ops, ref, gen, dev, B=8, S=512, H=16, Hkv=8, D=128):
+    """flash_prefill_bwd on views of (B, S, H, D) tensors transposed to
+    head-major, as ``gqa_full`` hands them over, from the forward's own out
+    and log-sum-exp; the forward's out is the same bits with and without
+    the log-sum-exp. The library call is the backward of SDPA (causal, GQA,
+    f32) through ``torch.autograd.grad``."""
+    F = torch.nn.functional
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev).transpose(1, 2)
+                   for shape in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                                 (B, S, H, D)))
+    out, lse = ops.flash_prefill_fwd(q, k, v)
+    with torch.no_grad():
+        require(torch.equal(out, ops.flash_prefill(q, k, v)),
+                f"flash_prefill {H}/{Hkv}x{D}: out differs with its log-sum-exp")
+    lse_err = float((lse - ref.flash_prefill_lse_ref(q, k)).abs().max())
+    require(lse_err <= ATTN_TOL * max(1.0, float(lse.abs().max())),
+            f"flash_prefill {H}/{Hkv}x{D}: log-sum-exp off by {lse_err}")
+
+    def kernel():
+        return ops.flash_prefill_bwd(q, k, v, out, lse, do)
+
+    def plain():
+        return ref.flash_prefill_bwd_ref(q, k, v, out, lse, do)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    for name, e, w in zip(("dq", "dk", "dv"), errs, want):
+        tol = GRAD_TOL * float(w.abs().max())
+        require(e <= tol, f"flash_prefill_bwd {H}/{Hkv}x{D} {name}: max err {e} > {tol}")
+    again = kernel()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_prefill_bwd {H}/{Hkv}x{D}: a repeat launch differs")
+    del got, want, again
+    qc, kc, vc = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+    do_c = do.transpose(1, 2).contiguous()
+    library = time_ms(lambda: torch.autograd.grad(o_lib, (qc, kc, vc), do_c,
+                                                  retain_graph=True), iters=5)[0]
+    del o_lib
+    nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
+    flops = 10 * H * D * S * (S + 1) // 2 * B
+    bnd, by = bound_ms(nbytes, flops)
+    ms, host_ms = time_ms(kernel)
+    return dict(case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}",
+                max_abs_err=max(errs), lse_max_abs_err=lse_err, ms=ms, host_ms=host_ms,
+                plain_ms=time_ms(plain, iters=3)[0], bound_ms=bnd, bound_by=by,
+                library_ms=library)
+
+
+def lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out, B=8, S=512, N=4, r=32):
+    """lora_grad (dA, dB and the delta of dx, added into dx = dy·Wᵀ) on one
+    projection, with a row of id −1 and repeated ids; an adapter with no
+    row gets zeros; a repeat launch gives the same bits. No single library
+    call computes it."""
+    x = torch.randn((B, S, d_in), generator=gen, device=dev)
+    dy = torch.randn((B, S, d_out), generator=gen, device=dev)
+    a = torch.randn((N + 1, d_in, r), generator=gen, device=dev) * d_in ** -0.5
+    b = torch.randn((N + 1, r, d_out), generator=gen, device=dev) * 0.1
+    ids = torch.tensor([-1, 0, 1, 2, 3, 0, 1, 2][:B], dtype=torch.int32, device=dev)
+    base = torch.randn((B, S, d_in), generator=gen, device=dev)
+    scale = 2.0
+
+    def kernel(dx):
+        return ops.lora_grad(x, dy, a, b, ids, scale, dx)
+
+    dx = base.clone()
+    da, db = kernel(dx)
+    delta, da_w, db_w = ref.lora_grad_ref(x, dy, a, b, ids, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in (("dx", dx, base + delta), ("da", da, da_w), ("db", db, db_w)):
+        errs[name] = float((g - w).abs().max())
+        tol = GRAD_TOL * float(w.abs().max())
+        require(errs[name] <= tol, f"lora_grad {proj} r={r} {name}: max err "
+                                   f"{errs[name]} > {tol}")
+    require(not da[N].any() and not db[N].any(),
+            f"lora_grad {proj} r={r}: an adapter with no row got a gradient")
+    dx2 = base.clone()
+    da2, db2 = kernel(dx2)
+    require(torch.equal(dx2, dx) and torch.equal(da2, da) and torch.equal(db2, db),
+            f"lora_grad {proj} r={r}: a repeat launch differs")
+    M_live = int((ids >= 0).sum()) * S
+    n_ids = int(torch.unique(ids[ids >= 0]).numel())
+    nbytes = 4 * (M_live * (d_in + d_out) + 2 * M_live * d_in
+                  + n_ids * r * (d_in + d_out) + (N + 1) * r * (d_in + d_out)) + 4 * B
+    flops = 2 * M_live * r * (3 * d_in + 2 * d_out)
+    bnd, by = bound_ms(nbytes, flops)
+    ms, host_ms = time_ms(lambda: kernel(dx2))
+    return dict(case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}, ids={ids.tolist()}",
+                max_abs_err=max(errs.values()), errors=errs, ms=ms, host_ms=host_ms,
+                plain_ms=time_ms(lambda: ref.lora_grad_ref(x, dy, a, b, ids, scale),
+                                 iters=5)[0],
+                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def backward_kernel_cases(ops, ref, gen, dev):
+    """Phase 3's backward cases: flash_prefill_bwd at qwen3-0.6b's B = 8,
+    S = 512 and at each :data:`ARCH_HEADS` head shape (B = 2, S = 512);
+    lora_grad at qwen3-0.6b's q/k/v/o (B = 8, S = 512, rank 32) and on q at
+    ranks 1, 12 and 128. Returns {kernel: [case, ...]}, the qwen3-0.6b
+    cases first."""
+    out = {"flash_prefill_bwd": [flash_bwd_case(ops, ref, gen, dev)], "lora_grad": []}
+    torch.cuda.empty_cache()
+    for arch, H, Hkv, D in ARCH_HEADS:
+        m = flash_bwd_case(ops, ref, gen, dev, B=2, H=H, Hkv=Hkv, D=D)
+        out["flash_prefill_bwd"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+    for proj, d_in, d_out in (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
+                              ("o", 2048, 1024)):
+        out["lora_grad"].append(lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out))
+    for r in (1, 12, 128):
+        out["lora_grad"].append(lora_grad_case(ops, ref, gen, dev, "q", 1024, 2048, r=r))
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -518,9 +684,11 @@ def make_trace(Request, vocab: int, seed: int = 0, N1: int = 24, tag: str = ""):
 
 KERNEL_GROUPS = (  # device-event name fragment -> group, first match wins
     ("fused_sgmv", "fused_sgmv"), ("lora_shrink", "fused_sgmv"),
+    ("lora_grad_", "lora_grad"), ("attn_bwd_", "flash_prefill_bwd"),
     ("ragged_extend", "ragged_extend"), ("paged_attention", "paged_attention"),
     ("flash_prefill", "flash_prefill"),
     ("gemm", "library matmul"), ("gemv", "library matmul"),
+    ("multi_tensor_apply", "optimizer (foreach)"),
     ("Memcpy", "copies"), ("Memset", "copies"),
 )
 
@@ -1675,6 +1843,226 @@ def encdec_phase(ops, configs, dev, seed: int = 0, B: int = ENCDEC_B, S: int = E
     return line, launches
 
 
+# ------------------------------------------------------------------- train
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_B, TRAIN_S = 8, 512  # 4,096 tokens a step
+TRAIN_IDS = (0, 1, 2, 3, 0, 1, 2, -1)  # four adapters and a base-model row
+TRAIN_STEPS, REMAT_STEPS, LORA_STEPS = 10, 2, 20
+CHECK_B, CHECK_S = 2, 256  # the card-against-CPU step
+TRAIN_CKPT = HERE / "build" / "repro_torch_train" / "chip_smoke"
+
+
+def train_batch(cfg, step: int, dev, B: int = TRAIN_B, S: int = TRAIN_S) -> dict:
+    """The step's batch from a generator on the card seeded by ``step``:
+    each adapter's labels follow ``(tokens·31 + id·7 + 1) % vocab`` (the
+    LoRA example's rule; the base row as id 0), so the loss can fall."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + step)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    ids = torch.tensor(TRAIN_IDS[:B], dtype=torch.int32, device=dev)
+    labels = (tokens * 31 + ids.clamp_min(0)[:, None].long() * 7 + 1) % cfg.vocab_size
+    return {"tokens": tokens, "labels": labels, "adapter_ids": ids}
+
+
+def train_grads(model, params, lora, batch, lora_only: bool):
+    """(cross-entropy, gradient leaves, names) of the train step's loss at
+    these weights, before clipping: the trainable tree's leaves in the
+    order ``repro_torch.tree`` walks them."""
+    from repro_torch.models import cross_entropy
+    from repro_torch.tree import flatten_with_names, unflatten
+
+    trainable = {"lora": lora} if lora_only else {"params": params, "lora": lora}
+    named = flatten_with_names(trainable)
+    live = [t.detach().requires_grad_(True) for _, t in named]
+    tree = unflatten(trainable, live)
+    with torch.enable_grad():
+        logits, aux = model.forward(params if lora_only else tree["params"], batch["tokens"],
+                                    lora=tree["lora"], adapter_ids=batch["adapter_ids"])
+        ce = cross_entropy(logits, batch["labels"])
+        grads = torch.autograd.grad(ce + 0.01 * aux, live)
+    return float(ce.detach()), [g.detach() for g in grads], [n for n, _ in named]
+
+
+def train_phase(ops, configs, dev):
+    """Phase 8: training on full-width qwen3-0.6b in f32, weights drawn on
+    the card, rank-32 LoRA on 4 slots. Full-parameter steps (launch counts
+    exact a step, also under remat), LoRA-only steps on one fixed batch
+    (the loss falls, the base weights keep their bits, no dW is formed),
+    one step's gradients on the card against the CPU's (plain versions),
+    a checkpoint round trip, and one full step under ``torch.profiler``.
+    Returns (line, launches of the full-parameter steps)."""
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.models import (TrainState, build_model, make_train_state,
+                                    make_train_step)
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
+    t_start = time.perf_counter()
+    cfg = configs.get(TRAIN_ARCH)
+    L = cfg.num_layers
+    model = build_model(cfg, device=dev)
+    state = make_train_state(model, torch.Generator(device=dev).manual_seed(0),
+                             n_lora_slots=4)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    line = {"phase": "train", "arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B,
+            "seq": TRAIN_S, "adapter_ids": list(TRAIN_IDS), "params": n_params}
+    dw_calls = [0]
+    real_weight_grad = sgmv_mod.weight_grad
+
+    def counting_weight_grad(x, dy):
+        dw_calls[0] += 1
+        return real_weight_grad(x, dy)
+
+    sgmv_mod.weight_grad = counting_weight_grad
+    try:
+        # 1. full-parameter steps: one warm-up, then TRAIN_STEPS counted
+        step_fn = make_train_step(model, lr=3e-4)
+        state, _ = step_fn(state, train_batch(cfg, 0, dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        dw_calls[0] = 0
+        losses = []
+        t0 = time.perf_counter()
+        for step in range(1, TRAIN_STEPS + 1):
+            state, met = step_fn(state, train_batch(cfg, step, dev))
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        per_step = {"fused_sgmv": 4 * L, "flash_prefill": L, "flash_prefill_bwd": L,
+                    "lora_grad": 4 * L}
+        want = dict.fromkeys(launches, 0)
+        want.update({k: n * TRAIN_STEPS for k, n in per_step.items()})
+        require(launches == want, f"train launches {launches} != {want}")
+        require(dw_calls[0] == 4 * L * TRAIN_STEPS,
+                f"full-parameter steps formed dW {dw_calls[0]} times")
+        losses = [float(x) for x in losses]
+        require(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+        line["full"] = {"steps": TRAIN_STEPS, "seconds": wall,
+                        "steps_per_s": TRAIN_STEPS / wall,
+                        "tokens_per_s": TRAIN_STEPS * TRAIN_B * TRAIN_S / wall,
+                        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches_per_step": {k: v // TRAIN_STEPS
+                                              for k, v in launches.items()},
+                        "losses": losses, "grad_norm": float(met["grad_norm"])}
+        full_launches = launches
+
+        # 2. remat: the forward's kernels run again in the backward
+        remat_fn = make_train_step(build_model(cfg, device=dev, remat=True), lr=3e-4)
+        ops.reset_launch_counts()
+        rstate = state
+        t0 = time.perf_counter()
+        for step in range(REMAT_STEPS):
+            rstate, _ = remat_fn(rstate, train_batch(cfg, 100 + step, dev))
+        torch.cuda.synchronize()
+        rwall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_sgmv=8 * L * REMAT_STEPS, flash_prefill=2 * L * REMAT_STEPS,
+                    flash_prefill_bwd=L * REMAT_STEPS, lora_grad=4 * L * REMAT_STEPS)
+        require(launches == want, f"remat launches {launches} != {want}")
+        line["remat"] = {"steps": REMAT_STEPS, "seconds_per_step": rwall / REMAT_STEPS,
+                         "launches_per_step": {k: v // REMAT_STEPS
+                                               for k, v in launches.items()}}
+        del rstate, remat_fn
+
+        # 3. LoRA-only steps on one fixed batch: the loss falls, the base
+        # weights keep their bits, dW is never formed
+        base = [t.clone() for t in leaves(state.params)]
+        lstate = TrainState(params=state.params, lora=state.lora,
+                            opt=adamw_init({"lora": state.lora}),
+                            step=torch.zeros((), dtype=torch.int32))
+        lora_fn = make_train_step(model, lr=3e-3, train_lora_only=True)
+        fixed = train_batch(cfg, 200, dev)
+        dw_calls[0] = 0
+        ops.reset_launch_counts()
+        llosses = []
+        t0 = time.perf_counter()
+        for _ in range(LORA_STEPS):
+            lstate, met = lora_fn(lstate, fixed)
+            llosses.append(met["loss"])
+        torch.cuda.synchronize()
+        lwall = time.perf_counter() - t0
+        llosses = [float(x) for x in llosses]
+        launches = ops.launch_counts()
+        require(llosses[-1] < llosses[0], f"LoRA-only loss did not fall: {llosses}")
+        require(all(torch.equal(a, b) for a, b in zip(leaves(lstate.params), base)),
+                "LoRA-only steps changed the base weights")
+        require(dw_calls[0] == 0, f"LoRA-only steps formed dW {dw_calls[0]} times")
+        require(launches["lora_grad"] == 4 * L * LORA_STEPS,
+                f"LoRA-only launches {launches}")
+        line["lora_only"] = {"steps": LORA_STEPS, "seconds_per_step": lwall / LORA_STEPS,
+                             "losses": llosses, "dw_formed": dw_calls[0],
+                             "launches_per_step": {k: v // LORA_STEPS
+                                                   for k, v in launches.items()}}
+        del base, lstate, lora_fn
+    finally:
+        sgmv_mod.weight_grad = real_weight_grad
+
+    # 4. one step's gradients at B = 2, S = 256 on the card and on the CPU
+    t0 = time.perf_counter()
+    check = train_batch(cfg, 300, dev, B=CHECK_B, S=CHECK_S)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_params, cpu_lora = tree_cpu(state.params), tree_cpu(state.lora)
+    cpu_batch = {k: v.cpu() for k, v in check.items()}
+    cmp = {}
+    ce_cpu, g_cpu, names = train_grads(cpu_model, cpu_params, cpu_lora, cpu_batch, False)
+    lora_ref = {n: g for n, g in zip(names, g_cpu) if n.startswith("lora/")}
+    for mode in ("full", "lora_only"):
+        ce, g_card, gnames = train_grads(model, state.params, state.lora, check,
+                                         mode == "lora_only")
+        rel_loss = abs(ce - ce_cpu) / abs(ce_cpu)
+        require(rel_loss <= TRAIN_LOSS_TOL, f"train {mode}: card loss {ce} against the "
+                                            f"CPU's {ce_cpu}")
+        want = dict(zip(names, g_cpu)) if mode == "full" else lora_ref
+        worst, worst_leaf = 0.0, None
+        for n, g in zip(gnames, g_card):
+            w = want[n]
+            e = float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            if e > worst:
+                worst, worst_leaf = e, n
+        require(worst <= TRAIN_GRAD_TOL, f"train {mode}: gradient {worst_leaf} off the "
+                                         f"CPU's by {worst} of its max")
+        cmp[mode] = {"loss_card": ce, "loss_cpu": ce_cpu, "loss_rel_err": rel_loss,
+                     "leaves": len(gnames), "largest_grad_err": worst,
+                     "at_leaf": worst_leaf}
+        del g_card
+    del g_cpu, lora_ref, cpu_params, cpu_lora, cpu_model
+    cmp["seconds"] = time.perf_counter() - t0
+    line["cpu_check"] = cmp
+
+    # 5. the checkpoint round trip of the state after the counted steps
+    t0 = time.perf_counter()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    mgr = CheckpointManager(TRAIN_CKPT, keep=1)
+    step_n = TRAIN_STEPS + 1
+    mgr.save_async(step_n, state)
+    save_call_s = time.perf_counter() - t0
+    mgr.wait()
+    restored = mgr.restore(mgr.latest_step(), state)
+    require(all(torch.equal(a, b) and a.device == b.device
+                for a, b in zip(leaves(restored), leaves(state))),
+            "the restored checkpoint differs from the saved state")
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    del restored
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    line["checkpoint"] = {"step": step_n, "bytes": nbytes, "save_async_call_s": save_call_s,
+                          "round_trip_s": time.perf_counter() - t0, "bitwise": True}
+
+    # 6. one full-parameter step under the profiler
+    prof_batch = train_batch(cfg, 400, dev)
+    out = {}
+
+    def one_step():
+        out["state"] = step_fn(state, prof_batch)[0]
+
+    line["profile"] = profiled(one_step)
+    del out
+    line["seconds"] = time.perf_counter() - t_start
+    return line, full_launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     # ---------------------------------------------------------- 1. device
@@ -1732,10 +2120,13 @@ def main() -> None:
                      lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016])
     torch.cuda.empty_cache()
     arch_cases = arch_kernel_cases(ops, ref, gen, dev)
+    bwd_cases = backward_kernel_cases(ops, ref, gen, dev)
+    refused, grad_errors = grad_guard(ops, ref, dev)
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
           "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr, "arch_cases": arch_cases,
-          "refuse_autograd": grad_guard(ops, dev)})
+          "backward": bwd_cases, "refuse_autograd": refused,
+          "training_kernel_grad_errors": grad_errors})
 
     # ----------------------------------------------------------- 4. engine
     torch.cuda.reset_peak_memory_stats()  # the engine's own peak
@@ -1835,7 +2226,12 @@ def main() -> None:
     line, encdec_launches = encdec_phase(ops, configs, dev)
     emit(line)
 
-    # ----------------------------------------------------------- 8. summary
+    # ------------------------------------------------------------- 8. train
+    torch.cuda.empty_cache()
+    line, train_launches = train_phase(ops, configs, dev)
+    emit(line)
+
+    # ----------------------------------------------------------- 9. summary
     kernels = []
     for name, src, tpu, m in (
             # the q projection in a 256-token bucket
@@ -1851,19 +2247,21 @@ def main() -> None:
             ("flash_prefill", "flash_prefill.cu",
              "src/repro/kernels/flash_prefill.py:143", fla),
             ("flash_prefill_ragged", "flash_prefill.cu",
-             "src/repro/kernels/flash_prefill.py:252", flr)):
+             "src/repro/kernels/flash_prefill.py:252", flr),
+            # the backward passes: no TPU kernel has one; they pair with these
+            ("flash_prefill_bwd", "flash_prefill_bwd.cu",
+             "src/repro/kernels/flash_prefill.py:143", bwd_cases["flash_prefill_bwd"][0]),
+            ("lora_grad", "lora_grad.cu", "src/repro/kernels/sgmv.py:115",
+             bwd_cases["lora_grad"][0])):
+        by_path = {"engine": launches[name], "generate": gen_launches[name],
+                   "variants": var_launches[name], "archs": arch_launches[name],
+                   "state": state_launches[name], "encdec": encdec_launches[name],
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
-            "launches": (launches[name] + gen_launches[name] + var_launches[name]
-                         + arch_launches[name] + state_launches[name]
-                         + encdec_launches[name]),
-            "launches_by_path": {"engine": launches[name],
-                                 "generate": gen_launches[name],
-                                 "variants": var_launches[name],
-                                 "archs": arch_launches[name],
-                                 "state": state_launches[name],
-                                 "encdec": encdec_launches[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": m["max_abs_err"],
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -1887,9 +2285,14 @@ def main() -> None:
     kernels[3]["cold"] = pag["cold"]
     kernels[3]["engine_case"] = {k: pag_cases[1][k] for k in keys}
     # every kernel at the other dense configs' shapes and ranks (phase 3)
-    for k in kernels:
+    for k in kernels[:6]:
         k["arch_cases"] = [{key: m[key] for key in ("arch", "path") + keys if key in m}
                            for m in arch_cases[k["name"]]]
+    # the backward kernels' other cases: flash_prefill_bwd at the other
+    # configs' heads, lora_grad at k/v/o and ranks 1, 12, 128
+    for k in kernels[6:]:
+        k["other_cases"] = [{key: m[key] for key in ("arch",) + keys if key in m}
+                            for m in bwd_cases[k["name"]][1:]]
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     print(smi, flush=True)
     emit({"kernels": kernels})

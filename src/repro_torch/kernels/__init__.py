@@ -4,9 +4,13 @@ PyTorch versions; see ``kernels/ops.py``."""
 from . import ref
 from .ops import (
     flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_fwd,
     flash_prefill_ragged,
     fused_sgmv,
+    fused_sgmv_bwd,
     launch_counts,
+    lora_grad,
     paged_attention,
     ragged_extend,
     reset_launch_counts,
@@ -15,9 +19,13 @@ from .ops import (
 
 __all__ = [
     "flash_prefill",
+    "flash_prefill_bwd",
+    "flash_prefill_fwd",
     "flash_prefill_ragged",
     "fused_sgmv",
+    "fused_sgmv_bwd",
     "launch_counts",
+    "lora_grad",
     "paged_attention",
     "ragged_extend",
     "ref",

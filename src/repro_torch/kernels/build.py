@@ -18,8 +18,11 @@ All missing libraries compile at once, one ``nvcc`` process per source.
 A source may export more than one kernel (``fused_sgmv.cu`` holds
 ``fused_sgmv`` and ``sgmv``; ``flash_prefill.cu`` holds ``flash_prefill``
 and ``flash_prefill_ragged``): libraries are keyed by source, launch counts
-by kernel. This module holds the launch counts: every wrapper adds one to
-its kernel's count where it launches the kernel, and nowhere else.
+by kernel. ``flash_prefill_bwd.cu`` and ``lora_grad.cu`` are the backward
+passes of ``flash_prefill`` and ``fused_sgmv``; a launch of each (one call
+of its wrapper, several CUDA kernels) counts once. This module holds the
+launch counts: every wrapper adds one to its kernel's count where it
+launches the kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ from pathlib import Path
 import torch
 
 # csrc/<source>.cu, one library each
-SOURCES = ("fused_sgmv", "ragged_extend", "paged_attention", "flash_prefill")
+SOURCES = ("fused_sgmv", "ragged_extend", "paged_attention", "flash_prefill",
+           "flash_prefill_bwd", "lora_grad")
 # the kernels whose launches are counted
 KERNELS = ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
-           "flash_prefill", "flash_prefill_ragged")
+           "flash_prefill", "flash_prefill_ragged", "flash_prefill_bwd", "lora_grad")
+# the serving-only kernels: no backward, so they refuse autograd on the card
+SERVING_ONLY = ("sgmv", "ragged_extend", "paged_attention", "flash_prefill_ragged")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -135,13 +141,16 @@ def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
     with ``rows`` it may be strided as long as its last dimension has unit
     stride and every other stride is a multiple of 4 floats (16-byte rows).
 
-    The kernels have no backward: under autograd, a tensor that requires
-    grad raises rather than come back without a gradient. The messages are
-    built only on failure: this runs on every launch."""
+    Under autograd, a tensor that requires grad raises rather than come
+    back without a gradient: ``fused_sgmv`` and ``flash_prefill`` reach
+    their kernels through an autograd Function, whose forward runs with
+    grad off, so only the serving-only kernels (``SERVING_ONLY``), which
+    have no backward, ever raise here. The messages are built only on
+    failure: this runs on every launch."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
         raise NotImplementedError(
-            f"{name}: the CUDA kernels have no backward pass yet (training is "
-            "ROADMAP Queue 1 item 5); call under torch.no_grad() or on CPU tensors")
+            f"{name}: a serving-only kernel with no backward pass (of "
+            f"{', '.join(SERVING_ONLY)}); call under torch.no_grad() or on CPU tensors")
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")

@@ -147,7 +147,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ahi)[
 // One block's attention. Src gives the addresses (h is the head within
 // the group, 0 .. G − 1):
 //   const float* q_at(int s, int h), k_at(int t), v_at(int t), any();
-//   float* o_at(int s, int h); size_t part_at(int s, int h).
+//   float* o_at(int s, int h); size_t part_at(int s, int h);
+//   float* lse_at(int s, int h): where a live row's log-sum-exp of its
+//   scaled scores goes (for a backward pass), or nullptr for none.
 // Row r of the tile is query vector v_lo + r, token (v_lo + r) / G, head
 // (v_lo + r) % G; tokens below q_hi (<= S) are live, and token s sees keys
 // t < kv_end with t <= pos0 + s. The loop walks K/V tiles j0 .. j1 − 1 of
@@ -351,6 +353,10 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     }
     const int vec = v_lo + r, s = vec / G;
     inv[r] = s < q_hi ? 1.f / fmaxf(L, 1e-30f) : 0.f;
+    if (part_o == nullptr && s < q_hi) {
+      float* lse = src.lse_at(s, vec % G);
+      if (lse != nullptr) *lse = M + logf(fmaxf(L, 1e-30f));
+    }
     if (part_o != nullptr && s < q_hi) {
       float* ml = part_ml + 2 * src.part_at(s, vec % G);
       ml[0] = M;

@@ -9,7 +9,11 @@
 // length 0, come out as exact zeros. q and out are (B, H, S, D), k and v
 // (B, Hkv, S, D), each with its own element strides for b, h and s and a
 // unit stride on D, so a (B, S, H, D) tensor transposed to head-major is
-// read in place; out takes q's strides.
+// read in place; out takes q's strides. With a non-NULL lse (B, H, S)
+// (contiguous), each live query's log-sum-exp of its scaled scores,
+// m + log(l) with the scores times 1/√D as the kernel uses them, goes
+// there too, for the backward pass (flash_prefill_bwd.cu); out is the same
+// with or without it.
 //
 // What bounds it on this card: a row of S tokens does 4·H·D·S(S+1)/2
 // flops against (2H + 4Hkv)·S·D·4 bytes, so any S past a few dozen is
@@ -44,8 +48,9 @@ struct Strides {  // elements between neighbours along b, h and s
 struct FlashSrc {  // row b and kv head hkv of the head-major views
   const float *q, *k, *v;
   float* out;
+  float* lse;  // (B, H, S) or nullptr
   Strides qs, ks, vs;
-  int b, hkv, G;
+  int b, hkv, G, H, S;
   __device__ size_t qoff(int s, int h) const {
     return (size_t)(b * qs.b + (long long)(hkv * G + h) * qs.h + s * qs.s);
   }
@@ -59,13 +64,17 @@ struct FlashSrc {  // row b and kv head hkv of the head-major views
   __device__ const float* any() const { return q; }
   __device__ float* o_at(int s, int h) const { return out + qoff(s, h); }
   __device__ size_t part_at(int, int) const { return 0; }  // never split
+  __device__ float* lse_at(int s, int h) const {
+    return lse == nullptr ? nullptr : lse + ((size_t)b * H + hkv * G + h) * S + s;
+  }
 };
 
 template <int WR, int DT>
 __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ true_lens,
-    float* __restrict__ out, int B, int S, int H, int Hkv, int D, int n_tiles,
+    float* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int Hkv, int D,
+    int n_tiles,
     Strides qs, Strides ks, Strides vs) {
   extern __shared__ float4 smem4[];
   constexpr int ROWS = 16 * WR;
@@ -73,7 +82,7 @@ __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
   // the q tile is the slowest grid axis, reversed: longest tiles first
   const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hkv));
   const int b = (blockIdx.x % (B * Hkv)) / Hkv, hkv = blockIdx.x % Hkv;
-  const FlashSrc src{q, k, v, out, qs, ks, vs, b, hkv, G};
+  const FlashSrc src{q, k, v, out, lse, qs, ks, vs, b, hkv, G, H, S};
   const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
   const int n = true_lens ? min(max(true_lens[b], 0), S) : S;
   const int q_hi = min(attn::tile_token_end(v_lo, ROWS, G, S), n);  // live below q_hi
@@ -89,7 +98,7 @@ __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
 
 template <int WR, int DT>
 int launch(const float* q, const float* k, const float* v, const int* true_lens,
-           float* out, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+           float* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
            Strides vs, cudaStream_t stream) {
   const size_t smem = attn::smem_bytes<WR, DT>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -100,31 +109,31 @@ int launch(const float* q, const float* k, const float* v, const int* true_lens,
   const long long blocks = (long long)n_tiles * B * Hkv;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_prefill_kernel<WR, DT><<<(unsigned)blocks, attn::THREADS, smem, stream>>>(
-      q, k, v, true_lens, out, B, S, H, Hkv, D, n_tiles, qs, ks, vs);
+      q, k, v, true_lens, out, lse, B, S, H, Hkv, D, n_tiles, qs, ks, vs);
   return (int)cudaGetLastError();
 }
 
 template <int DT>
 int launch_dt(int wr, const float* q, const float* k, const float* v, const int* true_lens,
-              float* out, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+              float* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
               Strides vs, cudaStream_t stream) {
   switch (wr) {  // q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
-    case 1: return launch<1, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
-    case 2: return launch<2, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
-    case 4: return launch<4, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 1: return launch<1, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 2: return launch<2, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 4: return launch<4, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
     default:
       if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
-      else return launch<8, DT>(q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, stream);
+      else return launch<8, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
   }
 }
 
 }  // namespace
 
 // true_lens: (B,) int32 live tokens per row, or NULL for S in every row.
-// out has q's strides.
+// out has q's strides; lse: (B, H, S) contiguous, or NULL.
 extern "C" int flash_prefill_launch(const float* q, const float* k,
                                     const float* v, const int* true_lens,
-                                    float* out, int B, int S, int H, int Hkv,
+                                    float* out, float* lse, int B, int S, int H, int Hkv,
                                     int D, long long qsb, long long qsh,
                                     long long qss, long long ksb, long long ksh,
                                     long long kss, long long vsb, long long vsh,
@@ -136,11 +145,11 @@ extern "C" int flash_prefill_launch(const float* q, const float* k,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (attn::d_tiles(D)) {
-    case 4: return launch_dt<4>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 8: return launch_dt<8>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 16: return launch_dt<16>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 20: return launch_dt<20>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
-    default: return launch_dt<32>(wr, q, k, v, true_lens, out, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 4: return launch_dt<4>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 8: return launch_dt<8>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 16: return launch_dt<16>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 20: return launch_dt<20>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    default: return launch_dt<32>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
   }
 }
 

@@ -63,6 +63,7 @@ struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
   __device__ size_t part_at(int s, int h) const {
     return (size_t)part * B * S * Hq + qrow(s, h);
   }
+  __device__ float* lse_at(int, int) const { return nullptr; }  // serving: none
 };
 
 // KV parts of a q tile whose keys span ``kv_tiles`` K/V tiles, with up to

@@ -12,6 +12,14 @@ as D has unit stride; the output has q's strides. A tensor on the CPU takes
 the plain version (:func:`~repro_torch.kernels.ref.flash_prefill_ref`,
 :func:`~repro_torch.kernels.ref.flash_prefill_ragged_ref`); a CUDA tensor
 launches the kernel or raises.
+
+Both are differentiable: under autograd, with an input that requires grad,
+``flash_prefill`` runs as a ``torch.autograd.Function`` whose forward also
+writes each query's log-sum-exp and whose backward is
+``csrc/flash_prefill_bwd.cu`` on the card and
+:func:`~repro_torch.kernels.ref.flash_prefill_bwd_ref` on the CPU.
+``flash_prefill_ragged`` serves the engine only: on the card it refuses an
+input that requires grad (``build.check_cuda_f32``).
 """
 
 from __future__ import annotations
@@ -19,15 +27,25 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .ref import flash_prefill_ragged_ref, flash_prefill_ref
+from .ref import (flash_prefill_bwd_ref, flash_prefill_lse_ref,
+                  flash_prefill_ragged_ref, flash_prefill_ref)
 
 _SOURCE = "flash_prefill"
-# q, k, v, true_lens (NULL: S in every row), out, B, S, H, Hkv, D, then the
-# b, h, s element strides of q, k and v (out has q's), stream
-_SIGNATURES = {"flash_prefill_launch": "pppppiiiiilllllllllp"}
+# q, k, v, true_lens (NULL: S in every row), out, lse (NULL: none), B, S, H,
+# Hkv, D, then the b, h, s element strides of q, k and v (out has q's),
+# stream
+_SIGNATURES = {"flash_prefill_launch": "ppppppiiiiilllllllllp"}
+_BWD_SOURCE = "flash_prefill_bwd"
+_BWD_SIGNATURES = {
+    # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, D, then the
+    # b, h, s element strides of q (o, dq), k (dk), v (dv) and dout, stream
+    "flash_prefill_bwd_launch": "ppppppppppiiiiillllllllllllp",
+    # (B, S, H, Hkv, D) -> floats of scratch a launch needs
+    "flash_prefill_bwd_scratch_floats": "iiiii",
+}
 
 
-def _launch(name, q, k, v, true_lens):
+def _launch(name, q, k, v, true_lens, lse=None):
     dev = q.device
     if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape):
         raise ValueError(f"{name}: bad ranks")
@@ -53,6 +71,7 @@ def _launch(name, q, k, v, true_lens):
     code = lib.flash_prefill_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, S, H, Hkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check_error(name, _SOURCE, lib, code)
@@ -60,11 +79,96 @@ def _launch(name, q, k, v, true_lens):
     return out
 
 
+def _rows_ok(t):
+    """Unit stride on the last dimension, 16-byte rows and base: what the
+    kernels read in place."""
+    return (t.stride(-1) == 1 and all(st % 4 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _dense_like(t):
+    """``t`` itself if a tensor of its strides can be allocated (a
+    permutation of a dense tensor), else a contiguous copy."""
+    return t if torch.empty_like(t).stride() == t.stride() else t.contiguous()
+
+
+def flash_prefill_fwd(q, k, v):
+    """flash_prefill's output and each query's log-sum-exp (B, H, S) of its
+    scaled scores, which its backward takes: the plain versions on the CPU,
+    one launch of ``csrc/flash_prefill.cu`` (counted as ``flash_prefill``)
+    on the card."""
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, k, v), flash_prefill_lse_ref(q, k)
+    B, H, S, _ = q.shape
+    lse = torch.empty((B, H, S), device=q.device, dtype=torch.float32)
+    return _launch("flash_prefill", q, k, v, None, lse), lse
+
+
+def flash_prefill_bwd(q, k, v, o, lse, do):
+    """The backward of :func:`flash_prefill`: (dq, dk, dv) from its inputs,
+    its output ``o`` and ``lse`` (:func:`flash_prefill_fwd`) and ``do``, the
+    gradient of ``o``. A tensor on the CPU takes
+    :func:`~repro_torch.kernels.ref.flash_prefill_bwd_ref`; a CUDA tensor
+    launches ``csrc/flash_prefill_bwd.cu`` (dq with q's strides, dk k's, dv
+    v's) or raises."""
+    if q.device.type == "cpu":
+        return flash_prefill_bwd_ref(q, k, v, o, lse, do)
+    name = "flash_prefill_bwd"
+    dev = q.device
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if k.shape != v.shape or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"{name}: o and do must be q's shape, v k's")
+    if B * S == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    build.check_head_dim(name, D)
+    k, v = _dense_like(k), _dense_like(v)
+    if not _rows_ok(do):
+        do = do.contiguous()
+    build.check_cuda_f32(name, dev, rows=True, q=q, k=k, v=v, o=o, do=do)
+    build.check_cuda_f32(name, dev, lse=lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.stride() != q.stride() or o.stride() != q.stride():
+        raise ValueError(f"{name}: q and o must be one permutation of a dense tensor")
+    lib = build.load(_BWD_SOURCE, _BWD_SIGNATURES)
+    floats = lib.flash_prefill_bwd_scratch_floats(B, S, H, Hkv, D)
+    if floats < 0:
+        raise ValueError(f"{name}: the scratch of B={B}, S={S}, H={H} passes 2^31 floats")
+    scratch = torch.empty((floats,), device=dev, dtype=torch.float32)
+    code = lib.flash_prefill_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, S, H, Hkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)
+    build.check_error(name, _BWD_SOURCE, lib, code)
+    build.launches[name] += 1
+    return dq, dk, dv
+
+
+class _FlashPrefillFn(torch.autograd.Function):
+    """flash_prefill with its backward: the forward keeps out and each
+    query's log-sum-exp; the backward recomputes the probabilities from
+    them (FlashAttention-2)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_prefill_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_prefill_bwd(*ctx.saved_tensors, do)
+
+
 def flash_prefill(
     q: torch.Tensor,  # (B, H, S, D)
     k: torch.Tensor,  # (B, Hkv, S, D)
     v: torch.Tensor,  # (B, Hkv, S, D)
 ) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashPrefillFn.apply(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)
     return _launch("flash_prefill", q, k, v, None)

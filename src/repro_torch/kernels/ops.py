@@ -4,19 +4,24 @@ Dispatch is by device: a tensor on the CPU takes the kernel's plain
 PyTorch version (``kernels/ref.py``); a CUDA tensor launches the kernel,
 built at first use by ``kernels/build.py``, or raises. Nothing falls back.
 
-The kernels have no backward pass: on the card, a wrapper called under
-autograd with an input that requires grad raises ``NotImplementedError``
-(training is ROADMAP Queue 1 item 5). The plain versions on the CPU keep
-autograd.
+``fused_sgmv`` and ``flash_prefill``, the kernels of the training path,
+are differentiable on either device: an autograd Function whose backward is
+a hand-written kernel on the card (``lora_grad``, ``flash_prefill_bwd``,
+counted as their own launches) and the plain backward
+(``ref.fused_sgmv_bwd_ref``, ``ref.flash_prefill_bwd_ref``) on the CPU. The
+serving-only kernels (``sgmv``, ``ragged_extend``, ``paged_attention``,
+``flash_prefill_ragged``) have no backward: on the card, a call under
+autograd with an input that requires grad raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from . import build, ref
-from .flash_prefill import flash_prefill, flash_prefill_ragged
+from .flash_prefill import (flash_prefill, flash_prefill_bwd, flash_prefill_fwd,
+                            flash_prefill_ragged)
 from .paged_attention import paged_attention
 from .ragged_extend import ragged_extend
-from .sgmv import fused_sgmv, sgmv
+from .sgmv import fused_sgmv, fused_sgmv_bwd, lora_grad, sgmv
 
 
 def launch_counts() -> dict[str, int]:
@@ -30,9 +35,13 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "flash_prefill",
+    "flash_prefill_bwd",
+    "flash_prefill_fwd",
     "flash_prefill_ragged",
     "fused_sgmv",
+    "fused_sgmv_bwd",
     "launch_counts",
+    "lora_grad",
     "paged_attention",
     "ragged_extend",
     "ref",

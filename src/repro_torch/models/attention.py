@@ -17,9 +17,12 @@ otherwise; MLA rotates only its rope slice of q and the shared k_rope.
 Kernel routing is the reference's: plain causal GQA goes through
 ``flash_prefill`` (:func:`gqa_full`) and ``paged_attention`` /
 ``ragged_extend`` (:func:`gqa_cached`); a window, an int8 cache or a
-softcap goes to the plain :func:`sdpa`, and MLA is einsums and
+softcap goes to the plain :func:`sdpa` (or, in ``gqa_full`` with
+``q_chunk``, :func:`sdpa_blockwise`), and MLA is einsums and
 :func:`sdpa`, as the reference computes them outside every kernel. Every
 LoRA-targeted projection goes through ``fused_sgmv`` (:func:`_proj`).
+``fused_sgmv`` and ``flash_prefill`` are differentiable (their backward
+kernels on the card), so ``gqa_full`` and ``mla_full`` train.
 
 Unlike the reference, which returns a new cache, :func:`gqa_cached` and
 :func:`mla_cached` write the new rows into the cache in place. Where they
@@ -36,6 +39,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kernel_ops
@@ -129,6 +133,75 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, Hq, v.shape[-1])
 
 
+def sdpa_blockwise(
+    q: torch.Tensor,  # (B, S, Hq, D)
+    k: torch.Tensor,  # (B, T, Hkv, D)
+    v: torch.Tensor,  # (B, T, Hkv, D)
+    q_pos: torch.Tensor,  # (B, S) int
+    k_pos: torch.Tensor,  # (B, T) int
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Memory-efficient causal attention, the reference's ``sdpa_blockwise``
+    written in plain PyTorch: query chunks of ``q_chunk`` each walk the key
+    chunks of ``k_chunk`` with a running max, sum and accumulator (online
+    softmax), so the live logits are (B, Hkv, G, q_chunk, k_chunk), not
+    (…, S, T). Under autograd each query chunk runs under
+    ``torch.utils.checkpoint``, so the backward recomputes its logits chunk
+    by chunk instead of keeping every one. S and T are padded to chunk
+    multiples with positions that mask the pads (query −1, key 2^30);
+    ``window`` > 0 also masks keys at or past ``window`` behind the query,
+    and ``softcap`` caps the logits (tanh)."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qc, kc = min(q_chunk, S), min(k_chunk, T)
+    pad_s, pad_t = (-S) % qc, (-T) % kc
+    ns, nt = (S + pad_s) // qc, (T + pad_t) // kc
+    F = torch.nn.functional
+    qg = F.pad(q, (0, 0, 0, 0, 0, pad_s)).reshape(B, ns, qc, Hkv, G, D)
+    qp = F.pad(q_pos, (0, pad_s), value=-1).reshape(B, ns, qc)
+    kk = F.pad(k, (0, 0, 0, 0, 0, pad_t)).reshape(B, nt, kc, Hkv, D)
+    vv = F.pad(v, (0, 0, 0, 0, 0, pad_t)).reshape(B, nt, kc, Hkv, D)
+    kp = F.pad(k_pos, (0, pad_t), value=2 ** 30).reshape(B, nt, kc)
+
+    def one_q_chunk(qb, qpb):  # (B, qc, Hkv, G, D), (B, qc)
+        m = torch.full((B, Hkv, G, qc), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, qc, D), dtype=torch.float32, device=q.device)
+        qpm = qpb[:, None, None, :, None]
+        for j in range(nt):
+            kpb = kp[:, j][:, None, None, None, :]
+            s = torch.einsum("bqkgd,btkd->bkgqt", qb.float(), kk[:, j].float()) / math.sqrt(D)
+            if softcap > 0:
+                s = torch.tanh(s / softcap) * softcap
+            mask = kpb <= qpm
+            if window > 0:
+                mask = mask & (kpb > qpm - window)
+            mask = mask & (kpb >= 0)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p_ = torch.exp(s - m_new[..., None])
+            l = l * alpha + p_.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgqt,btkd->bkgqd", p_,
+                                                        vv[:, j].float())
+            m = m_new
+        out = acc / l.clamp_min(1e-30)[..., None]  # (B, Hkv, G, qc, D)
+        return out.permute(0, 3, 1, 2, 4)  # (B, qc, Hkv, G, D)
+
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    outs = [torch.utils.checkpoint.checkpoint(one_q_chunk, qg[:, i], qp[:, i],
+                                              use_reentrant=False)
+            if grad else one_q_chunk(qg[:, i], qp[:, i]) for i in range(ns)]
+    out = torch.cat(outs, dim=1).reshape(B, S + pad_s, Hq, D)[:, :S]
+    return out.to(q.dtype)
+
+
 def gqa_full(
     p: dict,
     x: torch.Tensor,  # (B, S, d)
@@ -139,6 +212,7 @@ def gqa_full(
     adapter_ids=None,
     lora_scale: float = 1.0,
     window: int = 0,
+    q_chunk: int = 0,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention (train / fresh prefill). ``rope`` is
     the (cos, sin) tables at positions 0 .. S-1, so causality by index is
@@ -147,17 +221,25 @@ def gqa_full(
     With M-RoPE, ``rope`` holds its tables (:func:`step_rope`). Plain
     causal attention goes through ``flash_prefill`` in the head-major
     layout (the transposes are views, which the kernel reads by their
-    strides); a sliding ``window`` or a logit softcap goes to the plain
-    :func:`sdpa`, as the reference routes them. Returns ``(out, (k, v))``
-    with k/v ``(B, S, Hkv, D)``, so a caller can seed a decode cache. The
-    reference's ``q_chunk`` (blockwise attention, a training memory knob)
-    is not ported: the kernel is already blockwise."""
+    strides). A sliding ``window`` or a logit softcap goes to
+    :func:`sdpa_blockwise` with ``q_chunk`` > 0 and to the plain
+    :func:`sdpa` without, as the reference routes them. One routing
+    difference: the reference's kernel path also leaves plain causal
+    attention for ``sdpa_blockwise`` when ``q_chunk`` > 0; here it keeps
+    ``flash_prefill``, which is already blockwise (its backward recomputes
+    the probabilities tile by tile). Returns ``(out, (k, v))`` with k/v
+    ``(B, S, Hkv, D)``, so a caller can seed a decode cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale)
     if window == 0 and cfg.logit_softcap == 0.0:
         out = kernel_ops.flash_prefill(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         ).transpose(1, 2)
+    elif q_chunk > 0:
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        out = sdpa_blockwise(q, k, v, pos, pos, window=window,
+                             softcap=cfg.logit_softcap, q_chunk=q_chunk,
+                             k_chunk=q_chunk)
     else:
         pos = torch.arange(S, device=x.device)
         mask = (window_mask(pos, pos, window) if window > 0

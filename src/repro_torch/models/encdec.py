@@ -19,6 +19,10 @@ Parameters keep the reference's tree, layer-stacked: {"embed", "encoder"
 "final_norm", "lm_head"}. The cache is {"k", "v" (L, B, T, Hkv, D), "ck",
 "cv" (L, B, S_src, Hkv, D), "len"} with "len" on the host; ``extend``
 writes it in place, as ``LM.extend`` does.
+
+``remat`` (the reference's field, which its scan leaves unused) recomputes
+each decoder layer of ``forward`` in the backward pass, and
+``remat_policy`` picks what is kept, as in ``LM``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..device import resolve_device
 from .attention import cached_step, gqa_cached, gqa_full, init_gqa, sdpa, step_rope
 from .common import dense_init, embed_init, init_rms, rms_norm, rope_tables, rotate
 from .ffn import dense_ffn, init_dense_ffn
-from .transformer import layer_slice
+from .transformer import layer_views, remat_call
 
 
 def _init_cross(gen: torch.Generator, cfg: ModelConfig, n_layers: int, dtype,
@@ -69,6 +73,8 @@ class EncDecLM:
     cfg: ModelConfig
     dtype: torch.dtype = torch.float32
     device: torch.device | str | None = None  # None: the card, raising without one
+    remat: bool = False  # recompute each decoder layer of forward in the backward
+    remat_policy: str = "full"  # or "dots": keep the matrix products
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -137,8 +143,7 @@ class EncDecLM:
         hd = cfg.resolved_head_dim
         rope = rope_tables(torch.arange(S, device=dev), hd, cfg.rope_theta)
         mask = torch.ones((1, S, S), dtype=torch.bool, device=dev)  # bidirectional
-        for i in range(cfg.encoder_layers):
-            lp = layer_slice(params["encoder"], i)
+        for lp in layer_views(params["encoder"], cfg.encoder_layers):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             q = (h @ lp["attn"]["wq"]).reshape(B, S, cfg.num_heads, hd)
             k = (h @ lp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
@@ -172,18 +177,23 @@ class EncDecLM:
         S = x.shape[1]
         rope = step_rope(cfg, torch.arange(S, device=dev))
         ids = self._ids(adapter_ids)
-        for i in range(cfg.num_layers):
-            lp = layer_slice(params["decoder"], i)
+
+        def layer(lp, lsl, x, enc_out):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            mixed, _ = gqa_full(lp["attn"], h, rope, cfg,
-                                lora=layer_slice(lora, i) if lora else None,
-                                adapter_ids=ids, lora_scale=self.lora_scale)
+            mixed, _ = gqa_full(lp["attn"], h, rope, cfg, lora=lsl, adapter_ids=ids,
+                                lora_scale=self.lora_scale)
             x = x + mixed
             hc = rms_norm(x, lp["norm_c"], cfg.norm_eps)
             x = x + _cross_attend(lp["cross"], hc, *_cross_kv(lp["cross"], enc_out, cfg),
                                   cfg)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + dense_ffn(lp["ffn"], h2, cfg.activation)
+            return x + dense_ffn(lp["ffn"], h2, cfg.activation)
+
+        remat = self.remat and torch.is_grad_enabled()
+        for lp, lsl in zip(layer_views(params["decoder"], cfg.num_layers),
+                           layer_views(lora or None, cfg.num_layers)):
+            x = (remat_call(layer, self.remat_policy, lp, lsl, x, enc_out) if remat
+                 else layer(lp, lsl, x, enc_out))
         return self._unembed(params, x), torch.zeros((), dtype=torch.float32, device=dev)
 
     # ---------------------------------------------------------------- caches
@@ -208,9 +218,9 @@ class EncDecLM:
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
         cache = self.init_cache(B, max_len, enc_out.shape[1])
-        for i in range(self.cfg.num_layers):
-            ck, cv = _cross_kv(layer_slice(params["decoder"]["cross"], i), enc_out,
-                               self.cfg)
+        for i, lp in enumerate(layer_views(params["decoder"]["cross"],
+                                           self.cfg.num_layers)):
+            ck, cv = _cross_kv(lp, enc_out, self.cfg)
             cache["ck"][i] = ck
             cache["cv"][i] = cv
         return self.extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
@@ -225,12 +235,12 @@ class EncDecLM:
         B, S, _ = x.shape
         step = cached_step(start, S, cache["k"].shape[2], dev, cfg)
         ids = self._ids(adapter_ids)
-        for i in range(cfg.num_layers):
-            lp = layer_slice(params["decoder"], i)
+        L = cfg.num_layers
+        for i, (lp, lsl) in enumerate(zip(layer_views(params["decoder"], L),
+                                          layer_views(lora or None, L))):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             x = x + gqa_cached(lp["attn"], h, step, cache["k"][i], cache["v"][i], cfg,
-                               lora=layer_slice(lora, i) if lora else None,
-                               adapter_ids=ids, lora_scale=self.lora_scale)
+                               lora=lsl, adapter_ids=ids, lora_scale=self.lora_scale)
             hc = rms_norm(x, lp["norm_c"], cfg.norm_eps)
             x = x + _cross_attend(lp["cross"], hc, cache["ck"][i], cache["cv"][i], cfg)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)

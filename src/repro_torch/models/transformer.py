@@ -40,8 +40,8 @@ through the plain attention); ``extend`` (and ``decode``, which is
 cache. ``prefill`` writes each layer's cache rows into a new cache in
 place, where the reference pads; the recurrent layouts prefill as
 ``extend`` from a zero state, as the reference's hybrid does, and RWKV's
-``forward`` is that ``extend`` with every position's logits. ``extend``
-updates the cache in place and returns it: only the real tokens of kept
+``forward`` runs every layer from a zero state, as the reference's does.
+``extend`` updates the cache in place and returns it: only the real tokens of kept
 rows are written (on an MoE config an unkept row's tokens reach the
 experts as the reference's do, see ``attention.cached_step``), a recurrent
 state changes only in kept rows, and ``len`` advances only for kept rows.
@@ -51,17 +51,34 @@ never waits on the device. As in the reference, ``forward``, ``prefill``,
 q and k by M-RoPE on a config with ``mrope_sections``, and all but
 ``decode`` take ``extra_embeds`` (B, S, d), added to the token embeddings
 (the modality frontend's stub). The MoE auxiliary loss is summed over the
-layers by ``forward``. Remat and ``q_chunk`` are not ported. As in the
-reference's ``LM``, attention runs without a sliding window except in the
-hybrid's attention layers, which take the config's window (and so the
-plain attention, as the reference routes a window).
+layers by ``forward``. As in the reference's ``LM``, attention runs
+without a sliding window except in the hybrid's attention layers, which
+take the config's window (and so the plain attention, as the reference
+routes a window).
+
+Training knobs, the reference's ``LM`` fields: ``remat`` recomputes each
+layer of ``forward`` in the backward pass (``torch.utils.checkpoint``,
+non-reentrant) instead of keeping its activations; ``remat_policy``
+"dots" keeps the outputs of the plain matrix products (``aten.mm``,
+``aten.addmm``: ``dots_with_no_batch_dims_saveable``) and recomputes the
+rest (selective activation checkpointing), "full" keeps nothing. The
+kernels are no aten operations, so the policy never keeps their outputs:
+under either policy the forward's kernels run again in the backward, and
+their launch counts double. As in the reference, the hybrid's layers are
+not rematerialised. ``q_chunk`` > 0 sends windowed or soft-capped
+attention through ``attention.sdpa_blockwise`` (see ``gqa_full``). The
+reference's ``unroll`` (a Python loop instead of ``lax.scan``, for the
+dry-run's cost analysis) has no meaning here: the layers are always a
+Python loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -74,13 +91,46 @@ from .recurrent import (init_rglru_layers, init_rwkv_layers, rglru_block,
                         rwkv_time_mix)
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a layer-stacked dict / tuple tree (views, no copies)."""
+# the products "dots" keeps: plain matrix products with no batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_call(fn, policy: str, *args):
+    """``fn(*args)`` recomputed in the backward pass: everything under
+    "full", all but the plain matrix products under "dots"."""
+    kw = {}
+    if policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    elif policy != "full":
+        raise ValueError(f"remat_policy {policy!r}: 'full' or 'dots'")
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def layer_views(tree, n: int) -> list:
+    """The ``n`` layers of a layer-stacked dict / tuple tree (or of None),
+    each leaf unbound once (``torch.unbind``, views): under autograd one
+    stack gathers a leaf's gradients over all its layers, where indexing
+    each layer apart would give every layer's gradient as a zero tensor of
+    the whole stack, added up layer by layer."""
+    if tree is None:
+        return [None] * n
     if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
+        per = {k: layer_views(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
     if isinstance(tree, tuple):
-        return tuple(layer_slice(v, i) for v in tree)
-    return tree[i]
+        per = [layer_views(v, n) for v in tree]
+        return [tuple(p[i] for p in per) for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 @dataclasses.dataclass
@@ -89,6 +139,9 @@ class LM:
     dtype: torch.dtype = torch.float32
     device: torch.device | str | None = None  # None: the card, raising without one
     kv_quant: bool = False  # int8 KV cache with per-(token, head) f32 scales
+    remat: bool = False  # recompute each layer of forward in the backward
+    q_chunk: int = 0  # > 0: windowed / soft-capped attention blockwise
+    remat_policy: str = "full"  # or "dots": keep the matrix products
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -237,9 +290,13 @@ class LM:
         (k, v), or MLA's (latent, k_rope)."""
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        mixer = mla_full if cfg.mla is not None else gqa_full
-        mixed, kv = mixer(lp["mixer"], h, rope, cfg, lora=lora_slice,
-                          adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+        if cfg.mla is not None:
+            mixed, kv = mla_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
+                                 adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+        else:
+            mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
+                                 adapter_ids=adapter_ids, lora_scale=self.lora_scale,
+                                 q_chunk=self.q_chunk)
         x = x + mixed
         out, aux = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
         return x + out, aux, kv
@@ -266,34 +323,37 @@ class LM:
         kind, layer params, global index, h)`` gives each layer's mixed
         output; the dense FFN follows every layer."""
         cfg = self.cfg
+        types = self._layer_types()
+        L = len(types)
+        norms, ffn = layer_views(params["norms"], L), layer_views(params["ffn_layers"], L)
+        kinds = {k: layer_views(params[f"{k}_layers"], types.count(k))
+                 for k in ("rec", "attn")}
         seen = {"rec": 0, "attn": 0}
-        for i, kind in enumerate(self._layer_types()):
-            norms = layer_slice(params["norms"], i)
-            h = rms_norm(x, norms["norm1"], cfg.norm_eps)
+        for i, kind in enumerate(types):
+            h = rms_norm(x, norms[i]["norm1"], cfg.norm_eps)
             j = seen[kind]
             seen[kind] += 1
-            lp = layer_slice(params["rec_layers" if kind == "rec" else "attn_layers"], j)
-            x = x + mixer(kind, j, lp, i, h)
-            h2 = rms_norm(x, norms["norm2"], cfg.norm_eps)
-            x = x + dense_ffn(layer_slice(params["ffn_layers"], i), h2, cfg.activation)
+            x = x + mixer(kind, j, kinds[kind][j], i, h)
+            h2 = rms_norm(x, norms[i]["norm2"], cfg.norm_eps)
+            x = x + dense_ffn(ffn[i], h2, cfg.activation)
         return x
 
     def _hybrid_full(self, params, x, lora, adapter_ids):
         """Every layer of the hybrid over a fresh sequence (zero state,
         positions 0 .. S-1), the attention layers through ``gqa_full`` with
-        the config's window. (RWKV's ``forward`` is ``extend`` from a zero
-        state: its state is O(1) a row.)"""
+        the config's window."""
         cfg, dev = self.cfg, self.device
         B, S, _ = x.shape
         rope = step_rope(cfg, torch.arange(S, device=dev))
+        loras = layer_views(lora or None, cfg.num_layers)
 
         def mixer(kind, j, lp, i, h):
             if kind == "rec":
                 return rglru_block(lp, h, rglru_state_init(cfg, B, self.dtype, dev),
                                    cfg)[0]
-            return gqa_full(lp, h, rope, cfg, lora=layer_slice(lora, i) if lora else None,
+            return gqa_full(lp, h, rope, cfg, lora=loras[i],
                             adapter_ids=adapter_ids, lora_scale=self.lora_scale,
-                            window=cfg.window_size)[0]
+                            window=cfg.window_size, q_chunk=self.q_chunk)[0]
 
         return self._hybrid_layers(params, x, mixer)
 
@@ -319,19 +379,13 @@ class LM:
             if true_lens is not None:
                 tl = torch.as_tensor(true_lens).to(dev, torch.int64, non_blocking=True)
                 mask = torch.arange(S, device=dev)[None, :] < tl[:, None]
-            for i in range(cfg.num_layers):
-                st = {k: cache[k][i] for k in ("tm_x", "wkv", "cm_x")}
-                x, new = self._rwkv_layer(layer_slice(params["layers"], i),
-                                          layer_slice(lora, i) if lora else None,
-                                          x, st, adapter_ids, mask)
-                for k in st:
-                    store(cache[k], i, st[k], new[k])
-            return x
+            return self._rwkv_layers(params, x, lora, adapter_ids, cache, mask, store)
         step = cached_step(start, S, cache["k"].shape[2], dev, cfg, true_lens=true_lens,
                            keep_rows=keep_rows, window=cfg.window_size)
         mask = None
         if step.true_lens is not None:
             mask = torch.arange(S, device=dev)[None, :] < step.true_lens[:, None]
+        loras = layer_views(lora or None, cfg.num_layers)
 
         def mixer(kind, j, lp, i, h):
             if kind == "rec":
@@ -341,10 +395,37 @@ class LM:
                     store(cache[k], j, st[k], new[k])
                 return out
             return gqa_cached(lp, h, step, cache["k"][j], cache["v"][j], cfg,
-                              lora=layer_slice(lora, i) if lora else None,
-                              adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+                              lora=loras[i], adapter_ids=adapter_ids,
+                              lora_scale=self.lora_scale)
 
         return self._hybrid_layers(params, x, mixer)
+
+    def _rwkv_layers(self, params, x, lora, adapter_ids, cache=None, mask=None,
+                     store=None):
+        """RWKV's layers in order. With ``cache`` (``extend``) each starts
+        from its state there and ``store(leaf, i, old, new)`` writes the new
+        one; without (``forward``) each starts from a zero state, nothing is
+        written, and under ``remat`` and autograd each layer is recomputed
+        in the backward pass."""
+        cfg, L, B = self.cfg, self.cfg.num_layers, x.shape[0]
+        names = ("tm_x", "wkv", "cm_x")
+        remat = self.remat and cache is None and torch.is_grad_enabled()
+
+        def layer(lp, lsl, x, i):
+            st = (rwkv_state_init(cfg, B, self.dtype, self.device) if cache is None
+                  else {k: cache[k][i] for k in names})
+            return self._rwkv_layer(lp, lsl, x, st, adapter_ids, mask)
+
+        for i, (lp, lsl) in enumerate(zip(layer_views(params["layers"], L),
+                                          layer_views(lora or None, L))):
+            if remat:
+                x = remat_call(lambda *a: layer(*a)[0], self.remat_policy, lp, lsl, x, i)
+                continue
+            x, new = layer(lp, lsl, x, i)
+            if cache is not None:
+                for k in names:
+                    store(cache[k], i, cache[k][i], new[k])
+        return x
 
     def _write_full(self, cache, i: int, S: int, kv) -> None:
         """Layer ``i``'s rows of a fresh sequence into ``cache[..][i, :, :S]``
@@ -369,22 +450,38 @@ class LM:
         tokens = torch.as_tensor(tokens).to(dev, torch.int64, non_blocking=True)
         B, S = tokens.shape
         x = self._embed(params, tokens, extra_embeds)
-        rope = step_rope(cfg, torch.arange(S, device=dev), mrope_positions)
         ids = None
         if adapter_ids is not None:
             ids = torch.as_tensor(adapter_ids).to(dev, torch.int32, non_blocking=True)
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        if self.recurrent:
+        if cfg.rwkv is not None:  # every layer from a zero state
+            return self._rwkv_layers(params, x, lora, ids), aux
+        if cfg.rglru is not None:
             return self._hybrid_full(params, x, lora, ids), aux
+        rope = step_rope(cfg, torch.arange(S, device=dev), mrope_positions)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
+        lps = layer_views(params["layers"], cfg.num_layers)
+        lsls = layer_views(lora or None, cfg.num_layers)
         for i in range(cfg.num_layers):
-            x, a, kv = self._layer_full(layer_slice(params["layers"], i),
-                                        layer_slice(lora, i) if lora else None,
-                                        x, rope, ids)
+            lp, lsl = lps[i], lsls[i]
+            if remat:
+                x, a = remat_call(self._layer_train, self.remat_policy, lp, lsl, x,
+                                  rope, ids)
+                aux = aux + a
+                continue
+            x, a, kv = self._layer_full(lp, lsl, x, rope, ids)
             if a is not None:
                 aux = aux + a
             if cache is not None:
                 self._write_full(cache, i, S, kv)
         return x, aux
+
+    def _layer_train(self, lp, lora_slice, x, rope, adapter_ids):
+        """One layer of ``forward`` under remat: (x, aux), the cache rows
+        dropped so nothing of them is kept."""
+        x, a, _ = self._layer_full(lp, lora_slice, x, rope, adapter_ids)
+        return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+                   if a is None else a)
 
     def _layer_cached(self, lp, lora_slice, lcache, x, step, adapter_ids):
         """One layer against its cache ``lcache`` (layer i of every array)."""
@@ -408,13 +505,6 @@ class LM:
         """Full causal forward over ``tokens`` (B, S); returns
         ``(logits (B, S, vocab), aux)`` with ``aux`` the MoE auxiliary loss
         summed over the layers (0 for a dense FFN)."""
-        if self.cfg.rwkv is not None:  # extend from a zero state
-            B, S = torch.as_tensor(tokens).shape
-            logits, _ = self.extend(params, self.init_cache(B, S), tokens,
-                                    torch.zeros((B,), dtype=torch.int32), lora=lora,
-                                    adapter_ids=adapter_ids, extra_embeds=extra_embeds,
-                                    all_logits=True)
-            return logits, torch.zeros((), dtype=torch.float32, device=self.device)
         x, aux = self._run_full(params, tokens, lora, adapter_ids,
                                 extra_embeds=extra_embeds,
                                 mrope_positions=mrope_positions)
@@ -476,10 +566,11 @@ class LM:
             step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
                                keep_rows=keep_rows, mrope_positions=mrope_positions)
             arrays = {k: v for k, v in cache.items() if k != "len"}
-            for i in range(cfg.num_layers):
-                x = self._layer_cached(layer_slice(params["layers"], i),
-                                       layer_slice(lora, i) if lora else None,
-                                       layer_slice(arrays, i), x, step, ids)
+            L = cfg.num_layers
+            for i, (lp, lsl) in enumerate(zip(layer_views(params["layers"], L),
+                                              layer_views(lora or None, L))):
+                x = self._layer_cached(lp, lsl, {k: v[i] for k, v in arrays.items()},
+                                       x, step, ids)
         n_real = (torch.full((B,), S) if true_lens is None
                   else torch.as_tensor(true_lens).to("cpu", torch.int64))
         new_len = torch.as_tensor(start).to("cpu", torch.int64) + n_real

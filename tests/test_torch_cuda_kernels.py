@@ -9,7 +9,8 @@ no JAX, so it runs on a machine that has only PyTorch:
 Inputs come from numpy with a fixed seed. Tolerances: fused_sgmv and sgmv
 1e-4 of the largest reference magnitude (f32 sums of up to 2048 terms, in
 another order); the attention kernels 1e-5 absolute (softmax weights times
-unit-scale values).
+unit-scale values); the backward kernels (flash_prefill_bwd, lora_grad)
+1e-4 of the largest plain gradient (sums over S or B·S terms).
 """
 
 import numpy as np
@@ -17,9 +18,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
+    build,
     flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_fwd,
     flash_prefill_ragged,
     fused_sgmv,
+    lora_grad,
     ops,
     paged_attention,
     ragged_extend,
@@ -544,20 +549,58 @@ def _grad_cases(dev):
     }
 
 
-@pytest.mark.parametrize("name", sorted(_grad_cases("cpu")))
+@pytest.mark.parametrize("name", sorted(build.SERVING_ONLY))
 def test_cuda_launch_under_autograd_raises(cuda, name):
-    """The kernels have no backward: an input that requires grad raises
-    rather than come back as a tensor without a gradient. Under no_grad the
-    same call launches."""
+    """The serving-only kernels have no backward: an input that requires
+    grad raises rather than come back as a tensor without a gradient.
+    Under no_grad the same call launches."""
     shape, call = _grad_cases(cuda)[name]
     x = torch.randn(shape, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="serving-only kernel"):
         call(x)
     with torch.no_grad():
         before = ops.launch_counts()[name]
         assert torch.isfinite(call(x)).all()
         torch.cuda.synchronize()
         assert ops.launch_counts()[name] == before + 1
+
+
+def _training_case(name, dev):
+    """(inputs that require grad, kernel call, plain call) at a small shape
+    with a row of id -1 and a repeated id (fused_sgmv) or G = 2 (flash)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def f(*shape):
+        return torch.randn(shape, generator=g).to(dev).requires_grad_(True)
+
+    if name == "fused_sgmv":
+        ids = torch.tensor([1, -1, 1], dtype=torch.int32, device=dev)
+        xs = (f(3, 5, 24), f(24, 16), f(2, 24, 4), f(2, 4, 16))
+        return (xs, lambda *t: fused_sgmv(*t, ids, scale=0.5),
+                lambda *t: ref.fused_sgmv_ref(*t, ids, 0.5))
+    xs = (f(2, 4, 9, 8), f(2, 2, 9, 8), f(2, 2, 9, 8))
+    return xs, flash_prefill, ref.flash_prefill_ref
+
+
+@pytest.mark.parametrize("name,backward", [("fused_sgmv", "lora_grad"),
+                                           ("flash_prefill", "flash_prefill_bwd")])
+def test_cuda_training_kernels_return_the_plain_gradients(cuda, name, backward):
+    """fused_sgmv and flash_prefill are differentiable on the card: the
+    gradients of every input equal those of autograd through the plain
+    forward on the same tensors, within 1e-4 of their largest magnitude,
+    and the backward launches its own kernel once."""
+    xs, kernel, plain = _training_case(name, cuda)
+    before = ops.launch_counts()
+    y = kernel(*xs)
+    dy = torch.randn_like(y)
+    got = torch.autograd.grad(y, xs, dy)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after[name] == before[name] + 1
+    assert after[backward] == before[backward] + 1
+    want = torch.autograd.grad(plain(*xs), xs, dy)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 def test_cuda_wrappers_reject_bad_inputs(cuda):
@@ -592,3 +635,75 @@ def test_cuda_wrappers_name_the_shape_limits(cuda):
         paged_attention(f(2, 2, 260), f(2, 8, 1, 260), f(2, 8, 1, 260),
                         torch.arange(2, device=cuda).view(2, 1), ids + 5)
     assert ops.launch_counts() == before
+
+
+GRAD_TOL = 1e-4  # times max|plain grad|
+
+
+def _close(got, want):
+    return float((got - want).abs().max()) <= GRAD_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 16, 8, 130, 128),   # qwen3-0.6b's heads, a part-filled tile
+    (2, 4, 4, 77, 64),      # G = 1
+    (2, 6, 2, 70, 20),      # G = 3, D = 20
+    (1, 8, 2, 100, 160),    # G = 4 at a wide head
+    (1, 8, 1, 65, 256),     # gemma-2b: D = 256, MQA
+    (1, 28, 4, 40, 128),    # G = 7
+])
+def test_flash_prefill_bwd_cuda_matches_plain(cuda, B, H, Hkv, S, D):
+    """The attention backward against the plain one from the same o and
+    lse, read through (B, S, H, D) tensors transposed to head-major; a
+    repeat launch gives the same bits. The forward's out is the same bits
+    with and without its log-sum-exp, which matches the plain one."""
+    rng = np.random.default_rng(6)
+    q, k, v, do = (_t(rng.standard_normal(s, np.float32), cuda).transpose(1, 2)
+                   for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)))
+    out, lse = flash_prefill_fwd(q, k, v)
+    with torch.no_grad():
+        assert torch.equal(out, flash_prefill(q, k, v))
+    assert float((lse - ref.flash_prefill_lse_ref(q, k)).abs().max()) <= 1e-5
+    before = ops.launch_counts()["flash_prefill_bwd"]
+    got = flash_prefill_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_prefill_bwd"] == before + 1
+    assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
+    want = ref.flash_prefill_bwd_ref(q, k, v, out, lse, do)
+    for a, b in zip(got, want):
+        assert _close(a, b)
+    again = flash_prefill_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N", [
+    (4, 64, 1024, 2048, 32, 4),  # qwen3-0.6b's q projection
+    (3, 37, 96, 320, 1, 2),      # rank 1, part-filled tiles
+    (3, 20, 100, 72, 12, 3),     # rank 12, d_in % 4 != 0
+    (2, 33, 64, 64, 128, 2),     # rank 128
+])
+def test_lora_grad_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
+    """dA, dB and the delta of dx against the plain versions, with a row of
+    id -1 and a repeated id; an adapter with no row gets zeros; without dx
+    the kernel writes the same dA and dB; a repeat launch gives the same
+    bits."""
+    rng = np.random.default_rng(7)
+    x = _t(rng.standard_normal((B, S, d_in), np.float32), cuda)
+    dy = _t(rng.standard_normal((B, S, d_out), np.float32), cuda)
+    a = _t(rng.standard_normal((N, d_in, r), np.float32) * 0.05, cuda)
+    b = _t(rng.standard_normal((N, r, d_out), np.float32) * 0.05, cuda)
+    ids = _t(np.array(([-1, 0, 0, 1] * B)[:B], np.int32), cuda)
+    base = _t(rng.standard_normal((B, S, d_in), np.float32), cuda)
+    dx = base.clone()
+    before = ops.launch_counts()["lora_grad"]
+    da, db = lora_grad(x, dy, a, b, ids, 0.5, dx)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lora_grad"] == before + 1
+    delta, da_want, db_want = ref.lora_grad_ref(x, dy, a, b, ids, 0.5)
+    assert _close(da, da_want) and _close(db, db_want)
+    assert _close(dx - base, delta)
+    assert torch.equal(dx[0], base[0])  # id -1: no delta
+    if N > 2:
+        assert not da[2].any() and not db[2].any()  # no row of id 2
+    da2, db2 = lora_grad(x, dy, a, b, ids, 0.5)
+    assert torch.equal(da, da2) and torch.equal(db, db2)

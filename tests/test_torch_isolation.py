@@ -38,8 +38,9 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
-                         ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "train_lora_torch.py"],
+    ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
     assert not bad, f"{path} imports {bad}"
@@ -47,6 +48,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_port_and_serving_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.optim, repro_torch.distributed, "
             "repro_torch.kernels.ops, repro_torch.bridge; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "

@@ -187,8 +187,9 @@ def test_flash_prefill_reads_transposed_views():
 
 
 def test_cpu_plain_versions_keep_autograd():
-    """The CPU branch is plain PyTorch: gradients flow through it (the
-    CUDA branch refuses autograd, tests/test_torch_cuda_kernels.py)."""
+    """The CPU branch is plain PyTorch: gradients flow through it (on the
+    card fused_sgmv and flash_prefill have backward kernels and the
+    serving-only kernels refuse autograd, tests/test_torch_cuda_kernels.py)."""
     q = torch.randn((1, 2, 8, 4), requires_grad=True)
     kv = torch.randn((1, 1, 8, 4), requires_grad=True)
     flash_prefill(q, kv, kv).sum().backward()
@@ -210,7 +211,12 @@ def test_cpu_dispatch_counts_no_launch():
     qkv = torch.zeros((1, 2, 2, 4))
     flash_prefill(qkv, qkv, qkv)
     flash_prefill_ragged(qkv, qkv, qkv, torch.ones((1,), dtype=torch.int32))
+    qg = qkv.clone().requires_grad_(True)  # the backward's plain version too
+    flash_prefill(qg, qkv, qkv).sum().backward()
+    xg = x.clone().requires_grad_(True)
+    fused_sgmv(xg, torch.zeros((8, 4)), torch.zeros((1, 8, 2)),
+               torch.zeros((1, 2, 4)), torch.zeros((1,), dtype=torch.int32)).sum().backward()
     assert ops.launch_counts() == dict.fromkeys(build.KERNELS, 0)
     assert set(build.KERNELS) == {
         "fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
-        "flash_prefill", "flash_prefill_ragged"}
+        "flash_prefill", "flash_prefill_ragged", "flash_prefill_bwd", "lora_grad"}

@@ -26,7 +26,7 @@ from repro_torch import bridge, configs
 from repro_torch.models import build_model, make_decode_step, make_prefill_step
 from repro_torch.models.attention import gqa_full
 from repro_torch.models.common import rope_tables
-from repro_torch.models.transformer import layer_slice
+from repro_torch.models.transformer import layer_views
 
 XTOL = dict(rtol=1e-4, atol=1e-4)
 BACKENDS = ["pallas", "jnp"]
@@ -76,9 +76,10 @@ def test_gqa_full_matches_jax(backend):
                                   adapter_ids=jnp.asarray(IDS),
                                   lora_scale=jm.lora_scale)
     rope = rope_tables(torch.arange(S), tm.cfg.resolved_head_dim, tm.cfg.rope_theta)
-    tout, (tk, tv) = gqa_full(layer_slice(tp["layers"]["mixer"], 1),
+    L = tm.cfg.num_layers
+    tout, (tk, tv) = gqa_full(layer_views(tp["layers"]["mixer"], L)[1],
                               torch.from_numpy(x), rope, tm.cfg,
-                              lora=layer_slice(tl, 1),
+                              lora=layer_views(tl, L)[1],
                               adapter_ids=torch.from_numpy(IDS),
                               lora_scale=tm.lora_scale)
     for got, want in ((tout, jout), (tk, jk), (tv, jv)):
