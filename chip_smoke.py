@@ -48,7 +48,9 @@ exits non-zero:
               ``ARCH_HEADS`` shape (B = 2), from the forward's own out and
               log-sum-exp (out the same bits with and without it), beside
               SDPA's f32 backward; lora_grad at qwen3-0.6b's q/k/v/o and at
-              ranks 1, 12, 128, with a row of id -1 and repeated ids. Then
+              ranks 1, 12, 128, with a row of id -1 and repeated ids;
+              flash_prefill_bwd over one 4096-token row (its separate dQ
+              pass). Then
               a check that the four serving-only kernels refuse autograd on
               the card and that fused_sgmv and flash_prefill return the
               plain backward's gradients.
@@ -116,8 +118,8 @@ exits non-zero:
               adapters and a base row): 10 full-parameter steps with exact
               launches a step (fused_sgmv and lora_grad 4 per layer,
               flash_prefill and flash_prefill_bwd 1), steps/s, tokens/s,
-              peak memory; 2 steps under remat (the forward's launches
-              double); 20 LoRA-only steps on one fixed batch (the loss
+              peak memory; under remat a warm-up step, then 4 steps timed
+              one by one (the forward's launches double); 20 LoRA-only steps on one fixed batch (the loss
               falls, the base weights keep their bits, no dW is formed);
               one step's loss and gradients at B = 2, S = 256 against the
               CPU's (the plain versions); ``CheckpointManager.save_async``
@@ -565,10 +567,16 @@ def flash_bwd_case(ops, ref, gen, dev, B=8, S=512, H=16, Hkv=8, D=128):
     again = kernel()
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_prefill_bwd {H}/{Hkv}x{D}: a repeat launch differs")
-    del got, want, again
-    qc, kc, vc = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    del got, again
+    # SDPA takes (B, heads, S, D): the head-major views, made contiguous;
+    # its gradients' largest error against the plain ones is recorded (a
+    # yardstick computes the same function)
+    qc, kc, vc = (t.detach().contiguous().requires_grad_(True) for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
-    do_c = do.transpose(1, 2).contiguous()
+    do_c = do.contiguous()
+    lib_grads = torch.autograd.grad(o_lib, (qc, kc, vc), do_c, retain_graph=True)
+    lib_err = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(lib_grads, want))
+    del want, lib_grads
     library = time_ms(lambda: torch.autograd.grad(o_lib, (qc, kc, vc), do_c,
                                                   retain_graph=True), iters=5)[0]
     del o_lib
@@ -579,7 +587,7 @@ def flash_bwd_case(ops, ref, gen, dev, B=8, S=512, H=16, Hkv=8, D=128):
     return dict(case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}",
                 max_abs_err=max(errs), lse_max_abs_err=lse_err, ms=ms, host_ms=host_ms,
                 plain_ms=time_ms(plain, iters=3)[0], bound_ms=bnd, bound_by=by,
-                library_ms=library)
+                library_ms=library, library_rel_err=lib_err)
 
 
 def lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out, B=8, S=512, N=4, r=32):
@@ -628,12 +636,16 @@ def lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out, B=8, S=512, N=4, r=32)
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
 
+LONG_BWD_S = 4096  # the long flash_prefill_bwd case: B = 1, qwen3-0.6b's heads
+
+
 def backward_kernel_cases(ops, ref, gen, dev):
     """Phase 3's backward cases: flash_prefill_bwd at qwen3-0.6b's B = 8,
     S = 512 and at each :data:`ARCH_HEADS` head shape (B = 2, S = 512);
     lora_grad at qwen3-0.6b's q/k/v/o (B = 8, S = 512, rank 32) and on q at
-    ranks 1, 12 and 128. Returns {kernel: [case, ...]}, the qwen3-0.6b
-    cases first."""
+    ranks 1, 12 and 128; then flash_prefill_bwd at qwen3-0.6b's heads over
+    one row of :data:`LONG_BWD_S` tokens. Returns {kernel: [case, ...]},
+    the qwen3-0.6b cases first."""
     out = {"flash_prefill_bwd": [flash_bwd_case(ops, ref, gen, dev)], "lora_grad": []}
     torch.cuda.empty_cache()
     for arch, H, Hkv, D in ARCH_HEADS:
@@ -645,6 +657,10 @@ def backward_kernel_cases(ops, ref, gen, dev):
         out["lora_grad"].append(lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out))
     for r in (1, 12, 128):
         out["lora_grad"].append(lora_grad_case(ops, ref, gen, dev, "q", 1024, 2048, r=r))
+    torch.cuda.empty_cache()
+    # a long row, past the budget of the folded dQ partials: the separate
+    # dQ pass (flash_prefill.bwd_plan)
+    out["flash_prefill_bwd"].append(flash_bwd_case(ops, ref, gen, dev, B=1, S=LONG_BWD_S))
     torch.cuda.empty_cache()
     return out
 
@@ -1847,7 +1863,7 @@ def encdec_phase(ops, configs, dev, seed: int = 0, B: int = ENCDEC_B, S: int = E
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_B, TRAIN_S = 8, 512  # 4,096 tokens a step
 TRAIN_IDS = (0, 1, 2, 3, 0, 1, 2, -1)  # four adapters and a base-model row
-TRAIN_STEPS, REMAT_STEPS, LORA_STEPS = 10, 2, 20
+TRAIN_STEPS, REMAT_STEPS, LORA_STEPS = 10, 4, 20
 CHECK_B, CHECK_S = 2, 256  # the card-against-CPU step
 TRAIN_CKPT = HERE / "build" / "repro_torch_train" / "chip_smoke"
 
@@ -1948,21 +1964,37 @@ def train_phase(ops, configs, dev):
                         "losses": losses, "grad_norm": float(met["grad_norm"])}
         full_launches = launches
 
-        # 2. remat: the forward's kernels run again in the backward
+        # 2. remat: the forward's kernels run again in the backward; one
+        # warm-up step (the allocator meets remat's pattern), then
+        # REMAT_STEPS timed one by one
         remat_fn = make_train_step(build_model(cfg, device=dev, remat=True), lr=3e-4)
-        ops.reset_launch_counts()
-        rstate = state
-        t0 = time.perf_counter()
-        for step in range(REMAT_STEPS):
-            rstate, _ = remat_fn(rstate, train_batch(cfg, 100 + step, dev))
+
+        def alloc_counts():  # the caching allocator's cudaMalloc, cudaFree and retries
+            st = torch.cuda.memory_stats()
+            return {k: st.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                              "num_alloc_retries")}
+
+        a0, t0 = alloc_counts(), time.perf_counter()
+        rstate, _ = remat_fn(state, train_batch(cfg, 100, dev))
         torch.cuda.synchronize()
-        rwall = time.perf_counter() - t0
+        warm_s, a1 = time.perf_counter() - t0, alloc_counts()
+        ops.reset_launch_counts()
+        rsteps = []
+        for step in range(1, REMAT_STEPS + 1):
+            t0 = time.perf_counter()
+            rstate, _ = remat_fn(rstate, train_batch(cfg, 100 + step, dev))
+            torch.cuda.synchronize()
+            rsteps.append(time.perf_counter() - t0)
+        rwall, a2 = sum(rsteps), alloc_counts()
         launches = ops.launch_counts()
         want = dict.fromkeys(launches, 0)
         want.update(fused_sgmv=8 * L * REMAT_STEPS, flash_prefill=2 * L * REMAT_STEPS,
                     flash_prefill_bwd=L * REMAT_STEPS, lora_grad=4 * L * REMAT_STEPS)
         require(launches == want, f"remat launches {launches} != {want}")
         line["remat"] = {"steps": REMAT_STEPS, "seconds_per_step": rwall / REMAT_STEPS,
+                         "step_seconds": rsteps, "warmup_step_seconds": warm_s,
+                         "allocator_warmup": {k: a1[k] - a0[k] for k in a0},
+                         "allocator_timed": {k: a2[k] - a1[k] for k in a0},
                          "launches_per_step": {k: v // REMAT_STEPS
                                                for k, v in launches.items()}}
         del rstate, remat_fn
@@ -2289,7 +2321,8 @@ def main() -> None:
         k["arch_cases"] = [{key: m[key] for key in ("arch", "path") + keys if key in m}
                            for m in arch_cases[k["name"]]]
     # the backward kernels' other cases: flash_prefill_bwd at the other
-    # configs' heads, lora_grad at k/v/o and ranks 1, 12, 128
+    # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,
+    # 12, 128
     for k in kernels[6:]:
         k["other_cases"] = [{key: m[key] for key in ("arch",) + keys if key in m}
                             for m in bwd_cases[k["name"]][1:]]

@@ -39,7 +39,7 @@ from repro_torch.kernels.ragged_extend import _SIGNATURES as RAGGED_SIG  # noqa:
 VARIANTS = {
     "as built": [],
     # one TF32 product (hi·hi) in place of three: breaks the tolerance
-    "one_tf32_product": [("attention_tc.cuh",
+    "one_tf32_product": [("tf32x3.cuh",
                           "  mma_tf32(d, alo, bhi);  // the small products first\n"
                           "  mma_tf32(d, ahi, blo);\n", "")],
     # scores divided by √D rather than multiplied by 1/√D

@@ -1,6 +1,6 @@
-"""Time chip_smoke.py's qwen3-0.6b kernel cases of two checkouts in turns.
+"""Time chip_smoke.py's phase 3 kernel cases of two checkouts in turns.
 
-    python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1]
+    python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1] [--cases all|forward|backward]
 
 on one NVIDIA GPU. A_DIR and B_DIR are checkouts of the repository (the
 parent commit and the change, say). Both build their kernels first, in
@@ -11,9 +11,16 @@ cases as ``chip_smoke.main`` runs them: fused_sgmv at S = 256, 1, 2016 and
 64 over the q, k, v and o projections, ragged_extend at the 256-, 64- and
 8-token buckets, paged_attention at the 2048-token table and the engine's
 decode lengths, sgmv on q and o at S = 2016 and 1, flash_prefill and
-flash_prefill_ragged. Each case's checks run as in chip_smoke (a failed
-one ends the turn with an error). Prints one JSON line per turn
-({"turn", "dir", "ms": {case: ms}, "cold_ms": {case: ms}}) and then one
+flash_prefill_ragged; then the backward cases of
+``chip_smoke.backward_kernel_cases``: flash_prefill_bwd at qwen3-0.6b's
+B = 8, S = 512 and at every ``ARCH_HEADS`` shape (B = 2), lora_grad on
+q/k/v/o and on q at ranks 1, 12 and 128, flash_prefill_bwd over one row of
+4096 tokens (run here where a checkout's ``chip_smoke.py`` lacks it, so
+both sides time it). ``--cases`` keeps the forward or
+the backward cases only. Each case's checks run as in chip_smoke (a failed
+one ends the turn with an error). Prints the card's name and power limit
+(``nvidia-smi``), then one JSON line per turn ({"turn", "dir", "ms": {case:
+ms}, "cold_ms": {case: ms}, "plain_ms", "library_ms"}) and then one
 summary line: per case, the mean of each checkout's turns and B / A; over
 the cases, the largest and median |B / A - 1| and each checkout's largest
 spread between its own turns (max / min - 1), warm and cold.
@@ -29,8 +36,9 @@ import sys
 from pathlib import Path
 
 
-def turn(root: Path) -> dict:
-    """Phase 3's qwen3-0.6b cases of the checkout at ``root``: {label: case}."""
+def turn(root: Path, which: str = "all") -> dict:
+    """Phase 3's cases of the checkout at ``root`` (``which``: all,
+    forward or backward): {label: case}."""
     sys.path.insert(0, str(root))
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -45,6 +53,19 @@ def turn(root: Path) -> dict:
     projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
                    ("o", 2048, 1024))
     cases = {}
+    if which != "forward":
+        bwd = cs.backward_kernel_cases(ops, ref, gen, dev)
+        for c in bwd["flash_prefill_bwd"]:
+            cases[f"flash_prefill_bwd {c.get('arch', 'qwen3-0.6b')} {c['case']}"] = c
+        for c in bwd["lora_grad"]:
+            cases[f"lora_grad {c['case'].split(', ids')[0]}"] = c
+        torch.cuda.empty_cache()
+        long_case = "flash_prefill_bwd qwen3-0.6b B=1, S=4096, 16/8 heads, D=128"
+        if long_case not in cases:  # a chip_smoke.py from before the long case
+            cases[long_case] = cs.flash_bwd_case(ops, ref, gen, dev, B=1, S=4096)
+            torch.cuda.empty_cache()
+    if which == "backward":
+        return cases
     for S in (256, 1, 2016, 64):
         for p, di, do in projections:
             cases[f"fused_sgmv {p} S={S}"] = cs.sgmv_case(ops, ref, p, di, do, S, gen, dev)
@@ -72,14 +93,21 @@ def main() -> None:
     ap.add_argument("a", nargs="?")
     ap.add_argument("b", nargs="?")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--cases", choices=("all", "forward", "backward"), default="all")
     ap.add_argument("--run", help="(internal) run one turn in this checkout")
     args = ap.parse_args()
     if args.run:
-        cases = turn(Path(args.run).resolve())
+        cases = turn(Path(args.run).resolve(), args.cases)
         print(json.dumps({"ms": {k: c["ms"] for k, c in cases.items()},
                           "cold_ms": {k: c["cold"]["ms"] for k, c in cases.items()
-                                      if "cold" in c}}), flush=True)
+                                      if "cold" in c},
+                          "plain_ms": {k: c["plain_ms"] for k, c in cases.items()},
+                          "library_ms": {k: c["library_ms"] for k, c in cases.items()}}),
+              flush=True)
         return
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
     dirs = {"A": Path(args.a).resolve(), "B": Path(args.b).resolve()}
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
@@ -89,8 +117,8 @@ def main() -> None:
         raise SystemExit("phase3_ab: a kernel build failed")
     times = {"A": [], "B": []}
     for i, who in enumerate("ABBA" * args.rounds):
-        out = subprocess.run([sys.executable, __file__, "--run", str(dirs[who])],
-                             capture_output=True, text=True)
+        out = subprocess.run([sys.executable, __file__, "--run", str(dirs[who]),
+                              "--cases", args.cases], capture_output=True, text=True)
         if out.returncode != 0:
             raise SystemExit(f"phase3_ab: turn {i} ({who}) failed:\n{out.stderr[-3000:]}")
         res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -103,6 +131,8 @@ def main() -> None:
             a = statistics.mean(t[kind][case] for t in times["A"])
             b = statistics.mean(t[kind][case] for t in times["B"])
             ratios[case] = {"a": a, "b": b, "b_over_a": b / a}
+        if not ratios:  # the backward cases are timed warm only
+            continue
         dev = [abs(r["b_over_a"] - 1) for r in ratios.values()]
         summary[kind] = {"cases": ratios, "max_abs_change": max(dev),
                          "median_abs_change": statistics.median(dev)}

@@ -28,6 +28,7 @@ launches the kernel, and nowhere else.
 from __future__ import annotations
 
 import collections
+import functools
 import hashlib
 import os
 import shutil
@@ -128,6 +129,16 @@ def load(source: str, signatures: dict[str, str]):
             fn.argtypes = [kinds[a] for a in sig]
             fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device: the kernels' plans split work to fill them."""
+    return _sm_count(torch.device(device).index or 0)
 
 
 def check_error(name: str, source: str, lib, code: int) -> None:

@@ -136,14 +136,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ahi)[4],
-                                           const unsigned (&alo)[4], const unsigned (&bhi)[2],
-                                           const unsigned (&blo)[2]) {
-  mma_tf32(d, alo, bhi);  // the small products first
-  mma_tf32(d, ahi, blo);
-  mma_tf32(d, ahi, bhi);
-}
-
 // One block's attention. Src gives the addresses (h is the head within
 // the group, 0 .. G − 1):
 //   const float* q_at(int s, int h), k_at(int t), v_at(int t), any();

@@ -70,6 +70,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d += a·b in 3xTF32 from fragments split by split_tf32
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ahi)[4],
+                                           const unsigned (&alo)[4], const unsigned (&bhi)[2],
+                                           const unsigned (&blo)[2]) {
+  mma_tf32(d, alo, bhi);  // the small products first
+  mma_tf32(d, ahi, blo);
+  mma_tf32(d, ahi, bhi);
+}
+
 // One k8 step of a warp's (16·MT) x (8·NT) tile in 3xTF32: ``as`` points at the
 // warp's first row and this step's k (row pitch lda), ``bs`` at this
 // step's k row and the warp's first column (pitch ldb). Fragments: A

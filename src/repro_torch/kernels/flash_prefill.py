@@ -37,12 +37,39 @@ _SOURCE = "flash_prefill"
 _SIGNATURES = {"flash_prefill_launch": "ppppppiiiiilllllllllp"}
 _BWD_SOURCE = "flash_prefill_bwd"
 _BWD_SIGNATURES = {
-    # q, k, v, o, dout, lse, scratch, dq, dk, dv, B, S, H, Hkv, D, then the
-    # b, h, s element strides of q (o, dq), k (dk), v (dv) and dout, stream
-    "flash_prefill_bwd_launch": "ppppppppppiiiiillllllllllllp",
-    # (B, S, H, Hkv, D) -> floats of scratch a launch needs
-    "flash_prefill_bwd_scratch_floats": "iiiii",
+    # q, k, v, o, dout, lse, delta, part (NULL: no head parts), dQ partials
+    # (NULL: a dQ pass of its own), dq, dk, dv, B, S, H, Hkv, D, head
+    # parts, then the b, h, s element strides of q (o, dq), k (dk), v (dv)
+    # and dout, stream
+    "flash_prefill_bwd_launch": "ppppppppppppiiiiiillllllllllllp",
 }
+
+BWD_KV_KEYS = 64  # keys of a dK/dV block of csrc/flash_prefill_bwd.cu
+# The most floats of dQ partials (256 MiB) the backward folds dQ into its
+# dK/dV blocks for; past it dQ takes a pass of its own. The partials grow
+# as S²·B·H·D / 128; the budget keeps the backward's memory O(S).
+DQ_FOLD_FLOATS = 1 << 26
+
+
+def dq_part_rows(S: int) -> int:
+    """Rows (of D floats, for every b and head) of the dQ partials of all
+    kv tiles: tile t holds queries 64t .. S - 1."""
+    t = -(-S // BWD_KV_KEYS)
+    return t * S - BWD_KV_KEYS // 2 * t * (t - 1)
+
+
+def bwd_plan(B: int, S: int, H: int, Hkv: int, D: int, sms: int) -> tuple[int, bool]:
+    """How ``csrc/flash_prefill_bwd.cu`` splits the work on a card of
+    ``sms`` SMs: (hs, fold). Where the (64-key tile, b, kv head) blocks of
+    the dK/dV pass do not give two blocks an SM, each block takes one of
+    ``hs`` parts of the group's heads (at most G) and a further pass adds
+    the parts' dK and dV in order. ``fold``: the dK/dV blocks also write
+    each q tile's dQ partial over their keys, added in kv tile order (five
+    products in place of seven), while the partials fit
+    :data:`DQ_FOLD_FLOATS`; else dQ has a pass of its own."""
+    blocks = -(-S // BWD_KV_KEYS) * B * Hkv
+    hs = max(1, min(-(-2 * sms // blocks), H // Hkv))
+    return hs, dq_part_rows(S) * B * H * D <= DQ_FOLD_FLOATS
 
 
 def _launch(name, q, k, v, true_lens, lse=None):
@@ -131,15 +158,20 @@ def flash_prefill_bwd(q, k, v, o, lse, do):
     if dq.stride() != q.stride() or o.stride() != q.stride():
         raise ValueError(f"{name}: q and o must be one permutation of a dense tensor")
     lib = build.load(_BWD_SOURCE, _BWD_SIGNATURES)
-    floats = lib.flash_prefill_bwd_scratch_floats(B, S, H, Hkv, D)
-    if floats < 0:
-        raise ValueError(f"{name}: the scratch of B={B}, S={S}, H={H} passes 2^31 floats")
-    scratch = torch.empty((floats,), device=dev, dtype=torch.float32)
+    hs, fold = bwd_plan(B, S, H, Hkv, D, build.sm_count(dev))
+    # scratch: Δ (rounded up to 16 bytes), the head parts' dK and dV, the
+    # dQ partials
+    n_delta = -(-B * H * S // 4) * 4
+    n_part = 2 * hs * B * Hkv * S * D if hs > 1 else 0
+    n_dq = dq_part_rows(S) * B * H * D if fold else 0
+    scratch = torch.empty((n_delta + n_part + n_dq,), device=dev, dtype=torch.float32)
+    ptr = scratch.data_ptr()
     code = lib.flash_prefill_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, S, H, Hkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *do.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)
+        lse.data_ptr(), ptr, ptr + 4 * n_delta if n_part else None,
+        ptr + 4 * (n_delta + n_part) if fold else None, dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, S, H, Hkv, D, hs, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *do.stride()[:3], torch.cuda.current_stream(dev).cuda_stream)
     build.check_error(name, _BWD_SOURCE, lib, code)
     build.launches[name] += 1
     return dq, dk, dv

@@ -40,11 +40,11 @@ _SIGNATURES = {
 }
 _GRAD_SOURCE = "lora_grad"
 _GRAD_SIGNATURES = {
-    # x, dy, a, b, ids, scratch, da, db, dx (NULL: none), B, S, N, d_in,
-    # d_out, r, scale, stream
-    "lora_grad_launch": "pppppppppiiiiiifp",
-    # (B, S, N, d_in, d_out, r) -> floats of scratch a launch needs
-    "lora_grad_scratch_floats": "iiiiii",
+    # x, dy, a, b, ids, h, g, parts_h, parts_g, parts_a, parts_b (NULL where
+    # unsplit), counters, da, db, dx (NULL: none), B, S, N, d_in, d_out, r,
+    # then lora_grad_plan's r8, ks_h, kper_h, ks_g, kper_g, ms, sper, scale,
+    # stream
+    "lora_grad_launch": "pppppppppppppppiiiiiiiiiiiiifp",
 }
 
 
@@ -69,6 +69,67 @@ def skinny_plan(M: int, d_in: int, d_out: int, has_base: bool, sms: int):
                  SKINNY_MAX_SPLITS)
     kper = -(-KT // splits)
     return cols, -(-KT // kper), kper
+
+
+# csrc/lora_grad.cu's tiles, which lora_grad_plan splits the work over
+LORA_GRAD_TM = 64  # tokens of a shrink tile
+LORA_GRAD_KC = 32  # d rows of a shrink stage
+LORA_GRAD_TD = 64  # columns of an outer block
+LORA_GRAD_MAX_PARTS = 8
+
+
+def _split(n: int, want: int, least: int, step: int) -> tuple[int, int]:
+    """``n`` in at most ``want`` parts of at least ``least``, each a
+    multiple of ``step``: (parts, per)."""
+    parts = max(min(n // least, want), 1)
+    per = -(-n // parts)
+    per = -(-per // step) * step
+    return -(-n // per), per
+
+
+def _lora_grad_layout(M, N, d_in, d_out, r, r8, ks_h, ks_g, ms):
+    """Floats of lora_grad's scratch buffers, in order: h, g, the shrink's
+    parts of h and of g, the outer products' parts of dA and of dB (0
+    where unsplit), each rounded up to 16 bytes."""
+    sizes = (M * r8, M * r8, ks_h * M * r8 if ks_h > 1 else 0,
+             ks_g * M * r8 if ks_g > 1 else 0, ms * N * d_in * r if ms > 1 else 0,
+             ms * N * r * d_out if ms > 1 else 0)
+    return tuple(-(-n // 4) * 4 for n in sizes)
+
+
+_counters: dict = {}
+
+
+def _zero_counters(dev, stream, n: int) -> torch.Tensor:
+    """lora_grad's counts of finished shrink parts: at least ``n`` int32
+    zeros, one buffer per device and stream. The kernel leaves them zero."""
+    buf = _counters.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = _counters[(dev, stream)] = torch.zeros((n,), device=dev, dtype=torch.int32)
+    return buf
+
+
+def lora_grad_plan(B: int, S: int, N: int, d_in: int, d_out: int, r: int, sms: int):
+    """How ``csrc/lora_grad.cu`` splits the work on a card of ``sms`` SMs
+    (the wrapper passes it to the kernel): (r8, (ks_h, kper_h), (ks_g,
+    kper_g), (ms, sper), scratch floats). The rank runs padded to
+    r8, a multiple of 8. The shrink splits d_in (d_out) into ks parts of
+    kper rows, at least 256 each, until the 64-token tiles (h and g) give
+    four blocks an SM, and the last part's block of a tile adds the parts
+    in order; the outer products split the sequence into ms parts of sper
+    tokens, at least 64 each, until the blocks of the adapters that can
+    have rows give two blocks an SM, and a third launch adds the parts in
+    order."""
+    M = B * S
+    r8 = -(-r // 8) * 8
+    tiles = 2 * B * -(-S // LORA_GRAD_TM)
+    want_k = min(-(-4 * sms // tiles), LORA_GRAD_MAX_PARTS)
+    ks_h = _split(d_in, want_k, 256, LORA_GRAD_KC)
+    ks_g = _split(d_out, want_k, 256, LORA_GRAD_KC)
+    blocks = min(N, B) * (-(-d_in // LORA_GRAD_TD) + -(-d_out // LORA_GRAD_TD))
+    ms = _split(S, min(-(-2 * sms // blocks), LORA_GRAD_MAX_PARTS), 64, 1)
+    floats = sum(_lora_grad_layout(M, N, d_in, d_out, r, r8, ks_h[0], ks_g[0], ms[0]))
+    return r8, ks_h, ks_g, ms, floats
 
 
 def _check(name, x, w, lora_a, lora_b, adapter_ids):
@@ -161,15 +222,22 @@ def lora_grad(
     if B * S == 0:
         return da.zero_(), db.zero_()
     lib = build.load(_GRAD_SOURCE, _GRAD_SIGNATURES)
-    floats = lib.lora_grad_scratch_floats(B, S, N, d_in, d_out, r)
-    if floats < 0:
-        raise ValueError(f"{name}: the scratch of B={B}, S={S}, N={N} passes 2^31 floats")
+    r8, (ks_h, kper_h), (ks_g, kper_g), (ms, sper), floats = lora_grad_plan(
+        B, S, N, d_in, d_out, r, build.sm_count(dev))
     scratch = torch.empty((floats,), device=dev, dtype=torch.float32)
+    bufs, at = [], scratch.data_ptr()
+    for n in _lora_grad_layout(B * S, N, d_in, d_out, r, r8, ks_h, ks_g, ms):
+        bufs.append(at if n else None)
+        at += 4 * n
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the shrink's count of finished parts, per 64-token tile of h and g
+    counters = (_zero_counters(dev, stream, 2 * B * -(-S // LORA_GRAD_TM)).data_ptr()
+                if ks_h > 1 or ks_g > 1 else None)
     code = lib.lora_grad_launch(
         x.data_ptr(), dy.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
-        ids.data_ptr(), scratch.data_ptr(), da.data_ptr(), db.data_ptr(),
-        None if dx is None else dx.data_ptr(), B, S, N, d_in, d_out, r, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ids.data_ptr(), *bufs, counters, da.data_ptr(), db.data_ptr(),
+        None if dx is None else dx.data_ptr(), B, S, N, d_in, d_out, r, r8, ks_h, kper_h,
+        ks_g, kper_g, ms, sper, float(scale), stream)
     build.check_error(name, _GRAD_SOURCE, lib, code)
     build.launches[name] += 1
     return da, db

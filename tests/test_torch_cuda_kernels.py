@@ -13,6 +13,8 @@ unit-scale values); the backward kernels (flash_prefill_bwd, lora_grad)
 1e-4 of the largest plain gradient (sums over S or B·S terms).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +33,9 @@ from repro_torch.kernels import (
     ref,
     sgmv,
 )
+
+flash_prefill_mod = importlib.import_module("repro_torch.kernels.flash_prefill")
+sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
 
 
 @pytest.fixture
@@ -651,12 +656,72 @@ def _close(got, want):
     (1, 8, 2, 100, 160),    # G = 4 at a wide head
     (1, 8, 1, 65, 256),     # gemma-2b: D = 256, MQA
     (1, 28, 4, 40, 128),    # G = 7
+    (2, 4, 2, 1, 128),      # S = 1: one key, one query
+    (1, 4, 2, 15, 64),      # S = 15: inside one q tile of either pass
+    (1, 16, 8, 513, 128),   # S = 513: one key past the last 64-key tile
+    (2, 4, 2, 33, 4),       # D = 4, padded to 32
+    (1, 3, 3, 47, 20),      # D = 20 at G = 1
+    (1, 14, 2, 90, 160),    # G = 7 at a wide head
+    (8, 16, 8, 512, 128),   # qwen3-0.6b's training batch
 ])
 def test_flash_prefill_bwd_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     """The attention backward against the plain one from the same o and
     lse, read through (B, S, H, D) tensors transposed to head-major; a
     repeat launch gives the same bits. The forward's out is the same bits
-    with and without its log-sum-exp, which matches the plain one."""
+    with and without its log-sum-exp, which matches the plain one. Every
+    shape here folds dQ into the dK/dV blocks."""
+    assert flash_prefill_mod.bwd_plan(B, S, H, Hkv, D, build.sm_count(cuda))[1]
+    _check_flash_bwd(cuda, B, H, Hkv, S, D)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 16, 8, 130, 128),   # qwen3-0.6b's heads, a part-filled tile
+    (2, 4, 2, 1, 128),      # S = 1
+    (1, 16, 8, 513, 128),   # one query past the last 64-query tile
+    (2, 4, 2, 33, 4),       # D = 4
+    (1, 3, 3, 47, 20),      # D = 20 at G = 1
+    (1, 14, 2, 90, 160),    # G = 7 at a wide head: K/V tiles of 32
+    (1, 8, 1, 65, 256),     # D = 256, MQA: 32-query tiles, four key warps
+])
+def test_flash_prefill_bwd_separate_dq_cuda_matches_plain(cuda, monkeypatch, B, H, Hkv, S, D):
+    """The separate dQ pass, which the plan takes where the dQ partials
+    would pass their budget: with the budget at nothing, every shape takes
+    it."""
+    monkeypatch.setattr(flash_prefill_mod, "DQ_FOLD_FLOATS", -1)
+    assert not flash_prefill_mod.bwd_plan(B, S, H, Hkv, D, build.sm_count(cuda))[1]
+    _check_flash_bwd(cuda, B, H, Hkv, S, D)
+
+
+def test_flash_prefill_bwd_long_sequence_cuda(cuda):
+    """One 16384-token row of qwen3-0.6b's heads: the dQ partials would take
+    4.3e9 floats, so the plan takes the separate dQ pass and the scratch
+    stays Δ's. Held against SDPA's f32 backward (memory-efficient, K and V
+    repeated over the group, their gradients summed back), as the plain
+    version's S x S scores would not fit the card; a repeat launch gives
+    the same bits."""
+    B, H, Hkv, S, D = 1, 16, 8, 16384, 128
+    assert flash_prefill_mod.bwd_plan(B, S, H, Hkv, D, build.sm_count(cuda)) == (1, False)
+    F = torch.nn.functional
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn((B, S, h, D), generator=gen, device=cuda).transpose(1, 2)
+                   for h in (H, Hkv, Hkv, H))
+    out, lse = flash_prefill_fwd(q, k, v)
+    got = flash_prefill_bwd(q, k, v, out, lse, do)
+    again = flash_prefill_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    G = H // Hkv
+    qe, ke, ve = (t.detach().clone().requires_grad_(True)
+                  for t in (q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)))
+    with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
+        o_lib = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        dq, dk, dv = torch.autograd.grad(o_lib, (qe, ke, ve), do)
+    want = (dq, dk.reshape(B, Hkv, G, S, D).sum(2), dv.reshape(B, Hkv, G, S, D).sum(2))
+    for a, b in zip(got, want):
+        assert _close(a, b)
+
+
+def _check_flash_bwd(cuda, B, H, Hkv, S, D):
     rng = np.random.default_rng(6)
     q, k, v, do = (_t(rng.standard_normal(s, np.float32), cuda).transpose(1, 2)
                    for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D)))
@@ -670,8 +735,15 @@ def test_flash_prefill_bwd_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     assert ops.launch_counts()["flash_prefill_bwd"] == before + 1
     assert got[0].stride() == q.stride() and got[1].stride() == k.stride()
     want = ref.flash_prefill_bwd_ref(q, k, v, out, lse, do)
-    for a, b in zip(got, want):
-        assert _close(a, b)
+    if S == 1:
+        # one key: P = 1 and dS = dP - Δ = 0, so dq and dk are 0 up to the
+        # rounding of dO·V against Δ (the plain ones too); dv is dO
+        assert _close(got[2], want[2])
+        for a in got[:2]:
+            assert float(a.abs().max()) <= GRAD_TOL * float(do.abs().max())
+    else:
+        for a, b in zip(got, want):
+            assert _close(a, b)
     again = flash_prefill_bwd(q, k, v, out, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
@@ -679,8 +751,13 @@ def test_flash_prefill_bwd_cuda_matches_plain(cuda, B, H, Hkv, S, D):
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N", [
     (4, 64, 1024, 2048, 32, 4),  # qwen3-0.6b's q projection
     (3, 37, 96, 320, 1, 2),      # rank 1, part-filled tiles
-    (3, 20, 100, 72, 12, 3),     # rank 12, d_in % 4 != 0
+    (3, 20, 100, 72, 12, 3),     # rank 12, part-filled tiles
+    (3, 20, 98, 72, 12, 3),      # d_in % 4 != 0: 4-byte copies
+    (3, 40, 128, 96, 8, 3),      # rank 8: one n-tile
+    (3, 70, 96, 200, 9, 3),      # rank 9: padded to 16
+    (2, 65, 160, 130, 33, 2),    # rank 33, d_out % 4 != 0
     (2, 33, 64, 64, 128, 2),     # rank 128
+    (3, 300, 200, 136, 16, 2),   # the sequence split into parts, summed in order
 ])
 def test_lora_grad_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     """dA, dB and the delta of dx against the plain versions, with a row of
@@ -707,3 +784,5 @@ def test_lora_grad_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
         assert not da[2].any() and not db[2].any()  # no row of id 2
     da2, db2 = lora_grad(x, dy, a, b, ids, 0.5)
     assert torch.equal(da, da2) and torch.equal(db, db2)
+    # the last block of each split shrink tile zeroes its counter again
+    assert not any(c.any() for c in sgmv_mod._counters.values())
