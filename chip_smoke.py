@@ -53,7 +53,15 @@ exits non-zero:
               pass). Then
               a check that the four serving-only kernels refuse autograd on
               the card and that fused_sgmv and flash_prefill return the
-              plain backward's gradients.
+              plain backward's gradients (and refuse a bf16 input that
+              requires grad). Then the six forward kernels in bf16
+              (``bf16_kernel_cases``): at the qwen3-0.6b shapes above, at
+              llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160)
+              and gemma-2b (D = 256), ranks 1 and 128, each against its
+              plain bf16 version (BF16_TOL of its max) and, element by
+              element, within one bf16 rounding of its plain f32 version on
+              the same inputs upcast, repeat launches bitwise equal, bounds in bf16 bytes or flops / 989 TFLOP/s, SDPA in
+              bf16 as the attention kernels' library call.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -76,8 +84,8 @@ exits non-zero:
               (their cached attention runs the plain version, as the
               reference routes it), the tokens teacher-forced on the CPU.
 7. archs    — the host's MemTotal, then one line per config at full width
-              in f32 (``ARCHS``: llama-7b, qwen2-vl-7b, qwen3-4b and
-              gemma-2b at full depth; stablelm-12b, llama-13b and llama-34b
+              in f32 (``ARCHS``: gemma-2b at full depth; llama-7b,
+              qwen2-vl-7b, qwen3-4b, stablelm-12b, llama-13b and llama-34b
               at 8 layers; deepseek-v2-lite-16b (MLA, 64 experts) at 8 and
               phi3.5-moe (16 experts) at 4), weights drawn on the card from a
               seeded generator and handed to ``ServingEngine(params=...)``:
@@ -126,8 +134,28 @@ exits non-zero:
               and ``restore`` bitwise; one full step under
               ``torch.profiler``.
 
-Then the script's seconds. The line before the last is the ``kernels``
-JSON; the last line is ``{"ok": true, "device": {...}}``.
+9. bf16    — the static path in bf16 at full width and depth
+              (``BF16_ARCHS``), weights drawn on the card: qwen3-0.6b
+              (prefill of 8 x 2016, one extend of 8 x 32 with a token mask
+              leaving rows ragged, 32 decode steps) and llama-7b (2 x 512,
+              8 steps), each beside the same path in f32 on the same
+              weights (the bf16 run fed the f32 tokens; its prefill logits
+              within BF16_F32_TOL of f32's; its greedy choice equal to
+              f32's wherever the f32 top-2 gap exceeds twice the largest
+              bf16-against-f32 prefill logit difference, at a quarter of
+              the positions at least), and
+              deepseek-v2-lite-16b at all 27 layers in bf16 alone (2 x 256,
+              8 steps); every projection through fused_sgmv on 8 LoRA slots
+              with a row of id -1, exact launch counts, prefill s, decode
+              ms a step (and in 3 more windows of 8 steps), peak GB, 8 more
+              decode steps profiled (the device's busy share), and forward
+              / prefill / decode held against each other within
+              BF16_IDENT_TOL (deepseek's expert choices pinned to the
+              forward's; its free-routing errors reported).
+
+Every phase's line carries the script's seconds so far (``t_s``). Then the
+script's seconds. The line before the last is the ``kernels`` JSON; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -153,6 +181,16 @@ L2_BYTES = 50e6  # H100 L2 cache
 # dense over the three TF32 products of a 3xTF32 split (the CUDA cores'
 # 67 TFLOP/s f32 is not the least time once a kernel uses the split)
 F32_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+# bf16 kernels against their plain bf16 versions: times max|plain| (the
+# reference's bf16 tolerance)
+BF16_TOL = 2e-2
+# ... and each element against the plain f32 version on the same inputs
+# upcast, rounded once to bf16: kernel and plain version both sum in f32
+# and round the output once, so they differ by one bf16 spacing at most,
+# plus the f32 tolerance of the sums and twice the error of an f32 operand
+# split into two bf16 or TF32 halves (16 bits kept: P in P·V), times max|f32|
+BF16_SPLIT_REL = 2.0 ** -16
 SGMV_TOL = 1e-4  # times max|ref|: f32 sums of up to 2048 terms, other order
 ATTN_TOL = 1e-5  # absolute: softmax-weighted unit-scale values
 ARGMAX_TOL = 1e-3  # a card token may trail the CPU's best logit by this
@@ -167,7 +205,13 @@ TRAIN_LOSS_TOL = 1e-4  # relative
 ARCH_TOL = 2e-4
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -212,10 +256,59 @@ def rotating(calls):
     return lambda: next(it)()
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
+    """The least time for ``nbytes`` and ``flops``: f32 flops at the
+    3xTF32 rate, bf16 flops at the dense bf16 rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def esize(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def bf16_spacing(x):
+    """The distance between neighbouring bf16 values at each |x| (f32): 2^-7
+    of its binade's lower end; 0 where x is 0."""
+    _, e = torch.frexp(x)  # |x| in [2^(e-1), 2^e)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def one_rounding_err(got, want_f32, atol: float) -> float:
+    """The largest excess of |got − bf16(want_f32)| over one bf16 spacing
+    at |want_f32| plus ``atol``, elementwise (<= 0 holds)."""
+    w = want_f32.float()
+    err = (got.float() - w.to(torch.bfloat16).float()).abs()
+    return float((err - bf16_spacing(w) - atol).max())
+
+
+def check_out(what: str, got, want, want_f32, dtype, f32_tol: float) -> dict:
+    """``got`` (a kernel) against ``want`` (its plain version in the same
+    dtype): within ``f32_tol`` in f32. In bf16, within BF16_TOL·max|want|,
+    and each element within one bf16 rounding of ``want_f32`` (the plain
+    f32 version on the same inputs upcast): |got − bf16(want_f32)| at most
+    one bf16 spacing + ``f32_tol`` + BF16_SPLIT_REL·max|want_f32|. Returns
+    the errors."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = f32_tol if dtype == torch.float32 else BF16_TOL * float(want.float().abs().max())
+    require(got.dtype == dtype, f"{what}: output {got.dtype}, inputs {dtype}")
+    require(err <= tol, f"{what}: max err {err} > {tol}")
+    out = {"max_abs_err": err}
+    if dtype != torch.float32:
+        require(want_f32 is not None, f"{what}: no f32 plain version to hold bf16 to")
+        out["max_abs_err_f32"] = float((got.float() - want_f32).abs().max())
+        atol = f32_tol + BF16_SPLIT_REL * float(want_f32.abs().max())
+        excess = one_rounding_err(got, want_f32, atol)
+        require(excess <= 0, f"{what}: an element is {excess} past one bf16 rounding "
+                             f"of the f32 plain value (+ {atol})")
+        out["one_rounding_excess"] = excess
+    return out
+
+
+def up(*ts):
+    """The float tensors of ``ts`` in f32 (the others as they are)."""
+    return [t.float() if torch.is_tensor(t) and t.is_floating_point() else t for t in ts]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -225,16 +318,17 @@ def require(cond: bool, msg: str) -> None:
 
 # ----------------------------------------------------------------- phase 3
 def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
-              base=True, cold=False):
-    """fused_sgmv (``base``) or sgmv, the delta alone, on one projection.
-    A repeat launch must give the same bits. Decode shapes (S = 1), and any
-    shape with ``cold``, are also timed with a cold L2 (``cold``: W, A and
-    B rotated over :func:`cold_copies` copies), as a decode step finds
-    them."""
-    x = torch.randn((B, S, d_in), generator=gen, device=dev)
-    w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
-    a = torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5
-    b = torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1
+              base=True, cold=False, dtype=torch.float32):
+    """fused_sgmv (``base``) or sgmv, the delta alone, on one projection,
+    in ``dtype`` (f32 draws rounded for bf16). A repeat launch must give
+    the same bits. Decode shapes (S = 1), and any shape with ``cold``, are
+    also timed with a cold L2 (``cold``: W, A and B rotated over
+    :func:`cold_copies` copies), as a decode step finds them."""
+    x = torch.randn((B, S, d_in), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5).to(dtype)
+    a = (torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5).to(dtype)
+    b = (torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1).to(dtype)
+    es = esize(dtype)
     ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7][:B], dtype=torch.int32, device=dev)
     scale = 1.0
     name = "fused_sgmv" if base else "sgmv"
@@ -244,20 +338,21 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
             return ops.fused_sgmv(x, ww, aa, bb, ids, scale=scale)
         return ops.sgmv(x, aa, bb, ids, scale=scale)
 
-    def plain(ww, aa=a, bb=b):
+    def plain(ww, aa=a, bb=b, xx=x):
         if base:
-            return ref.fused_sgmv_ref(x, ww, aa, bb, ids, scale)
-        return ref.sgmv_ref(x, aa, bb, ids, scale)
+            return ref.fused_sgmv_ref(xx, ww, aa, bb, ids, scale)
+        return ref.sgmv_ref(xx, aa, bb, ids, scale)
 
-    errs, first = [], None
+    errs, errs32, excess, first = [], [], [], None
     for ww in ((w, torch.zeros_like(w)) if base else (w,)):
         got, want = kernel(ww), plain(ww)
+        want32 = plain(*up(ww, a, b, x)) if dtype != torch.float32 else None
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        tol = SGMV_TOL * float(want.abs().max())
-        require(err <= tol, f"{name} {proj} S={S} zero_w={ww is not w}: "
-                            f"max err {err} > {tol}")
-        errs.append(err)
+        e = check_out(f"{name} {proj} S={S} zero_w={ww is not w} {dtype}", got, want,
+                      want32, dtype, SGMV_TOL * float(want.float().abs().max()))
+        errs.append(e["max_abs_err"])
+        errs32.append(e.get("max_abs_err_f32", 0.0))
+        excess.append(e.get("one_rounding_excess", -math.inf))
         first = got if first is None else first
     require(torch.equal(kernel(w), first), f"{name} {proj} S={S}: a repeat "
                                            "launch differs")
@@ -269,21 +364,25 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     M, M_live = B * S, int(live.sum()) * S
     lora_bytes = n_live_ids * r * (d_in + d_out)
     if base:
-        nbytes = 4 * (M * d_in + d_in * d_out + M * d_out + lora_bytes) + 4 * B
+        nbytes = es * (M * d_in + d_in * d_out + M * d_out + lora_bytes) + 4 * B
         flops = 2 * M * d_in * d_out + 2 * M_live * r * (d_in + d_out)
     else:  # rows of id -1 need no x
-        nbytes = 4 * (M_live * d_in + M * d_out + lora_bytes) + 4 * B
+        nbytes = es * (M_live * d_in + M * d_out + lora_bytes) + 4 * B
         flops = 2 * M_live * r * (d_in + d_out)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, dtype)
     ms, host_ms = time_ms(lambda: kernel(w))
     out = dict(
-        case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}",
+        case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}"
+             + (", bf16" if dtype == torch.bfloat16 else ""),
         max_abs_err=max(errs), ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: plain(w))[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
+    if dtype != torch.float32:
+        out["max_abs_err_f32"] = max(errs32)
+        out["one_rounding_excess"] = max(excess)
     if S == 1 or cold:
-        n = cold_copies(4 * ((d_in * d_out if base else 0) + lora_bytes))
+        n = cold_copies(es * ((d_in * d_out if base else 0) + lora_bytes))
         copies = [(w.clone() if base else w, a.clone(), b.clone()) for _ in range(n)]
         ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
         out["cold"] = dict(copies=n, ms=ms_c, host_ms=host_c, plain_ms=time_ms(
@@ -304,20 +403,23 @@ RAGGED_BUCKETS = {
 
 
 def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
-                D=128, cold=False):
-    """ragged_extend on one bucket: checked, zeros past every row's length,
-    a repeat launch bitwise equal, timed warm and, with ``cold``, with a
-    cold L2 (q and the KV rotated over :func:`cold_copies` copies)."""
-    q = torch.randn((B, S, H, D), generator=gen, device=dev)
-    k = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
-    v = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
+                D=128, cold=False, dtype=torch.float32):
+    """ragged_extend on one bucket, in ``dtype``: checked, zeros past every
+    row's length, a repeat launch bitwise equal, timed warm and, with
+    ``cold``, with a cold L2 (q and the KV rotated over
+    :func:`cold_copies` copies)."""
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
     tl = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
     got = ops.ragged_extend(q, k, v, st, tl)
     want = ref.ragged_extend_ref(q, k, v, st, tl)
+    want32 = ref.ragged_extend_ref(*up(q, k, v), st, tl) if dtype != torch.float32 else None
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(err <= ATTN_TOL, f"ragged_extend S={S}: max err {err} > {ATTN_TOL}")
+    errs = check_out(f"ragged_extend S={S} D={D} {dtype}", got, want, want32, dtype,
+                     ATTN_TOL)
+    del want, want32
     for b, n in enumerate(lens):
         require(bool((got[b, n:] == 0).all()),
                 f"ragged_extend S={S}: row {b} is not 0 past its {n} tokens")
@@ -334,18 +436,20 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
         qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))[0]
     live_q = sum(lens)
     kv_tokens = sum(s + n for s, n in zip(starts, lens) if n > 0)
-    nbytes = 4 * (live_q * H * D + 2 * kv_tokens * Hkv * D + B * S * H * D) + 8 * B
+    es = esize(dtype)
+    nbytes = es * (live_q * H * D + 2 * kv_tokens * Hkv * D + B * S * H * D) + 8 * B
     flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, lens) for j in range(n))
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, dtype)
     ms, host_ms = time_ms(lambda: ops.ragged_extend(q, k, v, st, tl))
     out = dict(
-        case=f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, true_lens={lens}",
-        max_abs_err=err, ms=ms, host_ms=host_ms,
+        case=f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, true_lens={lens}"
+             + (", bf16" if dtype == torch.bfloat16 else ""),
+        **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: ref.ragged_extend_ref(q, k, v, st, tl))[0],
         bound_ms=bnd, bound_by=by, library_ms=lib,
     )
     if cold:
-        n = cold_copies(4 * (q.numel() + k.numel() + v.numel()))
+        n = cold_copies(es * (q.numel() + k.numel() + v.numel()))
         copies = [(q.clone(), k.clone(), v.clone()) for _ in range(n)]
         ms_c, host_c = time_ms(rotating(
             [lambda c=c: ops.ragged_extend(*c, st, tl) for c in copies]))
@@ -366,15 +470,16 @@ PAGED_LENGTHS = {
 
 
 def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
-               ps=128):
-    """paged_attention on full-width qwen3-0.6b heads: checked, a repeat
-    launch bitwise equal, timed warm and with a cold L2 (``cold``: the KV
-    rotated over :func:`cold_copies` copies). The library call is SDPA with
-    the equivalent boolean mask (it reads the whole table)."""
+               ps=128, dtype=torch.float32):
+    """paged_attention on full-width qwen3-0.6b heads, in ``dtype``:
+    checked, a repeat launch bitwise equal, timed warm and with a cold L2
+    (``cold``: the KV rotated over :func:`cold_copies` copies). The library
+    call is SDPA with the equivalent boolean mask (it reads the whole
+    table)."""
     pages = T // ps
-    q = torch.randn((B, H, D), generator=gen, device=dev)
-    kc = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
-    vc = torch.randn((B, T, Hkv, D), generator=gen, device=dev)
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
     tables = torch.arange(B * pages, dtype=torch.int32, device=dev).view(B, pages)
     ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     mask = (torch.arange(T, device=dev)[None, :] < ln[:, None].long())[:, None, None, :]
@@ -384,8 +489,8 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
         return ops.paged_attention(q, k.view(B * pages, ps, Hkv, D),
                                    v.view(B * pages, ps, Hkv, D), tables, ln)
 
-    def plain(k, v):
-        return ref.paged_attention_ref(q, k.view(B * pages, ps, Hkv, D),
+    def plain(k, v, qq=q):
+        return ref.paged_attention_ref(qq, k.view(B * pages, ps, Hkv, D),
                                        v.view(B * pages, ps, Hkv, D), tables, ln)
 
     def library(kt, vt):
@@ -393,9 +498,10 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
     got, want = kernel(kc, vc), plain(kc, vc)
+    want32 = plain(*up(kc, vc, q)) if dtype != torch.float32 else None
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(err <= ATTN_TOL, f"paged_attention {lens}: max err {err} > {ATTN_TOL}")
+    errs = check_out(f"paged_attention {lens} D={D} {dtype}", got, want, want32, dtype,
+                     ATTN_TOL)
     for b, n in enumerate(lens):
         if n == 0:
             require(bool((got[b] == 0).all()), "paged_attention: a length 0 row is not 0")
@@ -403,17 +509,19 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
             f"paged_attention {lens}: a repeat launch differs")
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     kv_tokens = sum(min(n, T) for n in lens)
-    nbytes = 4 * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
+    es = esize(dtype)
+    nbytes = es * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
     flops = 4 * H * D * kv_tokens
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, dtype)
     ms, host_ms = time_ms(lambda: kernel(kc, vc))
     out = dict(
-        case=f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, lengths={lens}",
-        max_abs_err=err, ms=ms, host_ms=host_ms,
+        case=f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, lengths={lens}"
+             + (", bf16" if dtype == torch.bfloat16 else ""),
+        **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: plain(kc, vc))[0],
         bound_ms=bnd, bound_by=by, library_ms=time_ms(lambda: library(kt, vt))[0],
     )
-    n = cold_copies(8 * kv_tokens * Hkv * D)
+    n = cold_copies(2 * es * kv_tokens * Hkv * D)
     copies = [(kc.clone(), vc.clone()) for _ in range(n)]
     ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
     cold = dict(copies=n, ms=ms_c, host_ms=host_c,
@@ -425,21 +533,21 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
 
 
 def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
-               D=128):
+               D=128, dtype=torch.float32):
     """flash_prefill, or flash_prefill_ragged with ``lens``, at the fresh
-    prefill's shape. The library call is SDPA, causal or with the
-    equivalent boolean mask (its fully masked queries give NaN there)."""
+    prefill's shape, in ``dtype``. The library call is SDPA, causal or with
+    the equivalent boolean mask (its fully masked queries give NaN there)."""
     F = torch.nn.functional
-    q = torch.randn((B, H, S, D), generator=gen, device=dev)
-    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
-    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+    q = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
     if lens is None:
         name, live = "flash_prefill", [S] * B
 
         def kernel():
             return ops.flash_prefill(q, k, v)
 
-        def plain():
+        def plain(q=q, k=k, v=v):
             return ref.flash_prefill_ref(q, k, v)
 
         def library():
@@ -455,30 +563,33 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
         def kernel():
             return ops.flash_prefill_ragged(q, k, v, tl)
 
-        def plain():
+        def plain(q=q, k=k, v=v):
             return ref.flash_prefill_ragged_ref(q, k, v, tl)
 
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
     got, want = kernel(), plain()
+    want32 = plain(*up(q, k, v)) if dtype != torch.float32 else None
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(err <= ATTN_TOL, f"{name}: max err {err} > {ATTN_TOL}")
+    errs = check_out(f"{name} D={D} {dtype}", got, want, want32, dtype, ATTN_TOL)
+    del want, want32
     for b, n in enumerate(live):
         require(bool((got[b, :, n:] == 0).all()),
                 f"{name}: row {b} is not 0 past its {n} tokens")
     require(torch.equal(kernel(), got), f"{name}: a repeat launch differs")
-    del got, want
-    nbytes = 4 * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
+    del got
+    es = esize(dtype)
+    nbytes = es * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
     nbytes += 4 * B if lens is not None else 0
     flops = sum(4 * H * D * n * (n + 1) // 2 for n in live)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(nbytes, flops, dtype)
     ms, host_ms = time_ms(kernel)
     return dict(
         case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}"
-             + (f", true_lens={lens}" if lens is not None else ""),
-        max_abs_err=err, ms=ms, host_ms=host_ms,
+             + (f", true_lens={lens}" if lens is not None else "")
+             + (", bf16" if dtype == torch.bfloat16 else ""),
+        **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(plain, iters=5)[0],
         bound_ms=bnd, bound_by=by, library_ms=time_ms(library, iters=5)[0],
     )
@@ -531,6 +642,13 @@ def grad_guard(ops, ref, dev):
         require(max(errs) <= GRAD_TOL, f"{name}: card gradients off the plain "
                                        f"backward's by {max(errs)} of max")
         errors[name] = max(errs)
+        # bf16 training is not ported: a bf16 input that requires grad raises
+        bf = [t.detach().to(torch.bfloat16).requires_grad_(True) for t in inputs]
+        try:
+            kernel(*bf)
+            require(False, f"{name}: a bf16 input under autograd did not raise")
+        except NotImplementedError:
+            refused.append(f"{name} bf16")
     return refused, errors
 
 
@@ -787,7 +905,7 @@ def check_against_cpu(cfg, max_seq_len, picked, adapter_weights, params=None,
     from repro_torch.lora import AdapterStore
     from repro_torch.models import build_model
 
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
     if params is None:
         params = model.init_params(torch.Generator().manual_seed(seed))
     store = AdapterStore(model, cfg.lora.max_adapters)
@@ -833,7 +951,8 @@ def random_lora(model, n_slots: int, seed: int) -> dict:
     broken delta."""
     gen = torch.Generator().manual_seed(seed)
     lora = model.init_lora(gen, n_slots)
-    return {t: (a, (torch.randn(b.shape, generator=gen) * 0.02).to(model.device))
+    return {t: (a, (torch.randn(b.shape, generator=gen) * 0.02).to(model.device,
+                                                                    model.dtype))
             for t, (a, b) in lora.items()}
 
 
@@ -865,20 +984,33 @@ def greedy(model, params, lora, tokens, ids, max_len: int, steps: int):
     return torch.stack(out, 1).cpu(), t1 - t0, time.perf_counter() - t1, cache
 
 
+def identity_logits(model, params, lora, tokens, ids, pin=None):
+    """forward over ``tokens`` (B, S), prefill of tokens[:, :S-1] and the
+    decode of token S-1 (see :func:`arch_identities`); with ``pin`` (a
+    :class:`PinnedRouting` in use) the forward's expert choices are
+    replayed in the prefill and the decode. Returns ((prefill logits,
+    forward's at S-2), (decode logits, forward's at S-1))."""
+    B, S = tokens.shape
+    if pin is not None:
+        pin.record(B)
+    full, _ = model.forward(params, tokens, lora=lora, adapter_ids=ids)
+    if pin is not None:
+        pin.replay(B, 0)
+    last, cache = model.prefill(params, tokens[:, :S - 1], S, lora=lora, adapter_ids=ids)
+    if pin is not None:
+        pin.replay(B, S - 1)
+    dec, _ = model.decode(params, cache, tokens[:, S - 1:], lora=lora, adapter_ids=ids)
+    return (last[:, 0], full[:, S - 2]), (dec[:, 0], full[:, S - 1])
+
+
 def arch_identities(model, params, lora, tokens, ids):
     """forward / prefill / decode against each other on ``tokens`` (B, S):
     prefill of tokens[:, :S-1] gives forward's logits at S-2, and decoding
     token S-1 then gives forward's logits at S-1. Returns the largest
     excess of |difference| over ARCH_TOL·(1 + |forward|) (<= 0 passes) and
     the largest |difference| of each identity."""
-    S = tokens.shape[1]
-    full, _ = model.forward(params, tokens, lora=lora, adapter_ids=ids)
-    last, cache = model.prefill(params, tokens[:, :S - 1], S, lora=lora,
-                                adapter_ids=ids)
-    dec, _ = model.decode(params, cache, tokens[:, S - 1:], lora=lora,
-                          adapter_ids=ids)
     errs, excess = [], -math.inf
-    for got, want in ((last[:, 0], full[:, S - 2]), (dec[:, 0], full[:, S - 1])):
+    for got, want in identity_logits(model, params, lora, tokens, ids):
         diff = (got - want).abs()
         errs.append(float(diff.max()))
         excess = max(excess, float((diff - ARCH_TOL * (1 + want.abs())).max()))
@@ -893,7 +1025,7 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
     from repro_torch.models import build_model, make_decode_step
 
     L = cfg.num_layers
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     params = model.init_params(torch.Generator().manual_seed(seed))
     lora = random_lora(model, 8, seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
@@ -937,7 +1069,7 @@ def generate_phase(ops, cfg, dev, seed: int = 0, B: int = 8, S: int = 2016,
 
     # the CPU run of the same weights: the kernels' plain versions
     t0 = time.perf_counter()
-    cpu = build_model(cfg, device="cpu")
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
     cpu_params = cpu.init_params(torch.Generator().manual_seed(seed))
     cpu_lora = random_lora(cpu, 8, seed + 1)
     rows = list(check_rows)
@@ -991,7 +1123,7 @@ def variants_phase(ops, cfg, dev, seed: int = 0, B: int = 2, S: int = 256,
     by at most ARGMAX_TOL. Returns (its JSON line, the summed launches)."""
     from repro_torch.models import build_model
 
-    cpu = build_model(cfg, device="cpu")
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
     cpu_params = cpu.init_params(torch.Generator().manual_seed(seed))
     params = tree_to(cpu_params, dev)
     tokens = torch.randint(0, cfg.vocab_size, (B, S),
@@ -1003,7 +1135,7 @@ def variants_phase(ops, cfg, dev, seed: int = 0, B: int = 2, S: int = 256,
     for name, vcfg, kv_quant in (("kv_quant", cfg, True),
                                  ("softcap", dataclasses.replace(cfg, logit_softcap=SOFTCAP),
                                   False)):
-        model = build_model(vcfg, device=dev, kv_quant=kv_quant)
+        model = build_model(vcfg, dtype=torch.float32, device=dev, kv_quant=kv_quant)
         lora = random_lora(model, 8, seed + 1)
         ops.reset_launch_counts()
         gen, prefill_s, decode_s, cache = greedy(model, params, lora, tokens, ids,
@@ -1016,7 +1148,7 @@ def variants_phase(ops, cfg, dev, seed: int = 0, B: int = 2, S: int = 256,
         total = dict(launches) if total is None else {
             k: total[k] + n for k, n in launches.items()}
         t0 = time.perf_counter()
-        cm = build_model(vcfg, device="cpu", kv_quant=kv_quant)
+        cm = build_model(vcfg, dtype=torch.float32, device="cpu", kv_quant=kv_quant)
         cl = random_lora(cm, 8, seed + 1)
         last, cache = cm.prefill(cpu_params, tokens, S + steps, lora=cl, adapter_ids=ids)
         rest, _ = cm.extend(cpu_params, cache, gen[:, :-1], cache["len"], lora=cl,
@@ -1051,9 +1183,11 @@ def tree_to(tree, dev):
 # and 1.6 MB of f32 KV a token) and llama-34b (~135 GB: no 80 GB card holds
 # it in f32) run 8 of their layers; deepseek-v2-lite-16b 8 of 27 (~20 GB;
 # ~65 GB at full depth, too much beside the check's CPU copy) and
-# phi3.5-moe 4 of 32 (~21 GB; ~167 GB at full depth). Every kernel sees the
+# phi3.5-moe 4 of 32 (~21 GB; ~167 GB at full depth). llama-7b, qwen2-vl-7b
+# and qwen3-4b run 8 layers too, which keeps the script near half its time
+# limit (phase 9 runs llama-7b at full depth in bf16). Every kernel sees the
 # same shapes at every depth.
-ARCHS = (("llama-7b", None), ("qwen2-vl-7b", None), ("qwen3-4b", None),
+ARCHS = (("llama-7b", 8), ("qwen2-vl-7b", 8), ("qwen3-4b", 8),
          ("gemma-2b", None), ("stablelm-12b", 8), ("llama-13b", 8),
          ("llama-34b", 8), ("deepseek-v2-lite-16b", 8),
          ("phi3.5-moe-42b-a6.6b", 4))
@@ -1238,7 +1372,7 @@ def no_drop_model(model):
     if cfg.moe is None:
         return model
     moe = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts))
-    return build_model(dataclasses.replace(cfg, moe=moe), device=model.device)
+    return build_model(dataclasses.replace(cfg, moe=moe), dtype=model.dtype, device=model.device)
 
 
 def static_path(ops, model, params, seed: int = 0, B: int = 2, S: int = 512,
@@ -1328,7 +1462,7 @@ def replay_on_cpu(cfg, records, cpu_params):
 
     require(len(records) == len(REPLAY),
             f"{cfg.name}: replayed {[r['kind'] for r in records]}, wanted {REPLAY}")
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
     out = []
     for rec in records:
         t0 = time.perf_counter()
@@ -1382,7 +1516,7 @@ def arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, name,
     L = cfg.num_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
     spec = kv_pool_spec(cfg, 16)
@@ -1666,7 +1800,7 @@ def state_arch_phase(ops, configs, EngineConfig, ServingEngine, Request, dev, na
     cfg = configs.get(name)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
     block = kv_pool_spec(cfg, 16).block_bytes
@@ -1782,7 +1916,7 @@ def encdec_phase(ops, configs, dev, seed: int = 0, B: int = ENCDEC_B, S: int = E
     L = cfg.num_layers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
     weights_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
     lora = random_lora(model, 8, seed + 1)
@@ -1846,7 +1980,7 @@ def encdec_phase(ops, configs, dev, seed: int = 0, B: int = ENCDEC_B, S: int = E
 
     # the card's tokens teacher-forced on the CPU: the kernels' plain versions
     t0 = time.perf_counter()
-    _, lg = run(build_model(cfg, device="cpu"), cpu_params, cpu_lora, forced=gen_tokens)
+    _, lg = run(build_model(cfg, dtype=torch.float32, device="cpu"), cpu_params, cpu_lora, forced=gen_tokens)
     picked = lg.gather(-1, gen_tokens[:, :, None].long())[..., 0]
     deficit = float((lg.max(-1).values - picked).max())
     require(deficit <= ARGMAX_TOL,
@@ -1916,7 +2050,7 @@ def train_phase(ops, configs, dev):
     t_start = time.perf_counter()
     cfg = configs.get(TRAIN_ARCH)
     L = cfg.num_layers
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, dtype=torch.float32, device=dev)
     state = make_train_state(model, torch.Generator(device=dev).manual_seed(0),
                              n_lora_slots=4)
     n_params = sum(t.numel() for t in leaves(state.params))
@@ -1967,7 +2101,7 @@ def train_phase(ops, configs, dev):
         # 2. remat: the forward's kernels run again in the backward; one
         # warm-up step (the allocator meets remat's pattern), then
         # REMAT_STEPS timed one by one
-        remat_fn = make_train_step(build_model(cfg, device=dev, remat=True), lr=3e-4)
+        remat_fn = make_train_step(build_model(cfg, dtype=torch.float32, device=dev, remat=True), lr=3e-4)
 
         def alloc_counts():  # the caching allocator's cudaMalloc, cudaFree and retries
             st = torch.cuda.memory_stats()
@@ -2035,7 +2169,7 @@ def train_phase(ops, configs, dev):
     # 4. one step's gradients at B = 2, S = 256 on the card and on the CPU
     t0 = time.perf_counter()
     check = train_batch(cfg, 300, dev, B=CHECK_B, S=CHECK_S)
-    cpu_model = build_model(cfg, device="cpu")
+    cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
     cpu_params, cpu_lora = tree_cpu(state.params), tree_cpu(state.lora)
     cpu_batch = {k: v.cpu() for k, v in check.items()}
     cmp = {}
@@ -2095,6 +2229,357 @@ def train_phase(ops, configs, dev):
     return line, full_launches
 
 
+# -------------------------------------------------------------------- bf16
+BF16 = torch.bfloat16
+# phase 9, the bf16 static path at full width and depth: (config, rows,
+# prompt tokens, masked extend chunk, greedy steps, with an f32 run of the
+# same weights). deepseek-v2-lite-16b holds 32.4 GB of bf16 weights (64.8
+# GB in f32: no f32 run beside it)
+BF16_ARCHS = (("qwen3-0.6b", 8, 2016, 32, 32, True),
+              ("llama-7b", 2, 512, 32, 8, True),
+              ("deepseek-v2-lite-16b", 2, 256, 32, 8, False))
+# forward / prefill / decode of one bf16 model against each other: each
+# compared logit row's relative L2 error at most BF16_IDENT_TOL. The calls
+# round the bf16 activations at other places (other kernels, other GEMM
+# shapes): 0.011-0.012 on qwen3-0.6b and llama-7b at full depth, 0.040
+# (prefill) and 0.071 (decode) on deepseek-v2-lite-16b with its expert
+# choices pinned (an H100 80GB HBM3 at 700 W), whose calls differ in more
+# places (its expert products take the call's token count as their rows;
+# its decode runs MLA in the absorbed form, the forward in the expanded). Left free, an MoE routes a token to
+# other experts where a bf16 rounding moves a close choice, and the error
+# jumps (0.14 and 0.31 on deepseek), so an MoE config's identities run
+# with the expert choices pinned to the forward's (:class:`PinnedRouting`)
+# and its free-routing errors are reported. A broken path gives rows of
+# about their own norm: errors near 1.
+BF16_IDENT_TOL = 0.1
+# the bf16 run against the f32 run on the same weights: each prefill logit
+# row within BF16_F32_TOL of its norm, and no logit further than
+# BF16_F32_TOL of the largest f32 |logit| (rows 0.014 and 0.015, logits
+# 0.014 and 0.016 on qwen3-0.6b and llama-7b); the greedy tokens are compared where the
+# f32 top-2 gap exceeds twice that largest difference, and at least
+# MIN_CLEAR_SHARE of the positions must be so compared
+BF16_F32_TOL = 0.05
+MIN_CLEAR_SHARE = 0.25
+# after the timed decode steps, this many windows of 8 steps each, timed
+# on their own: the spread of ms a step within one run
+DECODE_WINDOWS = 3
+
+
+def bf16_kernel_cases(ops, ref, gen, dev):
+    """Phase 3 in bf16: each forward kernel at the shapes of its f32 row
+    (qwen3-0.6b's q/k/v/o at S = 256, 2016 and 1; sgmv at S = 2016 and 1;
+    ragged_extend 8 x 256 over T = 2048; paged_attention at phase 3's and
+    the engine's lengths; flash_prefill 8 x 2016 and flash_prefill_ragged
+    at its ragged lengths), then ragged_extend and paged_attention at
+    llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160) and
+    gemma-2b (D = 256), flash_prefill at the two wide heads, and
+    fused_sgmv at ranks 1 and 128. Every launch counted. Returns
+    {kernel: [case, ...]}."""
+    out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
+                           "flash_prefill", "flash_prefill_ragged")}
+    projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
+                   ("o", 2048, 1024))
+    before = ops.launch_counts()
+    for S in (256, 2016, 1):
+        for p, di, do in projections:
+            out["fused_sgmv"].append(sgmv_case(ops, ref, p, di, do, S, gen, dev, dtype=BF16))
+    for S in (2016, 1):
+        for p, di, do in (projections[0], projections[3]):
+            out["sgmv"].append(sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False,
+                                         dtype=BF16))
+    for r in (1, 128):
+        for S in (256, 1):
+            m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r, dtype=BF16)
+            out["fused_sgmv"].append({"arch": "qwen3-0.6b", **m})
+    torch.cuda.empty_cache()
+    out["ragged_extend"].append(ragged_case(ops, ref, gen, dev, 256, *RAGGED_BUCKETS[256],
+                                            dtype=BF16))
+    for k in ("table", "engine"):
+        out["paged_attention"].append(paged_case(ops, ref, gen, dev, PAGED_LENGTHS[k],
+                                                 dtype=BF16))
+    for arch, H, Hkv, D in ARCH_HEADS[:4]:
+        m = ragged_case(ops, ref, gen, dev, 256, *RAGGED_BUCKETS[256], H=H, Hkv=Hkv, D=D,
+                        dtype=BF16)
+        out["ragged_extend"].append({"arch": arch, **m})
+        m = paged_case(ops, ref, gen, dev, PAGED_LENGTHS["engine"], H=H, Hkv=Hkv, D=D,
+                       dtype=BF16)
+        out["paged_attention"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+    out["flash_prefill"].append(flash_case(ops, ref, gen, dev, dtype=BF16))
+    torch.cuda.empty_cache()
+    out["flash_prefill_ragged"].append(flash_case(
+        ops, ref, gen, dev, lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016], dtype=BF16))
+    torch.cuda.empty_cache()
+    for arch, B, S, H, Hkv, D in ARCH_FLASH[:2]:
+        m = flash_case(ops, ref, gen, dev, B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=BF16)
+        out["flash_prefill"].append({"arch": arch, **m})
+        torch.cuda.empty_cache()
+    after = ops.launch_counts()
+    require(all(after[k] > before[k] for k in out),
+            f"a kernel never launched in bf16: {before} -> {after}")
+    return out
+
+
+def cast_tree(tree, dtype):
+    """The float leaves of ``tree`` in ``dtype``, but the MoE router, which
+    the reference keeps in f32 in a bf16 model."""
+    if isinstance(tree, dict):
+        return {k: v if k == "router" else cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def rel_l2(got, want):
+    """Each row's (last dim's) |got − want| / |want|, in f32."""
+    got, want = got.float(), want.float()
+    return (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+
+
+class PinnedRouting:
+    """The MoE router's expert choices of one call replayed in later calls
+    on the same rows (``repro_torch.models.ffn.route`` wrapped while in
+    use). ``record(B)`` before a call over B rows keeps each MoE layer's
+    (B, S, k) choices; ``replay(B, start)`` before a call over positions
+    ``start``.. of those rows takes each layer's choices from there, with
+    the call's own router softmax at those experts as gates, renormalised.
+    A replayed call thus differs from the recorded one only by rounding."""
+
+    def __init__(self):
+        self.choices, self.mode, self.B, self.start, self.layer = [], "record", 1, 0, 0
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+
+        self._ffn, self._route = ffn, ffn.route
+        ffn.route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self._ffn.route = self._route
+
+    def record(self, B: int) -> None:
+        self.choices, self.mode, self.B, self.layer = [], "record", B, 0
+
+    def replay(self, B: int, start: int) -> None:
+        self.mode, self.B, self.start, self.layer = "replay", B, start, 0
+
+    def route(self, router, xt, k):
+        probs, gates, experts = self._route(router, xt, k)
+        if self.mode == "record":
+            self.choices.append(experts.reshape(self.B, -1, k))
+        else:
+            S = xt.shape[0] // self.B
+            experts = self.choices[self.layer][:, self.start:self.start + S].reshape(-1, k)
+            require(experts.shape[0] == xt.shape[0], "pinned routing: the call's rows "
+                                                     "are not the recorded ones")
+            gates = probs.gather(-1, experts)
+            gates = gates / gates.sum(-1, keepdim=True)
+        self.layer += 1
+        return probs, gates, experts
+
+
+def bf16_identities(model, params, lora, tokens, ids) -> dict:
+    """forward / prefill / decode of a bf16 model against each other, each
+    row within BF16_IDENT_TOL relative L2 and the greedy token equal
+    wherever the forward's top-2 gap exceeds twice the row's largest
+    difference; raises if either fails. An MoE config runs with its expert
+    choices pinned to the forward's, and its free-routing errors are
+    reported beside. Returns the errors."""
+    out = {"bound": BF16_IDENT_TOL}
+    if model.cfg.moe is None:
+        pairs = identity_logits(model, params, lora, tokens, ids)
+    else:
+        with PinnedRouting() as pin:
+            pairs = identity_logits(model, params, lora, tokens, ids, pin)
+        out["routing"] = "pinned to the forward's"
+        free = identity_logits(model, params, lora, tokens, ids)
+        out["free_routing_max_rel_l2"] = {
+            what: float(rel_l2(*pair).max()) for what, pair in zip(("prefill", "decode"), free)}
+    for what, (got, want) in zip(("prefill", "decode"), pairs):
+        got, want = got.float(), want.float()
+        rel = rel_l2(got, want)
+        diff = (got - want).abs().amax(-1)
+        clear = top2_gap(want) > 2 * diff
+        same = got.argmax(-1) == want.argmax(-1)
+        out[what] = {"max_abs_err": float(diff.max()), "max_rel_l2": float(rel.max()),
+                     "clear_rows": int(clear.sum()), "argmax_equal": int((same & clear).sum())}
+        require(float(rel.max()) <= BF16_IDENT_TOL and bool(same[clear].all()),
+                f"{model.cfg.name} bf16 {what} against forward: {out}")
+    return out
+
+
+def decode_windows(model, params, lora, cache, tok, ids, windows: int = DECODE_WINDOWS,
+                   steps: int = 8) -> list:
+    """``windows`` runs of ``steps`` greedy decode steps from ``cache`` after
+    token ``tok`` (B,), each timed on its own (synchronised). Returns the
+    ms a step of each window, the cache and the last token."""
+    tok = tok.to(model.device)
+    out = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, cache = model.decode(params, cache, tok[:, None], lora=lora, adapter_ids=ids)
+            tok = lg[:, -1].argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    return out, cache, tok
+
+
+def static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, steps,
+               feed=None):
+    """The static path once: ``LM.prefill`` of ``tokens``, one ``extend``
+    of ``chunk`` with token mask ``lens`` (rows left ragged), then
+    ``steps`` decode steps, greedy or fed the tokens ``feed`` (B, steps),
+    launch counts reset just before and read just after. Returns the
+    prefill's last logits, each later call's logits at each row's last
+    real position (on the card), the tokens fed, the seconds of each part
+    (synchronised) and the launches."""
+    B, S = tokens.shape
+    start = torch.full((B,), S, dtype=torch.int32)
+    last = (lens.long() - 1).clamp(min=0)[:, None]
+    if feed is not None:  # on the card before the clock: a host copy a step would sync
+        feed = feed.to(model.device)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plog, cache = model.prefill(params, tokens, max_len, lora=lora, adapter_ids=ids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    elog, cache = model.extend(params, cache, chunk, start, lora=lora, adapter_ids=ids,
+                               true_lens=lens, logit_positions=last)
+    tok = elog[:, -1].argmax(-1).to(torch.int32) if feed is None else feed[:, 0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    logits, fed = [elog[:, -1]], [tok]
+    for i in range(steps):
+        lg, cache = model.decode(params, cache, tok[:, None], lora=lora, adapter_ids=ids)
+        logits.append(lg[:, -1])
+        if i + 1 < steps:
+            tok = lg[:, -1].argmax(-1).to(torch.int32) if feed is None else feed[:, i + 1]
+            fed.append(tok)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return dict(prefill_logits=plog[:, -1], logits=logits, fed=torch.stack(fed, 1).cpu(),
+                prefill_s=t1 - t0, extend_s=t2 - t1, decode_s=t3 - t2,
+                launches=ops.launch_counts(), cache=cache)
+
+
+def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: int = 0):
+    """Phase 9, one config at full width and depth in bf16: weights drawn on
+    the card (in f32 and carried to bf16 where the f32 run goes beside it),
+    8 LoRA slots with a row of id -1, :func:`static_run` (once to warm up,
+    then timed) with exact launch counts, :func:`decode_windows`, 8 more
+    decode steps under ``torch.profiler`` (the device's busy share), and
+    :func:`bf16_identities` at B = 2. With ``with_f32`` the same path runs
+    in f32 on the same weights first; the bf16 run is fed the f32 run's
+    tokens, its prefill logits must lie within BF16_F32_TOL of f32's, and
+    its greedy choice must equal the f32 one at every position where the
+    f32 top-2 gap exceeds twice the largest bf16-against-f32 prefill logit
+    difference, which must be MIN_CLEAR_SHARE of the positions at least.
+    Returns (its JSON line, the bf16 run's launches)."""
+    from repro_torch.models import build_model
+
+    cfg = configs.get(name)
+    L = cfg.num_layers
+    # room for the timed steps, the timed windows and the profiled steps
+    max_len = -(-(S + chunk_len + steps + 8 * (DECODE_WINDOWS + 1)) // 128) * 128
+    gen = torch.Generator().manual_seed(seed + 2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    chunk = torch.randint(0, cfg.vocab_size, (B, chunk_len), generator=gen)
+    lens = torch.tensor([chunk_len - (7 * b) % chunk_len for b in range(B)],
+                        dtype=torch.int32)  # ragged rows: 32, 25, 18, ...
+    ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1][:B - 1] + [-1], dtype=torch.int32)
+    line = {"phase": "bf16", "arch": name, "layers": L, "batch": B, "prompt_tokens": S,
+            "extend_chunk": chunk_len, "extend_true_lens": lens.tolist(),
+            "decode_steps": steps, "adapter_ids": ids.tolist(), "max_len": max_len}
+    torch.cuda.empty_cache()
+    f32 = None
+    torch.cuda.reset_peak_memory_stats()
+    if with_f32:
+        m32 = build_model(cfg, dtype=torch.float32, device=dev)
+        p32 = m32.init_params(torch.Generator(device=dev).manual_seed(seed))
+        lora32 = random_lora(m32, 8, seed + 1)
+        args = (tokens, chunk, lens, ids, max_len, steps)
+        static_run(ops, m32, p32, lora32, *args)  # warm-up: the timed run finds every
+        torch.cuda.reset_peak_memory_stats()      # library kernel loaded
+        f32 = static_run(ops, m32, p32, lora32, *args)
+        peak32 = torch.cuda.max_memory_allocated() / 1e9
+        windows = decode_windows(m32, p32, lora32, f32.pop("cache"), f32["fed"][:, -1],
+                                 ids)[0]
+        line["f32"] = {"prefill_s": f32["prefill_s"], "extend_s": f32["extend_s"],
+                       "decode_ms_per_step": f32["decode_s"] / steps * 1e3,
+                       "decode_ms_per_step_windows": windows, "peak_gb": peak32,
+                       "weights_gb": sum(t.numel() * 4 for t in tree_leaves(p32)) / 1e9}
+        model = build_model(cfg, device=dev)  # bf16, the default
+        params, lora = cast_tree(p32, BF16), cast_tree(lora32, BF16)
+        del m32, p32, lora32
+    else:
+        model = build_model(cfg, device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(seed))
+        lora = random_lora(model, 8, seed + 1)
+    require(model.dtype == BF16, f"{name}: build_model's default dtype is {model.dtype}")
+    torch.cuda.empty_cache()
+    feed = None if f32 is None else f32["fed"]
+    static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, steps, feed)
+    torch.cuda.reset_peak_memory_stats()
+    run = static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, steps, feed)
+    launches = run["launches"]
+    want = expected_launches(model, launches, 1, steps, fresh_prefills=1)
+    require(launches == want, f"{name} bf16 launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cache = run.pop("cache")
+    windows, cache, tok = decode_windows(model, params, lora, cache, run["fed"][:, -1], ids)
+
+    def decode8():
+        nonlocal tok, cache
+        for _ in range(8):
+            lg, cache = model.decode(params, cache, tok[:, None], lora=lora, adapter_ids=ids)
+            tok = lg[:, -1].argmax(-1).to(torch.int32)
+
+    prof = profiled(decode8)
+    del cache
+    for lg in [run["prefill_logits"]] + run["logits"]:
+        require(bool(torch.isfinite(lg).all()), f"{name} bf16: logits not finite")
+    line.update({
+        "prefill_s": run["prefill_s"], "prefill_tokens_per_s": B * S / run["prefill_s"],
+        "extend_s": run["extend_s"], "decode_ms_per_step": run["decode_s"] / steps * 1e3,
+        "decode_ms_per_step_windows": windows, "peak_gb": peak, "weights_gb": sum(
+            t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9,
+        "launches": launches, "profile_decode_8_steps": prof,
+        "decode_device_busy_share": prof["device_busy_share"]})
+    if f32 is not None:
+        rel = float(rel_l2(run["prefill_logits"], f32["prefill_logits"]).max())
+        d = float((run["prefill_logits"].float() - f32["prefill_logits"]).abs().max())
+        top = float(f32["prefill_logits"].abs().max())
+        require(rel <= BF16_F32_TOL and d <= BF16_F32_TOL * top,
+                f"{name}: bf16 prefill logits off f32's by {rel} of a row's norm, "
+                f"{d} of max {top} (limit {BF16_F32_TOL} of each)")
+        checked = equal = 0
+        for got, want in zip(run["logits"], f32["logits"]):
+            clear = top2_gap(want) > 2 * d
+            same = got.float().argmax(-1) == want.argmax(-1)
+            checked += int(clear.sum())
+            equal += int((same & clear).sum())
+        positions = len(run["logits"]) * B
+        require(equal == checked, f"{name}: bf16 greedy tokens differ from f32 at "
+                                  f"{checked - equal} of {checked} clear positions")
+        require(checked >= MIN_CLEAR_SHARE * positions,
+                f"{name}: only {checked} of {positions} positions clear of 2 x {d}")
+        line["against_f32"] = {
+            "prefill_logit_max_rel_l2": rel, "prefill_logit_max_abs_diff": d,
+            "prefill_logit_max_abs_f32": top, "positions": positions,
+            "clear_positions": checked, "argmax_equal": equal}
+    line["identities"] = bf16_identities(no_drop_model(model), params, lora,
+                                         tokens[:2, :256], ids[:2])
+    if cfg.moe is not None:
+        line["identities_capacity_factor"] = float(cfg.moe.num_experts)
+    del model, params, lora, run, f32
+    torch.cuda.empty_cache()
+    return line, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     # ---------------------------------------------------------- 1. device
@@ -2109,6 +2594,8 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 library products sum in f32, as the reference's dots do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -2154,11 +2641,12 @@ def main() -> None:
     arch_cases = arch_kernel_cases(ops, ref, gen, dev)
     bwd_cases = backward_kernel_cases(ops, ref, gen, dev)
     refused, grad_errors = grad_guard(ops, ref, dev)
+    bf16_cases = bf16_kernel_cases(ops, ref, gen, dev)
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
           "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr, "arch_cases": arch_cases,
           "backward": bwd_cases, "refuse_autograd": refused,
-          "training_kernel_grad_errors": grad_errors})
+          "training_kernel_grad_errors": grad_errors, "bf16": bf16_cases})
 
     # ----------------------------------------------------------- 4. engine
     torch.cuda.reset_peak_memory_stats()  # the engine's own peak
@@ -2263,6 +2751,16 @@ def main() -> None:
     line, train_launches = train_phase(ops, configs, dev)
     emit(line)
 
+    # -------------------------------------------------------------- 9. bf16
+    bf16_launches = dict.fromkeys(gen_launches, 0)
+    t0 = time.perf_counter()
+    for name, B, S, chunk_len, steps, with_f32 in BF16_ARCHS:
+        line, counts = bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32)
+        emit(line)
+        for k, n in counts.items():
+            bf16_launches[k] += n
+    emit({"phase": "bf16_total", "seconds": time.perf_counter() - t0})
+
     # ----------------------------------------------------------- 9. summary
     kernels = []
     for name, src, tpu, m in (
@@ -2288,7 +2786,7 @@ def main() -> None:
         by_path = {"engine": launches[name], "generate": gen_launches[name],
                    "variants": var_launches[name], "archs": arch_launches[name],
                    "state": state_launches[name], "encdec": encdec_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name], "bf16": bf16_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,
@@ -2320,6 +2818,11 @@ def main() -> None:
     for k in kernels[:6]:
         k["arch_cases"] = [{key: m[key] for key in ("arch", "path") + keys if key in m}
                            for m in arch_cases[k["name"]]]
+    # the forward kernels in bf16 (phase 3's bf16 cases; their launches on
+    # the bf16 path are launches_by_path["bf16"])
+    for k in kernels[:6]:
+        k["bf16_cases"] = [{key: m[key] for key in ("arch",) + keys + ("max_abs_err_f32", "one_rounding_excess")
+                            if key in m} for m in bf16_cases[k["name"]]]
     # the backward kernels' other cases: flash_prefill_bwd at the other
     # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,
     # 12, 128

@@ -65,7 +65,7 @@ def setup(arch: str, pkgs: dict, steps: int):
 
     dev = torch.device("cuda")
     ids = torch.tensor([0, 1, 2, 3, 0, 1, 2, -1], dtype=torch.int32)
-    models = {w: p.models.build_model(p.configs.get(arch), device=dev)
+    models = {w: p.models.build_model(p.configs.get(arch), dtype=torch.float32, device=dev)
               for w, p in pkgs.items()}
     first = next(iter(models.values()))
     cfg = first.cfg

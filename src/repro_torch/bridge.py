@@ -22,14 +22,21 @@ from .device import resolve_device
 
 def tensor_tree(tree, device=None, dtype=torch.float32):
     """Map every array leaf of a dict/tuple/list tree to a torch tensor on
-    ``device`` (default: the card, raising without one)."""
+    ``device`` (default: the card, raising without one), of ``dtype``, or
+    of the leaf's own dtype with ``dtype=None`` (int leaves and an int8
+    cache stay as they are). A bfloat16 leaf (``ml_dtypes.bfloat16``, what
+    ``numpy.asarray`` makes of a JAX bf16 array, which ``torch.from_numpy``
+    refuses) crosses bit for bit: viewed as uint16, then as bfloat16."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tensor_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(tensor_tree(v, device, dtype) for v in tree)
     if isinstance(tree, torch.Tensor):  # as it is: no copy where it already fits
-        return tree.to(device=device, dtype=dtype)
+        return tree.to(device=device, dtype=dtype or tree.dtype)
     arr = np.ascontiguousarray(np.asarray(tree))
-    return torch.from_numpy(arr.copy()).to(device=device, dtype=dtype)
-
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device=device, dtype=dtype or t.dtype)

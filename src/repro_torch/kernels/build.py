@@ -4,23 +4,29 @@ Each source ``csrc/<source>.cu`` compiles on its own into a shared library
 with a plain C interface (each ``*_launch`` function returns the CUDA error
 code of its launch, ``<source>_error_string`` names it):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-        -Xcompiler -fPIC -o build/repro_torch_kernels/lib<source>-<hash>.so \
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+        --split-compile=0 -shared -Xcompiler -fPIC \
+        -o build/repro_torch_kernels/lib<source>-<hash>.so \
         src/repro_torch/kernels/csrc/<source>.cu
 
 The build runs at first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
 name carries a hash of its source, of every header ``csrc/*.cuh`` (the
-sources share them: ``tf32x3.cuh``, ``attention_tc.cuh``) and of the flags,
+sources share them: ``tf32x3.cuh``, ``bf16_mma.cuh``, ``attention_tc.cuh``)
+and of the flags,
 so an edited source or header rebuilds and an unchanged one is reused.
-All missing libraries compile at once, one ``nvcc`` process per source.
+All missing libraries compile at once, one ``nvcc`` process per source,
+each with ``--split-compile=0`` (a source's device functions optimise in
+parallel threads: ``fused_sgmv.cu`` holds its kernels for both float types).
 
 A source may export more than one kernel (``fused_sgmv.cu`` holds
 ``fused_sgmv`` and ``sgmv``; ``flash_prefill.cu`` holds ``flash_prefill``
-and ``flash_prefill_ragged``): libraries are keyed by source, launch counts
-by kernel. ``flash_prefill_bwd.cu`` and ``lora_grad.cu`` are the backward
-passes of ``flash_prefill`` and ``fused_sgmv``; a launch of each (one call
-of its wrapper, several CUDA kernels) counts once. This module holds the
+and ``flash_prefill_ragged``), and each forward source exports a
+``*_bf16_launch`` beside each f32 entry (:func:`entry`): libraries are
+keyed by source, launch counts by kernel. ``flash_prefill_bwd.cu`` and
+``lora_grad.cu`` are the backward passes of ``flash_prefill`` and
+``fused_sgmv``; a launch of each (one call of its wrapper, several CUDA
+kernels) counts once. This module holds the
 launch counts: every wrapper adds one to its kernel's count where it
 launches the kernel, and nowhere else.
 """
@@ -33,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,7 +56,7 @@ SERVING_ONLY = ("sgmv", "ragged_extend", "paged_attention", "flash_prefill_ragge
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset (see ops.reset_launch_counts)
 launches: collections.Counter = collections.Counter()
@@ -89,15 +96,21 @@ def build_all() -> dict[str, float]:
     t0 = time.perf_counter()
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        log = tempfile.TemporaryFile(mode="w+", dir=BUILD_DIR)
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True))
+        procs[n] = (tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
     seconds, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        seconds[n] = time.perf_counter() - t0
+    while len(seconds) < len(procs):  # each source's own seconds
+        for n, (tmp, log, proc) in procs.items():
+            if n not in seconds and proc.poll() is not None:
+                seconds[n] = time.perf_counter() - t0
+        time.sleep(0.05)
+    for n, (tmp, log, proc) in procs.items():
+        log.seek(0)
+        text = log.read()
+        log.close()
         if proc.returncode != 0:
-            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{log}")
+            failed.append(f"--- nvcc {n}.cu (exit {proc.returncode}) ---\n{text}")
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, library_path(n))  # atomic: concurrent builders agree
@@ -147,10 +160,17 @@ def check_error(name: str, source: str, lib, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({msg}) at launch")
 
 
-def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
-    """Every tensor float32, on ``device``, 16-byte aligned, and contiguous;
-    with ``rows`` it may be strided as long as its last dimension has unit
-    stride and every other stride is a multiple of 4 floats (16-byte rows).
+# the float types the kernels take: every float operand of a launch in one
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
+CHUNK = 4  # elements a kernel stages per copy: 16 bytes in float32, 8 in bfloat16
+
+
+def check_cuda(name: str, device, rows: bool = False, **tensors) -> torch.dtype:
+    """Every tensor of one float type of ``FLOAT_TYPES`` (returned), on
+    ``device``, contiguous and aligned to a chunk of 4 elements (16 bytes
+    in float32, 8 in bfloat16); with ``rows`` it may be strided as long as
+    its last dimension has unit stride and every other stride is a multiple
+    of 4 elements. Mixed float types raise ``ValueError``.
 
     Under autograd, a tensor that requires grad raises rather than come
     back without a gradient: ``fused_sgmv`` and ``flash_prefill`` reach
@@ -162,23 +182,43 @@ def check_cuda_f32(name: str, device, rows: bool = False, **tensors) -> None:
         raise NotImplementedError(
             f"{name}: a serving-only kernel with no backward pass (of "
             f"{', '.join(SERVING_ONLY)}); call under torch.no_grad() or on CPU tensors")
+    dtype = next(iter(tensors.values())).dtype
+    if dtype not in FLOAT_TYPES:
+        raise ValueError(f"{name}: float32 or bfloat16 inputs, got {dtype}")
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype} where the other inputs are "
+                             f"{dtype}: every float input of a launch has one type")
         if rows:
-            if t.stride(-1) != 1 or any(st % 4 for st in t.stride()[:-1]):
+            if t.stride(-1) != 1 or any(st % CHUNK for st in t.stride()[:-1]):
                 raise ValueError(f"{name}: {arg} needs unit stride on its last "
-                                 "dimension and 16-byte rows")
+                                 f"dimension and rows of a multiple of {CHUNK} elements")
         elif not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+        if t.data_ptr() % (CHUNK * t.element_size()):
+            raise ValueError(f"{name}: {arg} must be aligned to {CHUNK} elements")
+    return dtype
 
 
-# head dims the attention kernels take: 16-byte rows (a multiple of 4
-# floats) up to 256 (csrc/attention_tc.cuh, csrc/paged_attention.cu)
+def entry(fname: str, dtype: torch.dtype) -> str:
+    """The C entry of a kernel for ``dtype``: ``<fname>`` for float32,
+    ``<fname without _launch>_bf16_launch`` for bfloat16."""
+    return fname if dtype == torch.float32 else fname[:-len("_launch")] + "_bf16_launch"
+
+
+def refuse_bf16_training(name: str, *tensors) -> None:
+    """The backward kernels take float32 only: a bfloat16 input that
+    requires grad on the card raises rather than train in another type."""
+    if any(t.dtype == torch.bfloat16 and t.device.type == "cuda" for t in tensors):
+        raise NotImplementedError(
+            f"{name}: bf16 training is not ported yet (the backward kernels "
+            "flash_prefill_bwd and lora_grad take float32); train in float32")
+
+
+# head dims the attention kernels take: rows of 4-element chunks (a
+# multiple of 4) up to 256 (csrc/attention_tc.cuh, csrc/paged_attention.cu)
 MAX_HEAD_DIM = 256
 
 

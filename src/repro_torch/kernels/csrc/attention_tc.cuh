@@ -1,5 +1,6 @@
 // The causal GQA attention tile loop of ragged_extend.cu and flash_prefill.cu,
-// on the tensor cores of Hopper (sm_90a) with f32 accuracy (3xTF32).
+// on the tensor cores of Hopper (sm_90a): f32 inputs with f32 accuracy
+// (3xTF32), or bf16 inputs with f32 sums (see "bf16" below).
 //
 // A source hands attend() one block's work: a q tile of query tokens, the
 // keys each token may see, the range of K/V tiles to walk, and where the
@@ -82,7 +83,7 @@
 
 #pragma once
 
-#include "tf32x3.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 namespace attn {
@@ -94,7 +95,8 @@ constexpr int STAGES = 2;             // staged K/V tiles in the cp.async ring
 constexpr int MAX_ROWS = 16 * WARPS;  // query vectors per block, at most
 constexpr int MAX_D = 256;
 constexpr int NARROW_D = 128;         // wider heads take the wide tiles
-constexpr int QK_FLUSH = 4;           // k8 steps of Q·Kᵀ per tensor-core sum
+constexpr int QK_FLUSH = 4;           // k8 steps of Q·Kᵀ per tensor-core sum (f32)
+constexpr int QK_FLUSH16 = 2;         // k16 steps of the same 32 of D (bf16)
 constexpr float NEG_INF = -1e30f;
 
 // d-tiles of 8 columns compiled for a head dim D (4 <= D <= 256, D % 4 == 0)
@@ -117,13 +119,22 @@ __host__ __device__ inline int tile_rows(int vectors, int D) {
   return rows;
 }
 
-__host__ __device__ constexpr int row_pitch(int DT) { return 8 * DT + 4; }
+// row pitch (elements) of a staged tile: f32 8·DT + 4, bf16 8·DT + 8
+template <class T>
+__host__ __device__ constexpr int row_pitch(int DT) {
+  return sizeof(T) == 4 ? 8 * DT + 4 : 8 * DT + 8;
+}
 
 // dynamic shared memory of a block: the q tile, then the K/V ring; the
-// epilogue reuses the ring
-template <int WR, int DT>
+// epilogue's f32 partial rows reuse all of it
+template <class T, int WR, int DT>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(16 * WR + STAGES * 2 * stage_keys(DT)) * row_pitch(DT);
+  constexpr int ROWS = 16 * WR, WKE = is_wide(DT) ? 1 : WARPS / WR;
+  constexpr size_t loop =
+      sizeof(T) * (size_t)(ROWS + STAGES * 2 * stage_keys(DT)) * row_pitch<T>(DT);
+  constexpr size_t epilogue =
+      sizeof(float) * ((size_t)WKE * ROWS * row_pitch<float>(DT) + (3 * WKE + 1) * ROWS);
+  return loop > epilogue ? loop : epilogue;
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -137,9 +148,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // One block's attention. Src gives the addresses (h is the head within
-// the group, 0 .. G − 1):
-//   const float* q_at(int s, int h), k_at(int t), v_at(int t), any();
-//   float* o_at(int s, int h); size_t part_at(int s, int h);
+// the group, 0 .. G − 1), T being the element type:
+//   const T* q_at(int s, int h), k_at(int t), v_at(int t), any();
+//   T* o_at(int s, int h); size_t part_at(int s, int h);
 //   float* lse_at(int s, int h): where a live row's log-sum-exp of its
 //   scaled scores goes (for a backward pass), or nullptr for none.
 // Row r of the tile is query vector v_lo + r, token (v_lo + r) / G, head
@@ -150,8 +161,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 // tokens below S, through o_at. Otherwise it writes each live row's
 // unnormalised sum Σ p·v to part_o + part_at(s, h)·D and its max and sum
 // of p to part_ml + 2·part_at(s, h), for a combine pass.
-template <int WR, int DT, class Src>
-__device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D, int S,
+template <class T, int WR, int DT, class Src>
+__device__ __forceinline__ void attend(const Src& src, float4* smem4, int G, int D, int S,
                                        int v_lo, int q_hi, int pos0, int kv_end, int j0,
                                        int j1, float* part_o, float* part_ml) {
   constexpr bool WIDE = is_wide(DT);
@@ -164,13 +175,12 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
   constexpr int NS = WIDE ? BK / 8 : BK / WK / 8;
   constexpr int DW = WIDE ? (DT + WK - 1) / WK : DT;  // P·V d-tiles of a warp, at most
   constexpr int WKE = WIDE ? 1 : WK;  // partial rows that meet in the epilogue
-  constexpr int LD = row_pitch(DT);
-  constexpr int C4 = 2 * DT;  // 16-byte chunks of a staged row
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int LD = row_pitch<T>(DT);
+  constexpr int C4 = 2 * DT;  // 4-element chunks of a staged row
   static_assert(!WIDE || WK >= 2, "a wide head splits D over the warps of a row");
-  static_assert(WKE * ROWS * LD + (3 * WKE + 1) * ROWS <= STAGES * 2 * BK * LD,
-                "the epilogue's partial rows fit in the ring it reuses");
-  float* Qs = smem;                    // [ROWS][LD]
-  float* ring = smem + ROWS * LD;      // STAGES x (K [BK][LD], V [BK][LD])
+  T* Qs = reinterpret_cast<T*>(smem4);  // [ROWS][LD]
+  T* ring = Qs + ROWS * LD;             // STAGES x (K [BK][LD], V [BK][LD])
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -188,16 +198,16 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
   for (int e = tid; e < ROWS * C4; e += THREADS) {
     const int r = e / C4, c = (e % C4) * 4, vec = v_lo + r, s = vec / G;
     const bool ok = s < q_hi && c < D;
-    cp_async16(Qs + r * LD + c, ok ? src.q_at(s, vec % G) + c : src.any(), ok);
+    cp_chunk(Qs + r * LD + c, ok ? src.q_at(s, vec % G) + c : src.any(), ok);
   }
   auto load_kv = [&](int stage, int u) {  // staged tile u: keys u·BK ..
-    float* ks = ring + stage * 2 * BK * LD;
-    float* vs = ks + BK * LD;
+    T* ks = ring + stage * 2 * BK * LD;
+    T* vs = ks + BK * LD;
     for (int e = tid; e < BK * C4; e += THREADS) {
       const int r = e / C4, c = (e % C4) * 4, t = u * BK + r;
       const bool ok = t < kv_end && c < D;
-      cp_async16(ks + r * LD + c, ok ? src.k_at(t) + c : src.any(), ok);
-      cp_async16(vs + r * LD + c, ok ? src.v_at(t) + c : src.any(), ok);
+      cp_chunk(ks + r * LD + c, ok ? src.k_at(t) + c : src.any(), ok);
+      cp_chunk(vs + r * LD + c, ok ? src.v_at(t) + c : src.any(), ok);
     }
   };
   const int u0 = j0 * SUB;
@@ -208,21 +218,44 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
 
   float o[DW][4] = {};
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
-  const float* qa = Qs + r0 * LD + t4;
   for (int u = u0; u < u1; ++u) {
     if (u + 1 < u1) load_kv((u + 1 - u0) % STAGES, u + 1);
     cp_async_commit();  // an empty group at the end keeps the count uniform
     cp_async_wait<1>();  // tile u (and Q) landed, for this thread's copies
     __syncthreads();
-    const float* ks = ring + ((u - u0) % STAGES) * 2 * BK * LD;
-    const float* vs = ks + BK * LD;
+    const T* ks = ring + ((u - u0) % STAGES) * 2 * BK * LD;
+    const T* vs = ks + BK * LD;
     const int key0 = u * BK + kw0;  // this warp's first key
 
-    // S = Q·Kᵀ for 16 rows x NS·8 keys, each QK_FLUSH k8 steps in a fresh
+    // S = Q·Kᵀ for 16 rows x NS·8 keys, each 32 of D in a fresh
     // accumulator added to the scores in f32. The loop over the chunks
     // stays rolled: unrolled, the compiler hoists the loads of later chunks
     // and spills at D = 128.
     float sc[NS][4] = {};
+    if constexpr (BF16) {
+      const T* qa = Qs + r0 * LD + 2 * t4;
+#pragma unroll 1
+      for (int k0 = 0; k0 < DT / 2; k0 += QK_FLUSH16) {
+        float part[NS][4] = {};
+#pragma unroll
+        for (int kk = k0; kk < k0 + QK_FLUSH16; ++kk) {
+          const T* p = qa + kk * 16;
+          const unsigned a[4] = {lds_pair(p), lds_pair(p + 8 * LD), lds_pair(p + 8),
+                                 lds_pair(p + 8 * LD + 8)};
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            const T* kb = ks + (kw0 + n * 8 + g) * LD + kk * 16 + 2 * t4;
+            const unsigned b[2] = {lds_pair(kb), lds_pair(kb + 8)};
+            mma_bf16(part[n], a, b);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[n][i] += part[n][i];
+      }
+    } else {
+    const float* qa = Qs + r0 * LD + t4;
 #pragma unroll 1
     for (int k0 = 0; k0 < DT; k0 += QK_FLUSH) {
       float part[NS][4] = {};
@@ -246,6 +279,7 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) sc[n][i] += part[n][i];
+    }
     }
 
     // online softmax: c0, c1 are row r0's keys 2t4, 2t4 + 1 of a slice, c2,
@@ -281,6 +315,33 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     // O = α·O + P·V, the tile's P·V in fresh accumulators (one per 8
     // columns: independent chains of mma)
     float f[DW][4] = {};
+    if constexpr (BF16) {
+      // k16 step n / 2 over slices n and n + 1: A is their accumulators as
+      // they lie, P split into bf16 hi + lo
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        const bool pair = n + 1 < NS;  // an odd last slice: upper half zero
+        unsigned phi[4] = {0u, 0u, 0u, 0u}, plo[4] = {0u, 0u, 0u, 0u};
+        split_bf16(sc[n][0], sc[n][1], phi[0], plo[0]);
+        split_bf16(sc[n][2], sc[n][3], phi[1], plo[1]);
+        if (pair) {
+          split_bf16(sc[n + 1][0], sc[n + 1][1], phi[2], plo[2]);
+          split_bf16(sc[n + 1][2], sc[n + 1][3], phi[3], plo[3]);
+        }
+        // ldmatrix rows: lanes 0-7 keys n·8 + 0..7, lanes 8-15 the next 8
+        // (the same 8 again where there is no pair)
+        const int vrow = kw0 + n * 8 + (lane & 7) + (pair && (lane & 8) ? 8 : 0);
+        const T* vb = vs + vrow * LD + dlo * 8;
+#pragma unroll
+        for (int dt = 0; dt < DW; ++dt) {
+          if (WIDE && dt >= dn) break;  // uniform over the warp
+          unsigned b[2];
+          ldsm_x2_trans(b, vb + dt * 8);
+          mma_bf16(f[dt], plo, b);
+          mma_bf16(f[dt], phi, b);
+        }
+      }
+    } else {
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       // A operand: k = t4 is key 2t4, k = t4 + 4 is key 2t4 + 1
@@ -298,6 +359,7 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
         mma_3xtf32(f[dt], phi, plo, bhi, blo);
       }
     }
+    }
 #pragma unroll
     for (int dt = 0; dt < DW; ++dt) {
       o[dt][0] = o[dt][0] * al0 + f[dt][0];
@@ -308,11 +370,14 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     __syncthreads();  // the stage is free for the load of tile u + 2
   }
   cp_async_wait<0>();
+  __syncthreads();  // Q and the ring are free
 
   // epilogue: the WKE partial rows meet in shared memory, in a fixed order
-  // (a wide head's warps hold disjoint columns of one partial)
-  float* Os = ring;                    // [WKE][ROWS][LD]
-  float* ms = Os + WKE * ROWS * LD;    // [WKE][ROWS]
+  // (a wide head's warps hold disjoint columns of one partial), in f32
+  // over all of it
+  constexpr int LDF = row_pitch<float>(DT);
+  float* Os = reinterpret_cast<float*>(smem4);  // [WKE][ROWS][LDF]
+  float* ms = Os + WKE * ROWS * LDF;    // [WKE][ROWS]
   float* ls = ms + WKE * ROWS;         // [WKE][ROWS]
   float* ws = ls + WKE * ROWS;         // [WKE][ROWS]: exp(m_k − M)
   float* inv = ws + WKE * ROWS;        // [ROWS]
@@ -320,11 +385,11 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
 #pragma unroll
   for (int dt = 0; dt < DW; ++dt) {
     if (WIDE && dt >= dn) break;
-    float* p = Os + (ke * ROWS + r0) * LD + (dlo + dt) * 8 + 2 * t4;
+    float* p = Os + (ke * ROWS + r0) * LDF + (dlo + dt) * 8 + 2 * t4;
     p[0] = o[dt][0];
     p[1] = o[dt][1];
-    p[8 * LD] = o[dt][2];
-    p[8 * LD + 1] = o[dt][3];
+    p[8 * LDF] = o[dt][2];
+    p[8 * LDF + 1] = o[dt][3];
   }
   if (t4 == 0 && (!WIDE || wk == 0)) {
     ms[ke * ROWS + r0] = m0;
@@ -362,7 +427,7 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int k = 0; k < WKE; ++k) {
-      const float4 x = *reinterpret_cast<const float4*>(Os + (k * ROWS + r) * LD + c);
+      const float4 x = *reinterpret_cast<const float4*>(Os + (k * ROWS + r) * LDF + c);
       const float w = ws[k * ROWS + r];
       a.x += x.x * w;
       a.y += x.y * w;
@@ -371,8 +436,7 @@ __device__ __forceinline__ void attend(const Src& src, float* smem, int G, int D
     }
     if (part_o == nullptr) {
       const float f = inv[r];  // 0 for a padded query
-      *reinterpret_cast<float4*>(src.o_at(s, vec % G) + c) =
-          make_float4(a.x * f, a.y * f, a.z * f, a.w * f);
+      store4(src.o_at(s, vec % G) + c, make_float4(a.x * f, a.y * f, a.z * f, a.w * f));
     } else if (s < q_hi) {
       *reinterpret_cast<float4*>(part_o + src.part_at(s, vec % G) * D + c) = a;
     }
@@ -391,8 +455,7 @@ __device__ __forceinline__ void zero_vectors(const Src& src, int G, int D, int v
   const int D4 = D / 4;
   for (int e = threadIdx.x; e < (v_hi - v_lo) * D4; e += THREADS) {
     const int vec = v_lo + e / D4, c = (e % D4) * 4;
-    *reinterpret_cast<float4*>(src.o_at(vec / G, vec % G) + c) =
-        make_float4(0.f, 0.f, 0.f, 0.f);
+    store4(src.o_at(vec / G, vec % G) + c, make_float4(0.f, 0.f, 0.f, 0.f));
   }
 }
 

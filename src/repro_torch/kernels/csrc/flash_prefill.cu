@@ -18,7 +18,11 @@
 // What bounds it on this card: a row of S tokens does 4·H·D·S(S+1)/2
 // flops against (2H + 4Hkv)·S·D·4 bytes, so any S past a few dozen is
 // bound by the arithmetic: f32-accurate products at 165 TFLOP/s on the
-// tensor cores (3xTF32).
+// tensor cores (3xTF32); bf16 inputs at 989 TFLOP/s.
+//
+// flash_prefill_launch takes f32 q, k, v and out; flash_prefill_bf16_launch
+// bf16 ones (attention_tc.cuh: bf16 products, f32 softmax and sums), with
+// lse f32 in both.
 //
 // What the design does about it: one block per (q tile, b, kv head) runs
 // the tensor-core tile loop of attention_tc.cuh, which ragged_extend.cu
@@ -45,35 +49,36 @@ struct Strides {  // elements between neighbours along b, h and s
   long long b, h, s;
 };
 
+template <class E>
 struct FlashSrc {  // row b and kv head hkv of the head-major views
-  const float *q, *k, *v;
-  float* out;
+  const E *q, *k, *v;
+  E* out;
   float* lse;  // (B, H, S) or nullptr
   Strides qs, ks, vs;
   int b, hkv, G, H, S;
   __device__ size_t qoff(int s, int h) const {
     return (size_t)(b * qs.b + (long long)(hkv * G + h) * qs.h + s * qs.s);
   }
-  __device__ const float* q_at(int s, int h) const { return q + qoff(s, h); }
-  __device__ const float* k_at(int t) const {
+  __device__ const E* q_at(int s, int h) const { return q + qoff(s, h); }
+  __device__ const E* k_at(int t) const {
     return k + (size_t)(b * ks.b + hkv * ks.h + t * ks.s);
   }
-  __device__ const float* v_at(int t) const {
+  __device__ const E* v_at(int t) const {
     return v + (size_t)(b * vs.b + hkv * vs.h + t * vs.s);
   }
-  __device__ const float* any() const { return q; }
-  __device__ float* o_at(int s, int h) const { return out + qoff(s, h); }
+  __device__ const E* any() const { return q; }
+  __device__ E* o_at(int s, int h) const { return out + qoff(s, h); }
   __device__ size_t part_at(int, int) const { return 0; }  // never split
   __device__ float* lse_at(int s, int h) const {
     return lse == nullptr ? nullptr : lse + ((size_t)b * H + hkv * G + h) * S + s;
   }
 };
 
-template <int WR, int DT>
+template <class E, int WR, int DT>
 __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ true_lens,
-    float* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int Hkv, int D,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const int* __restrict__ true_lens,
+    E* __restrict__ out, float* __restrict__ lse, int B, int S, int H, int Hkv, int D,
     int n_tiles,
     Strides qs, Strides ks, Strides vs) {
   extern __shared__ float4 smem4[];
@@ -82,7 +87,7 @@ __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
   // the q tile is the slowest grid axis, reversed: longest tiles first
   const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hkv));
   const int b = (blockIdx.x % (B * Hkv)) / Hkv, hkv = blockIdx.x % Hkv;
-  const FlashSrc src{q, k, v, out, lse, qs, ks, vs, b, hkv, G, H, S};
+  const FlashSrc<E> src{q, k, v, out, lse, qs, ks, vs, b, hkv, G, H, S};
   const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
   const int n = true_lens ? min(max(true_lens[b], 0), S) : S;
   const int q_hi = min(attn::tile_token_end(v_lo, ROWS, G, S), n);  // live below q_hi
@@ -92,52 +97,48 @@ __global__ void __launch_bounds__(attn::THREADS, 1) flash_prefill_kernel(
     return;
   }
   // keys [0, q_hi): the tile's diagonal
-  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, v_lo, q_hi, 0, q_hi,
+  attn::attend<E, WR, DT>(src, smem4, G, D, S, v_lo, q_hi, 0, q_hi,
                        0, (q_hi + attn::BKV - 1) / attn::BKV, nullptr, nullptr);
 }
 
-template <int WR, int DT>
-int launch(const float* q, const float* k, const float* v, const int* true_lens,
-           float* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+template <class E, int WR, int DT>
+int launch(const E* q, const E* k, const E* v, const int* true_lens,
+           E* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
            Strides vs, cudaStream_t stream) {
-  const size_t smem = attn::smem_bytes<WR, DT>();
+  const size_t smem = attn::smem_bytes<E, WR, DT>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_prefill_kernel<E, WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long vectors = (long long)S * (H / Hkv);  // of one (row, kv head)
   const int n_tiles = (int)((vectors + 16 * WR - 1) / (16 * WR));
   const long long blocks = (long long)n_tiles * B * Hkv;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_prefill_kernel<WR, DT><<<(unsigned)blocks, attn::THREADS, smem, stream>>>(
+  flash_prefill_kernel<E, WR, DT><<<(unsigned)blocks, attn::THREADS, smem, stream>>>(
       q, k, v, true_lens, out, lse, B, S, H, Hkv, D, n_tiles, qs, ks, vs);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int launch_dt(int wr, const float* q, const float* k, const float* v, const int* true_lens,
-              float* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+template <class E, int DT>
+int launch_dt(int wr, const E* q, const E* k, const E* v, const int* true_lens,
+              E* out, float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
               Strides vs, cudaStream_t stream) {
   switch (wr) {  // q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
-    case 1: return launch<1, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
-    case 2: return launch<2, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
-    case 4: return launch<4, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 1: return launch<E, 1, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 2: return launch<E, 2, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+    case 4: return launch<E, 4, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
     default:
       if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
-      else return launch<8, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
+      else return launch<E, 8, DT>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, stream);
   }
 }
 
 }  // namespace
 
-// true_lens: (B,) int32 live tokens per row, or NULL for S in every row.
-// out has q's strides; lse: (B, H, S) contiguous, or NULL.
-extern "C" int flash_prefill_launch(const float* q, const float* k,
-                                    const float* v, const int* true_lens,
-                                    float* out, float* lse, int B, int S, int H, int Hkv,
-                                    int D, long long qsb, long long qsh,
-                                    long long qss, long long ksb, long long ksh,
-                                    long long kss, long long vsb, long long vsh,
-                                    long long vss, void* stream) {
+template <class E>
+int dispatch(const E* q, const E* k, const E* v, const int* true_lens, E* out, float* lse,
+             int B, int S, int H, int Hkv, int D, long long qsb, long long qsh,
+             long long qss, long long ksb, long long ksh, long long kss, long long vsb,
+             long long vsh, long long vss, void* stream) {
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D % 4 != 0 || D <= 0 ||
       D > attn::MAX_D)
     return (int)cudaErrorInvalidValue;
@@ -145,12 +146,35 @@ extern "C" int flash_prefill_launch(const float* q, const float* k,
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
   const cudaStream_t st = (cudaStream_t)stream;
   switch (attn::d_tiles(D)) {
-    case 4: return launch_dt<4>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 8: return launch_dt<8>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 16: return launch_dt<16>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
-    case 20: return launch_dt<20>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
-    default: return launch_dt<32>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 4: return launch_dt<E, 4>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 8: return launch_dt<E, 8>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 16: return launch_dt<E, 16>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 20: return launch_dt<E, 20>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    default: return launch_dt<E, 32>(wr, q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
   }
+}
+
+// true_lens: (B,) int32 live tokens per row, or NULL for S in every row.
+// out has q's strides; lse: (B, H, S) contiguous, or NULL.
+extern "C" int flash_prefill_launch(const float* q, const float* k, const float* v,
+                                    const int* true_lens, float* out, float* lse, int B,
+                                    int S, int H, int Hkv, int D, long long qsb,
+                                    long long qsh, long long qss, long long ksb,
+                                    long long ksh, long long kss, long long vsb,
+                                    long long vsh, long long vss, void* stream) {
+  return dispatch(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qsb, qsh, qss, ksb, ksh,
+                  kss, vsb, vsh, vss, stream);
+}
+
+// The same on bf16 q, k, v and out (lse f32).
+extern "C" int flash_prefill_bf16_launch(const bf16* q, const bf16* k, const bf16* v,
+                                         const int* true_lens, bf16* out, float* lse, int B,
+                                         int S, int H, int Hkv, int D, long long qsb,
+                                         long long qsh, long long qss, long long ksb,
+                                         long long ksh, long long kss, long long vsb,
+                                         long long vsh, long long vss, void* stream) {
+  return dispatch(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qsb, qsh, qss, ksb, ksh,
+                  kss, vsb, vsh, vss, stream);
 }
 
 extern "C" const char* flash_prefill_error_string(int err) {

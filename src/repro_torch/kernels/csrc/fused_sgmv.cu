@@ -1,5 +1,8 @@
 // fused_sgmv and sgmv: base projection plus multi-LoRA delta, and the delta
-// alone, for Hopper (sm_90a).
+// alone, for Hopper (sm_90a): the kernels, templated on the element type,
+// and their launch plans, with the C entries for f32 and bf16 inputs at
+// the end. The build compiles this file with --split-compile (the two
+// element types' kernels optimise in parallel threads).
 //
 // fused_sgmv_launch replaces src/repro/kernels/sgmv.py:fused_sgmv, the
 // Pallas TPU kernel; sgmv_launch replaces src/repro/kernels/sgmv.py:sgmv.
@@ -119,10 +122,25 @@
 // 4·(d_in + d_out) bytes of x and y, 16 flop/byte at r = 32: bound by the
 // bytes of x and y at every M. On the tiled path it is the shrink pass and
 // the expand alone: no d_in loop.
+//
+// bf16 (fused_sgmv_bf16_launch, sgmv_bf16_launch): x, W, A, B and y bf16,
+// computing what the reference's Pallas kernel computes on bf16 inputs:
+// x·W and h = x·A of the bf16 values with f32 sums, h kept in f32, h·B[id]
+// with B promoted to f32, the sum in f32 and y rounded to bf16 once. Every
+// kernel is templated on the element type E and stages 4 elements a copy
+// (8 bytes in bf16: the same indices as f32, half the bytes); scratch and
+// partials stay f32. The tiled path's base product runs one
+// mma.sync.m16n8k16 bf16 product per k16 (x as 4-byte fragment loads, W's
+// B fragments by ldmatrix.trans from its row-major [k][n] tile, no
+// transpose), flushed to f32 every FLUSH slices as in f32; its expand runs
+// the f32 h in two TF32 products (hi, lo) against B, which is exact in
+// TF32. The skinny path streams bf16 W slabs through the same ring, half
+// the bytes that bound a decode projection, widened to f32 for the FMA.
+// The shrinks widen x and A to f32 for the FMA.
 
 #include <cuda_runtime.h>
 
-#include "tf32x3.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -140,6 +158,20 @@ constexpr int XS_LD = TK + 4;  // x row pitch: fragment (g, t) -> bank 4g + t
 constexpr int WS_LD = TN + 8;  // W row pitch: fragment (t, g) -> bank 8t + g
 constexpr int XS_FLOATS = TM * XS_LD;
 constexpr int STAGE_FLOATS = XS_FLOATS + TK * WS_LD;
+// the tiled kernel's row pitches (elements) in bf16: x 20 words (its
+// 4-byte fragment loads of a warp on 32 banks), W 16-byte rows of 272
+// bytes (ldmatrix's eight rows on disjoint banks)
+constexpr int XS_LD16 = TK + 8;
+constexpr int WS_LD16 = TN + 8;
+
+template <class E>
+struct Tiled {  // the tiled kernel's ring for element type E
+  static constexpr int XS_LD = sizeof(E) == 4 ? ::XS_LD : XS_LD16;
+  static constexpr int WS_LD = sizeof(E) == 4 ? ::WS_LD : WS_LD16;
+  static constexpr int XS = TM * XS_LD;          // elements of a stage's x
+  static constexpr int STAGE = XS + TK * WS_LD;  // elements of a stage
+  static constexpr size_t RING_BYTES = sizeof(E) * (size_t)STAGES * STAGE;
+};
 constexpr int SH_ROWS = 64;    // rows per shrink block
 constexpr int MAX_SPLIT = 8;   // parts of d_in, each in its own block, at most
 constexpr int MAX_RANK = 128;
@@ -207,15 +239,19 @@ __host__ __device__ constexpr int expand_chunk(int R) { return rank_chunk(expand
 // dynamic shared memory of the tiled kernel: the cp.async ring (reused by
 // the expand's h rows [TM][EK + 4] and B tile [EK][WS_LD], EK ranks a
 // stage), then with the base term the tile's running f32 sums (TM x TN)
-static_assert(TM * (RANK_CHUNK + 4) + RANK_CHUNK * WS_LD <= STAGES * STAGE_FLOATS,
+// the expand's f32 h rows, then its B tile of element type E
+template <class E, int EK>
+constexpr size_t expand_bytes() {
+  return sizeof(float) * (size_t)TM * (EK + 4) + sizeof(E) * (size_t)EK * Tiled<E>::WS_LD;
+}
+static_assert(expand_bytes<float, RANK_CHUNK>() <= Tiled<float>::RING_BYTES &&
+                  expand_bytes<bf16, RANK_CHUNK>() <= Tiled<bf16>::RING_BYTES,
               "the expand's tiles fit in the ring it reuses");
 
-template <int R, bool HAS_BASE>
+template <class E, int R, bool HAS_BASE>
 size_t tiled_smem_bytes() {
-  constexpr int EK = expand_chunk(R);
-  const size_t expand = (size_t)TM * (EK + 4) + (size_t)EK * WS_LD;
-  const size_t ring = (size_t)STAGES * STAGE_FLOATS;
-  return sizeof(float) * (HAS_BASE ? ring + (size_t)TM * TN : expand);
+  return HAS_BASE ? Tiled<E>::RING_BYTES + sizeof(float) * (size_t)TM * TN
+                  : expand_bytes<E, expand_chunk(R)>();
 }
 
 // How the tiled path splits d_in to fill the card where the rows alone do
@@ -255,17 +291,17 @@ TiledSplit tiled_split(int M, int d_in, int d_out, bool has_base) {
 // rg, rg + THREADS/RC, ...; x and the k slice of A[id] come through a
 // two-stage cp.async ring, and each sum runs in k order. A rank r < R
 // stages A with 4-byte copies, ranks past r zero-filled.
-template <int R, bool EXACT, bool V4>
+template <class E, int R, bool EXACT, bool V4>
 __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
-    const float* __restrict__ x, const float* __restrict__ lora_a,
+    const E* __restrict__ x, const E* __restrict__ lora_a,
     const int* __restrict__ ids, float* __restrict__ hpart, int M, int S,
     int d_in, int r_arg, float scale) {
   constexpr int RC = rank_chunk(R), RP = rank_parts(R);
   const int r_in = EXACT ? R : r_arg;
   constexpr int RG = THREADS / RC;   // row groups
   constexpr int RPT = SH_ROWS / RG;  // rows per thread
-  __shared__ __align__(16) float xs[2][SH_ROWS][XS_LD];
-  __shared__ __align__(16) float as[2][TK][RC];
+  __shared__ __align__(16) E xs[2][SH_ROWS][XS_LD];
+  __shared__ __align__(16) E as[2][TK][RC];
   const int tid = threadIdx.x;
   const int b = blockIdx.x, s0 = blockIdx.y * SH_ROWS;
   const int zpart = blockIdx.z / RP, rk0 = blockIdx.z % RP * RC;  // d_in part, first rank
@@ -277,21 +313,21 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
     for (int e = tid; e < rows * RC; e += THREADS) hb[e / RC * R + e % RC] = 0.f;
     return;
   }
-  const float* xb = x + m0 * d_in;
-  const float* ab = lora_a + (size_t)id * d_in * r_in;
+  const E* xb = x + m0 * d_in;
+  const E* ab = lora_a + (size_t)id * d_in * r_in;
   auto load_slice = [&](int kt, int st) {
     const int k0 = kt * TK;
     if constexpr (V4) {
       for (int c = tid; c < SH_ROWS * TK / 4; c += THREADS) {
         const int row = c / (TK / 4), kc = c % (TK / 4) * 4;
         const bool ok = row < rows && k0 + kc < d_in;
-        cp_async16(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
+        cp_chunk(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
       }
     } else {
       for (int c = tid; c < SH_ROWS * TK; c += THREADS) {
         const int row = c / TK, kc = c % TK;
         const bool ok = row < rows && k0 + kc < d_in;
-        cp_async4(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
+        copy1(&xs[st][row][kc], ok ? xb + (size_t)row * d_in + k0 + kc : x, ok);
       }
     }
     // TK rows of A[id], the block's RC ranks of each
@@ -299,13 +335,13 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
       for (int c = tid; c < TK * RC / 4; c += THREADS) {
         const int kk = c / (RC / 4), rc = c % (RC / 4) * 4;
         const bool ok = k0 + kk < d_in;
-        cp_async16(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
+        cp_chunk(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
       }
     } else {
       for (int c = tid; c < TK * RC; c += THREADS) {
         const int kk = c / RC, rc = c % RC;
         const bool ok = k0 + kk < d_in && rk0 + rc < r_in;
-        cp_async4(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
+        copy1(&as[st][kk][rc], ok ? ab + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
       }
     }
     cp_async_commit();
@@ -329,11 +365,11 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < TK; kk += 4) {
-      const float a0 = as[st][kk][r], a1 = as[st][kk + 1][r];
-      const float a2 = as[st][kk + 2][r], a3 = as[st][kk + 3][r];
+      const float a0 = to_f(as[st][kk][r]), a1 = to_f(as[st][kk + 1][r]);
+      const float a2 = to_f(as[st][kk + 2][r]), a3 = to_f(as[st][kk + 3][r]);
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[st][rg + j * RG][kk]);
+        const float4 xv = load4f(&xs[st][rg + j * RG][kk]);
         acc[j] = fmaf(xv.x, a0, acc[j]);
         acc[j] = fmaf(xv.y, a1, acc[j]);
         acc[j] = fmaf(xv.z, a2, acc[j]);
@@ -349,6 +385,40 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
   }
 }
 
+// The tiled kernel's epilogue: acc (+ the running base sums) to out
+template <bool HAS_BASE, class O>
+__device__ __forceinline__ void tiled_store(const float (&acc)[MT][NT][4], const float4* total,
+                                            O* out, int m0, int n0, int wm, int wn, int M,
+                                            int d_out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // C fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+  const bool pairs = (d_out & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wm + mt * 16 + g + 8 * hh;
+      if (m >= M) continue;
+      O* yr = out + (size_t)m * d_out;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = n0 + wn + nt * 8 + 2 * t;
+        float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+        if constexpr (HAS_BASE) {
+          const float4 b = total[(mt * NT + nt) * THREADS];
+          v0 += hh ? b.z : b.x;
+          v1 += hh ? b.w : b.y;
+        }
+        if (pairs && n < d_out) {
+          store2(yr + n, v0, v1);
+        } else {
+          if (n < d_out) store1(yr + n, v0);
+          if (n + 1 < d_out) store1(yr + n + 1, v1);
+        }
+      }
+    }
+}
+
 // Tiled path, pass 2: the TM x TN output tile at (blockIdx.y, blockIdx.x),
 // y = x·W (HAS_BASE) + h·B[id] per row, on the tensor cores in 3xTF32,
 // with h the sum of ``hsplit`` shrink partials. With gridDim.z > 1 block z
@@ -357,18 +427,19 @@ __global__ void __launch_bounds__(THREADS) lora_shrink_rows_kernel(
 // sum_parts_kernel to add; otherwise it writes y. V4: d_in and d_out are
 // multiples of 4, so every 16-byte chunk of x, W and B lies wholly inside
 // or outside its matrix.
-template <int R, bool EXACT, bool HAS_BASE, bool V4>
+template <class E, int R, bool EXACT, bool HAS_BASE, bool V4>
 __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ lora_b, const int* __restrict__ ids,
+    const E* __restrict__ x, const E* __restrict__ w,
+    const E* __restrict__ lora_b, const int* __restrict__ ids,
     const float* __restrict__ h, int hsplit, float* __restrict__ part, int kper,
-    float* __restrict__ y, int M, int S, int d_in, int d_out, int r_arg) {
+    E* __restrict__ y, int M, int S, int d_in, int d_out, int r_arg) {
+  using L = Tiled<E>;  // row pitches and stage size of E
   const int r_in = EXACT ? R : r_arg;
   constexpr int RK = expand_depth(R);
   constexpr int EK = expand_chunk(R);  // ranks of an expand stage
   constexpr int HS_LD = EK + 4;  // fragment (g, t) -> bank (g·HS_LD + t) % 32, all distinct
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  E* sm = reinterpret_cast<E*>(smem4);  // the ring
   __shared__ int seg_id[TM];    // adapter id of each batch row in the tile
   __shared__ int seg_lead[TM];  // that id is live and new in the tile
 
@@ -379,43 +450,44 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
   float acc[MT][NT][4] = {};
   // the running sums of the base product, one float4 per (mt, nt) fragment
   // of each thread: acc holds the sum of at most FLUSH k slices
-  float4* total = reinterpret_cast<float4*>(sm + STAGES * STAGE_FLOATS) + tid;
+  float4* total =
+      reinterpret_cast<float4*>(reinterpret_cast<char*>(smem4) + L::RING_BYTES) + tid;
 
   if constexpr (HAS_BASE) {
     // stage slice kt of x (TM x TK) and W (TK x TN) into ring slot kt % STAGES
     auto load_slice = [&](int kt) {
-      float* xs = sm + (kt % STAGES) * STAGE_FLOATS;
-      float* ws = xs + XS_FLOATS;
+      E* xs = sm + (kt % STAGES) * L::STAGE;
+      E* ws = xs + L::XS;
       const int k0 = kt * TK;
       if constexpr (V4) {
 #pragma unroll
         for (int i = 0; i < TM * TK / 4 / THREADS; ++i) {
           const int c = tid + i * THREADS, row = c / (TK / 4), kc = c % (TK / 4) * 4;
           const bool ok = m0 + row < M && k0 + kc < d_in;
-          cp_async16(xs + row * XS_LD + kc,
-                     ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
+          cp_chunk(xs + row * L::XS_LD + kc,
+                   ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
         }
 #pragma unroll
         for (int i = 0; i < TK * TN / 4 / THREADS; ++i) {
           const int c = tid + i * THREADS, kk = c / (TN / 4), nc = c % (TN / 4) * 4;
           const bool ok = k0 + kk < d_in && n0 + nc < d_out;
-          cp_async16(ws + kk * WS_LD + nc,
-                     ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
+          cp_chunk(ws + kk * L::WS_LD + nc,
+                   ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
         }
       } else {
 #pragma unroll 4
         for (int i = 0; i < TM * TK / THREADS; ++i) {
           const int c = tid + i * THREADS, row = c / TK, kc = c % TK;
           const bool ok = m0 + row < M && k0 + kc < d_in;
-          cp_async4(xs + row * XS_LD + kc,
-                    ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
+          copy1(xs + row * L::XS_LD + kc,
+                ok ? x + (size_t)(m0 + row) * d_in + k0 + kc : x, ok);
         }
 #pragma unroll 4
         for (int i = 0; i < TK * TN / THREADS; ++i) {
           const int c = tid + i * THREADS, kk = c / TN, nc = c % TN;
           const bool ok = k0 + kk < d_in && n0 + nc < d_out;
-          cp_async4(ws + kk * WS_LD + nc,
-                    ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
+          copy1(ws + kk * L::WS_LD + nc,
+                ok ? w + (size_t)(k0 + kk) * d_out + n0 + nc : w, ok);
         }
       }
     };
@@ -431,12 +503,19 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
       __syncthreads();              // everyone's; and slot (kt - 1) % STAGES is consumed
       if (kt + STAGES - 1 < KT) load_slice(kt + STAGES - 1);
       cp_async_commit();
-      const float* xs = sm + (kt % STAGES) * STAGE_FLOATS;
-      const float* ws = xs + XS_FLOATS;
+      const E* xs = sm + (kt % STAGES) * L::STAGE;
+      const E* ws = xs + L::XS;
+      if constexpr (sizeof(E) == 2) {
 #pragma unroll
-      for (int kk = 0; kk < TK; kk += 8)
-        mma_k8_3xtf32<false>(acc, xs + wm * XS_LD + kk, XS_LD, ws + kk * WS_LD + wn,
-                             WS_LD, 0u);
+        for (int kk = 0; kk < TK; kk += 16)
+          mma_k16_bf16(acc, xs + wm * L::XS_LD + kk, L::XS_LD, ws + kk * L::WS_LD + wn,
+                       L::WS_LD);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < TK; kk += 8)
+          mma_k8_3xtf32<false>(acc, xs + wm * XS_LD + kk, XS_LD, ws + kk * WS_LD + wn,
+                               WS_LD, 0u);
+      }
       // The tensor cores round their sums toward zero, relative to the
       // accumulator: over all of d_in that bias reaches ~1e-5 of |y| at
       // d_in = 1024. So every FLUSH slices the sum joins the total in a
@@ -484,8 +563,8 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
       }
     __syncthreads();  // seg_lead
 
-    float* hs = sm;                // [TM][HS_LD]
-    float* bs = sm + TM * HS_LD;   // [EK][WS_LD]
+    float* hs = reinterpret_cast<float*>(smem4);  // [TM][HS_LD], f32
+    E* bs = reinterpret_cast<E*>(hs + TM * HS_LD);  // [EK][L::WS_LD]
     bool h_staged = false;
     for (int s = 0; s < nseg; ++s) {
       if (!seg_lead[s]) continue;  // uniform over the block
@@ -514,20 +593,20 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
         } else {
           __syncthreads();  // the previous id's B tile is consumed
         }
-        const float* bsrc = lora_b + (size_t)id * r_in * d_out;
+        const E* bsrc = lora_b + (size_t)id * r_in * d_out;
         if constexpr (V4) {
           for (int c = tid; c < EK * TN / 4; c += THREADS) {
             const int rr = c / (TN / 4), nc = c % (TN / 4) * 4;
             const bool ok = e0 + rr < r_in && n0 + nc < d_out;
-            cp_async16(bs + rr * WS_LD + nc,
-                       ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
+            cp_chunk(bs + rr * L::WS_LD + nc,
+                     ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
           }
         } else {
           for (int c = tid; c < EK * TN; c += THREADS) {
             const int rr = c / TN, nc = c % TN;
             const bool ok = e0 + rr < r_in && n0 + nc < d_out;
-            cp_async4(bs + rr * WS_LD + nc,
-                      ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
+            copy1(bs + rr * L::WS_LD + nc,
+                  ok ? bsrc + (size_t)(e0 + rr) * d_out + n0 + nc : lora_b, ok);
           }
         }
         cp_async_commit();
@@ -539,49 +618,34 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) keep |= (unsigned)(rid[mt][hh] == id) << (2 * mt + hh);
         if (__any_sync(0xffffffffu, keep != 0u)) {  // a warp with no row of this id skips
+          if constexpr (sizeof(E) == 2) {
 #pragma unroll
-          for (int kk = 0; kk < EK; kk += 8)
-            mma_k8_3xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * WS_LD + wn, WS_LD,
-                                keep);
+            for (int kk = 0; kk < EK; kk += 8)
+              mma_k8_2xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * L::WS_LD + wn,
+                                  L::WS_LD, keep);
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < EK; kk += 8)
+              mma_k8_3xtf32<true>(acc, hs + wm * HS_LD + kk, HS_LD, bs + kk * WS_LD + wn,
+                                  WS_LD, keep);
+          }
         }
       }
     }
   }
 
-  float* out = gridDim.z > 1 ? part + (size_t)blockIdx.z * M * d_out : y;
-
-  // C fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
-  const bool pairs = (d_out & 1) == 0;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = m0 + wm + mt * 16 + g + 8 * hh;
-      if (m >= M) continue;
-      float* yr = out + (size_t)m * d_out;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = n0 + wn + nt * 8 + 2 * t;
-        float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
-        if constexpr (HAS_BASE) {
-          const float4 b = total[(mt * NT + nt) * THREADS];
-          v0 += hh ? b.z : b.x;
-          v1 += hh ? b.w : b.y;
-        }
-        if (pairs && n < d_out) {
-          *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
-        } else {
-          if (n < d_out) yr[n] = v0;
-          if (n + 1 < d_out) yr[n + 1] = v1;
-        }
-      }
-    }
+  // the f32 partial tile where d_in is split, else y
+  if (gridDim.z > 1)
+    tiled_store<HAS_BASE>(acc, total, part + (size_t)blockIdx.z * M * d_out, m0, n0, wm, wn,
+                          M, d_out);
+  else
+    tiled_store<HAS_BASE>(acc, total, y, m0, n0, wm, wn, M, d_out);
 }
 
 // Tiled path with d_in split: y = part[0] + part[1] + ... in that order.
-template <bool V4>
+template <class E, bool V4>
 __global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
-    const float* __restrict__ part, float* __restrict__ y, size_t n, int parts) {
+    const float* __restrict__ part, E* __restrict__ y, size_t n, int parts) {
   const size_t stride = (size_t)gridDim.x * THREADS;
   if constexpr (V4) {
     const float4* p = reinterpret_cast<const float4*>(part);
@@ -594,13 +658,13 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
         v.z += u.z;
         v.w += u.w;
       }
-      reinterpret_cast<float4*>(y)[i] = v;
+      store4(y + 4 * i, v);
     }
   } else {
     for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
       float v = part[i];
       for (int z = 1; z < parts; ++z) v += part[z * n + i];
-      y[i] = v;
+      store1(y + i, v);
     }
   }
 }
@@ -613,15 +677,17 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
 // hpart[split][m][those ranks] = x[m, k split]·A[id] for every row m
 // carrying that id (unscaled); otherwise it returns. MT: rows the
 // registers hold (M <= MT).
-template <int R, bool EXACT, int MT>
+template <class E, int R, bool EXACT, int MT>
 __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ lora_a, const int* __restrict__ ids,
+    const E* __restrict__ x, const E* __restrict__ w,
+    const E* __restrict__ lora_a, const int* __restrict__ ids,
     float* __restrict__ part, float* __restrict__ hpart, int M, int S, int d_in,
     int d_out, int cols, int kper, int r_arg) {
   constexpr int RC = rank_chunk(R), RP = rank_parts(R);
   const int r_in = EXACT ? R : r_arg;
+  // the f32 size in either type: the k lanes' f32 partials reuse it
   __shared__ __align__(16) float ring[SK_STAGES * SK_STAGE];
+  E* ring_e = reinterpret_cast<E*>(ring);  // the stages, SK_STAGE elements each
   grid_dependents_launch();  // the merge may load B while this grid streams W
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.y;
@@ -638,38 +704,38 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
   const int n0 = blockIdx.x * SK_CN;
   const int KT = (d_in + SK_KS - 1) / SK_KS;
   const int kt0 = split * kper, kt1 = min(kt0 + kper, KT);  // kt0 < kt1
-  const float* a_id = lora_a + (size_t)(id < 0 ? 0 : id) * d_in * r_in;
+  const E* a_id = lora_a + (size_t)(id < 0 ? 0 : id) * d_in * r_in;
 
   // stage kt: the panel (W: SK_KS x 64 of the slab; A: SK_KS x RC) and
   // x [M][SK_KS], zero-filled past d_in and d_out
   auto load = [&](int kt, int slot) {
-    float* ps = ring + slot * SK_STAGE;
-    float* xs = ps + SK_PANEL;
+    E* ps = ring_e + slot * SK_STAGE;
+    E* xs = ps + SK_PANEL;
     const int k0 = kt * SK_KS;
     if (w_block) {
 #pragma unroll
       for (int i = 0; i < SK_PANEL / 4 / THREADS; ++i) {
         const int c = tid + i * THREADS, row = c / (SK_CN / 4), col = c % (SK_CN / 4) * 4;
         const bool ok = k0 + row < d_in && n0 + col < d_out;
-        cp_async16(ps + row * SK_CN + col, ok ? w + (size_t)(k0 + row) * d_out + n0 + col : w, ok);
+        cp_chunk(ps + row * SK_CN + col, ok ? w + (size_t)(k0 + row) * d_out + n0 + col : w, ok);
       }
     } else if (r_in == R) {  // 16-byte copies (R % 4 == 0)
       for (int c = tid; c < SK_KS * RC / 4; c += THREADS) {
         const int kk = c / (RC / 4), rc = c % (RC / 4) * 4;
         const bool ok = k0 + kk < d_in;
-        cp_async16(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
+        cp_chunk(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * R + rk0 + rc : lora_a, ok);
       }
     } else {  // ranks past r zero-filled, never loaded
       for (int c = tid; c < SK_KS * RC; c += THREADS) {
         const int kk = c / RC, rc = c % RC;
         const bool ok = k0 + kk < d_in && rk0 + rc < r_in;
-        cp_async4(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
+        copy1(ps + kk * RC + rc, ok ? a_id + (size_t)(k0 + kk) * r_in + rk0 + rc : lora_a, ok);
       }
     }
     for (int c = tid; c < M * SK_KS / 4; c += THREADS) {
       const int m = c / (SK_KS / 4), kc = c % (SK_KS / 4) * 4;
       const bool ok = k0 + kc < d_in;
-      cp_async16(xs + m * SK_KS + kc, ok ? x + (size_t)m * d_in + k0 + kc : x, ok);
+      cp_chunk(xs + m * SK_KS + kc, ok ? x + (size_t)m * d_in + k0 + kc : x, ok);
     }
   };
 
@@ -702,25 +768,25 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
     }
     cp_async_wait<SK_STAGES - 1>();  // this thread's copies of stage kt landed
     __syncthreads();                 // everyone's
-    const float* ps = ring + (kt - kt0) % SK_STAGES * SK_STAGE;
-    const float* xs = ps + SK_PANEL;
+    const E* ps = ring_e + (kt - kt0) % SK_STAGES * SK_STAGE;
+    const E* xs = ps + SK_PANEL;
     if (w_block) {
-      const float4 w0 = *reinterpret_cast<const float4*>(ps + (2 * g) * SK_CN + 4 * q);
-      const float4 w1 = *reinterpret_cast<const float4*>(ps + (2 * g + 1) * SK_CN + 4 * q);
+      const float4 w0 = load4f(ps + (2 * g) * SK_CN + 4 * q);
+      const float4 w1 = load4f(ps + (2 * g + 1) * SK_CN + 4 * q);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         if (m < M) {
-          const float2 xv = *reinterpret_cast<const float2*>(xs + m * SK_KS + 2 * g);
+          const float2 xv = load2f(xs + m * SK_KS + 2 * g);
           fma4(acc[m], xv.x, w0);
           fma4(acc[m], xv.y, w1);
         }
       }
     } else {
       for (int kk = sg; kk < SK_KS; kk += SG) {
-        const float a = ps[kk * RC + r];
+        const float a = to_f(ps[kk * RC + r]);
 #pragma unroll
         for (int m = 0; m < MT; ++m)
-          if (m < M) hacc[m] = fmaf(xs[m * SK_KS + kk], a, hacc[m]);
+          if (m < M) hacc[m] = fmaf(to_f(xs[m * SK_KS + kk]), a, hacc[m]);
       }
     }
   }
@@ -778,11 +844,11 @@ __global__ void __launch_bounds__(THREADS, MT <= 8 ? 3 : 2) fused_sgmv_skinny_ke
 // issued before its first use (the loops over splits and ranks are
 // unrolled), so the pass costs about two round trips to L2 after pass 1
 // ends.
-template <int R, bool EXACT, bool HAS_BASE>
+template <class E, int R, bool EXACT, bool HAS_BASE>
 __global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kernel(
-    const float* __restrict__ lora_b, const int* __restrict__ ids,
+    const E* __restrict__ lora_b, const int* __restrict__ ids,
     const float* __restrict__ part, const float* __restrict__ hpart,
-    float* __restrict__ y, int M, int S, int d_out, int splits, float scale, int r_arg) {
+    E* __restrict__ y, int M, int S, int d_out, int splits, float scale, int r_arg) {
   const int r_in = EXACT ? R : r_arg;
   constexpr int RP = R < 32 ? R : 32;  // rows of B loaded before the wait
   __shared__ float hs[R];
@@ -790,11 +856,9 @@ __global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kern
   const int n = (blockIdx.x * SK_MERGE_THREADS + tid) * 4;
   const bool col = n < d_out;
   const int id = ids[m / S];  // uniform over the block
-  const float* bp = lora_b + (size_t)(id < 0 ? 0 : id) * r_in * d_out + n;
+  const E* bp = lora_b + (size_t)(id < 0 ? 0 : id) * r_in * d_out + n;
   // row rr of B, or a row B has where rr is past the rank: h is 0 there
-  auto brow = [&](int rr) {
-    return __ldg(reinterpret_cast<const float4*>(bp + (size_t)min(rr, r_in - 1) * d_out));
-  };
+  auto brow = [&](int rr) { return ldg4f(bp + (size_t)min(rr, r_in - 1) * d_out); };
   float4 bv[RP];
   if (id >= 0 && col) {
 #pragma unroll
@@ -845,28 +909,28 @@ __global__ void __launch_bounds__(SK_MERGE_THREADS) fused_sgmv_skinny_merge_kern
 #pragma unroll
     for (int rr = RP; rr < R; ++rr) fma4(v, hs[rr], brow(rr));
   }
-  *reinterpret_cast<float4*>(y + (size_t)m * d_out + n) = v;
+  store4(y + (size_t)m * d_out + n, v);
 }
 
 // scratch: the shrink's partials (shrink x M x R), then the base
 // product's partial tiles (base x M x d_out) where base > 1
-template <int R, bool EXACT, bool HAS_BASE, bool V4>
-int launch_tiled(const float* x, const float* w, const float* lora_a,
-                 const float* lora_b, const int* ids, float* y, float* scratch,
+template <class E, int R, bool EXACT, bool HAS_BASE, bool V4>
+int launch_tiled(const E* x, const E* w, const E* lora_a,
+                 const E* lora_b, const int* ids, E* y, float* scratch,
                  int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   const TiledSplit sp = tiled_split(M, d_in, d_out, HAS_BASE);
   float* part = scratch + (size_t)sp.shrink * M * R;
   const dim3 sgrid(M / S, (S + SH_ROWS - 1) / SH_ROWS, sp.shrink * rank_parts(R));
-  lora_shrink_rows_kernel<R, EXACT, V4><<<sgrid, THREADS, 0, stream>>>(x, lora_a, ids, scratch, M,
+  lora_shrink_rows_kernel<E, R, EXACT, V4><<<sgrid, THREADS, 0, stream>>>(x, lora_a, ids, scratch, M,
                                                                 S, d_in, r, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = tiled_smem_bytes<R, HAS_BASE>();
-  err = cudaFuncSetAttribute(fused_sgmv_tiled_kernel<R, EXACT, HAS_BASE, V4>,
+  const size_t smem = tiled_smem_bytes<E, R, HAS_BASE>();
+  err = cudaFuncSetAttribute(fused_sgmv_tiled_kernel<E, R, EXACT, HAS_BASE, V4>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d_out + TN - 1) / TN, (M + TM - 1) / TM, sp.base);
-  fused_sgmv_tiled_kernel<R, EXACT, HAS_BASE, V4><<<grid, THREADS, smem, stream>>>(
+  fused_sgmv_tiled_kernel<E, R, EXACT, HAS_BASE, V4><<<grid, THREADS, smem, stream>>>(
       x, w, lora_b, ids, scratch, sp.shrink, part, sp.kper, y, M, S, d_in, d_out, r);
   if (sp.base == 1) return (int)cudaGetLastError();
   err = cudaGetLastError();
@@ -874,26 +938,26 @@ int launch_tiled(const float* x, const float* w, const float* lora_a,
   const size_t n = (size_t)M * d_out;
   const size_t blocks = (n / (V4 ? 4 : 1) + THREADS - 1) / THREADS;
   const int cap = 4 * sm_count();
-  fused_sgmv_sum_parts_kernel<V4><<<blocks < (size_t)cap ? (int)blocks : cap, THREADS, 0,
+  fused_sgmv_sum_parts_kernel<E, V4><<<blocks < (size_t)cap ? (int)blocks : cap, THREADS, 0,
                                     stream>>>(part, y, n, sp.base);
   return (int)cudaGetLastError();
 }
 
 // scratch: the shrink's partials (splits x M x R), then with the base term
 // the W blocks' partial sums (splits x M x d_out)
-template <int R, bool EXACT, int MT, bool HAS_BASE>
-int launch_skinny(const float* x, const float* w, const float* lora_a,
-                  const float* lora_b, const int* ids, float* y, float* scratch,
+template <class E, int R, bool EXACT, int MT, bool HAS_BASE>
+int launch_skinny(const E* x, const E* w, const E* lora_a,
+                  const E* lora_b, const int* ids, E* y, float* scratch,
                   int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   const SkinnyPlan sp = skinny_plan(M, d_in, d_out, HAS_BASE);
   float* part = scratch + (size_t)sp.splits * M * R;
   const dim3 grid(sp.cols + M / S * rank_parts(R), sp.splits);
-  fused_sgmv_skinny_kernel<R, EXACT, MT><<<grid, THREADS, 0, stream>>>(
+  fused_sgmv_skinny_kernel<E, R, EXACT, MT><<<grid, THREADS, 0, stream>>>(
       x, w, lora_a, ids, part, scratch, M, S, d_in, d_out, sp.cols, sp.kper, r);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int col_blocks = (d_out / 4 + SK_MERGE_THREADS - 1) / SK_MERGE_THREADS;
-  err = launch_dependent(fused_sgmv_skinny_merge_kernel<R, EXACT, HAS_BASE>, dim3(col_blocks, M),
+  err = launch_dependent(fused_sgmv_skinny_merge_kernel<E, R, EXACT, HAS_BASE>, dim3(col_blocks, M),
                          dim3(SK_MERGE_THREADS), 0, stream, lora_b, ids, (const float*)part,
                          (const float*)scratch, y, M, S, d_out, sp.splits, scale, r);
   if (err != cudaSuccess) return (int)err;
@@ -903,44 +967,44 @@ int launch_skinny(const float* x, const float* w, const float* lora_a,
 // EXACT: the rank is the compiled R (every config's rank 32, the reduced
 // configs' 4), and the kernels index A and B by it at compile time; a rank
 // between compiled ones runs with it as a runtime bound
-template <int R, bool EXACT, bool HAS_BASE>
-int launch(const float* x, const float* w, const float* lora_a,
-           const float* lora_b, const int* ids, float* y, float* scratch,
+template <class E, int R, bool EXACT, bool HAS_BASE>
+int launch(const E* x, const E* w, const E* lora_a,
+           const E* lora_b, const int* ids, E* y, float* scratch,
            int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   if (use_skinny(M, d_in, d_out)) {
-    if (M <= 8) return launch_skinny<R, EXACT, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
-    return launch_skinny<R, EXACT, SK_MAX_M, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+    if (M <= 8) return launch_skinny<E, R, EXACT, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+    return launch_skinny<E, R, EXACT, SK_MAX_M, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
   }
   if (d_in % 4 == 0 && d_out % 4 == 0)
-    return launch_tiled<R, EXACT, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M,
+    return launch_tiled<E, R, EXACT, HAS_BASE, true>(x, w, lora_a, lora_b, ids, y, scratch, M,
                                                   S, d_in, d_out, r, scale, stream);
-  return launch_tiled<R, EXACT, HAS_BASE, false>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
+  return launch_tiled<E, R, EXACT, HAS_BASE, false>(x, w, lora_a, lora_b, ids, y, scratch, M, S,
                                                  d_in, d_out, r, scale, stream);
 }
 
-template <int R, bool HAS_BASE>
-int launch_rank(const float* x, const float* w, const float* lora_a,
-                const float* lora_b, const int* ids, float* y, float* scratch,
+template <class E, int R, bool HAS_BASE>
+int launch_rank(const E* x, const E* w, const E* lora_a,
+                const E* lora_b, const int* ids, E* y, float* scratch,
                 int M, int S, int d_in, int d_out, int r, float scale, cudaStream_t stream) {
   if (r == R)
-    return launch<R, true, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
-  return launch<R, false, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+    return launch<E, R, true, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
+  return launch<E, R, false, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, stream);
 }
 
-template <bool HAS_BASE>
-int dispatch(const float* x, const float* w, const float* lora_a,
-             const float* lora_b, const int* ids, float* y, float* scratch,
+template <class E, bool HAS_BASE>
+int dispatch(const E* x, const E* w, const E* lora_a,
+             const E* lora_b, const int* ids, E* y, float* scratch,
              int M, int S, int d_in, int d_out, int r, float scale, void* stream) {
   if (M <= 0 || S <= 0 || M % S != 0 || d_in <= 0 || d_out <= 0 || r <= 0 || r > MAX_RANK)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (rank_capacity(r)) {
-    case 4: return launch_rank<4, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
-    case 8: return launch_rank<8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
-    case 16: return launch_rank<16, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
-    case 32: return launch_rank<32, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
-    case 64: return launch_rank<64, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
-    default: return launch_rank<128, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 4: return launch_rank<E, 4, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 8: return launch_rank<E, 8, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 16: return launch_rank<E, 16, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 32: return launch_rank<E, 32, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    case 64: return launch_rank<E, 64, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
+    default: return launch_rank<E, 128, HAS_BASE>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r, scale, st);
   }
 }
 
@@ -967,8 +1031,8 @@ extern "C" int fused_sgmv_launch(const float* x, const float* w,
                                  const int* ids, float* y, float* scratch,
                                  int M, int S, int d_in, int d_out, int r,
                                  float scale, void* stream) {
-  return dispatch<true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r,
-                        scale, stream);
+  return dispatch<float, true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r,
+                               scale, stream);
 }
 
 // The delta alone: y = scale·(x·A[id])·B[id], zeros where id < 0.
@@ -976,8 +1040,25 @@ extern "C" int sgmv_launch(const float* x, const float* lora_a,
                            const float* lora_b, const int* ids, float* y,
                            float* scratch, int M, int S, int d_in, int d_out,
                            int r, float scale, void* stream) {
-  return dispatch<false>(x, nullptr, lora_a, lora_b, ids, y, scratch, M, S, d_in,
-                         d_out, r, scale, stream);
+  return dispatch<float, false>(x, nullptr, lora_a, lora_b, ids, y, scratch, M, S, d_in,
+                                d_out, r, scale, stream);
+}
+
+// fused_sgmv_launch on bf16 x, w, A, B and y (f32 scratch).
+extern "C" int fused_sgmv_bf16_launch(const bf16* x, const bf16* w, const bf16* lora_a,
+                                      const bf16* lora_b, const int* ids, bf16* y,
+                                      float* scratch, int M, int S, int d_in, int d_out,
+                                      int r, float scale, void* stream) {
+  return dispatch<bf16, true>(x, w, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, r,
+                              scale, stream);
+}
+
+// sgmv_launch on bf16 x, A, B and y (f32 scratch).
+extern "C" int sgmv_bf16_launch(const bf16* x, const bf16* lora_a, const bf16* lora_b,
+                                const int* ids, bf16* y, float* scratch, int M, int S,
+                                int d_in, int d_out, int r, float scale, void* stream) {
+  return dispatch<bf16, false>(x, nullptr, lora_a, lora_b, ids, y, scratch, M, S, d_in,
+                               d_out, r, scale, stream);
 }
 
 extern "C" const char* fused_sgmv_error_string(int err) {

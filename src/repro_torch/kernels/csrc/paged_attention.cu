@@ -51,10 +51,15 @@
 //   sum runs in a fixed order: two
 //   launches on the same inputs give the same bits.
 // IEEE f32 FMA throughout: no TF32.
+// - bf16 pages and q (paged_attention_bf16_launch): the reference upcasts
+//   q, K and V to f32 and computes in f32, and so does this kernel: the
+//   chunk's K, V and q are staged as bf16 (8-byte copies of 4 elements,
+//   half the bytes that bound it) and widened to f32 as they are read. The
+//   chunk states and scratch stay f32; the output is rounded to bf16 once.
 
 #include <cuda_runtime.h>
 
-#include "tf32x3.cuh"
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -98,20 +103,22 @@ int chunks_for(int page_size, int pages_per_seq, int D) {
 // shared-memory row pitch of the K and V tiles: ≡ 16 (mod 32) floats
 __host__ __device__ inline int tile_ld(int D) { return (D + 31) / 32 * 32 + 16; }
 
-// at most 212 KB (G = 128, D = 256) of the 227 KB a block may take
+// at most 212 KB (f32, G = 128, D = 256) of the 227 KB a block may take
+template <class E>
 size_t smem_bytes(int G, int D) {
   const int ct = chunk_tokens(D);
-  return sizeof(float) * ((size_t)2 * ct * tile_ld(D) + (size_t)G * D + (size_t)G * ct);
+  return sizeof(E) * ((size_t)2 * ct * tile_ld(D) + (size_t)G * D) +
+         sizeof(float) * (size_t)G * ct;
 }
 
 // Partial softmax state of one (b, query head, chunk): acc [D]
 // unnormalised and (m, l), in a scratch buffer laid out as
 // acc[B·H·chunks][D] followed by ml[B·H·chunks][2]. GF: the group size,
 // or 0 for any (g_any heads, taken in blocks of GB_ANY).
-template <int GF, int CT>
+template <class E, int GF, int CT>
 __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
-    const float* __restrict__ q, const float* __restrict__ k_pages,
-    const float* __restrict__ v_pages, const int* __restrict__ tables,
+    const E* __restrict__ q, const E* __restrict__ k_pages,
+    const E* __restrict__ v_pages, const int* __restrict__ tables,
     const int* __restrict__ lengths, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int Hkv, int D, int page_size, int pages_per_seq,
     int g_any) {
@@ -121,10 +128,10 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
   const int G = GF > 0 ? GF : g_any;
   extern __shared__ float4 smem4[];
   const int ld = tile_ld(D);
-  float* ks = reinterpret_cast<float*>(smem4);  // [CT][ld]
-  float* vs = ks + CT * ld;                     // [CT][ld]
-  float* qs = vs + CT * ld;                     // [G][D]
-  float* ps = qs + G * D;                       // [G][CT]: scores, then p
+  E* ks = reinterpret_cast<E*>(smem4);  // [CT][ld]
+  E* vs = ks + CT * ld;                 // [CT][ld]
+  E* qs = vs + CT * ld;                 // [G][D]
+  float* ps = reinterpret_cast<float*>(qs + G * D);  // [G][CT]: scores, then p
   __shared__ long long tok_row[CT];             // float offset of each token's K/V row
 
   // chunks slowest: blocks of late chunks, mostly past every length, come last
@@ -148,17 +155,17 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
   // group 0: q and K; group 1: V. Rows past the length are zero-filled.
   const int d4n = D / 4;
   for (int c = tid; c < G * d4n; c += THREADS)
-    cp_async16(qs + c * 4, q + ((size_t)b * H + hkv * G) * D + c * 4, true);
+    cp_chunk(qs + c * 4, q + ((size_t)b * H + hkv * G) * D + c * 4, true);
   for (int c = tid; c < CT * d4n; c += THREADS) {
     const int j = c / d4n, c4 = (c % d4n) * 4;
     const long long row = tok_row[j];
-    cp_async16(ks + j * ld + c4, row >= 0 ? k_pages + row + c4 : k_pages, row >= 0);
+    cp_chunk(ks + j * ld + c4, row >= 0 ? k_pages + row + c4 : k_pages, row >= 0);
   }
   cp_async_commit();
   for (int c = tid; c < CT * d4n; c += THREADS) {
     const int j = c / d4n, c4 = (c % d4n) * 4;
     const long long row = tok_row[j];
-    cp_async16(vs + j * ld + c4, row >= 0 ? v_pages + row + c4 : v_pages, row >= 0);
+    cp_chunk(vs + j * ld + c4, row >= 0 ? v_pages + row + c4 : v_pages, row >= 0);
   }
   cp_async_commit();
   cp_async_wait<1>();
@@ -174,11 +181,11 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
 #pragma unroll
       for (int g = 0; g < GB; ++g) dot[g] = 0.f;
       for (int c = p; c < d4n; c += KPT) {
-        const float4 kv = *reinterpret_cast<const float4*>(ks + j * ld + c * 4);
+        const float4 kv = load4f(ks + j * ld + c * 4);
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           if (GF == 0 && g0 + g >= G) break;  // uniform over the block
-          const float4 qv = *reinterpret_cast<const float4*>(qs + (g0 + g) * D + c * 4);
+          const float4 qv = load4f(qs + (g0 + g) * D + c * 4);
           dot[g] = fmaf(qv.x, kv.x, dot[g]);
           dot[g] = fmaf(qv.y, kv.y, dot[g]);
           dot[g] = fmaf(qv.z, kv.z, dot[g]);
@@ -230,7 +237,7 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
       const int g = o / d4n, c4 = (o % d4n) * 4;
       float4 acc = f4(0.f);
       for (int j = 0; j < live; ++j)
-        fma4(acc, ps[g * CT + j], *reinterpret_cast<const float4*>(vs + j * ld + c4));
+        fma4(acc, ps[g * CT + j], load4f(vs + j * ld + c4));
       const size_t row = ((size_t)b * H + hkv * G + g) * nc + ch;
       *reinterpret_cast<float4*>(part_acc + row * D + c4) = acc;
     }
@@ -243,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
     const int g = o / d4n, c4 = (o % d4n) * 4;
     float4 acc = f4(0.f);
     for (int j = kp; j < live; j += kparts)
-      fma4(acc, ps[g * CT + j], *reinterpret_cast<const float4*>(vs + j * ld + c4));
+      fma4(acc, ps[g * CT + j], load4f(vs + j * ld + c4));
     red[kp * n_out + o] = acc;
   }
   __syncthreads();
@@ -268,10 +275,10 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
 // chunks in order with their weights passed by shuffles. The first
 // group's states and partial outputs are loaded together, right after the
 // wait: one round trip where a row has at most 32 live chunks.
-template <int CT>
+template <class E, int CT>
 __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ lengths, float* __restrict__ out, int H, int D, int T, int nc) {
+    const int* __restrict__ lengths, E* __restrict__ out, int H, int D, int T, int nc) {
   const int bh = blockIdx.x, lane = threadIdx.x, d4 = blockIdx.y * 128 + lane * 4;
   const int len = min(max(lengths[bh / H], 0), T);
   const int n_live = (len + CT - 1) / CT;
@@ -314,47 +321,46 @@ __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
   }
   if (d4 < D) {
     const float inv = 1.f / fmaxf(L, 1e-30f);
-    *reinterpret_cast<float4*>(out + (size_t)bh * D + d4) =
-        make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+    store4(out + (size_t)bh * D + d4, make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv));
   }
 }
 
-template <int GF, int CT>
-int launch(const float* q, const float* k_pages, const float* v_pages,
-           const int* tables, const int* lengths, float* out, float* scratch,
+template <class E, int GF, int CT>
+int launch(const E* q, const E* k_pages, const E* v_pages,
+           const int* tables, const int* lengths, E* out, float* scratch,
            int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
            cudaStream_t stream) {
   const int nc = chunks_for(page_size, pages_per_seq, D);
   const int G = H / Hkv;
   float* part_acc = scratch;
   float* part_ml = scratch + (size_t)B * H * nc * D;
-  const size_t smem = smem_bytes(G, D);
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_chunk_kernel<GF, CT>,
+  const size_t smem = smem_bytes<E>(G, D);
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_chunk_kernel<E, GF, CT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_attention_chunk_kernel<GF, CT><<<dim3(Hkv * B, nc), THREADS, smem, stream>>>(
+  paged_attention_chunk_kernel<E, GF, CT><<<dim3(Hkv * B, nc), THREADS, smem, stream>>>(
       q, k_pages, v_pages, tables, lengths, part_acc, part_ml, Hkv, D, page_size,
       pages_per_seq, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = launch_dependent(paged_attention_merge_kernel<CT>, dim3(B * H, (D + 127) / 128),
+  err = launch_dependent(paged_attention_merge_kernel<E, CT>, dim3(B * H, (D + 127) / 128),
                          dim3(32), 0, stream, (const float*)part_acc, (const float*)part_ml,
                          lengths, out, H, D, pages_per_seq * page_size, nc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int CT>
-int launch_g(const float* q, const float* k_pages, const float* v_pages,
-             const int* tables, const int* lengths, float* out, float* scratch,
+template <class E, int CT>
+int launch_g(const E* q, const E* k_pages, const E* v_pages,
+             const int* tables, const int* lengths, E* out, float* scratch,
              int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
              cudaStream_t s) {
   switch (H / Hkv) {
-    case 1: return launch<1, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 2: return launch<2, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 4: return launch<4, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 8: return launch<8, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    default: return launch<0, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 1: return launch<E, 1, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 2: return launch<E, 2, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 4: return launch<E, 4, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 8: return launch<E, 8, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    default: return launch<E, 0, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
   }
 }
 
@@ -367,18 +373,36 @@ extern "C" int paged_attention_scratch_floats(int B, int H, int Hkv, int D,
   return B * H * chunks_for(page_size, pages_per_seq, D) * (D + 2);
 }
 
+template <class E>
+int dispatch(const E* q, const E* k_pages, const E* v_pages, const int* tables,
+             const int* lengths, E* out, float* scratch, int B, int H, int Hkv, int D,
+             int page_size, int pages_per_seq, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || D <= 0 || D % 4 != 0 ||
+      D > MAX_D || page_size <= 0 || page_size % PAGE_MULTIPLE != 0 || pages_per_seq <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D > NARROW_D) return launch_g<E, chunk_tokens(MAX_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  return launch_g<E, chunk_tokens(NARROW_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+}
+
 extern "C" int paged_attention_launch(const float* q, const float* k_pages,
                                       const float* v_pages, const int* tables,
                                       const int* lengths, float* out,
                                       float* scratch, int B, int H, int Hkv,
                                       int D, int page_size, int pages_per_seq,
                                       void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || D <= 0 || D % 4 != 0 ||
-      D > MAX_D || page_size <= 0 || page_size % PAGE_MULTIPLE != 0 || pages_per_seq <= 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (D > NARROW_D) return launch_g<chunk_tokens(MAX_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-  return launch_g<chunk_tokens(NARROW_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  return dispatch(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
+                  page_size, pages_per_seq, stream);
+}
+
+// The same on bf16 q, pages and out (f32 scratch).
+extern "C" int paged_attention_bf16_launch(const bf16* q, const bf16* k_pages,
+                                           const bf16* v_pages, const int* tables,
+                                           const int* lengths, bf16* out, float* scratch,
+                                           int B, int H, int Hkv, int D, int page_size,
+                                           int pages_per_seq, void* stream) {
+  return dispatch(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
+                  page_size, pages_per_seq, stream);
 }
 
 extern "C" const char* paged_attention_error_string(int err) {

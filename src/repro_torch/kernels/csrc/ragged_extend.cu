@@ -9,8 +9,13 @@
 // What bounds it on this card: a prefill chunk of S queries against a
 // prefix of P keys does 4·S·P·D flops per head over (S + 2P)·D·4 bytes per
 // KV head group, so for S of a few dozen and more it is bound by the
-// arithmetic: f32-accurate products at 165 TFLOP/s on the tensor cores. A
-// decode rider (S = 1) reads its whole prefix once and is bound by bytes.
+// arithmetic: f32-accurate products at 165 TFLOP/s on the tensor cores (bf16
+// inputs: 989 TFLOP/s, over half the bytes). A decode rider (S = 1) reads
+// its whole prefix once and is bound by bytes.
+//
+// ragged_extend_launch takes f32 q, k, v and out; ragged_extend_bf16_launch
+// bf16 ones (attention_tc.cuh: bf16 products, f32 softmax and sums); the
+// partials' scratch is f32 in both.
 //
 // What the design does about it: one block per (b, kv head, q tile, KV
 // part) runs the tensor-core tile loop of attention_tc.cuh (3xTF32
@@ -43,22 +48,23 @@ namespace {
 constexpr int MAX_SPLIT = 8;       // KV parts of one q tile, at most
 constexpr int PART_TILES = 4;      // 64-key K/V tiles of a part, about
 
+template <class E>
 struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
-  const float *q, *k, *v;
-  float* out;
+  const E *q, *k, *v;
+  E* out;
   int b, hkv, S, T, Hq, Hkv, D, G, part, B;
   __device__ size_t qrow(int s, int h) const {
     return ((size_t)b * S + s) * Hq + hkv * G + h;
   }
-  __device__ const float* q_at(int s, int h) const { return q + qrow(s, h) * D; }
-  __device__ const float* k_at(int t) const {
+  __device__ const E* q_at(int s, int h) const { return q + qrow(s, h) * D; }
+  __device__ const E* k_at(int t) const {
     return k + (((size_t)b * T + t) * Hkv + hkv) * D;
   }
-  __device__ const float* v_at(int t) const {
+  __device__ const E* v_at(int t) const {
     return v + (((size_t)b * T + t) * Hkv + hkv) * D;
   }
-  __device__ const float* any() const { return q; }
-  __device__ float* o_at(int s, int h) const { return out + qrow(s, h) * D; }
+  __device__ const E* any() const { return q; }
+  __device__ E* o_at(int s, int h) const { return out + qrow(s, h) * D; }
   // (part, b, s, head) in the scratch buffer's row order
   __device__ size_t part_at(int s, int h) const {
     return (size_t)part * B * S * Hq + qrow(s, h);
@@ -78,11 +84,11 @@ __device__ __forceinline__ int tile_kv_end(int st, int n_new, int T, int s_end) 
   return min(st + min(s_end, n_new), T);
 }
 
-template <int WR, int DT>
+template <class E, int WR, int DT>
 __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ start,
-    const int* __restrict__ true_lens, float* __restrict__ out,
+    const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const int* __restrict__ start,
+    const int* __restrict__ true_lens, E* __restrict__ out,
     float* __restrict__ part_o, int B, int S, int T, int Hq, int Hkv, int D,
     int n_split) {
   extern __shared__ float4 smem4[];
@@ -90,7 +96,7 @@ __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
   const int G = Hq / Hkv;
   const int tile = blockIdx.x / n_split, part = blockIdx.x % n_split;
   const int b = blockIdx.z, hkv = blockIdx.y;
-  const RaggedSrc src{q, k, v, out, b, hkv, S, T, Hq, Hkv, D, G, part, B};
+  const RaggedSrc<E> src{q, k, v, out, b, hkv, S, T, Hq, Hkv, D, G, part, B};
   const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
   const int s_end = attn::tile_token_end(v_lo, ROWS, G, S);
   const int st = start[b], n_new = min(true_lens[b], S);
@@ -108,27 +114,27 @@ __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
   const int j0 = part * kv_tiles / parts, j1 = (part + 1) * kv_tiles / parts;
   // partial sums, then the (m, l) pairs after all n_split·B·S·Hq sums
   float* po = parts > 1 ? part_o : nullptr;
-  attn::attend<WR, DT>(src, reinterpret_cast<float*>(smem4), G, D, S, v_lo, q_hi, st,
+  attn::attend<E, WR, DT>(src, smem4, G, D, S, v_lo, q_hi, st,
                        kv_end, j0, j1, po, po ? po + (size_t)n_split * B * S * Hq * D : nullptr);
 }
 
 // One warp per (b, s, head) of a split launch: a padded query gets zeros; a
 // live query whose tile made more than one part gets
 // Σ_p w_p·o_p / Σ_p w_p·l_p with w_p = exp(m_p − max m), parts in order.
-// A lane takes float4 columns lane, lane + 32, ... of D.
+// A lane takes 4-column chunks lane, lane + 32, ... of D.
+template <class E>
 __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
     const int* __restrict__ start, const int* __restrict__ true_lens,
-    const float* __restrict__ part_o, float* __restrict__ out, int B, int S, int T,
+    const float* __restrict__ part_o, E* __restrict__ out, int B, int S, int T,
     int Hq, int G, int D, int n_split, int rows) {
   const int lane = threadIdx.x & 31;
   const size_t row = (size_t)blockIdx.x * (attn::THREADS / 32) + (threadIdx.x >> 5);
   if (row >= (size_t)B * S * Hq) return;
   const int b = (int)(row / ((size_t)S * Hq)), s = (int)(row / Hq % S);
   const int n_new = min(true_lens[b], S);
-  float* o = out + row * D;
+  E* o = out + row * D;
   if (s >= n_new) {
-    for (int c = lane * 4; c < D; c += 128)
-      *reinterpret_cast<float4*>(o + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = lane * 4; c < D; c += 128) store4(o + c, make_float4(0.f, 0.f, 0.f, 0.f));
     return;
   }
   const int v_lo = (s * G + (int)(row % Hq) % G) / rows * rows;  // the vector's q tile
@@ -152,7 +158,7 @@ __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
       a.z += x.z * w;
       a.w += x.w * w;
     }
-    *reinterpret_cast<float4*>(o + c) = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    store4(o + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   }
 }
 
@@ -176,39 +182,39 @@ Plan plan(int B, int S, int T, int Hq, int Hkv, int D) {
   return p;
 }
 
-template <int WR, int DT>
-int launch(const float* q, const float* k, const float* v, const int* start,
-           const int* true_lens, float* out, float* part_o, int B, int S, int T,
+template <class E, int WR, int DT>
+int launch(const E* q, const E* k, const E* v, const int* start,
+           const int* true_lens, E* out, float* part_o, int B, int S, int T,
            int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
-  const size_t smem = attn::smem_bytes<WR, DT>();
+  const size_t smem = attn::smem_bytes<E, WR, DT>();
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_extend_kernel<WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ragged_extend_kernel<E, WR, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.n_tiles * p.n_split, Hkv, B);
-  ragged_extend_kernel<WR, DT><<<grid, attn::THREADS, smem, stream>>>(
+  ragged_extend_kernel<E, WR, DT><<<grid, attn::THREADS, smem, stream>>>(
       q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p.n_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
   const size_t rows = (size_t)B * S * Hq;
   const int per_block = attn::THREADS / 32;
-  ragged_extend_combine_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
+  ragged_extend_combine_kernel<E><<<(unsigned)((rows + per_block - 1) / per_block),
                                  attn::THREADS, 0, stream>>>(
       start, true_lens, part_o, out, B, S, T, Hq, Hq / Hkv, D, p.n_split, 16 * WR);
   return (int)cudaGetLastError();
 }
 
 // q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
-template <int DT>
-int launch_dt(const float* q, const float* k, const float* v, const int* start,
-              const int* true_lens, float* out, float* part_o, int B, int S, int T,
+template <class E, int DT>
+int launch_dt(const E* q, const E* k, const E* v, const int* start,
+              const int* true_lens, E* out, float* part_o, int B, int S, int T,
               int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
   switch (p.wr) {
-    case 1: return launch<1, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
-    case 2: return launch<2, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
-    case 4: return launch<4, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 1: return launch<E, 1, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 2: return launch<E, 2, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 4: return launch<E, 4, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
     default:
       if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
-      else return launch<8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+      else return launch<E, 8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
   }
 }
 
@@ -226,23 +232,37 @@ extern "C" int ragged_extend_kv_parts(int B, int S, int T, int Hq, int Hkv, int 
   return valid(B, S, T, Hq, Hkv, D) ? plan(B, S, T, Hq, Hkv, D).n_split : 0;
 }
 
-// part_o: scratch for a split launch (NULL when ragged_extend_kv_parts is 1).
-extern "C" int ragged_extend_launch(const float* q, const float* k,
-                                    const float* v, const int* start,
-                                    const int* true_lens, float* out, float* part_o,
-                                    int B, int S, int T, int Hq, int Hkv, int D,
-                                    void* stream) {
+template <class E>
+int dispatch(const E* q, const E* k, const E* v, const int* start, const int* true_lens,
+             E* out, float* part_o, int B, int S, int T, int Hq, int Hkv, int D,
+             void* stream) {
   if (!valid(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
   const Plan p = plan(B, S, T, Hq, Hkv, D);
   if (p.n_split > 1 && part_o == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (p.dt) {
-    case 4: return launch_dt<4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 8: return launch_dt<8>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 16: return launch_dt<16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 20: return launch_dt<20>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    default: return launch_dt<32>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 4: return launch_dt<E, 4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 8: return launch_dt<E, 8>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 16: return launch_dt<E, 16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 20: return launch_dt<E, 20>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    default: return launch_dt<E, 32>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
   }
+}
+
+// part_o: scratch for a split launch (NULL when ragged_extend_kv_parts is 1).
+extern "C" int ragged_extend_launch(const float* q, const float* k, const float* v,
+                                    const int* start, const int* true_lens, float* out,
+                                    float* part_o, int B, int S, int T, int Hq, int Hkv,
+                                    int D, void* stream) {
+  return dispatch(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, stream);
+}
+
+// The same on bf16 q, k, v and out (f32 scratch).
+extern "C" int ragged_extend_bf16_launch(const bf16* q, const bf16* k, const bf16* v,
+                                         const int* start, const int* true_lens, bf16* out,
+                                         float* part_o, int B, int S, int T, int Hq, int Hkv,
+                                         int D, void* stream) {
+  return dispatch(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, stream);
 }
 
 extern "C" const char* ragged_extend_error_string(int err) {

@@ -6,7 +6,10 @@ head-major layout ``q (B, H, S, D)``, ``k/v (B, Hkv, S, D)``.
 ``flash_prefill_ragged`` is the counterpart of ``flash_prefill_ragged``:
 the same with ``true_lens`` (B,) live tokens per row; padded queries and
 rows of length 0 come out as zeros. Any group size and any head dim that is
-a multiple of 4 up to 256 is taken. The inputs may be strided views (a
+a multiple of 4 up to 256 is taken, in float32 or bfloat16 (all of one
+type; the output takes it: a bf16 launch runs Q·Kᵀ on the bf16 values with
+f32 sums, the softmax and P·V in f32, and rounds the output once). The
+inputs may be strided views (a
 ``(B, S, H, D)`` tensor transposed to head-major is read in place) as long
 as D has unit stride; the output has q's strides. A tensor on the CPU takes
 the plain version (:func:`~repro_torch.kernels.ref.flash_prefill_ref`,
@@ -19,7 +22,9 @@ writes each query's log-sum-exp and whose backward is
 ``csrc/flash_prefill_bwd.cu`` on the card and
 :func:`~repro_torch.kernels.ref.flash_prefill_bwd_ref` on the CPU.
 ``flash_prefill_ragged`` serves the engine only: on the card it refuses an
-input that requires grad (``build.check_cuda_f32``).
+input that requires grad (``build.check_cuda``). The backward kernel takes
+float32 only: a bfloat16 input that requires grad on the card raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ _SOURCE = "flash_prefill"
 # q, k, v, true_lens (NULL: S in every row), out, lse (NULL: none), B, S, H,
 # Hkv, D, then the b, h, s element strides of q, k and v (out has q's),
 # stream
-_SIGNATURES = {"flash_prefill_launch": "ppppppiiiiilllllllllp"}
+_SIGNATURES = {"flash_prefill_launch": "ppppppiiiiilllllllllp",
+               "flash_prefill_bf16_launch": "ppppppiiiiilllllllllp"}  # bf16 q, k, v, out
 _BWD_SOURCE = "flash_prefill_bwd"
 _BWD_SIGNATURES = {
     # q, k, v, o, dout, lse, delta, part (NULL: no head parts), dQ partials
@@ -83,7 +89,7 @@ def _launch(name, q, k, v, true_lens, lse=None):
     if H % Hkv:
         raise ValueError(f"{name}: {H} query heads over {Hkv} kv heads")
     build.check_head_dim(name, D)
-    build.check_cuda_f32(name, dev, rows=True, q=q, k=k, v=v)
+    dtype = build.check_cuda(name, dev, rows=True, q=q, k=k, v=v)
     lens = None
     if true_lens is not None:
         if tuple(true_lens.shape) != (B,):
@@ -95,7 +101,7 @@ def _launch(name, q, k, v, true_lens, lse=None):
     if out.stride() != q.stride():
         raise ValueError(f"{name}: q must be a permutation of a dense tensor")
     lib = build.load(_SOURCE, _SIGNATURES)
-    code = lib.flash_prefill_launch(
+    code = getattr(lib, build.entry("flash_prefill_launch", dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -152,8 +158,9 @@ def flash_prefill_bwd(q, k, v, o, lse, do):
     k, v = _dense_like(k), _dense_like(v)
     if not _rows_ok(do):
         do = do.contiguous()
-    build.check_cuda_f32(name, dev, rows=True, q=q, k=k, v=v, o=o, do=do)
-    build.check_cuda_f32(name, dev, lse=lse)
+    build.refuse_bf16_training(name, q, k, v, o, do)
+    build.check_cuda(name, dev, rows=True, q=q, k=k, v=v, o=o, do=do)
+    build.check_cuda(name, dev, lse=lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.stride() != q.stride() or o.stride() != q.stride():
         raise ValueError(f"{name}: q and o must be one permutation of a dense tensor")
@@ -200,6 +207,7 @@ def flash_prefill(
 ) -> torch.Tensor:
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        build.refuse_bf16_training("flash_prefill", q, k, v)
         return _FlashPrefillFn.apply(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v)

@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.paged_attention.paged_attention``: one query
 token per row attends the first ``lengths[b]`` tokens of its pages
 ``k_pages[block_tables[b, p]]``; a row of length 0 gives zeros. Group
 sizes up to 128 and head dims that are a multiple of 4 up to 256 are
-taken. A tensor on
+taken, in float32 or bfloat16 (all of one type; the output takes it: a
+bf16 launch computes in f32, as the reference's kernel upcasts, and rounds
+the output once). A tensor on
 the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.paged_attention_ref`); a CUDA tensor
 launches the kernel or raises.
@@ -21,6 +23,7 @@ _SIGNATURES = {
     # q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
     # page, pages, stream
     "paged_attention_launch": "pppppppiiiiiip",
+    "paged_attention_bf16_launch": "pppppppiiiiiip",  # bf16 q, pages, out
     # (B, H, Hkv, D, page, pages_per_seq) -> floats of scratch a launch
     # needs (every chunk's partial softmax state)
     "paged_attention_scratch_floats": "iiiiii",
@@ -71,7 +74,7 @@ def paged_attention(
         raise ValueError(f"{name}: block_tables must be (B, pages_per_seq)")
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"{name}: lengths must be (B,)")
-    build.check_cuda_f32(name, dev, q=q, k_pages=k_pages, v_pages=v_pages)
+    dtype = build.check_cuda(name, dev, q=q, k_pages=k_pages, v_pages=v_pages)
     tables = build.as_int32(block_tables, dev)
     lens = build.as_int32(lengths, dev)
     out = torch.empty_like(q)
@@ -82,7 +85,7 @@ def paged_attention(
     scratch = torch.empty(
         (lib.paged_attention_scratch_floats(B, H, Hkv, D, page, pages),),
         device=dev, dtype=torch.float32)
-    code = lib.paged_attention_launch(
+    code = getattr(lib, build.entry("paged_attention_launch", dtype))(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
         lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, Hkv, D, page,
         pages, torch.cuda.current_stream(dev).cuda_stream)

@@ -5,7 +5,9 @@ attention of padded suffix chunks ``q (B, S, Hq, D)`` against the dense
 cache ``(B, T, Hkv, D)``; query ``s`` of row ``b`` sees keys
 ``0 .. start[b] + s`` for ``s < true_lens[b]``, and padded queries are
 zeros. Any group size and any head dim that is a multiple of 4 up to 256
-is taken. A tensor on the CPU takes the plain version
+is taken, in float32 or bfloat16 (all of one type; the output takes it: a
+bf16 launch computes in f32, as the reference's kernel upcasts q, k and v,
+and rounds the output once). A tensor on the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.ragged_extend_ref`); a CUDA tensor launches
 the kernel or raises.
 """
@@ -20,6 +22,7 @@ from .ref import ragged_extend_ref
 _SIGNATURES = {
     # q, k, v, start, true_lens, out, scratch, B, S, T, Hq, Hkv, D, stream
     "ragged_extend_launch": "pppppppiiiiiip",
+    "ragged_extend_bf16_launch": "pppppppiiiiiip",  # the same on bf16 q, k, v, out
     # (B, S, T, Hq, Hkv, D) -> KV parts per q tile (1: no scratch)
     "ragged_extend_kv_parts": "iiiiii",
 }
@@ -47,7 +50,7 @@ def ragged_extend(
     build.check_head_dim(name, D)
     if tuple(start.shape) != (B,) or tuple(true_lens.shape) != (B,):
         raise ValueError(f"{name}: start/true_lens must be (B,)")
-    build.check_cuda_f32(name, dev, q=q, k=k, v=v)
+    dtype = build.check_cuda(name, dev, q=q, k=k, v=v)
     st = build.as_int32(start, dev)
     tl = build.as_int32(true_lens, dev)
     out = torch.empty_like(q)
@@ -57,9 +60,9 @@ def ragged_extend(
     # where the KV range is split over blocks, their partials: a sum of
     # p·v, a max and a sum of p per part and query vector
     parts = lib.ragged_extend_kv_parts(B, S, T, Hq, Hkv, D)
-    scratch = (torch.empty((parts * B * S * Hq * (D + 2),), device=dev)
+    scratch = (torch.empty((parts * B * S * Hq * (D + 2),), device=dev, dtype=torch.float32)
                if parts > 1 else None)
-    code = lib.ragged_extend_launch(
+    code = getattr(lib, build.entry("ragged_extend_launch", dtype))(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), tl.data_ptr(),
         out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         B, S, T, Hq, Hkv, D, torch.cuda.current_stream(dev).cuda_stream)

@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes exactly what its kernel computes, with ordinary
-tensor operations. The wrappers in ``kernels/`` take these for tensors that
-lie on the CPU (the tests), and ``chip_smoke.py`` holds every CUDA kernel
-against them on the card. Nothing on the main path calls them while a card
+tensor operations. Every input is widened to float32 (float64 stays) and
+every intermediate is kept there; only the output takes the input's dtype,
+as the reference's kernels compute on bf16 inputs. The wrappers in
+``kernels/`` take these for tensors that lie on the CPU (the tests), and
+``chip_smoke.py`` holds every CUDA kernel against them on the card. Nothing on the main path calls them while a card
 is present.
 """
 
@@ -34,12 +36,17 @@ def sgmv_ref(
 
     A negative id gives a zero delta; the id is clamped only for the
     gather."""
+    return _delta(x, lora_a, lora_b, adapter_ids, scale).to(x.dtype)
+
+
+def _delta(x, lora_a, lora_b, adapter_ids, scale):
+    """The delta of :func:`sgmv_ref` in the summing dtype: h = x·A kept
+    there and B promoted, as the reference's kernel does on bf16 inputs."""
     ids = adapter_ids.long()
     safe = ids.clamp(min=0)
     h = torch.einsum("bsd,bdr->bsr", _acc(x), _acc(lora_a[safe]))
     delta = torch.einsum("bsr,bro->bso", h, _acc(lora_b[safe])) * scale
-    delta = delta * (ids >= 0).to(delta.dtype)[:, None, None]
-    return delta.to(x.dtype)
+    return delta * (ids >= 0).to(delta.dtype)[:, None, None]
 
 
 def fused_sgmv_ref(
@@ -52,10 +59,10 @@ def fused_sgmv_ref(
 ) -> torch.Tensor:
     """Fused base + LoRA projection: ``x·W + scale·(x·A[id])·B[id]``.
 
-    A negative id keeps the base term and drops the delta."""
+    A negative id keeps the base term and drops the delta. The sum is
+    rounded to x's dtype once: the delta is not rounded first."""
     base = torch.einsum("bsd,do->bso", _acc(x), _acc(w))
-    delta = sgmv_ref(x, lora_a, lora_b, adapter_ids, scale)
-    return (base + _acc(delta)).to(x.dtype)
+    return (base + _delta(x, lora_a, lora_b, adapter_ids, scale)).to(x.dtype)
 
 
 def ragged_extend_ref(

@@ -8,7 +8,11 @@ row. Both run the same source with the base term compiled in or out. A
 tensor on the CPU takes the plain version
 (:func:`~repro_torch.kernels.ref.fused_sgmv_ref`,
 :func:`~repro_torch.kernels.ref.sgmv_ref`); a CUDA tensor launches the
-kernel or raises. Every rank from 1 to ``MAX_RANK`` is taken.
+kernel or raises. Every rank from 1 to ``MAX_RANK`` is taken. The inputs
+are float32 or bfloat16, all of one type (the output takes it); bfloat16
+computes what the reference's kernel computes on bf16 inputs (products of
+the bf16 values with f32 sums, h = x·A kept in f32, B promoted, y rounded
+once).
 
 ``fused_sgmv`` is differentiable: under autograd, with an input that
 requires grad, it runs as a ``torch.autograd.Function``. Its backward
@@ -18,7 +22,8 @@ indexed by adapter id (the shrinks, the per-adapter dA and dB and the delta
 of dx) in ``csrc/lora_grad.cu`` on the card, or all of it in
 :func:`~repro_torch.kernels.ref.fused_sgmv_bwd_ref` on the CPU. ``sgmv``
 serves the engine only: on the card it refuses an input that requires grad
-(``build.check_cuda_f32``).
+(``build.check_cuda``). The backward kernels take float32 only: a bfloat16
+input that requires grad on the card raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ _SIGNATURES = {
     "fused_sgmv_launch": "pppppppiiiiifp",
     # x, lora_a, lora_b, ids, y, scratch, M, S, d_in, d_out, R, scale, stream
     "sgmv_launch": "ppppppiiiiifp",
+    "fused_sgmv_bf16_launch": "pppppppiiiiifp",  # bf16 x, w, A, B, y; f32 scratch
+    "sgmv_bf16_launch": "ppppppiiiiifp",
     # (M, d_in, d_out, R, has_base) -> floats of scratch a launch needs
     "fused_sgmv_scratch_floats": "iiiii",
 }
@@ -151,15 +158,15 @@ def _check(name, x, w, lora_a, lora_b, adapter_ids):
     tensors = dict(x=x, lora_a=lora_a, lora_b=lora_b)
     if w is not None:
         tensors["w"] = w
-    build.check_cuda_f32(name, x.device, **tensors)
-    return B, S, d_in, d_out, r
+    dtype = build.check_cuda(name, x.device, **tensors)
+    return B, S, d_in, d_out, r, dtype
 
 
 def _launch(name, x, w, lora_a, lora_b, adapter_ids, scale):
     dev = x.device
-    B, S, d_in, d_out, r = _check(name, x, w, lora_a, lora_b, adapter_ids)
+    B, S, d_in, d_out, r, dtype = _check(name, x, w, lora_a, lora_b, adapter_ids)
     ids = build.as_int32(adapter_ids, dev)
-    y = torch.empty((B, S, d_out), device=dev, dtype=torch.float32)
+    y = torch.empty((B, S, d_out), device=dev, dtype=dtype)
     if B * S == 0 or d_out == 0:
         return y
     lib = build.load(_SOURCE, _SIGNATURES)
@@ -168,12 +175,12 @@ def _launch(name, x, w, lora_a, lora_b, adapter_ids, scale):
         device=dev, dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if w is None:
-        code = lib.sgmv_launch(
+        code = getattr(lib, build.entry("sgmv_launch", dtype))(
             x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(), ids.data_ptr(),
             y.data_ptr(), scratch.data_ptr(), B * S, S, d_in, d_out, r,
             float(scale), stream)
     else:
-        code = lib.fused_sgmv_launch(
+        code = getattr(lib, build.entry("fused_sgmv_launch", dtype))(
             x.data_ptr(), w.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
             ids.data_ptr(), y.data_ptr(), scratch.data_ptr(), B * S, S, d_in,
             d_out, r, float(scale), stream)
@@ -216,7 +223,8 @@ def lora_grad(
     tensors = dict(x=x, dy=dy, lora_a=lora_a, lora_b=lora_b)
     if dx is not None:
         tensors["dx"] = dx
-    build.check_cuda_f32(name, dev, **tensors)
+    build.refuse_bf16_training(name, *tensors.values())
+    build.check_cuda(name, dev, **tensors)
     ids = build.as_int32(adapter_ids, dev)
     da, db = torch.empty_like(lora_a), torch.empty_like(lora_b)
     if B * S == 0:
@@ -293,6 +301,7 @@ def fused_sgmv(
     scale: float = 1.0,
 ) -> torch.Tensor:
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, lora_a, lora_b)):
+        build.refuse_bf16_training("fused_sgmv", x, w, lora_a, lora_b)
         return _FusedSgmvFn.apply(x, w, lora_a, lora_b, adapter_ids, scale)
     if x.device.type == "cpu":
         return fused_sgmv_ref(x, w, lora_a, lora_b, adapter_ids, scale)

@@ -71,7 +71,7 @@ def _cross_attend(p, x, ck, cv, cfg: ModelConfig):
 @dataclasses.dataclass
 class EncDecLM:
     cfg: ModelConfig
-    dtype: torch.dtype = torch.float32
+    dtype: torch.dtype = torch.bfloat16  # the reference's default
     device: torch.device | str | None = None  # None: the card, raising without one
     remat: bool = False  # recompute each decoder layer of forward in the backward
     remat_policy: str = "full"  # or "dots": keep the matrix products

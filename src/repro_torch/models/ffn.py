@@ -51,6 +51,26 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     return p
 
 
+def route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """The router's choice for each of the T tokens ``xt`` (T, d): the
+    softmax over experts in f32 (T, E), the top-k gates renormalised
+    (T, k) and their experts (T, k)."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)
+    return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), expert_ids
+
+
+def add_choices(gk: torch.Tensor) -> torch.Tensor:
+    """(T, k, d) -> (T, d): a token's k weighted expert outputs added in
+    order, each add in gk's dtype, as the reference's scatter-add rounds
+    every add to it (bf16). k - 1 elementwise launches; one sum over k
+    would round once (scripts/moe_combine_ab.py times the two)."""
+    out = gk[:, 0]
+    for j in range(1, gk.shape[1]):
+        out = out + gk[:, j]
+    return out
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE with the reference's dropping dispatch
     (``repro.models.ffn.moe_ffn``). Returns ``(out, aux_loss)``.
@@ -69,9 +89,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     xt = x.reshape(T, d)
-    probs = torch.softmax(xt.float() @ p["router"], dim=-1)  # (T, E)
-    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)  # (T, k)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    probs, gate_vals, expert_ids = route(p["router"], xt, k)
     C = max(1, int(T * k * m.capacity_factor / E))
     flat_e = expert_ids.reshape(-1)  # (T·k,)
     onehot = F.one_hot(flat_e, E)  # (T·k, E) int64
@@ -87,7 +105,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     eout = torch.bmm(h, p["w_down"])  # (E, C + 1, d)
     gathered = torch.where(keep[:, None], eout[flat_e, slot], 0)  # (T·k, d)
     w = gate_vals.reshape(-1, 1).to(x.dtype)
-    out = (gathered * w).reshape(T, k, d).sum(1)
+    out = add_choices((gathered * w).reshape(T, k, d))
     if "shared" in p:
         out = out + dense_ffn(p["shared"], xt, cfg.activation)
     density = F.one_hot(expert_ids, E).float().mean(dim=(0, 1))

@@ -28,11 +28,12 @@ from .encdec import EncDecLM
 from .transformer import LM
 
 
-def build_model(cfg: ModelConfig, dtype=torch.float32, device=None,
+def build_model(cfg: ModelConfig, dtype=torch.bfloat16, device=None,
                 kv_quant: bool = False, remat: bool = False, q_chunk: int = 0,
                 remat_policy: str = "full") -> LM | EncDecLM:
     """The model for ``cfg`` on ``device`` (default: the card, raising
-    without one): ``EncDecLM`` for an encoder-decoder config, else the
+    without one), in ``dtype`` (bfloat16 by default, as the reference's
+    ``build_model``): ``EncDecLM`` for an encoder-decoder config, else the
     decoder ``LM``, with an int8 KV cache under ``kv_quant``. ``remat``,
     ``remat_policy`` and ``q_chunk`` are the reference's training knobs
     (see ``LM``; the encoder-decoder takes the first two)."""

@@ -136,7 +136,7 @@ def layer_views(tree, n: int) -> list:
 @dataclasses.dataclass
 class LM:
     cfg: ModelConfig
-    dtype: torch.dtype = torch.float32
+    dtype: torch.dtype = torch.bfloat16  # the reference's default
     device: torch.device | str | None = None  # None: the card, raising without one
     kv_quant: bool = False  # int8 KV cache with per-(token, head) f32 scales
     remat: bool = False  # recompute each layer of forward in the backward

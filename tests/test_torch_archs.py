@@ -78,7 +78,7 @@ def _pair(case, backend, n_slots=3):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), n_slots).items()}
-    tm = build_model(tcfg, device="cpu")
+    tm = build_model(tcfg, dtype=torch.float32, device="cpu")
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     tlora = bridge.tensor_tree(lora, "cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}

@@ -58,7 +58,7 @@ def _pair(backend, kv_quant=False, **over):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), 3).items()}
-    tm = build_model(tcfg, device="cpu", kv_quant=kv_quant)
+    tm = build_model(tcfg, dtype=torch.float32, device="cpu", kv_quant=kv_quant)
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}
     return (jm, jparams, jl), (tm, tparams, bridge.tensor_tree(lora, "cpu"))
@@ -162,8 +162,8 @@ def test_int8_cache_decode_keeps_greedy_tokens():
     greedy tokens over several steps, at a bit more than a quarter of its
     bytes per K/V value."""
     cfg = configs.reduced(configs.get("qwen3-0.6b"))
-    fp = build_model(cfg, device="cpu")
-    q8 = build_model(cfg, device="cpu", kv_quant=True)
+    fp = build_model(cfg, dtype=torch.float32, device="cpu")
+    q8 = build_model(cfg, dtype=torch.float32, device="cpu", kv_quant=True)
     params = fp.init_params(torch.Generator().manual_seed(0))
     lora = fp.init_lora(torch.Generator().manual_seed(1), 2)
     tokens = torch.randint(0, cfg.vocab_size, (2, 12),

@@ -161,7 +161,7 @@ def test_lora_example_trains_the_adapters_only_and_resumes(tmp_path, monkeypatch
     from repro_torch import configs
     from repro_torch.models import build_model, make_train_state
 
-    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     fresh = make_train_state(model, torch.Generator().manual_seed(0), n_lora_slots=4,
                              train_lora_only=True)
     saved = mgr.restore(2, fresh)

@@ -6,7 +6,10 @@ no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-Inputs come from numpy with a fixed seed. Tolerances: fused_sgmv and sgmv
+Inputs come from numpy with a fixed seed. The kernel-against-plain tests
+run in f32 and in bf16 (``DTYPES``; bf16 within 2e-2 of the output's
+largest magnitude and each element within one bf16 rounding of the plain
+f32 value, see ``_match``). f32 tolerances: fused_sgmv and sgmv
 1e-4 of the largest reference magnitude (f32 sums of up to 2048 terms, in
 another order); the attention kernels 1e-5 absolute (softmax weights times
 unit-scale values); the backward kernels (flash_prefill_bwd, lora_grad)
@@ -45,8 +48,53 @@ def cuda():
     return torch.device("cuda")
 
 
-def _t(a, dev):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+def _t(a, dev, dtype=torch.float32):
+    """A numpy array on ``dev``; float arrays in ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+# The kernel-against-plain tests run in both float types the kernels take.
+# bf16 inputs are the f32 draws rounded; kernel and plain version both sum
+# in f32 and round the output to bf16 once, so they differ by a rounding of
+# the output at most: held to 2e-2 of the output's largest magnitude, the
+# reference's bf16 tolerance (tests/test_kernels.py), and each element to
+# one bf16 rounding of the plain f32 value (``_match``).
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _plain(fn, *args, **kw):
+    """``fn`` (a plain version) on ``args``; on bf16 inputs also on them
+    upcast to f32 (else None)."""
+    want = fn(*args, **kw)
+    if want.dtype == torch.float32:
+        return want, None
+    up = [a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args]
+    return want, fn(*up, **kw)
+
+
+def _bf16_spacing(x):
+    """The distance between neighbouring bf16 values at each |x| (f32); 0
+    where x is 0."""
+    _, e = torch.frexp(x)  # |x| in [2^(e-1), 2^e)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _match(got, want, f32_tol, dtype, want_f32=None):
+    """got (the kernel) within f32_tol of want (the plain version) in f32.
+    In bf16, within 2e-2 of max|want|, and each element within one bf16
+    rounding of want_f32 (the plain version on the inputs upcast):
+    |got − bf16(want_f32)| at most one bf16 spacing + f32_tol + 2^-16 of
+    max|want_f32| (an f32 operand split in two halves keeps 16 bits)."""
+    assert got.dtype == want.dtype == dtype
+    if dtype == torch.float32:
+        return float((got - want).abs().max()) <= f32_tol
+    if float((got.float() - want.float()).abs().max()) > 2e-2 * float(want.float().abs().max()):
+        return False
+    w = want_f32.float()
+    atol = f32_tol + 2.0 ** -16 * float(w.abs().max())
+    err = (got.float() - w.to(torch.bfloat16).float()).abs()
+    return bool((err <= _bf16_spacing(w) + atol).all())
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N", [
@@ -58,7 +106,8 @@ def _t(a, dev):
     (4, 37, 96, 320, 16, 3),
     (2, 256, 1024, 1024, 32, 8),
 ])
-def test_fused_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_sgmv_cuda_matches_plain(cuda, dtype, B, S, d_in, d_out, r, N):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((B, S, d_in), np.float32)
     w = rng.standard_normal((d_in, d_out), np.float32) * 0.03
@@ -66,7 +115,7 @@ def test_fused_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     b = rng.standard_normal((N, r, d_out), np.float32) * 0.03
     ids = rng.integers(-1, N, size=(B,)).astype(np.int32)
     ids[0] = -1
-    args = [_t(v, cuda) for v in (x, w, a, b, ids)]
+    args = [_t(v, cuda, dtype) for v in (x, w, a, b, ids)]
     for zero_w in (False, True):
         if zero_w:
             args[1] = torch.zeros_like(args[1])
@@ -74,9 +123,8 @@ def test_fused_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
         got = fused_sgmv(*args, scale=2.0)
         torch.cuda.synchronize()
         assert ops.launch_counts()["fused_sgmv"] == before + 1
-        want = ref.fused_sgmv_ref(*args, scale=2.0)
-        tol = 1e-4 * float(want.abs().max())
-        assert float((got - want).abs().max()) <= tol
+        want, want32 = _plain(ref.fused_sgmv_ref, *args, scale=2.0)
+        assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
         # a negative id drops the delta: the row is exactly x·W
         assert torch.equal(got[0], torch.zeros_like(got[0])) or not zero_w
 
@@ -86,7 +134,8 @@ def test_fused_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     (4, 19, 200, 4, 2, 128),
     (3, 1, 96, 8, 8, 64),
 ])
-def test_ragged_extend_cuda_matches_plain(cuda, B, S, T, H, Hkv, D):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_extend_cuda_matches_plain(cuda, dtype, B, S, T, H, Hkv, D):
     rng = np.random.default_rng(1)
     q = rng.standard_normal((B, S, H, D), np.float32)
     k = rng.standard_normal((B, T, Hkv, D), np.float32)
@@ -94,11 +143,11 @@ def test_ragged_extend_cuda_matches_plain(cuda, B, S, T, H, Hkv, D):
     lens = np.array([[0, 1, 37 % (S + 1), S][i % 4] for i in range(B)], np.int32)
     start = np.array([min(T - int(lens[i]), 5 + 311 * i) for i in range(B)],
                      np.int32)
-    args = [_t(a, cuda) for a in (q, k, v, start, lens)]
+    args = [_t(a, cuda, dtype) for a in (q, k, v, start, lens)]
     got = ragged_extend(*args)
     torch.cuda.synchronize()
-    want = ref.ragged_extend_ref(*args)
-    assert float((got - want).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.ragged_extend_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # true_lens == 0
 
 
@@ -121,7 +170,8 @@ _RAGGED = [
 
 
 @pytest.mark.parametrize("B,S,T,H,Hkv,D,lens,starts", _RAGGED)
-def test_ragged_extend_cuda_engine_shapes(cuda, B, S, T, H, Hkv, D, lens, starts):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_extend_cuda_engine_shapes(cuda, dtype, B, S, T, H, Hkv, D, lens, starts):
     from repro_torch.kernels import build
     from repro_torch.kernels.ragged_extend import _SIGNATURES
 
@@ -129,14 +179,14 @@ def test_ragged_extend_cuda_engine_shapes(cuda, B, S, T, H, Hkv, D, lens, starts
     q = rng.standard_normal((B, S, H, D), np.float32)
     k = rng.standard_normal((B, T, Hkv, D), np.float32)
     v = rng.standard_normal((B, T, Hkv, D), np.float32)
-    args = [_t(a, cuda) for a in (q, k, v, np.asarray(starts, np.int32),
+    args = [_t(a, cuda, dtype) for a in (q, k, v, np.asarray(starts, np.int32),
                                   np.asarray(lens, np.int32))]
     before = ops.launch_counts()["ragged_extend"]
     got = ragged_extend(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ragged_extend"] == before + 1
-    want = ref.ragged_extend_ref(*args)
-    assert float((got - want).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.ragged_extend_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     for b, n in enumerate(lens):  # padded queries and empty rows are zeros
         assert torch.equal(got[b, n:], torch.zeros_like(got[b, n:]))
     # a fixed order of sums, the split's combine included
@@ -170,20 +220,21 @@ _RAGGED_WIDE = [
 
 
 @pytest.mark.parametrize("B,S,T,H,Hkv,D,lens,starts", _RAGGED_WIDE)
-def test_ragged_extend_cuda_wide_heads_and_any_group(cuda, B, S, T, H, Hkv, D, lens,
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ragged_extend_cuda_wide_heads_and_any_group(cuda, dtype, B, S, T, H, Hkv, D, lens,
                                                      starts):
     rng = np.random.default_rng(12)
     q = rng.standard_normal((B, S, H, D), np.float32)
     k = rng.standard_normal((B, T, Hkv, D), np.float32)
     v = rng.standard_normal((B, T, Hkv, D), np.float32)
-    args = [_t(a, cuda) for a in (q, k, v, np.asarray(starts, np.int32),
+    args = [_t(a, cuda, dtype) for a in (q, k, v, np.asarray(starts, np.int32),
                                   np.asarray(lens, np.int32))]
     before = ops.launch_counts()["ragged_extend"]
     got = ragged_extend(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ragged_extend"] == before + 1
-    want = ref.ragged_extend_ref(*args)
-    assert float((got - want).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.ragged_extend_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     for b, n in enumerate(lens):
         assert torch.equal(got[b, n:], torch.zeros_like(got[b, n:]))
     assert torch.equal(ragged_extend(*args), got)
@@ -228,7 +279,7 @@ _TILED = [
 ]
 
 
-def _tiled_inputs(B, S, d_in, d_out, r, N, ids, dev, seed):
+def _tiled_inputs(B, S, d_in, d_out, r, N, ids, dev, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, d_in), np.float32)
     w = rng.standard_normal((d_in, d_out), np.float32) * d_in ** -0.5
@@ -242,19 +293,20 @@ def _tiled_inputs(B, S, d_in, d_out, r, N, ids, dev, seed):
         if ids == "repeat":
             idv[0] = N - 1
             idv[min(2, B - 1)] = N - 1
-    return [_t(v, dev) for v in (x, w, a, b, idv)]
+    return [_t(v, dev, dtype) for v in (x, w, a, b, idv)]
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _TILED)
-def test_fused_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
-    x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=6)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_sgmv_cuda_tiled_path(cuda, dtype, B, S, d_in, d_out, r, N, ids, scale):
+    x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=6, dtype=dtype)
     for ww in (w, torch.zeros_like(w)):
         before = ops.launch_counts()["fused_sgmv"]
         got = fused_sgmv(x, ww, a, b, idv, scale=scale)
         torch.cuda.synchronize()
         assert ops.launch_counts()["fused_sgmv"] == before + 1
-        want = ref.fused_sgmv_ref(x, ww, a, b, idv, scale)
-        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        want, want32 = _plain(ref.fused_sgmv_ref, x, ww, a, b, idv, scale)
+        assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
         # one owner per output element, sums in a fixed order
         assert torch.equal(fused_sgmv(x, ww, a, b, idv, scale=scale), got)
     dead = idv < 0  # with W zeroed, a row of id -1 is exactly 0
@@ -262,14 +314,15 @@ def test_fused_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _TILED)
-def test_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
-    x, _, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=7)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_cuda_tiled_path(cuda, dtype, B, S, d_in, d_out, r, N, ids, scale):
+    x, _, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, cuda, seed=7, dtype=dtype)
     before = ops.launch_counts()["sgmv"]
     got = sgmv(x, a, b, idv, scale=scale)
     torch.cuda.synchronize()
     assert ops.launch_counts()["sgmv"] == before + 1
-    want = ref.sgmv_ref(x, a, b, idv, scale)
-    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    want, want32 = _plain(ref.sgmv_ref, x, a, b, idv, scale)
+    assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
     dead = idv < 0
     assert torch.equal(got[dead], torch.zeros_like(got[dead]))
     assert torch.equal(sgmv(x, a, b, idv, scale=scale), got)
@@ -281,7 +334,8 @@ def test_sgmv_cuda_tiled_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
     (4, 96, 8, 2, 128, 32),
     (2, 64, 4, 4, 64, 16),
 ])
-def test_paged_attention_cuda_matches_plain(cuda, B, T, H, Hkv, D, page):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_cuda_matches_plain(cuda, dtype, B, T, H, Hkv, D, page):
     rng = np.random.default_rng(2)
     pages = T // page
     q = rng.standard_normal((B, H, D), np.float32)
@@ -290,11 +344,11 @@ def test_paged_attention_cuda_matches_plain(cuda, B, T, H, Hkv, D, page):
     tables = rng.permutation(B * pages).reshape(B, pages).astype(np.int32)
     lens = np.array([[0, 1, 129 % (T + 1), T][i % 4] for i in range(B)], np.int32)
     lens[-1] = T + 1  # an inactive row's start + 1 may point past the table
-    args = [_t(a, cuda) for a in (q, kp, vp, tables, lens)]
+    args = [_t(a, cuda, dtype) for a in (q, kp, vp, tables, lens)]
     got = paged_attention(*args)
     torch.cuda.synchronize()
-    want = ref.paged_attention_ref(*args)
-    assert float((got - want).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.paged_attention_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # length 0
 
 
@@ -341,20 +395,22 @@ def _skinny_ids(idv, ids, N):
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _SKINNY)
-def test_fused_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_sgmv_cuda_skinny_path(cuda, dtype, B, S, d_in, d_out, r, N, ids, scale):
     from repro_torch.kernels import build
     from repro_torch.kernels.sgmv import _SIGNATURES, skinny_plan
 
     x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N,
-                                    "mixed" if ids == "one" else ids, cuda, seed=9)
+                                    "mixed" if ids == "one" else ids, cuda, seed=9,
+                                    dtype=dtype)
     idv = _skinny_ids(idv, ids, N)
     for ww in (w, torch.zeros_like(w)):
         before = ops.launch_counts()["fused_sgmv"]
         got = fused_sgmv(x, ww, a, b, idv, scale=scale)
         torch.cuda.synchronize()
         assert ops.launch_counts()["fused_sgmv"] == before + 1
-        want = ref.fused_sgmv_ref(x, ww, a, b, idv, scale)
-        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        want, want32 = _plain(ref.fused_sgmv_ref, x, ww, a, b, idv, scale)
+        assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
         # one writer per partial, sums in a fixed order
         assert torch.equal(fused_sgmv(x, ww, a, b, idv, scale=scale), got)
     dead = idv < 0  # with W zeroed, a row of id -1 is exactly 0
@@ -368,19 +424,21 @@ def test_fused_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
 
 
 @pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _SKINNY)
-def test_sgmv_cuda_skinny_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_cuda_skinny_path(cuda, dtype, B, S, d_in, d_out, r, N, ids, scale):
     from repro_torch.kernels import build
     from repro_torch.kernels.sgmv import _SIGNATURES, skinny_plan
 
     x, _, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N,
-                                    "mixed" if ids == "one" else ids, cuda, seed=10)
+                                    "mixed" if ids == "one" else ids, cuda, seed=10,
+                                    dtype=dtype)
     idv = _skinny_ids(idv, ids, N)
     before = ops.launch_counts()["sgmv"]
     got = sgmv(x, a, b, idv, scale=scale)
     torch.cuda.synchronize()
     assert ops.launch_counts()["sgmv"] == before + 1
-    want = ref.sgmv_ref(x, a, b, idv, scale)
-    assert float((got - want).abs().max()) <= 1e-4 * max(float(want.abs().max()), 1e-30)
+    want, want32 = _plain(ref.sgmv_ref, x, a, b, idv, scale)
+    assert _match(got, want, 1e-4 * max(float(want.abs().max()), 1e-30), dtype, want32)
     dead = idv < 0
     assert torch.equal(got[dead], torch.zeros_like(got[dead]))
     assert torch.equal(sgmv(x, a, b, idv, scale=scale), got)
@@ -415,7 +473,8 @@ _PAGED = [
 
 
 @pytest.mark.parametrize("B,T,H,Hkv,D,page", _PAGED)
-def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_attention_cuda_chunks(cuda, dtype, B, T, H, Hkv, D, page):
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_attention import _SIGNATURES, chunk_plan, chunk_tokens
 
@@ -430,13 +489,13 @@ def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
     lens += [T] * (B - len(lens))
     if B == 3:
         lens = [T, 2 * page, T + 1]
-    args = [_t(v, cuda) for v in (q, kp, vp, tables, np.asarray(lens, np.int32))]
+    args = [_t(v, cuda, dtype) for v in (q, kp, vp, tables, np.asarray(lens, np.int32))]
     before = ops.launch_counts()["paged_attention"]
     got = paged_attention(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()["paged_attention"] == before + 1
-    want = ref.paged_attention_ref(*args)
-    assert float((got - want).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.paged_attention_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     for bb, n in enumerate(lens):
         if n == 0:
             assert torch.equal(got[bb], torch.zeros_like(got[bb]))
@@ -454,20 +513,21 @@ def test_paged_attention_cuda_chunks(cuda, B, T, H, Hkv, D, page):
     (4, 37, 96, 320, 16, 3),     # the tiled path
     (2, 256, 1024, 2048, 32, 8),
 ])
-def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgmv_cuda_matches_plain(cuda, dtype, B, S, d_in, d_out, r, N):
     rng = np.random.default_rng(3)
     x = rng.standard_normal((B, S, d_in), np.float32)
     a = rng.standard_normal((N, d_in, r), np.float32) * 0.03
     b = rng.standard_normal((N, r, d_out), np.float32) * 0.03
     ids = rng.integers(-1, N, size=(B,)).astype(np.int32)
     ids[0] = -1
-    args = [_t(v, cuda) for v in (x, a, b, ids)]
+    args = [_t(v, cuda, dtype) for v in (x, a, b, ids)]
     before = ops.launch_counts()["sgmv"]
     got = sgmv(*args, scale=2.0)
     torch.cuda.synchronize()
     assert ops.launch_counts()["sgmv"] == before + 1
-    want = ref.sgmv_ref(*args, scale=2.0)
-    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    want, want32 = _plain(ref.sgmv_ref, *args, scale=2.0)
+    assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # a negative id
     assert torch.equal(sgmv(*args, scale=2.0), got)  # a fixed order of sums
 
@@ -488,17 +548,19 @@ def test_sgmv_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     (2, 16, 16, 512, 64),   # seamless-m4t's decoder at its static prefill
     (2, 16, 16, 256, 64),   # the same at its identities' forward
 ])
-def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_prefill_cuda_matches_plain(cuda, dtype, B, H, Hkv, S, D):
     rng = np.random.default_rng(4)
     q = rng.standard_normal((B, H, S, D), np.float32)
     k = rng.standard_normal((B, Hkv, S, D), np.float32)
     v = rng.standard_normal((B, Hkv, S, D), np.float32)
-    args = [_t(a, cuda) for a in (q, k, v)]
+    args = [_t(a, cuda, dtype) for a in (q, k, v)]
     before = ops.launch_counts()["flash_prefill"]
     got = flash_prefill(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_prefill"] == before + 1
-    assert float((got - ref.flash_prefill_ref(*args)).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.flash_prefill_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     # (B, S, H, D) tensors transposed to head-major are read in place
     qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in args)
     got_t = flash_prefill(qt, kt, vt)
@@ -514,20 +576,22 @@ def test_flash_prefill_cuda_matches_plain(cuda, B, H, Hkv, S, D):
     (300, [300, 1, 0, 129], 28, 4, 128),     # G = 7
     (77, [77, 5, 0], 8, 8, 20),              # G = 1, D = 20
 ])
-def test_flash_prefill_ragged_cuda_matches_plain(cuda, S, lens, H, Hkv, D):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_prefill_ragged_cuda_matches_plain(cuda, dtype, S, lens, H, Hkv, D):
     B = len(lens)
     rng = np.random.default_rng(5)
     q = rng.standard_normal((B, H, S, D), np.float32)
     k = rng.standard_normal((B, Hkv, S, D), np.float32)
     v = rng.standard_normal((B, Hkv, S, D), np.float32)
-    args = [_t(a, cuda) for a in (q, k, v, np.asarray(lens, np.int32))]
+    args = [_t(a, cuda, dtype) for a in (q, k, v, np.asarray(lens, np.int32))]
     before = ops.launch_counts()
     got = flash_prefill_ragged(*args)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["flash_prefill_ragged"] == before["flash_prefill_ragged"] + 1
     assert after["flash_prefill"] == before["flash_prefill"]
-    assert float((got - ref.flash_prefill_ragged_ref(*args)).abs().max()) <= 1e-5
+    want, want32 = _plain(ref.flash_prefill_ragged_ref, *args)
+    assert _match(got, want, 1e-5, dtype, want32)
     for b, n in enumerate(lens):  # padded queries and empty rows are zeros
         assert torch.equal(got[b, :, n:], torch.zeros_like(got[b, :, n:]))
     full = [b for b, n in enumerate(lens) if n == S]
@@ -615,6 +679,47 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
     b = torch.zeros((1, 4, 4), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         fused_sgmv(x, w, a, b, torch.zeros(2, dtype=torch.int64))
+
+
+def test_cuda_wrappers_refuse_mixed_float_types(cuda):
+    """Every float input of a launch has one type: a bf16 x with an f32 W
+    (or f32 q with bf16 pages) raises ValueError before any launch."""
+    before = ops.launch_counts()
+    f = lambda dt, *shape: torch.zeros(shape, device=cuda, dtype=dt)  # noqa: E731
+    bf, f32 = torch.bfloat16, torch.float32
+    ids = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one type"):
+        fused_sgmv(f(bf, 2, 3, 8), f(f32, 8, 8), f(bf, 1, 8, 4), f(bf, 1, 4, 8), ids)
+    with pytest.raises(ValueError, match="one type"):
+        sgmv(f(bf, 2, 3, 8), f(bf, 1, 8, 4), f(f32, 1, 4, 8), ids)
+    with pytest.raises(ValueError, match="one type"):
+        ragged_extend(f(f32, 2, 3, 2, 8), f(bf, 2, 8, 1, 8), f(bf, 2, 8, 1, 8), ids, ids + 3)
+    with pytest.raises(ValueError, match="one type"):
+        paged_attention(f(f32, 2, 2, 8), f(bf, 2, 8, 1, 8), f(bf, 2, 8, 1, 8),
+                        torch.arange(2, device=cuda).view(2, 1), ids + 5)
+    with pytest.raises(ValueError, match="one type"):
+        flash_prefill(f(bf, 2, 2, 3, 8), f(bf, 2, 1, 3, 8), f(f32, 2, 1, 3, 8))
+    with pytest.raises(ValueError, match="one type"):
+        flash_prefill_ragged(f(bf, 2, 2, 3, 8), f(f32, 2, 1, 3, 8), f(bf, 2, 1, 3, 8), ids)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("name", ["fused_sgmv", "flash_prefill"])
+def test_cuda_bf16_training_raises(cuda, name):
+    """The backward kernels take f32 only: a bf16 input that requires grad
+    on the card raises NotImplementedError naming bf16 training, before any
+    launch; the same call under no_grad launches the bf16 kernel."""
+    xs, kernel, _ = _training_case(name, cuda)
+    xs = tuple(x.detach().to(torch.bfloat16).requires_grad_(True) for x in xs)
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="bf16 training is not ported"):
+        kernel(*xs)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        y = kernel(*xs)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    assert ops.launch_counts()[name] == before[name] + 1
 
 
 def test_cuda_wrappers_name_the_shape_limits(cuda):

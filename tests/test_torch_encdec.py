@@ -49,7 +49,7 @@ def _pair(backend):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), 3).items()}
-    tm = build_model(configs.reduced(configs.get(ARCH)), device="cpu")
+    tm = build_model(configs.reduced(configs.get(ARCH)), dtype=torch.float32, device="cpu")
     assert isinstance(tm, EncDecLM)
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}

@@ -83,7 +83,7 @@ def _pair(T, n_slots=3):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), n_slots).items()}
-    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     tlora = bridge.tensor_tree(lora, "cpu")
     # a cache with history: random K/V below each row's start
@@ -188,7 +188,7 @@ def test_extend_keep_rows_writes_only_kept_rows():
 
 def test_extend_skips_writes_past_the_cache():
     """A row at len == T writes nothing (the reference's scatter drops it)."""
-    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     params = tm.init_params(torch.Generator().manual_seed(0))
     cache = tm.init_cache(2, 16)
     start = torch.tensor([16, 2], dtype=torch.int32)
@@ -205,7 +205,7 @@ def test_recurrent_and_encdec_layouts_extend(arch):
     one ``extend``; they are held against the reference in
     ``tests/test_torch_recurrent.py`` and ``tests/test_torch_encdec.py``."""
     cfg = configs.reduced(configs.get(arch))
-    tm = build_model(cfg, device="cpu")
+    tm = build_model(cfg, dtype=torch.float32, device="cpu")
     params = tm.init_params(torch.Generator().manual_seed(0))
     if cfg.is_encdec:
         cache = tm.init_cache(2, 16, 6)

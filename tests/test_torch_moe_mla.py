@@ -122,7 +122,7 @@ def _mla_layer():
     p = {k: np.asarray(v) + (rng.standard_normal(np.shape(v), np.float32) * 0.1
                              if k == "kv_norm" else 0) for k, v in p.items()}
     lora = {}
-    for t, (din, dout) in build_model(tcfg, device="cpu").lora_dims().items():
+    for t, (din, dout) in build_model(tcfg, dtype=torch.float32, device="cpu").lora_dims().items():
         lora[t] = (rng.standard_normal((3, din, 4), np.float32) * 0.2,
                    rng.standard_normal((3, 4, dout), np.float32) * 0.2)
     return jcfg, tcfg, p, lora
@@ -197,7 +197,7 @@ def _pair(arch, backend, n_slots=3):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), n_slots).items()}
-    tm = build_model(tcfg, device="cpu")
+    tm = build_model(tcfg, dtype=torch.float32, device="cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}
     return ((jm, jax.tree.map(jnp.asarray, jparams), jl),
             (tm, bridge.tensor_tree(jparams, "cpu"), bridge.tensor_tree(lora, "cpu")))
@@ -294,7 +294,7 @@ def test_kernel_routing(arch, monkeypatch):
     run every LoRA projection through ``fused_sgmv``: 4 targets a layer on
     phi, 3 (q, kv_a, o) on deepseek."""
     tcfg = configs.reduced(configs.get(arch))
-    tm = build_model(tcfg, device="cpu")
+    tm = build_model(tcfg, dtype=torch.float32, device="cpu")
     params = tm.init_params(torch.Generator().manual_seed(0))
     lora = tm.init_lora(torch.Generator().manual_seed(1), 2)
     ids = torch.tensor([0, 1], dtype=torch.int32)

@@ -43,7 +43,7 @@ def _pair(backend, n_slots=3):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), n_slots).items()}
-    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     tlora = bridge.tensor_tree(lora, "cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}
@@ -201,7 +201,7 @@ def test_forward_keeps_autograd_on_cpu():
 
 
 def test_prefill_longer_than_the_cache_raises():
-    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    tm = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     params = tm.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="cache of 4"):
         tm.prefill(params, torch.zeros((1, 5), dtype=torch.int64), 4)

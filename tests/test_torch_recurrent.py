@@ -189,7 +189,7 @@ def _pair(arch, backend):
     lora = {t: (rng.standard_normal(a.shape, np.float32) * 0.1,
                 rng.standard_normal(b.shape, np.float32) * 0.1)
             for t, (a, b) in jm.init_lora(jax.random.PRNGKey(5), 3).items()}
-    tm = build_model(tcfg, device="cpu")
+    tm = build_model(tcfg, dtype=torch.float32, device="cpu")
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, jparams), "cpu")
     jl = {t: (jnp.asarray(a), jnp.asarray(b)) for t, (a, b) in lora.items()}
     return (jm, jparams, jl), (tm, tparams, bridge.tensor_tree(lora, "cpu"))
@@ -277,7 +277,7 @@ def test_hybrid_window_passes_only_to_attention():
                       for c in _cfg("recurrentgemma-2b"))
         jm = jax_build_model(jcfg, dtype=jnp.float32, kernel_backend="jnp")
         jp = jm.init_params(jax.random.PRNGKey(8))
-        tm = build_model(tcfg, device="cpu")
+        tm = build_model(tcfg, dtype=torch.float32, device="cpu")
         tp = bridge.tensor_tree(jax.tree.map(np.asarray, jp), "cpu")
         tokens = np.random.default_rng(9).integers(0, 256, (2, 24)).astype(np.int32)
         want, _ = jm.forward(jp, jnp.asarray(tokens))

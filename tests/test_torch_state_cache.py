@@ -88,7 +88,7 @@ def test_store_load_swap_roundtrip_and_bounds_checks():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_flatten_unflatten_roundtrip(arch):
-    model = build_model(configs.reduced(configs.get(arch)), device="cpu")
+    model = build_model(configs.reduced(configs.get(arch)), dtype=torch.float32, device="cpu")
     cache = model.init_cache(3, 32)
     n = flat_state_elems(cache)
     flat = torch.from_numpy(np.random.default_rng(0).standard_normal(n, np.float32))
@@ -121,7 +121,7 @@ def test_flatten_state_matches_jax(arch):
     jm = jax_build_model(jconfigs.reduced(jconfigs.get(arch)), dtype=jnp.float32,
                          kernel_backend="jnp")
     params = jm.init_params(jax.random.PRNGKey(1))
-    tm = build_model(configs.reduced(configs.get(arch)), device="cpu")
+    tm = build_model(configs.reduced(configs.get(arch)), dtype=torch.float32, device="cpu")
     tparams = bridge.tensor_tree(jax.tree.map(np.asarray, params), "cpu")
     B, T = 3, 32
     rng = np.random.default_rng(2)

@@ -170,7 +170,7 @@ def train_pair(arch, train_lora_only=False, lr=3e-4, remat=False, frames=False):
     jm = jbuild_model(jcfg, dtype=jnp.float32)
     jstate = jmake_train_state(jm, jax.random.PRNGKey(0), n_lora_slots=3,
                                train_lora_only=train_lora_only)
-    model = build_model(configs.reduced(configs.get(arch)), device="cpu", remat=remat)
+    model = build_model(configs.reduced(configs.get(arch)), dtype=torch.float32, device="cpu", remat=remat)
     lora = _lora_numpy(model)
     trainable = {"lora": lora} if train_lora_only else {"params": jstate.params, "lora": lora}
     jstate = dataclasses.replace(jstate, lora=jax.tree.map(jnp.asarray, lora),
@@ -232,7 +232,7 @@ def test_train_step_gradients_match_jax_grad():
     jcfg = jconfigs.reduced(jconfigs.get("qwen3-0.6b"))
     jm = jbuild_model(jcfg, dtype=jnp.float32)
     jparams = jm.init_params(jax.random.PRNGKey(0))
-    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     lora = _lora_numpy(model)
     batch = _batch(jcfg)
 
@@ -258,8 +258,8 @@ def test_remat_gives_the_same_gradients(policy):
     """remat (per-layer recomputation, "full" or "dots") changes what is
     kept, not what is computed: the gradients equal those without it."""
     cfg = configs.reduced(configs.get("qwen3-0.6b"))
-    plain = build_model(cfg, device="cpu")
-    remat = build_model(cfg, device="cpu", remat=True, remat_policy=policy)
+    plain = build_model(cfg, dtype=torch.float32, device="cpu")
+    remat = build_model(cfg, dtype=torch.float32, device="cpu", remat=True, remat_policy=policy)
     gen = torch.Generator().manual_seed(0)
     params, lora = plain.init_params(gen), plain.init_lora(gen, 3)
     lora = {t: (a, torch.randn_like(b) * 0.05) for t, (a, b) in lora.items()}
@@ -277,7 +277,7 @@ def test_remat_gives_the_same_gradients(policy):
 
 
 def test_make_train_state_lora_only_moments_cover_the_adapters():
-    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), device="cpu")
+    model = build_model(configs.reduced(configs.get("qwen3-0.6b")), dtype=torch.float32, device="cpu")
     st = make_train_state(model, torch.Generator().manual_seed(0), n_lora_slots=2,
                           train_lora_only=True)
     assert set(st.opt.m) == {"lora"} and int(st.step) == 0

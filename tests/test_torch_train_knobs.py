@@ -45,7 +45,7 @@ def test_q_chunk_model_matches_the_reference(arch, softcap, monkeypatch):
         cfg = dataclasses.replace(cfg, logit_softcap=softcap)
     jm = jbuild_model(jcfg, dtype=jnp.float32, q_chunk=8)
     jparams = jm.init_params(jax.random.PRNGKey(0))
-    model = build_model(cfg, device="cpu", q_chunk=8)
+    model = build_model(cfg, dtype=torch.float32, device="cpu", q_chunk=8)
     lora = _lora_numpy(model)
     batch = _batch(jcfg, S=24)
 
