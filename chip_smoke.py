@@ -8,6 +8,14 @@ exits non-zero:
 1. device   — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 2. build    — nvcc builds every kernel source from ``src/repro_torch/
               kernels/csrc`` (one process per source, in parallel).
+2b. link    — the port's own host link (qwen3-0.6b at full width, the
+              engine's f32) in a process that has pinned no host memory
+              yet, as an engine finds it when it starts:
+              ``PagedKVPool.swap_out`` and ``swap_in`` of 1, 8 and 64 of the
+              engine's KV blocks and ``AdapterStore.load`` of one adapter at
+              ranks 8, 32 and 128, timed with CUDA events (and the host's
+              enqueue), every round trip checked bit for bit; GB/s and the
+              fixed cost of each (a least-squares fit over the sizes).
 3. kernels  — each of the eight kernels against its plain PyTorch version at
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
@@ -17,8 +25,10 @@ exits non-zero:
               at phase 3's lengths and at the engine's decode lengths), a
               repeat launch bitwise equal, timed with CUDA events beside
               its plain version, one PyTorch library call where one
-              computes the same function, and its bound (bytes / 3.35 TB/s
-              or f32 flops / 165 TFLOP/s, the larger). The decode kernels
+              computes the same function, and its bound
+              (``repro_torch.kernels.counting``: ``bound_ms`` of the case's
+              least ``work``, bytes / 3.35 TB/s or f32 flops / 165
+              TFLOP/s, the larger). The decode kernels
               (fused_sgmv and sgmv at S=1, paged_attention) are timed warm
               and with a cold L2, their inputs rotated over copies that
               exceed twice the 50 MB L2. Then every kernel at the other
@@ -153,6 +163,13 @@ exits non-zero:
               BF16_IDENT_TOL (deepseek's expert choices pinned to the
               forward's; its free-routing errors reported).
 
+10. link_late — phase 2b's link once more, after every other phase: the
+              same path in a process that has pinned and freed many GB of
+              host memory and run every model; then ``h100_spec``:
+              the simulator's H100 spec as measured in this run (phase
+              2b's swap_in, phase 9's llama-7b prefill and decode) beside
+              ``sim/h100.py``'s.
+
 Every phase's line carries the script's seconds so far (``t_s``). Then the
 script's seconds. The line before the last is the ``kernels`` JSON; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -167,6 +184,7 @@ import json
 import math
 import random
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -175,13 +193,10 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-L2_BYTES = 50e6  # H100 L2 cache
-# H100 SXM: f32-accurate products on the tensor cores, 495 TFLOP/s TF32
-# dense over the three TF32 products of a 3xTF32 split (the CUDA cores'
-# 67 TFLOP/s f32 is not the least time once a kernel uses the split)
-F32_FLOPS = 495e12 / 3
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+sys.path.insert(0, str(HERE / "src"))
+# the card's constants, each kernel's least work and its bound
+from repro_torch.kernels.counting import L2_BYTES, bound_ms, work  # noqa: E402
+
 # bf16 kernels against their plain bf16 versions: times max|plain| (the
 # reference's bf16 tolerance)
 BF16_TOL = 2e-2
@@ -254,14 +269,6 @@ def rotating(calls):
     KV (28 layers of them pass between two uses)."""
     it = itertools.cycle(calls)
     return lambda: next(it)()
-
-
-def bound_ms(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
-    """The least time for ``nbytes`` and ``flops``: f32 flops at the
-    3xTF32 rate, bf16 flops at the dense bf16 rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def esize(dtype) -> int:
@@ -361,15 +368,9 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         require(bool((got[~live] == 0).all()), f"sgmv {proj} S={S}: a row of "
                                                "id -1 is not 0")
     n_live_ids = int(torch.unique(ids[live]).numel())
-    M, M_live = B * S, int(live.sum()) * S
     lora_bytes = n_live_ids * r * (d_in + d_out)
-    if base:
-        nbytes = es * (M * d_in + d_in * d_out + M * d_out + lora_bytes) + 4 * B
-        flops = 2 * M * d_in * d_out + 2 * M_live * r * (d_in + d_out)
-    else:  # rows of id -1 need no x
-        nbytes = es * (M_live * d_in + M * d_out + lora_bytes) + 4 * B
-        flops = 2 * M_live * r * (d_in + d_out)
-    bnd, by = bound_ms(nbytes, flops, dtype)
+    bnd, by = bound_ms(*work(name, B=B, S=S, d_in=d_in, d_out=d_out, r=r,
+                             ids=ids.tolist(), itemsize=es), dtype)
     ms, host_ms = time_ms(lambda: kernel(w))
     out = dict(
         case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}"
@@ -434,12 +435,9 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))[0]
-    live_q = sum(lens)
-    kv_tokens = sum(s + n for s, n in zip(starts, lens) if n > 0)
     es = esize(dtype)
-    nbytes = es * (live_q * H * D + 2 * kv_tokens * Hkv * D + B * S * H * D) + 8 * B
-    flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, lens) for j in range(n))
-    bnd, by = bound_ms(nbytes, flops, dtype)
+    bnd, by = bound_ms(*work("ragged_extend", B=B, S=S, H=H, Hkv=Hkv, D=D, starts=starts,
+                             true_lens=lens, itemsize=es), dtype)
     ms, host_ms = time_ms(lambda: ops.ragged_extend(q, k, v, st, tl))
     out = dict(
         case=f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, true_lens={lens}"
@@ -510,9 +508,8 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     kv_tokens = sum(min(n, T) for n in lens)
     es = esize(dtype)
-    nbytes = es * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
-    flops = 4 * H * D * kv_tokens
-    bnd, by = bound_ms(nbytes, flops, dtype)
+    bnd, by = bound_ms(*work("paged_attention", B=B, H=H, Hkv=Hkv, D=D, T=T, page_size=ps,
+                             lengths=lens, itemsize=es), dtype)
     ms, host_ms = time_ms(lambda: kernel(kc, vc))
     out = dict(
         case=f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, lengths={lens}"
@@ -579,11 +576,8 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
                 f"{name}: row {b} is not 0 past its {n} tokens")
     require(torch.equal(kernel(), got), f"{name}: a repeat launch differs")
     del got
-    es = esize(dtype)
-    nbytes = es * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
-    nbytes += 4 * B if lens is not None else 0
-    flops = sum(4 * H * D * n * (n + 1) // 2 for n in live)
-    bnd, by = bound_ms(nbytes, flops, dtype)
+    bnd, by = bound_ms(*work(name, B=B, S=S, H=H, Hkv=Hkv, D=D, true_lens=lens,
+                             itemsize=esize(dtype)), dtype)
     ms, host_ms = time_ms(kernel)
     return dict(
         case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}"
@@ -698,9 +692,7 @@ def flash_bwd_case(ops, ref, gen, dev, B=8, S=512, H=16, Hkv=8, D=128):
     library = time_ms(lambda: torch.autograd.grad(o_lib, (qc, kc, vc), do_c,
                                                   retain_graph=True), iters=5)[0]
     del o_lib
-    nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
-    flops = 10 * H * D * S * (S + 1) // 2 * B
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(*work("flash_prefill_bwd", B=B, S=S, H=H, Hkv=Hkv, D=D))
     ms, host_ms = time_ms(kernel)
     return dict(case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}",
                 max_abs_err=max(errs), lse_max_abs_err=lse_err, ms=ms, host_ms=host_ms,
@@ -740,12 +732,8 @@ def lora_grad_case(ops, ref, gen, dev, proj, d_in, d_out, B=8, S=512, N=4, r=32)
     da2, db2 = kernel(dx2)
     require(torch.equal(dx2, dx) and torch.equal(da2, da) and torch.equal(db2, db),
             f"lora_grad {proj} r={r}: a repeat launch differs")
-    M_live = int((ids >= 0).sum()) * S
-    n_ids = int(torch.unique(ids[ids >= 0]).numel())
-    nbytes = 4 * (M_live * (d_in + d_out) + 2 * M_live * d_in
-                  + n_ids * r * (d_in + d_out) + (N + 1) * r * (d_in + d_out)) + 4 * B
-    flops = 2 * M_live * r * (3 * d_in + 2 * d_out)
-    bnd, by = bound_ms(nbytes, flops)
+    bnd, by = bound_ms(*work("lora_grad", B=B, S=S, d_in=d_in, d_out=d_out, r=r,
+                             slots=N + 1, ids=ids.tolist()))
     ms, host_ms = time_ms(lambda: kernel(dx2))
     return dict(case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}, ids={ids.tolist()}",
                 max_abs_err=max(errs.values()), errors=errs, ms=ms, host_ms=host_ms,
@@ -2580,13 +2568,157 @@ def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: 
     return line, launches
 
 
+# -------------------------------------------------------------- 10. link
+LINK_BLOCKS = (1, 8, 64)  # KV blocks a swap call moves
+LINK_RANKS = (8, 32, 128)  # adapter ranks a load moves (32: the configs' rank)
+LINK_ITERS = 10  # timed round trips of each size (their medians are kept)
+
+
+def event_ms(fn) -> tuple[float, float, float]:
+    """(device ms, enqueue ms, wall ms) of one call of ``fn`` on an idle
+    stream: CUDA events around it, the host's clock until ``fn`` returns,
+    and until its work has finished."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    e0.record()
+    fn()
+    h1 = time.perf_counter()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), (h1 - h0) * 1e3, (time.perf_counter() - h0) * 1e3
+
+
+def fit_link(points) -> dict:
+    """Least squares ``ms = latency + bytes / rate`` over (bytes, device
+    ms) points: the rate in GB/s and the fixed cost in µs."""
+    n = len(points)
+    mx = sum(b for b, _ in points) / n
+    my = sum(t for _, t in points) / n
+    slope = (sum((b - mx) * (t - my) for b, t in points)
+             / sum((b - mx) ** 2 for b, _ in points))  # ms a byte
+    return {"gb_per_s": 1e-6 / slope, "latency_us": (my - slope * mx) * 1e3}
+
+
+def link_timings(sizes) -> dict:
+    """{name: {"points": [...], fit}} from {name: [(bytes, [(device ms,
+    enqueue ms, wall ms), ...]), ...]}: each size's median times and
+    GB/s, and the fit over the sizes' device medians."""
+    out = {}
+    for name, rows in sizes.items():
+        points = []
+        for nbytes, times in rows:
+            dev_ms = statistics.median(t[0] for t in times)
+            points.append({"bytes": nbytes, "ms": dev_ms,
+                           "enqueue_ms": statistics.median(t[1] for t in times),
+                           "wall_ms": statistics.median(t[2] for t in times),
+                           "ms_range": [min(t[0] for t in times), max(t[0] for t in times)],
+                           "gb_per_s": nbytes / dev_ms * 1e-6})
+        out[name] = {"points": points,
+                     **fit_link([(p["bytes"], p["ms"]) for p in points])}
+    return out
+
+
+def link_phase(configs, dev, smi: str, phase: str = "link") -> dict:
+    """The port's own host link on qwen3-0.6b at full width in the
+    engine's f32: ``PagedKVPool.swap_out`` then ``swap_in`` of 1, 8 and 64
+    of the engine's KV blocks (block 16, as phase 4), and
+    ``AdapterStore.load`` of one adapter at ranks 8, 32 and 128, each
+    :data:`LINK_ITERS` times on fresh data, every round trip checked bit
+    for bit (gated on that alone)."""
+    from repro_torch.kvcache import PagedKVPool
+    from repro_torch.lora import AdapterStore
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import kv_pool_spec
+
+    cfg = configs.get("qwen3-0.6b")
+    spec = kv_pool_spec(cfg, 16)
+    n = max(LINK_BLOCKS)
+    pool = PagedKVPool(spec, 2 * n, n, device=dev)  # the round trips land in [n, 2n)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    kv = {"swap_out": [], "swap_in": []}
+    for nb in LINK_BLOCKS:
+        blocks, back = list(range(nb)), list(range(n, n + nb))
+        outs, ins = [], []
+        for _ in range(LINK_ITERS):
+            for t in (pool.k_hbm, pool.v_hbm):
+                t[:nb].normal_(generator=gen)
+                t[n:n + nb].zero_()
+            outs.append(event_ms(lambda: pool.swap_out(blocks, blocks)))
+            ins.append(event_ms(lambda: pool.swap_in(blocks, back)))
+            require(all(torch.equal(t[n:n + nb], t[:nb]) for t in (pool.k_hbm, pool.v_hbm)),
+                    f"link: {nb} KV blocks differ after swap_out and swap_in")
+        kv["swap_out"].append((nb * spec.block_bytes, outs))
+        kv["swap_in"].append((nb * spec.block_bytes, ins))
+    del pool
+    loads = []
+    cpu = torch.Generator().manual_seed(10)
+    for r in LINK_RANKS:
+        rcfg = dataclasses.replace(cfg, lora=dataclasses.replace(cfg.lora, rank=r))
+        store = AdapterStore(build_model(rcfg, dtype=torch.float32, device=dev), 2)
+        L = rcfg.num_layers
+        times = []
+        for i in range(LINK_ITERS):
+            aid = f"link-r{r}-{i}"
+            aw = store.register(aid, weights={
+                t: (torch.randn((L, di, r), generator=cpu), torch.randn((L, r, do), generator=cpu))
+                for t, (di, do) in store.model.lora_dims().items()})
+            for a, b in store.slots.values():
+                a.zero_()
+                b.zero_()
+            times.append(event_ms(lambda: store.load(aid)))
+            slot = store.slot_of(aid)
+            require(all(torch.equal(store.slots[t][0][:, slot].cpu(), a)
+                        and torch.equal(store.slots[t][1][:, slot].cpu(), b)
+                        for t, (a, b) in aw.weights.items()),
+                    f"link: the rank-{r} adapter differs in its device slot")
+            store.unload(aid)
+        loads.append((aw.nbytes, times))
+        del store
+    return {"phase": phase, "nvidia_smi": smi, "kv_block_bytes": spec.block_bytes,
+            "blocks": LINK_BLOCKS, "ranks": LINK_RANKS, "iters": LINK_ITERS,
+            **link_timings({**kv, "adapter_load": loads})}
+
+
+def h100_spec_line(configs, link: dict, llama_bf16: dict) -> dict:
+    """The simulator's H100 spec as measured in this run: the card's
+    memory, the host's, ``swap_in``'s fit from ``link`` (the phase 2b
+    line), and phase 9's llama-7b bf16 prefill and decode (its prefill
+    efficiency, and its decode steps' time past the simulator's own, the
+    timed run's and each window's), beside ``sim/h100.py``'s recorded
+    spec."""
+    from repro_torch.sim import h100
+
+    llama = configs.get("llama-7b")
+    B, S, steps = llama_bf16["batch"], llama_bf16["prompt_tokens"], llama_bf16["decode_steps"]
+    # the decode steps' mean context: the prompts, the extend's rows, half the steps
+    ctx = sum(S + n for n in llama_bf16["extend_true_lens"]) + B * (steps - 1) // 2
+
+    def overhead(ms):
+        return h100.measured_decode_overhead(llama, B, ctx, ms / 1e3)
+
+    swap_in = link["swap_in"]
+    return {"phase": "h100_spec", "card": h100.CARD,
+            "recorded": dataclasses.asdict(h100.h100_spec()),
+            "measured": {
+                "hbm_bytes": torch.cuda.get_device_properties(0).total_memory,
+                "host_bytes": host_mem_total(),
+                "pcie_bw": swap_in["gb_per_s"] * 1e9,
+                "pcie_latency": swap_in["latency_us"] * 1e-6,
+                "prefill_mfu": h100.measured_prefill_mfu(llama, B * S, llama_bf16["prefill_s"]),
+                "decode_overhead": overhead(llama_bf16["decode_ms_per_step"]),
+                "decode_overhead_windows": [overhead(w) for w in
+                                            llama_bf16["decode_ms_per_step_windows"]],
+                "decode_ctx_tokens": ctx}}
+
+
 def main() -> None:
     t_script = time.perf_counter()
     # ---------------------------------------------------------- 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, str(HERE / "src"))
     from repro_torch import configs
     from repro_torch.kernels import build, ops, ref
     from repro_torch.serving import EngineConfig, ServingEngine
@@ -2610,6 +2742,10 @@ def main() -> None:
     per_kernel = build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": per_kernel, "dir": str(build.BUILD_DIR)})
+
+    # ---------------------------------------------------------- 2b. link
+    link = link_phase(configs, dev, smi)
+    emit(link)
 
     # ---------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2753,15 +2889,22 @@ def main() -> None:
 
     # -------------------------------------------------------------- 9. bf16
     bf16_launches = dict.fromkeys(gen_launches, 0)
+    bf16_lines = {}
     t0 = time.perf_counter()
     for name, B, S, chunk_len, steps, with_f32 in BF16_ARCHS:
         line, counts = bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32)
         emit(line)
+        bf16_lines[name] = line
         for k, n in counts.items():
             bf16_launches[k] += n
     emit({"phase": "bf16_total", "seconds": time.perf_counter() - t0})
 
-    # ----------------------------------------------------------- 9. summary
+    # ---------------------------------------------------- 10. link_late, spec
+    torch.cuda.empty_cache()
+    emit(link_phase(configs, dev, smi, "link_late"))
+    emit(h100_spec_line(configs, link, bf16_lines["llama-7b"]))
+
+    # ---------------------------------------------------------- 11. summary
     kernels = []
     for name, src, tpu, m in (
             # the q projection in a 256-token bucket

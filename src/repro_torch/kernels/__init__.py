@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels (CUDA C++ for sm_90a) and their plain
-PyTorch versions; see ``kernels/ops.py``."""
+PyTorch versions; see ``kernels/ops.py``. ``counting`` holds the
+reference's analytic traffic counters, the port's tiles, each kernel's
+least work and its bound on the H100."""
 
-from . import ref
+from . import counting, ref
 from .ops import (
     flash_prefill,
     flash_prefill_bwd,
@@ -31,4 +33,5 @@ __all__ = [
     "ref",
     "reset_launch_counts",
     "sgmv",
+    "counting",
 ]

@@ -1,0 +1,468 @@
+"""The kernels' counts, and the H100's roofline.
+
+Three parts:
+
+(a) The reference's analytic HBM-traffic and FLOP counters
+    (``repro.kernels.counting``), with its names, signatures, defaults and
+    returned dicts: each replays a grid order and its block index maps in
+    plain Python and tallies a block fetch whenever the mapped block index
+    differs from the previous step's. They run over this module's copy of
+    the reference's triangular schedule (:func:`_tri_schedule`).
+(b) The port's own tiles, each named once beside the CUDA line that fixes
+    it, and the counters of (a) called with them: the traffic under the
+    port's schedule (``port_*_counts``). Where the CUDA code picks a tile
+    itself (the q tile's rows in ``csrc/attention_tc.cuh:tile_rows``), the
+    counter takes it as an argument.
+(c) The least work of each kernel (:func:`work`: each input read once, each
+    output written once, the flops the data needs) and its bound on the
+    card (:func:`bound_ms`), which ``chip_smoke.py`` prints beside each
+    kernel's time.
+
+Everything here is host-side integer arithmetic on static shapes.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .paged_attention import chunk_plan, chunk_tokens
+from .sgmv import SKINNY_COLS, SKINNY_MAX_M, skinny_plan
+
+# ---------------------------------------------------------- the H100 (SXM)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+L2_BYTES = 50e6  # H100 L2 cache
+# H100 SXM: f32-accurate products on the tensor cores, 495 TFLOP/s TF32
+# dense over the three TF32 products of a 3xTF32 split (the CUDA cores'
+# 67 TFLOP/s f32 is not the least time once a kernel uses the split)
+F32_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+H100_SMS = 132  # H100 SXM streaming multiprocessors
+
+
+# ------------------------------------------------ (a) the reference's counters
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tri_schedule(
+    q_blocks: int, kv_blocks: int, block_q: int, block_k: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Flatten the lower-triangular (q, kv) block pairs into one grid axis
+    (the reference's ``flash_prefill._tri_schedule``).
+
+    Returns int32 arrays ``rows[t]`` (q block), ``cols[t]`` (kv block) and
+    ``lasts[t]`` (1 on the final — diagonal — kv block of each q row).
+    """
+    rows: list[int] = []
+    cols: list[int] = []
+    lasts: list[int] = []
+    for i in range(q_blocks):
+        need = min(kv_blocks, (i * block_q + block_q - 1) // block_k + 1)
+        for j in range(need):
+            rows.append(i)
+            cols.append(j)
+            lasts.append(1 if j == need - 1 else 0)
+    return (
+        np.asarray(rows, np.int32),
+        np.asarray(cols, np.int32),
+        np.asarray(lasts, np.int32),
+    )
+
+
+class _FetchCounter:
+    """Counts block fetches: one per grid step whose index differs from the
+    previous step's (consecutive equal indices ⇒ the copy is skipped)."""
+
+    def __init__(self) -> None:
+        self.fetches = 0
+        self._prev: object = None
+
+    def visit(self, index: object) -> None:
+        if index != self._prev:
+            self.fetches += 1
+            self._prev = index
+
+    def reset(self) -> None:
+        """Forget the resident block (kernel boundary)."""
+        self._prev = None
+
+
+def flash_prefill_counts(
+    B: int,
+    H: int,
+    Hkv: int,
+    S: int,
+    D: int,
+    *,
+    block_q: int = 128,
+    block_k: int = 128,
+    itemsize: int = 4,
+    true_lens: Sequence[int] | None = None,
+    variant: str = "block_skip",
+) -> dict:
+    """Counted traffic for ``flash_prefill`` / ``flash_prefill_ragged``.
+
+    ``variant="rect"`` replays the rectangular grid (above-diagonal blocks
+    fetched, compute skipped) as the baseline; ``"block_skip"`` replays the
+    triangular flattened schedule. Passing ``true_lens`` replays the ragged
+    index-map clamps on top.
+    """
+    G = H // Hkv
+    bq = min(block_q, S)
+    bk = min(block_k, S)
+    qb, kb = _cdiv(S, bq), _cdiv(S, bk)
+    if variant == "block_skip":
+        rows, cols, _ = _tri_schedule(qb, kb, bq, bk)
+        sched = list(zip(rows.tolist(), cols.tolist()))
+    elif variant == "rect":
+        sched = [(i, j) for i in range(qb) for j in range(kb)]
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
+    lens = list(true_lens) if true_lens is not None else [S] * B
+    kv_ctr, q_ctr = _FetchCounter(), _FetchCounter()
+    flops = 0
+    for b in range(B):
+        live_q = max(_cdiv(lens[b], bq), 1)
+        live_k = max(_cdiv(lens[b], bk), 1)
+        for h in range(H):
+            for i, j in sched:
+                i_eff = min(i, live_q - 1) if true_lens is not None else i
+                j_eff = min(j, live_k - 1) if true_lens is not None else j
+                q_ctr.visit((b, h, i_eff))
+                kv_ctr.visit((b, h // G, j_eff))
+                active = j * bk <= i * bq + bq - 1  # causal intersection
+                if true_lens is not None:
+                    active = active and i * bq < lens[b] and j * bk < lens[b]
+                if active:
+                    flops += 4 * bq * bk * D
+    kv_bytes = kv_ctr.fetches * bk * D * itemsize * 2  # K and V
+    q_bytes = q_ctr.fetches * bq * D * itemsize
+    return {
+        "grid_steps": B * H * len(sched),
+        "kv_block_fetches": kv_ctr.fetches,
+        "kv_bytes": kv_bytes,
+        "q_bytes": q_bytes,
+        "hbm_bytes": kv_bytes + 2 * q_bytes,  # q in, o out
+        "flops": flops,
+    }
+
+
+def paged_attention_counts(
+    B: int,
+    H: int,
+    Hkv: int,
+    D: int,
+    page_size: int,
+    pages_per_seq: int,
+    lengths: Sequence[int],
+    *,
+    itemsize: int = 4,
+    trimmed: bool = True,
+) -> dict:
+    """Counted traffic for ``paged_attention``.
+
+    ``trimmed=False`` replays the full-grid fetch (every page of every
+    sequence streamed, tokens masked after the fact).
+    """
+    G = H // Hkv
+    kv_ctr = _FetchCounter()
+    flops = 0
+    for b in range(B):
+        live = max(_cdiv(lengths[b], page_size), 1)
+        for h in range(Hkv):
+            for p in range(pages_per_seq):
+                p_eff = min(p, live - 1) if trimmed else p
+                kv_ctr.visit((b, h, p_eff))
+                if not trimmed or p * page_size < lengths[b]:
+                    flops += 4 * G * page_size * D
+    kv_bytes = kv_ctr.fetches * page_size * D * itemsize * 2
+    q_bytes = B * H * D * itemsize
+    return {
+        "grid_steps": B * Hkv * pages_per_seq,
+        "kv_block_fetches": kv_ctr.fetches,
+        "kv_bytes": kv_bytes,
+        "q_bytes": q_bytes,
+        "hbm_bytes": kv_bytes + 2 * q_bytes,
+        "flops": flops,
+    }
+
+
+def ragged_extend_counts(
+    B: int,
+    H: int,
+    Hkv: int,
+    S: int,
+    T: int,
+    D: int,
+    start: Sequence[int],
+    true_lens: Sequence[int],
+    *,
+    block_q: int = 128,
+    block_k: int = 128,
+    itemsize: int = 4,
+    trimmed: bool = True,
+) -> dict:
+    """Counted traffic for ``ragged_extend``.
+
+    ``trimmed=False`` replays the dense baseline (every q block attends
+    every cache block of the padded rectangle, masking after the fetch).
+    """
+    G = H // Hkv
+    bq = min(block_q, S)
+    bk = min(block_k, T)
+    qb, kb = _cdiv(S, bq), _cdiv(T, bk)
+    kv_ctr, q_ctr = _FetchCounter(), _FetchCounter()
+    flops = 0
+    for b in range(B):
+        live_q = max(_cdiv(true_lens[b], bq), 1)
+        frontier = max(_cdiv(start[b] + true_lens[b], bk), 1)
+        for h in range(H):
+            for i in range(qb):
+                i_eff = min(i, live_q - 1) if trimmed else i
+                diag = (start[b] + i_eff * bq + bq - 1) // bk + 1
+                live_k = max(min(frontier, diag), 1)
+                for j in range(kb):
+                    j_eff = min(j, live_k - 1) if trimmed else j
+                    q_ctr.visit((b, h, i_eff))
+                    kv_ctr.visit((b, h // G, j_eff))
+                    active = (
+                        i * bq < true_lens[b]
+                        and j * bk < start[b] + true_lens[b]
+                        and j * bk <= start[b] + i * bq + bq - 1
+                    )
+                    if not trimmed or active:
+                        flops += 4 * bq * bk * D
+    kv_bytes = kv_ctr.fetches * bk * D * itemsize * 2
+    q_bytes = q_ctr.fetches * bq * D * itemsize
+    return {
+        "grid_steps": B * H * qb * kb,
+        "kv_block_fetches": kv_ctr.fetches,
+        "kv_bytes": kv_bytes,
+        "q_bytes": q_bytes,
+        "hbm_bytes": kv_bytes + 2 * q_bytes,
+        "flops": flops,
+    }
+
+
+def sgmv_counts(
+    B: int,
+    S: int,
+    d_in: int,
+    d_out: int,
+    r: int,
+    *,
+    block_s: int = 128,
+    block_o: int = 128,
+    itemsize: int = 4,
+    fused: bool = True,
+) -> dict:
+    """Counted activation traffic for the LoRA projection.
+
+    ``fused=True`` replays ``fused_sgmv`` (one kernel: the x tile is fetched
+    once per token tile and read once per (token, out) block);
+    ``fused=False`` replays the unfused pair — base matmul kernel plus the
+    shrink/expand ``sgmv`` kernel — each streaming the x tile again.
+    """
+    bs = min(block_s, S)
+    bo = min(block_o, d_out)
+    sb, ob = _cdiv(S, bs), _cdiv(d_out, bo)
+    kernels = 1 if fused else 2  # fused vs (base matmul, sgmv)
+    x_ctr = _FetchCounter()
+    for _ in range(kernels):
+        x_ctr.reset()
+        for b in range(B):
+            for s in range(sb):
+                for o in range(ob):
+                    x_ctr.visit((b, s))
+    x_bytes = x_ctr.fetches * bs * d_in * itemsize
+    flops = 2 * B * S * d_in * d_out + 2 * B * S * r * (d_in + d_out)
+    return {
+        "grid_steps": kernels * B * sb * ob,
+        "x_tile_fetches": x_ctr.fetches,
+        "x_passes_per_block": x_ctr.fetches / (B * sb),
+        "x_bytes": x_bytes,
+        "kernel_launches": kernels,
+        "flops": flops,
+    }
+
+
+# ----------------------------------------------------- (b) the port's tiles
+ATTN_BLOCK_K = 64  # csrc/attention_tc.cuh:93 BKV: keys of a K/V tile
+ATTN_WIDE_STAGE_K = 32  # csrc/attention_tc.cuh:110 stage_keys: past D = 128
+ATTN_NARROW_D = 128  # csrc/attention_tc.cuh:97 NARROW_D
+SGMV_TILE_M = 128  # csrc/fused_sgmv.cu:150 TM: rows of an output tile
+SGMV_TILE_N = 128  # csrc/fused_sgmv.cu:151 TN: columns of an output tile
+SGMV_SHRINK_ROWS = 64  # csrc/fused_sgmv.cu:175 SH_ROWS: rows of a shrink block
+
+
+def attn_stage_keys(D: int) -> int:
+    """Keys of one staged K/V tile at head dim ``D``: 64, 32 past D = 128."""
+    return ATTN_WIDE_STAGE_K if D > ATTN_NARROW_D else ATTN_BLOCK_K
+
+
+def port_flash_prefill_counts(B: int, H: int, Hkv: int, S: int, D: int, block_q: int,
+                              *, itemsize: int = 4,
+                              true_lens: Sequence[int] | None = None) -> dict:
+    """:func:`flash_prefill_counts` on the port's schedule: 64-key K/V tiles
+    over the lower triangle, q tiles of ``block_q`` tokens."""
+    return flash_prefill_counts(B, H, Hkv, S, D, block_q=block_q, block_k=ATTN_BLOCK_K,
+                                itemsize=itemsize, true_lens=true_lens)
+
+
+def port_ragged_extend_counts(B: int, H: int, Hkv: int, S: int, T: int, D: int,
+                              start: Sequence[int], true_lens: Sequence[int],
+                              block_q: int, *, itemsize: int = 4) -> dict:
+    """:func:`ragged_extend_counts` on the port's schedule: 64-key K/V tiles
+    up to each row's frontier, q tiles of ``block_q`` tokens."""
+    return ragged_extend_counts(B, H, Hkv, S, T, D, start, true_lens, block_q=block_q,
+                                block_k=ATTN_BLOCK_K, itemsize=itemsize)
+
+
+def port_paged_attention_counts(B: int, H: int, Hkv: int, D: int, page_size: int,
+                                pages_per_seq: int, lengths: Sequence[int], *,
+                                itemsize: int = 4) -> dict:
+    """:func:`paged_attention_counts` on the port's schedule: one block per
+    chunk of ``chunk_tokens(D)`` tokens of the table
+    (``paged_attention.chunk_plan``), dead chunks fetching nothing new."""
+    return paged_attention_counts(B, H, Hkv, D, chunk_tokens(D),
+                                  chunk_plan(page_size, pages_per_seq, D), lengths,
+                                  itemsize=itemsize)
+
+
+def port_sgmv_counts(B: int, S: int, d_in: int, d_out: int, r: int, *,
+                     itemsize: int = 4, fused: bool = True, sms: int = H100_SMS) -> dict:
+    """:func:`sgmv_counts` on the port's schedule: the B·S rows as one M,
+    in 128 × 128 output tiles beside one shrink block a 64 rows (the tiled
+    path), or, at M <= 16, in one row block against 64-column W slabs with
+    one shrink block per row in each k split of ``sgmv.skinny_plan`` on a
+    card of ``sms`` SMs (the skinny path). ``shrink_blocks`` adds to the
+    reference's keys."""
+    M = B * S
+    if M <= SKINNY_MAX_M:
+        out = sgmv_counts(1, M, d_in, d_out, r, block_s=SKINNY_MAX_M,
+                          block_o=SKINNY_COLS, itemsize=itemsize, fused=fused)
+        _, splits, _ = skinny_plan(M, d_in, d_out, True, sms)
+        return {**out, "shrink_blocks": M * splits}
+    out = sgmv_counts(1, M, d_in, d_out, r, block_s=SGMV_TILE_M, block_o=SGMV_TILE_N,
+                      itemsize=itemsize, fused=fused)
+    return {**out, "shrink_blocks": _cdiv(M, SGMV_SHRINK_ROWS)}
+
+
+# ------------------------------------------------ (c) least work and bound
+def _sgmv_work(B, S, d_in, d_out, r, ids, itemsize, base):
+    live = [i for i in ids if i >= 0]
+    n_live_ids = len(set(live))
+    M, M_live = B * S, len(live) * S
+    lora_bytes = n_live_ids * r * (d_in + d_out)
+    if base:
+        nbytes = itemsize * (M * d_in + d_in * d_out + M * d_out + lora_bytes) + 4 * B
+        flops = 2 * M * d_in * d_out + 2 * M_live * r * (d_in + d_out)
+    else:  # rows of id -1 need no x
+        nbytes = itemsize * (M_live * d_in + M * d_out + lora_bytes) + 4 * B
+        flops = 2 * M_live * r * (d_in + d_out)
+    return nbytes, flops
+
+
+def _fused_sgmv_work(*, B, S, d_in, d_out, r, ids, itemsize=4):
+    """x·W + the delta of each live row: x, W, each live id's A and B and
+    y once, the ids."""
+    return _sgmv_work(B, S, d_in, d_out, r, ids, itemsize, True)
+
+
+def _delta_work(*, B, S, d_in, d_out, r, ids, itemsize=4):
+    """The delta alone: the live rows' x, each live id's A and B, y."""
+    return _sgmv_work(B, S, d_in, d_out, r, ids, itemsize, False)
+
+
+def _ragged_extend_work(*, B, S, H, Hkv, D, starts, true_lens, itemsize=4):
+    """The live queries, each row's cached and new K/V up to its last
+    query, the padded output, starts and lengths; causal products."""
+    live_q = sum(true_lens)
+    kv_tokens = sum(s + n for s, n in zip(starts, true_lens) if n > 0)
+    nbytes = itemsize * (live_q * H * D + 2 * kv_tokens * Hkv * D + B * S * H * D) + 8 * B
+    flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, true_lens)
+                for j in range(n))
+    return nbytes, flops
+
+
+def _paged_attention_work(*, B, H, Hkv, D, T, page_size, lengths, itemsize=4):
+    """q and the output, each row's live K/V (at most the table's T
+    tokens), the block tables and lengths."""
+    pages = T // page_size
+    kv_tokens = sum(min(n, T) for n in lengths)
+    nbytes = itemsize * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
+    flops = 4 * H * D * kv_tokens
+    return nbytes, flops
+
+
+def _flash_prefill_work(*, B, S, H, Hkv, D, true_lens=None, itemsize=4):
+    """q, K and V up to each row's length, the full output (zeros past a
+    length), the lengths; the causal triangle of each row."""
+    live = [S] * B if true_lens is None else list(true_lens)
+    nbytes = itemsize * (sum(live) * (H + 2 * Hkv) * D + B * H * S * D)
+    nbytes += 4 * B if true_lens is not None else 0
+    flops = sum(4 * H * D * n * (n + 1) // 2 for n in live)
+    return nbytes, flops
+
+
+def _flash_prefill_ragged_work(*, B, S, H, Hkv, D, true_lens, itemsize=4):
+    return _flash_prefill_work(B=B, S=S, H=H, Hkv=Hkv, D=D, true_lens=true_lens,
+                               itemsize=itemsize)
+
+
+def _flash_prefill_bwd_work(*, B, S, H, Hkv, D):
+    """f32: q, out, dO and dQ; K, V, dK and dV; the log-sum-exp; the causal
+    triangle's five products (S, dP, dV, dQ, dK)."""
+    nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
+    flops = 10 * H * D * S * (S + 1) // 2 * B
+    return nbytes, flops
+
+
+def _lora_grad_work(*, B, S, d_in, d_out, r, slots, ids):
+    """f32: the live rows' x and dy, dx read and written, each live id's A
+    and B, dA and dB of every slot of the table, the ids; h = x·A and
+    g = dy·Bᵀ, then dA, dB and g·Aᵀ."""
+    live = [i for i in ids if i >= 0]
+    M_live = len(live) * S
+    n_ids = len(set(live))
+    nbytes = 4 * (M_live * (d_in + d_out) + 2 * M_live * d_in
+                  + n_ids * r * (d_in + d_out) + slots * r * (d_in + d_out)) + 4 * B
+    flops = 2 * M_live * r * (3 * d_in + 2 * d_out)
+    return nbytes, flops
+
+
+_WORK = {
+    "fused_sgmv": _fused_sgmv_work,
+    "sgmv": _delta_work,
+    "ragged_extend": _ragged_extend_work,
+    "paged_attention": _paged_attention_work,
+    "flash_prefill": _flash_prefill_work,
+    "flash_prefill_ragged": _flash_prefill_ragged_work,
+    "flash_prefill_bwd": _flash_prefill_bwd_work,
+    "lora_grad": _lora_grad_work,
+}
+KERNELS = tuple(_WORK)
+
+
+def work(kernel: str, **shape) -> tuple[int, int]:
+    """(bytes, flops): the least work of ``kernel`` on inputs of ``shape``
+    (each input read once, each output written once, the flops this data
+    needs: live rows and ids only, causal pairs only). The shape's keys are
+    the keyword arguments of the kernel's function above, ``ids``,
+    ``starts``, ``true_lens`` and ``lengths`` as Python sequences."""
+    if kernel not in _WORK:
+        raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+    return _WORK[kernel](**shape)
+
+
+def bound_ms(nbytes: float, flops: float, dtype=torch.float32) -> tuple[float, str]:
+    """The least time for ``nbytes`` and ``flops`` on the H100: the larger of
+    the bytes over the memory rate and the flops over the peak rate of
+    their type (f32 flops at the 3xTF32 rate, bf16 flops at the dense bf16
+    rate), with what bounds it ("bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

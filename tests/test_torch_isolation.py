@@ -19,6 +19,8 @@ VERBATIM = sorted(
     [p.relative_to(REF) for d in ("configs", "obs", "core")
      for p in (REF / d).glob("*.py")]
     + [Path("serving") / f for f in ("request.py", "scheduler.py", "metrics.py")]
+    + [p.relative_to(REF) for d in ("sim", "data") for p in (REF / d).glob("*.py")]
+    + [Path("analysis") / f for f in ("registry.py", "rules_hygiene.py")]
 )
 
 
@@ -49,7 +51,9 @@ def test_no_jax_or_reference_import(path):
 def test_importing_the_port_and_serving_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.optim, repro_torch.distributed, "
-            "repro_torch.kernels.ops, repro_torch.bridge; "
+            "repro_torch.kernels.ops, repro_torch.bridge, repro_torch.sim, "
+            "repro_torch.sim.h100, repro_torch.data, repro_torch.kernels.counting, "
+            "repro_torch.analysis.lint; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
