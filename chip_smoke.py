@@ -170,6 +170,23 @@ exits non-zero:
               2b's swap_in, phase 9's llama-7b prefill and decode) beside
               ``sim/h100.py``'s.
 
+11. dist    — the multi-device layer on every card of the machine, one rank
+              a card over NCCL (in this process on one card: a 1 x 1
+              mesh; through ``repro_torch.distributed.runner`` on more):
+              qwen3-0.6b at full width in f32 as in phase 8 (seed-0
+              weights, rank-32 LoRA on 4 slots, B = 8 x 512), placed by the
+              sharding rules on the ``plan_mesh`` mesh, 3 sharded steps
+              against 3 unsharded ``make_train_step`` steps on the same
+              weights and batches (loss within TRAIN_LOSS_TOL, grad_norm
+              within DIST_GRAD_NORM_TOL, relative), exact launches a step on
+              every rank (reset just before, read just after: the kernels
+              line's ``launches_by_path["dist"]``), s a step and peak GB a
+              rank, ``wire_bytes`` of the rank's gradients with and without
+              int8 compression; then ``python -m repro_torch.launch.train
+              --arch qwen3-0.6b --full-config --steps 2 --ckpt-every 2
+              --compress`` in a subprocess (``torchrun`` on more cards), and
+              again with ``--steps 4``, which must resume from step 2.
+
 Every phase's line carries the script's seconds so far (``t_s``). Then the
 script's seconds. The line before the last is the ``kernels`` JSON; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -182,6 +199,7 @@ import importlib
 import itertools
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -2713,6 +2731,248 @@ def h100_spec_line(configs, link: dict, llama_bf16: dict) -> dict:
                 "decode_ctx_tokens": ctx}}
 
 
+# -------------------------------------------------------------------- dist
+DIST_STEPS = 3
+DIST_STEP0 = 500  # train_batch seeds of the dist steps
+DIST_DIR = HERE / "build" / "repro_torch_train" / "dist_smoke"
+# the train launcher's two runs: 2 steps and a checkpoint, then a restart
+# to step 4 that must resume from it
+DIST_LAUNCH = ["--arch", TRAIN_ARCH, "--full-config", "--ckpt-every", "2", "--compress"]
+DIST_GRAD_NORM_TOL = 1e-4  # relative
+
+
+# phase 11's kernels at the local shapes tensor parallelism gives them, on
+# the last rank of a model axis of M: (config, M). One card runs the path
+# on a 1 × 1 mesh, so these shapes are checked here, apart from the path.
+TP_SHAPES = (("qwen3-0.6b", 2), ("qwen3-0.6b", 4), ("gemma-2b", 2))
+
+
+def grad_check(what: str, kernel, plain, inputs, gen, out_tol: float, out_abs: bool) -> dict:
+    """A kernel's forward and backward (autograd) against its plain
+    version's on the same inputs: the output within ``out_tol`` (absolute
+    under ``out_abs``, else times the plain output's largest magnitude),
+    every gradient within GRAD_TOL of the plain gradient's largest
+    magnitude; with the forward-and-backward times of both."""
+    got, want = kernel(*inputs), plain(*inputs)
+    dy = torch.randn(got.shape, generator=gen, device=got.device)
+    out_err = float((got - want).detach().abs().max())
+    tol = out_tol if out_abs else out_tol * float(want.detach().abs().max())
+    require(out_err <= tol, f"{what}: output off by {out_err} > {tol}")
+    g_got = torch.autograd.grad(got, inputs, dy)
+    g_want = torch.autograd.grad(want, inputs, dy)
+    grad_errs = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                 for g, w in zip(g_got, g_want)]
+    require(max(grad_errs) <= GRAD_TOL, f"{what}: gradients off the plain backward's "
+                                        f"by {max(grad_errs)} of max")
+    return {"max_abs_err": out_err, "grad_rel_errs": grad_errs,
+            "ms": time_ms(lambda: torch.autograd.grad(kernel(*inputs), inputs, dy),
+                          iters=5)[0],
+            "plain_ms": time_ms(lambda: torch.autograd.grad(plain(*inputs), inputs, dy),
+                                iters=5)[0]}
+
+
+def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
+    """fused_sgmv (its backward through lora_grad) on each LoRA projection
+    and flash_prefill (its backward through flash_prefill_bwd) on the
+    rank's heads, at the local shapes of the last rank of each TP_SHAPES
+    model axis: the base weight's shard by the rules (``spec_for_param``
+    without ``cfg``, as the launcher places it), LoRA A/B as
+    ``TensorParallel.prepare`` cuts them (B's columns for q/k/v, A's rows
+    for o), the heads ``TensorParallel.heads`` gives (gemma-2b at 2: four
+    query heads on one kv head). f32, TRAIN_B rows of TRAIN_S tokens with
+    TRAIN_IDS, rank 32 on 4 slots. Run before the path's counts are reset,
+    so none of these launches is counted as the path's."""
+    from repro_torch.distributed.sharding import make_shardings, spec_for_param
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    from repro_torch.models import build_model
+
+    ids = torch.tensor(TRAIN_IDS, dtype=torch.int32, device=dev)
+    cases = []
+    for arch, M in TP_SHAPES:
+        cfg = configs.get(arch)
+        meta = build_model(cfg, dtype=torch.float32, device=torch.device("meta"))
+        dims, r, N, scale = meta.lora_dims(), cfg.lora.rank, 4, meta.lora_scale
+        mesh = {"data": 1, "model": M}
+        names = {t: f"layers/mixer/w{t}" for t in ("q", "k", "v", "o")}
+        whole_shapes = {t: (cfg.num_layers, *dims[t]) for t in names}
+        specs = {names[t]: spec_for_param(names[t], whole_shapes[t], mesh) for t in names}
+        shard = make_shardings(specs, mesh)
+        tp = TensorParallel(None, M, M - 1, specs)
+        whole = {t: (torch.randn((N, i, r), generator=gen, device=dev) * i ** -0.5,
+                     torch.randn((N, r, o), generator=gen, device=dev) * 0.1)
+                 for t, (i, o) in dims.items() if t in names}
+        _, lora = tp.prepare({}, whole, cfg)
+        for t in names:
+            d_in, d_out = shard[names[t]].local_shape(whole_shapes[t])[1:]
+            a, b = lora[t]
+            require(a.shape[1] == d_in and b.shape[2] == d_out,
+                    f"{arch} model {M} {t}: LoRA {tuple(a.shape)}, {tuple(b.shape)} "
+                    f"against the shard {d_in} x {d_out}")
+            x = torch.randn((TRAIN_B, TRAIN_S, d_in), generator=gen, device=dev)
+            w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
+            inputs = [z.detach().contiguous().requires_grad_(True) for z in (x, w, a, b)]
+            what = f"fused_sgmv {arch} model {M} {t} {d_in}->{d_out}"
+            cases.append({"kernel": "fused_sgmv", "arch": arch, "model_axis": M, "proj": t,
+                          "d_in": d_in, "d_out": d_out, "whole": list(dims[t]),
+                          **grad_check(what, lambda *z: ops.fused_sgmv(*z, ids, scale=scale),
+                                       lambda *z: ref.fused_sgmv_ref(*z, ids, scale),
+                                       inputs, gen, SGMV_TOL, False)})
+        q0, q1, k0, k1 = tp.heads(cfg)
+        D = cfg.resolved_head_dim
+        # (B, S, heads, D) leaves, handed over head-major as gqa_full does
+        inputs = [torch.randn((TRAIN_B, TRAIN_S, h, D), generator=gen,
+                              device=dev).requires_grad_(True)
+                  for h in (q1 - q0, k1 - k0, k1 - k0)]
+        what = f"flash_prefill {arch} model {M} {q1 - q0}/{k1 - k0}x{D}"
+        cases.append({"kernel": "flash_prefill", "arch": arch, "model_axis": M,
+                      "heads": q1 - q0, "kv_heads": k1 - k0, "head_dim": D,
+                      **grad_check(what, lambda *z: ops.flash_prefill(
+                                       *(u.transpose(1, 2) for u in z)),
+                                   lambda *z: ref.flash_prefill_ref(
+                                       *(u.transpose(1, 2) for u in z)),
+                                   inputs, gen, ATTN_TOL, True)})
+        torch.cuda.empty_cache()
+    return cases
+
+
+def dist_rank(rank: int, world: int, cfg, device_type: str) -> dict:
+    """Phase 11 on one rank of the default process group: phase 8's model
+    and weights (seed 0, on this rank's card), placed by the rules on the
+    ``plan_mesh`` mesh, DIST_STEPS sharded steps on ``train_batch``'s
+    batches with the launch counts reset just before and read just after."""
+    from repro_torch.distributed import (batch_specs, build_mesh, make_shardings,
+                                         plan_mesh, wire_bytes)
+    from repro_torch.distributed.sharded_step import (make_sharded_train_step,
+                                                      train_state_specs)
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, make_train_state
+
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device(device_type))
+    model = build_model(cfg, dtype=torch.float32, device=dev)
+    full = make_train_state(model, torch.Generator(device=dev).manual_seed(0), n_lora_slots=4)
+    plan = plan_mesh(world, preferred_model=min(4, cfg.num_heads))
+    mesh = build_mesh(plan, device_type)
+    shardings = make_shardings(train_state_specs(full, mesh), mesh)
+    state = shard_tree(full, shardings)
+    del full
+    step_fn = make_sharded_train_step(model, shardings, lr=3e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, seconds = [], []
+    for step in range(DIST_STEPS):
+        t0 = time.perf_counter()
+        batch = train_batch(cfg, DIST_STEP0 + step, dev)
+        local = shard_tree(batch, make_shardings(batch_specs(batch, mesh), mesh))
+        state, met = step_fn(state, local)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(met)
+    launches = ops.launch_counts()
+    local = {"params": state.params, "lora": state.lora}
+    return {"backend": torch.distributed.get_backend(), "world": world,
+            "plan": dataclasses.asdict(plan), "coordinate": mesh.get_coordinate(),
+            "losses": [float(m["loss"]) for m in metrics],
+            "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "step_seconds": seconds, "launches": launches,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "wire_bytes": {"f32": wire_bytes(local, compressed=False),
+                           "int8": wire_bytes(local, compressed=True)}}
+
+
+def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
+    """Phase 11: the multi-device layer on every card of the machine, one
+    rank a card over NCCL (in this process on one card, through the rank
+    runner on more). First the kernels at tensor parallelism's local
+    shapes (:func:`tp_kernel_cases`); then DIST_STEPS sharded steps of qwen3-0.6b at full width in
+    f32 held against phase 8's unsharded step on the same weights and
+    batches (the loss within TRAIN_LOSS_TOL, grad_norm within
+    DIST_GRAD_NORM_TOL, relative), exact launches a step on every rank;
+    then the train launcher in a subprocess (``torchrun`` on more cards):
+    2 steps with ``--compress`` and a checkpoint, then a restart to step 4
+    that must resume from it. Returns (line, launches of the sharded steps
+    summed over the ranks)."""
+    from repro_torch.distributed.runner import run_ranks, single_rank
+    from repro_torch.models import build_model, make_train_state, make_train_step
+
+    t_start = time.perf_counter()
+    tp_cases = tp_kernel_cases(ops, ref, configs, torch.Generator(device=dev).manual_seed(11),
+                               dev)
+    torch.cuda.empty_cache()
+    cfg = configs.get(TRAIN_ARCH)
+    L = cfg.num_layers
+    world = torch.cuda.device_count()
+    model = build_model(cfg, dtype=torch.float32, device=dev)
+    state = make_train_state(model, torch.Generator(device=dev).manual_seed(0), n_lora_slots=4)
+    step_fn = make_train_step(model, lr=3e-4)
+    unsharded = []
+    for step in range(DIST_STEPS):
+        state, met = step_fn(state, train_batch(cfg, DIST_STEP0 + step, dev))
+        unsharded.append(met)
+    unsharded = [(float(m["loss"]), float(m["grad_norm"])) for m in unsharded]
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if world == 1:
+        with single_rank(backend):
+            ranks = [dist_rank(0, 1, cfg, dev.type)]
+    else:
+        ranks = run_ranks(dist_rank, world, DIST_DIR / "stores", backend=backend,
+                          args=(cfg, dev.type), timeout=600)
+    per_step = {"fused_sgmv": 4 * L, "flash_prefill": L, "flash_prefill_bwd": L,
+                "lora_grad": 4 * L}
+    launches = dict.fromkeys(ranks[0]["launches"], 0)
+    for r in ranks:
+        want = dict.fromkeys(r["launches"], 0)
+        want.update({k: n * DIST_STEPS for k, n in per_step.items()})
+        require(r["launches"] == want, f"dist rank launches {r['launches']} != {want}")
+        for k, n in r["launches"].items():
+            launches[k] += n
+    loss_err = max(abs(a - b[0]) / abs(b[0]) for a, b in zip(ranks[0]["losses"], unsharded))
+    norm_err = max(abs(a - b[1]) / b[1] for a, b in zip(ranks[0]["grad_norms"], unsharded))
+    require(all(r["losses"] == ranks[0]["losses"] for r in ranks), "ranks' losses differ")
+    require(loss_err <= TRAIN_LOSS_TOL, f"dist losses {ranks[0]['losses']} against the "
+                                        f"unsharded {unsharded}")
+    require(norm_err <= DIST_GRAD_NORM_TOL, f"dist grad norms {ranks[0]['grad_norms']} "
+                                            f"against the unsharded {unsharded}")
+
+    # the train launcher: 2 steps and a checkpoint, then a restart to step 4
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    head = ([sys.executable, "-m", "repro_torch.launch.train"] if world == 1 else
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}", "-m", "repro_torch.launch.train"])
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
+    runs = []
+    for steps in (2, 4):
+        t0 = time.perf_counter()
+        proc = subprocess.run(head + DIST_LAUNCH + ["--device", dev.type, "--steps", str(steps),
+                                                    "--ckpt-dir", str(DIST_DIR / "ckpt")],
+                              capture_output=True, text=True, env=env, timeout=300)
+        require(proc.returncode == 0, f"train launcher --steps {steps} exited "
+                                      f"{proc.returncode}: {proc.stderr[-3000:]}")
+        runs.append({"steps": steps, "seconds": time.perf_counter() - t0,
+                     "stdout": proc.stdout.strip().splitlines()})
+    require("resumed from step 2 (re-sharded onto current mesh)" in runs[1]["stdout"],
+            f"the launcher's restart did not resume from step 2: {runs[1]['stdout']}")
+    require(any("gradient compression" in ln for ln in runs[0]["stdout"]),
+            f"--compress was not reported: {runs[0]['stdout']}")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    r0 = ranks[0]
+    line = {"phase": "dist", "nvidia_smi": smi, "backend": r0["backend"], "world": world,
+            "plan": r0["plan"], "arch": TRAIN_ARCH, "layers": L, "batch": TRAIN_B,
+            "seq": TRAIN_S, "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+            "unsharded": unsharded, "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+            "step_seconds": [r["step_seconds"] for r in ranks],
+            "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+            "wire_bytes_per_rank": [r["wire_bytes"] for r in ranks],
+            "launches_per_step": {k: v // (DIST_STEPS * world) for k, v in launches.items()},
+            "launcher": runs, "tp_kernel_cases": tp_cases,
+            "seconds": time.perf_counter() - t_start}
+    return line, launches
+
+
 def main() -> None:
     t_script = time.perf_counter()
     # ---------------------------------------------------------- 1. device
@@ -2904,7 +3164,12 @@ def main() -> None:
     emit(link_phase(configs, dev, smi, "link_late"))
     emit(h100_spec_line(configs, link, bf16_lines["llama-7b"]))
 
-    # ---------------------------------------------------------- 11. summary
+    # -------------------------------------------------------------- 11. dist
+    torch.cuda.empty_cache()
+    line, dist_launches = dist_phase(ops, ref, configs, dev, smi)
+    emit(line)
+
+    # ---------------------------------------------------------- 12. summary
     kernels = []
     for name, src, tpu, m in (
             # the q projection in a 256-token bucket
@@ -2929,7 +3194,8 @@ def main() -> None:
         by_path = {"engine": launches[name], "generate": gen_launches[name],
                    "variants": var_launches[name], "archs": arch_launches[name],
                    "state": state_launches[name], "encdec": encdec_launches[name],
-                   "train": train_launches[name], "bf16": bf16_launches[name]}
+                   "train": train_launches[name], "bf16": bf16_launches[name],
+                   "dist": dist_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu,

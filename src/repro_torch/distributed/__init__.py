@@ -1,8 +1,34 @@
 """Distributed substrate (PyTorch counterpart of ``repro.distributed``):
-the training checkpoint manager and the serving request journal. One card,
-no mesh: sharding, the elastic mesh and gradient compression are ROADMAP
-Queue 1 item 7."""
+the sharding rules, checkpointing, elastic recovery and gradient
+compression, with the names the reference exports; and the port's own
+multi-device layer: the sharded train step (tensor parallelism over a
+("data", "model") ``DeviceMesh``, ZeRO-1 moments) and the rank runner."""
 
 from .checkpoint import CheckpointManager, RequestJournal
+from .compression import CompressionState, compress_decompress, init_state, wire_bytes
+from .elastic import ElasticPlan, build_mesh, plan_mesh, reshard
+from .sharding import (
+    batch_specs,
+    cache_specs,
+    make_shardings,
+    moment_specs,
+    param_specs,
+)
 
-__all__ = ["CheckpointManager", "RequestJournal"]
+__all__ = [
+    "CheckpointManager",
+    "CompressionState",
+    "ElasticPlan",
+    "RequestJournal",
+    "batch_specs",
+    "build_mesh",
+    "cache_specs",
+    "compress_decompress",
+    "init_state",
+    "make_shardings",
+    "moment_specs",
+    "param_specs",
+    "plan_mesh",
+    "reshard",
+    "wire_bytes",
+]

@@ -14,14 +14,16 @@ other's checkpoints leaf for leaf:
 * ``save_async`` copies device tensors into pinned host memory on the
   current stream and writes the files on a thread once the copies are
   done: training goes on meanwhile;
-* ``restore`` fills a tree shaped like a template, on the device asked for;
+* ``restore`` fills a tree shaped like a template, on the device asked for,
+  or, given the current mesh's shardings (``make_shardings``), this rank's
+  slice of every leaf, read from the whole leaf on disk: an elastic
+  restart re-shards on load, as the reference's ``restore(shardings=)``;
 * only the newest ``keep`` checkpoints stay.
 
-Leaves are named and ordered as ``jax.tree_util`` walks the reference's
-pytrees (:mod:`repro_torch.tree`: dict keys sorted, sequences and dataclass
-fields in order, ``None`` no leaf). One device, no mesh: the reference's
-re-sharding on restore (an elastic restart onto another mesh) is ROADMAP
-Queue 1 item 7.
+Leaves are whole (a sharded run gathers them and one rank writes) and are
+named and ordered as ``jax.tree_util`` walks the reference's pytrees
+(:mod:`repro_torch.tree`: dict keys sorted, sequences and dataclass fields
+in order, ``None`` no leaf).
 """
 
 from __future__ import annotations
@@ -126,11 +128,14 @@ class CheckpointManager:
                  if not p.name.endswith(".tmp")]
         return max(steps) if steps else None
 
-    def restore(self, step: int, template, device=None):
+    def restore(self, step: int, template, device=None, shardings=None):
         """The checkpoint of ``step`` as a tree shaped like ``template``
-        (a tree of tensors): each leaf in its template leaf's dtype, on
-        ``device``, or on the template leaf's device without one. The
-        leaves must be the template's, by name and number."""
+        (a tree of tensors, whole leaves; meta tensors will do with
+        ``device``): each leaf in its template leaf's dtype, on ``device``,
+        or on the template leaf's device without one. The leaves must be
+        the template's, by name and number. With ``shardings`` ({leaf name:
+        ``Sharding``}, as ``make_shardings`` gives them) each leaf is this
+        rank's slice, read from the memory-mapped file."""
         d = self.dir / f"step_{step:010d}"
         manifest = json.loads((d / "manifest.json").read_text())
         records = manifest["leaves"]
@@ -143,12 +148,14 @@ class CheckpointManager:
             if rec["name"] != name:
                 raise ValueError(f"checkpoint leaf {rec['name']!r} where the target "
                                  f"has {name!r}")
-            arr = np.array(np.load(d / rec["file"]))  # a writable copy, 0-d kept
+            arr = np.load(d / rec["file"], mmap_mode="r")
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint leaf {name!r} is {tuple(arr.shape)}, the "
                                  f"target's {tuple(t.shape)}")
             dev = device if device is not None else t.device
-            out.append(torch.from_numpy(arr).to(device=dev, dtype=t.dtype))
+            local = (shardings[name].local(arr) if shardings is not None
+                     else torch.from_numpy(np.array(arr)))  # a writable copy, 0-d kept
+            out.append(local.to(device=dev, dtype=t.dtype))
         return unflatten(template, out)
 
 

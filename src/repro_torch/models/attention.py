@@ -96,16 +96,25 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     return p
 
 
-def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale):
-    """q, k, v of one layer; ``rope`` is the step's (cos, sin) tables."""
+def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None):
+    """q, k, v of one layer; ``rope`` is the step's (cos, sin) tables.
+    Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) they
+    hold this rank's heads."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = _proj(x, p["wq"], lora, "q", adapter_ids, lora_scale)
-    k = _proj(x, p["wk"], lora, "k", adapter_ids, lora_scale)
-    v = _proj(x, p["wv"], lora, "v", adapter_ids, lora_scale)
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+
+    def proj(h, w, name):
+        return _proj(h, w, lora, name, adapter_ids, lora_scale)
+
+    if tp is None:
+        q, k, v = (proj(x, p[f"w{t}"], t) for t in "qkv")
+        hq, hk = cfg.num_heads, cfg.num_kv_heads
+    else:
+        (q, k, v), (hq, hk) = tp.qkv(proj, p, x, cfg)
+    q = q.reshape(B, S, hq, hd)
+    k = k.reshape(B, S, hk, hd)
+    v = v.reshape(B, S, hk, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -213,6 +222,7 @@ def gqa_full(
     lora_scale: float = 1.0,
     window: int = 0,
     q_chunk: int = 0,
+    tp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention (train / fresh prefill). ``rope`` is
     the (cos, sin) tables at positions 0 .. S-1, so causality by index is
@@ -228,9 +238,11 @@ def gqa_full(
     attention for ``sdpa_blockwise`` when ``q_chunk`` > 0; here it keeps
     ``flash_prefill``, which is already blockwise (its backward recomputes
     the probabilities tile by tile). Returns ``(out, (k, v))`` with k/v
-    ``(B, S, Hkv, D)``, so a caller can seed a decode cache."""
+    ``(B, S, Hkv, D)``, so a caller can seed a decode cache. Under tensor
+    parallelism (``tp``) the attention runs on this rank's heads and the o
+    projection is completed over the model axis (k/v: this rank's)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale)
+    q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale, tp)
     if window == 0 and cfg.logit_softcap == 0.0:
         out = kernel_ops.flash_prefill(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -246,6 +258,9 @@ def gqa_full(
                 else causal_mask(pos, pos))
         out = sdpa(q, k, v, mask[None], cfg.logit_softcap)
     out = out.reshape(B, S, -1)
+    if tp is not None:
+        return tp.out_proj(lambda h, w, name: _proj(h, w, lora, name, adapter_ids,
+                                                    lora_scale), out, p["wo"], cfg), (k, v)
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale), (k, v)
 
 

@@ -4,6 +4,7 @@ the gated dense FFN and the capacity-based MoE."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
@@ -71,7 +72,8 @@ def add_choices(gk: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
+            data_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE with the reference's dropping dispatch
     (``repro.models.ffn.moe_ffn``). Returns ``(out, aux_loss)``.
 
@@ -83,31 +85,51 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, t
     to (T, k, d) summed over k: no atomics, so a repeated step gives the
     same bits on the card, and nothing waits on the device. Shared experts
     add a dense FFN; ``aux_loss`` is the Switch load-balancing loss
-    ``E·Σ_e f_e·p_e``."""
+    ``E·Σ_e f_e·p_e``.
+
+    ``data_group``: the data-parallel ranks that hold the batch's rows, this
+    rank's ``x`` the rows of its index among them (equal shares). The
+    queues are then the whole batch's: C counts every rank's tokens, and
+    the pairs of the ranks before this one fill them first (an all-gather
+    of the E queue lengths). ``f_e`` is the whole batch's load (an
+    all-reduce) and ``p_e`` this rank's mean, so the mean of the ranks'
+    ``aux_loss`` is the whole batch's, gradients included."""
     m = cfg.moe
     act = activation(cfg.activation)
     B, S, d = x.shape
     T, E, k = B * S, m.num_experts, m.top_k
     xt = x.reshape(T, d)
     probs, gate_vals, expert_ids = route(p["router"], xt, k)
-    C = max(1, int(T * k * m.capacity_factor / E))
+    n = 1 if data_group is None else dist.get_world_size(data_group)
+    C = max(1, int(n * T * k * m.capacity_factor / E))
     flat_e = expert_ids.reshape(-1)  # (T·k,)
     onehot = F.one_hot(flat_e, E)  # (T·k, E) int64
     slot = (onehot.cumsum(0) * onehot).sum(-1) - 1  # place in its expert's queue
-    keep = slot < C
+    room = C
+    if n > 1:  # the places the ranks before this one leave in each queue
+        lengths = [torch.empty(E, dtype=onehot.dtype, device=x.device) for _ in range(n)]
+        dist.all_gather(lengths, onehot.sum(0), group=data_group)
+        before = sum(lengths[:dist.get_rank(data_group)], torch.zeros_like(lengths[0]))
+        room = (C - before)[flat_e]
+    keep = slot < room
     # dropped pairs all go to one spare place past the queue, which no kept
-    # pair reads: no boolean indexing, so no wait on the device
-    slot = torch.where(keep, slot, C)
+    # pair reads: no boolean indexing, so no wait on the device. A queue
+    # holds at most C pairs, and at most this rank's T·k
+    places = min(C, T * k)
+    slot = torch.where(keep, slot, places)
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    disp = x.new_zeros((E, C + 1, d))
+    disp = x.new_zeros((E, places + 1, d))
     disp[flat_e, slot] = xt[tok]
     h = act(torch.bmm(disp, p["w_gate"])) * torch.bmm(disp, p["w_up"])
-    eout = torch.bmm(h, p["w_down"])  # (E, C + 1, d)
+    eout = torch.bmm(h, p["w_down"])  # (E, places + 1, d)
     gathered = torch.where(keep[:, None], eout[flat_e, slot], 0)  # (T·k, d)
     w = gate_vals.reshape(-1, 1).to(x.dtype)
     out = add_choices((gathered * w).reshape(T, k, d))
     if "shared" in p:
         out = out + dense_ffn(p["shared"], xt, cfg.activation)
     density = F.one_hot(expert_ids, E).float().mean(dim=(0, 1))
+    if n > 1:
+        dist.all_reduce(density, group=data_group)
+        density = density / n
     aux = E * torch.sum(density * probs.mean(0))
     return out.reshape(B, S, d), aux

@@ -44,17 +44,43 @@ def build_model(cfg: ModelConfig, dtype=torch.bfloat16, device=None,
               q_chunk=q_chunk, remat_policy=remat_policy)
 
 
-def cross_entropy(logits: torch.Tensor, labels, ignore: int = -1) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels, ignore: int = -1,
+                  count=None) -> torch.Tensor:
     """Mean cross-entropy over the positions whose label is not ``ignore``
-    (0 without any). The reference writes it as logsumexp minus a one-hot
-    contraction so that GSPMD keeps the vocab sharded; on one card a gather
-    gives the same value."""
+    (0 without any); ``count`` replaces the number of those positions in
+    the mean (a data-parallel shard divides by the whole batch's count).
+    The reference writes it as logsumexp minus a one-hot contraction so
+    that GSPMD keeps the vocab sharded; on one card a gather gives the same
+    value."""
     labels = torch.as_tensor(labels).to(logits.device, torch.int64)
     valid = labels != ignore
     safe = torch.where(valid, labels, 0)
     x = logits.float()
     nll = torch.logsumexp(x, dim=-1) - torch.gather(x, -1, safe[..., None])[..., 0]
-    return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
+    n = valid.sum() if count is None else count
+    return torch.where(valid, nll, 0.0).sum() / n.clamp_min(1)
+
+
+def forward_logits(model: LM | EncDecLM, params, lora, batch: dict):
+    """(logits, MoE aux loss) of a train batch (see ``make_train_step``)."""
+    if model.cfg.is_encdec:
+        return model.forward(params, batch["frames"], batch["tokens"], lora=lora,
+                             adapter_ids=batch.get("adapter_ids"))
+    return model.forward(params, batch["tokens"], lora=lora,
+                         adapter_ids=batch.get("adapter_ids"),
+                         extra_embeds=batch.get("extra_embeds"),
+                         mrope_positions=batch.get("mrope_positions"))
+
+
+def value_and_grads(tree, fn):
+    """``fn(tree)`` with the leaves of ``tree`` made differentiable, and
+    the gradients of its first output, one a leaf in walking order (zeros
+    for a leaf it does not reach)."""
+    with torch.enable_grad():
+        live = [t.detach().requires_grad_(True) for t in leaves(tree)]
+        out = fn(unflatten(tree, live))
+        grads = torch.autograd.grad(out[0], live, allow_unused=True)
+    return out, [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
 
 
 @dataclasses.dataclass
@@ -65,9 +91,14 @@ class TrainState:
     step: torch.Tensor  # () int32, on the host
 
 
+# the reference's train-step settings: make_train_step's defaults, and the
+# sharded step's constants
+WEIGHT_DECAY, CLIP_NORM, MOE_AUX_WEIGHT = 0.1, 1.0, 0.01
+
+
 def make_train_step(model: LM | EncDecLM, *, lr: float = 3e-4,
-                    weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    moe_aux_weight: float = 0.01,
+                    weight_decay: float = WEIGHT_DECAY, clip_norm: float = CLIP_NORM,
+                    moe_aux_weight: float = MOE_AUX_WEIGHT,
                     train_lora_only: bool = False) -> Callable:
     """train_step(state, batch) -> (new state, {"loss", "grad_norm"}).
 
@@ -78,31 +109,17 @@ def make_train_step(model: LM | EncDecLM, *, lr: float = 3e-4,
     ``train_lora_only``, when the base weights are frozen: they do not
     require grad, so no gradient of them is formed (``fused_sgmv`` skips
     dW). The new state holds new tensors; the old one is left as it was."""
-    cfg = model.cfg
 
-    def loss_fn(params, lora, batch):
-        if cfg.is_encdec:
-            logits, aux = model.forward(params, batch["frames"], batch["tokens"],
-                                        lora=lora, adapter_ids=batch.get("adapter_ids"))
-        else:
-            logits, aux = model.forward(
-                params, batch["tokens"], lora=lora, adapter_ids=batch.get("adapter_ids"),
-                extra_embeds=batch.get("extra_embeds"),
-                mrope_positions=batch.get("mrope_positions"))
+    def loss_fn(tree, state, batch):
+        params = state.params if train_lora_only else tree["params"]
+        logits, aux = forward_logits(model, params, tree["lora"], batch)
         ce = cross_entropy(logits, batch["labels"])
         return ce + moe_aux_weight * aux, ce
 
     def train_step(state: TrainState, batch: dict):
         trainable = ({"lora": state.lora} if train_lora_only
                      else {"params": state.params, "lora": state.lora})
-        flat = leaves(trainable)
-        with torch.enable_grad():
-            live = [t.detach().requires_grad_(True) for t in flat]
-            tree = unflatten(trainable, live)
-            params = state.params if train_lora_only else tree["params"]
-            total, ce = loss_fn(params, tree["lora"], batch)
-            grads = torch.autograd.grad(total, live, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, live)]
+        (_, ce), grads = value_and_grads(trainable, lambda tr: loss_fn(tr, state, batch))
         grads, gnorm = clip_by_global_norm(unflatten(trainable, grads), clip_norm)
         new, opt = adamw_update(grads, state.opt, trainable, lr,
                                 weight_decay=weight_decay)

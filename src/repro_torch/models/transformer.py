@@ -142,6 +142,12 @@ class LM:
     remat: bool = False  # recompute each layer of forward in the backward
     q_chunk: int = 0  # > 0: windowed / soft-capped attention blockwise
     remat_policy: str = "full"  # or "dots": keep the matrix products
+    # tensor parallelism over a mesh's model axis (``forward`` on local
+    # shards, dense GQA only): a distributed.tensor_parallel.TensorParallel
+    tp: object = None
+    # the data-parallel process group whose ranks hold the batch's rows: an
+    # MoE FFN fills its queues and counts its load over the whole batch
+    data_group: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -267,14 +273,21 @@ class LM:
 
     # ------------------------------------------------------------ embeddings
     def _embed(self, params, tokens, extra_embeds=None):
-        x = params["embed"][tokens].to(self.dtype)
+        if self.tp is not None:
+            x = self.tp.embed(params["embed"], tokens, self.cfg.vocab_size).to(self.dtype)
+        else:
+            x = params["embed"][tokens].to(self.dtype)
         if extra_embeds is not None:  # the modality frontend's stub
             x = x + torch.as_tensor(extra_embeds).to(x.device, self.dtype)
         return x
 
     def _unembed(self, params, x):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
+        tied = self.cfg.tie_embeddings
+        if self.tp is not None:
+            return self.tp.logits(x, params["embed" if tied else "lm_head"],
+                                  self.cfg.vocab_size, transposed=tied)
+        if tied:
             return x @ params["embed"].T
         return x @ params["lm_head"]
 
@@ -282,7 +295,7 @@ class LM:
     def _ffn(self, lp, h2):
         """The layer's FFN: (out, MoE aux loss, or None for a dense FFN)."""
         if self.cfg.moe is not None:
-            return moe_ffn(lp["ffn"], h2, self.cfg)
+            return moe_ffn(lp["ffn"], h2, self.cfg, self.data_group)
         return dense_ffn(lp["ffn"], h2, self.cfg.activation), None
 
     def _layer_full(self, lp, lora_slice, x, rope, adapter_ids):
@@ -296,7 +309,7 @@ class LM:
         else:
             mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
                                  adapter_ids=adapter_ids, lora_scale=self.lora_scale,
-                                 q_chunk=self.q_chunk)
+                                 q_chunk=self.q_chunk, tp=self.tp)
         x = x + mixed
         out, aux = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
         return x + out, aux, kv
@@ -504,7 +517,10 @@ class LM:
                 extra_embeds=None, mrope_positions=None):
         """Full causal forward over ``tokens`` (B, S); returns
         ``(logits (B, S, vocab), aux)`` with ``aux`` the MoE auxiliary loss
-        summed over the layers (0 for a dense FFN)."""
+        summed over the layers (0 for a dense FFN). Under ``tp`` the params
+        are this rank's shards and the logits whole."""
+        if self.tp is not None:
+            params, lora = self.tp.prepare(params, lora, self.cfg)
         x, aux = self._run_full(params, tokens, lora, adapter_ids,
                                 extra_embeds=extra_embeds,
                                 mrope_positions=mrope_positions)

@@ -126,8 +126,10 @@ def _run_main(monkeypatch, main, argv):
 def test_train_launcher_checkpoints_resumes_and_refuses_compress(tmp_path, monkeypatch,
                                                                  capsys):
     """``python -m repro_torch.launch.train --device cpu``: checkpoints every
-    ``--ckpt-every`` steps, a second run resumes from the latest, and
-    ``--compress`` (multi-device) is refused naming Queue 1 item 7."""
+    ``--ckpt-every`` steps, a second run resumes from the latest, and a
+    third with ``--compress`` builds the compression state and trains on
+    (it was refused before the multi-device port; the step does not use
+    it, ROADMAP Queue 3, pinned by ``tests/test_torch_distributed.py``)."""
     from repro_torch.launch import train
 
     args = ["train", "--arch", "qwen3-0.6b", "--batch", "2", "--seq", "8", "--device",
@@ -138,9 +140,10 @@ def test_train_launcher_checkpoints_resumes_and_refuses_compress(tmp_path, monke
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and out.count("training done") == 2
     assert CheckpointManager(tmp_path).latest_step() == 6
-    with pytest.raises(SystemExit):
-        _run_main(monkeypatch, train.main, args + ["--compress"])
-    assert "Queue 1 item 7" in capsys.readouterr().err
+    _run_main(monkeypatch, train.main, args + ["--steps", "8", "--compress"])
+    out = capsys.readouterr().out
+    assert "gradient compression: int8 + error feedback enabled" in out
+    assert "resumed from step 6" in out and CheckpointManager(tmp_path).latest_step() == 8
 
 
 def test_lora_example_trains_the_adapters_only_and_resumes(tmp_path, monkeypatch, capsys):

@@ -1,0 +1,286 @@
+"""The port's multi-device training against one process and against the
+reference, on the CPU: ranks are spawned processes over gloo
+(``repro_torch.distributed.runner``), two spawns in all (4 ranks, then 2).
+
+* Reduced qwen3-0.6b and reduced gemma-2b (tied, one kv head), f32, LoRA on
+  3 slots with a non-zero B, 3 steps on meshes (data, model) = (2, 2) and
+  (1, 4) (4 ranks; at model 4 qwen3's k/v shards split a head of 16, and so
+  do gemma's at 2 and 4), (2, 1) and (1, 2) (2 ranks), from the
+  reference's initial weights (bridged through numpy), held against the
+  port's single-process ``make_train_step`` and the reference's
+  ``make_train_step`` (jnp backend) on the same batches: the loss and
+  ``grad_norm`` of every step within 1e-5 relative, and every leaf after
+  the 3 steps within ``LEAF_TOL`` = 1e-4 of the leaf's largest magnitude,
+  the tolerance ``tests/test_torch_train.py`` holds one step to (against
+  the reference, a parameter element whose AdamW moment is below that
+  test's 100·eps mark is held through its moments only, as there).
+* Heads the model axis does not divide: reduced qwen3 with 6 query heads
+  of 8 and 2 kv heads on (1, 4), so q's and o's shards split heads,
+  attention runs on every head and o's input is cut to its row shard;
+  against one process and the reference.
+* ZeRO-1 on 2 data ranks: reduced qwen3 with a vocabulary of 65,536, so the
+  embedding holds 2^22 elements and its moments shard over ``data``;
+  against the unsharded AdamW update of one process.
+* The elastic restart through the train launcher: 2 steps on 4 ranks (mesh
+  1 × 4), a checkpoint, then 2 steps on 2 ranks (1 × 2), equal to 4
+  uninterrupted steps of one rank within ``LEAF_TOL``.
+* An MoE config at model > 1 raises ``NotImplementedError``; at model 1 it
+  trains data-parallel: reduced phi3.5-moe with a capacity factor of 1, so
+  its experts' queues overflow, on (2, 1) against the port's single
+  process (the queues and the load-balancing loss are the whole batch's).
+* ROADMAP Queue 3's pin: ``--compress`` reaches no step, as in the
+  reference: the launcher prints the same losses with it as without.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_dist_ranks as ranks
+from repro import configs as jconfigs
+from repro import optim as joptim
+from repro.models import build_model as jbuild_model
+from repro.models import make_train_state as jmake_train_state
+from repro.models import make_train_step as jmake_train_step
+from repro_torch import configs
+from repro_torch.distributed import CheckpointManager
+from repro_torch.distributed.runner import run_ranks, single_rank
+from repro_torch.launch import train as launcher
+from repro_torch.models import make_train_step
+from repro_torch.tree import flatten_with_names, tree_map
+
+LEAF_TOL = 1e-4  # times the leaf's largest magnitude
+METRIC_TOL = 1e-5  # relative
+STEPS = 3
+ARCHS = ("qwen3-0.6b", "gemma-2b")
+MOE = "phi3.5-moe-42b-a6.6b"
+MESHES_4 = ((2, 2), (1, 4))
+MESHES_2 = ((2, 1), (1, 2))
+# config variants of reduced qwen3-0.6b: {key: overrides}
+VARIANTS = {"zero": {"vocab_size": 1 << 16},  # embed (65536, 64): 2^22 elements
+            "heads6": {"num_heads": 6, "num_kv_heads": 2, "head_dim": 8}}
+LAUNCH = ["--arch", "qwen3-0.6b", "--batch", "4", "--seq", "8", "--device", "cpu",
+          "--ckpt-every", "2"]
+
+
+def _lora(arch: str, overrides: dict) -> dict:
+    """LoRA on 3 slots with a non-zero B, as numpy."""
+    model = ranks.model_of(arch, overrides)
+    rng = np.random.default_rng(3)
+    L, r = model.cfg.num_layers, model.cfg.lora.rank
+    return {t: (rng.standard_normal((L, 3, i, r)).astype(np.float32) * 0.3,
+                rng.standard_normal((L, 3, r, o)).astype(np.float32) * 0.05)
+            for t, (i, o) in model.lora_dims().items()}
+
+
+def _one_process(arch: str, overrides: dict, params, lora, batches):
+    """STEPS steps of the port's ``make_train_step`` in one process: the
+    metrics and the whole state after them."""
+    state = ranks.initial_state(params, lora)
+    step = make_train_step(ranks.model_of(arch, overrides))
+    port = []
+    for b in batches:
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        port.append((float(m["loss"]), float(m["grad_norm"])))
+    return port, ranks.named_numpy({"params": state.params, "lora": state.lora,
+                                    "opt": {"m": state.opt.m, "v": state.opt.v}})
+
+
+def _reference(arch: str, overrides: dict) -> dict:
+    """Initial weights (the reference's, as numpy), batches, and STEPS steps
+    of the reference and of the port in one process."""
+    jcfg = dataclasses.replace(jconfigs.reduced(jconfigs.get(arch)), **overrides)
+    jm = jbuild_model(jcfg, dtype=jnp.float32)
+    jstate = jmake_train_state(jm, jax.random.PRNGKey(0), n_lora_slots=3)
+    lora = _lora(arch, overrides)
+    params = jax.tree.map(np.asarray, jstate.params)
+    batches = [ranks.numpy_batch(jcfg, 10 + s) for s in range(STEPS)]
+    jstate = dataclasses.replace(jstate, lora=jax.tree.map(jnp.asarray, lora),
+                                 opt=joptim.adamw_init({"params": jstate.params,
+                                                        "lora": lora}))
+    jstep = jax.jit(jmake_train_step(jm))
+    ref = []
+    for b in batches:
+        jstate, jm_ = jstep(jstate, jax.tree.map(jnp.asarray, b))
+        ref.append((float(jm_["loss"]), float(jm_["grad_norm"])))
+    port, port_state = _one_process(arch, overrides, params, lora, batches)
+    return {"arch": arch, "overrides": overrides, "params": params, "lora": lora,
+            "batches": batches, "ref": ref,
+            "ref_state": {n: np.asarray(a) for n, a in flatten_with_names(
+                jax.device_get({"params": jstate.params, "lora": jstate.lora,
+                                "opt": {"m": jstate.opt.m, "v": jstate.opt.v}}))},
+            "port": port, "port_state": port_state}
+
+
+def _moe_reference() -> dict:
+    """Reduced phi3.5-moe with a capacity factor of 1, the port's own
+    weights (each expert drawn apart, so a routing fault shows), and STEPS
+    steps of the port in one process."""
+    moe = configs.reduced(configs.get(MOE)).moe
+    overrides = {"moe": dataclasses.replace(moe, capacity_factor=1.0)}
+    model = ranks.model_of(MOE, overrides)
+    params = tree_map(lambda t: t.numpy(), model.init_params(torch.Generator().manual_seed(0)))
+    lora = _lora(MOE, overrides)
+    batches = [ranks.numpy_batch(model.cfg, 20 + s) for s in range(STEPS)]
+    port, port_state = _one_process(MOE, overrides, params, lora, batches)
+    return {"arch": MOE, "overrides": overrides, "params": params, "lora": lora,
+            "batches": batches, "port": port, "port_state": port_state}
+
+
+@pytest.fixture(scope="module")
+def refs():
+    return ({arch: _reference(arch, {}) for arch in ARCHS}
+            | {key: _reference(ARCHS[0], o) for key, o in VARIANTS.items()}
+            | {"moe": _moe_reference()})
+
+
+def _case(refs, key, mesh):
+    r = refs[key]
+    return {"arch": r["arch"], "mesh": mesh, "overrides": r["overrides"],
+            "params": r["params"], "lora": r["lora"], "batches": r["batches"]}
+
+
+@pytest.fixture(scope="module")
+def runs(refs, tmp_path_factory):
+    """Both spawns: {mesh: {arch: run}}, the refusals, the launchers' output
+    and checkpoint directory, and one rank's uninterrupted launcher run."""
+    tmp = tmp_path_factory.mktemp("dist")
+    ckpt, whole = str(tmp / "ckpt"), str(tmp / "whole")
+    four = run_ranks(ranks.job, 4, tmp / "stores", timeout=120, args=(
+        [_case(refs, a, m) for m in MESHES_4 for a in ARCHS] + [_case(refs, "heads6", (1, 4))],
+        [_case(refs, "moe", (1, 4))],
+        LAUNCH + ["--ckpt-dir", ckpt, "--steps", "2"]))
+    two = run_ranks(ranks.job, 2, tmp / "stores", timeout=120, args=(
+        [_case(refs, a, m) for m in MESHES_2 for a in ARCHS]
+        + [_case(refs, "zero", (2, 1)), _case(refs, "moe", (2, 1))],
+        [_case(refs, "moe", (1, 2))],
+        LAUNCH + ["--ckpt-dir", ckpt, "--steps", "4"]))
+    with single_rank("gloo"):
+        launcher.train(launcher.parse_args(LAUNCH + ["--ckpt-dir", whole, "--steps", "4"]))
+    cases = [(m, a) for m in MESHES_4 for a in ARCHS] + [((1, 4), "heads6")]
+    out = {m: {} for m in MESHES_4 + MESHES_2}
+    for (m, a), r0, *rest in zip(cases, *(w["runs"] for w in four)):
+        out[m][a] = dict(r0, others=[x["metrics"] for x in rest])
+    cases2 = [(m, a) for m in MESHES_2 for a in ARCHS] + [((2, 1), "zero"), ((2, 1), "moe")]
+    for (m, a), r0, r1 in zip(cases2, *(w["runs"] for w in two)):
+        out[m][a] = dict(r0, others=[r1["metrics"]], local1=r1["local_shapes"])
+    return {"runs": out, "refused": four[0]["refused"] + two[0]["refused"],
+            "resharded": [w["resharded"] for w in four + two],
+            "debug_mesh": (four[0]["debug_mesh"], two[0]["debug_mesh"]),
+            "stdout": (four[0]["launcher_stdout"], two[0]["launcher_stdout"]),
+            "rank1_stdout": four[1]["launcher_stdout"], "ckpt": ckpt, "whole": whole}
+
+
+def _close(got: dict, want: dict, names=None, mask=None):
+    for n in names or want:
+        scale = max(np.abs(want[n]).max(), 1e-30)
+        err = np.abs(got[n] - want[n])
+        if mask is not None and n in mask:
+            err = np.where(mask[n], err, 0.0)
+        assert err.max() <= LEAF_TOL * scale, (n, err.max() / scale)
+
+
+def _metrics_close(got, want):
+    for (gl, gn), (wl, wn) in zip(got, want):
+        assert abs(gl - wl) <= METRIC_TOL * abs(wl) and abs(gn - wn) <= METRIC_TOL * wn
+
+
+CASES = [(m, a) for m in MESHES_4 + MESHES_2 for a in ARCHS] + [((1, 4), "heads6")]
+ONE_PROCESS_CASES = CASES + [((2, 1), "moe")]
+
+
+@pytest.mark.parametrize("mesh,arch", ONE_PROCESS_CASES,
+                         ids=[f"{m[0]}x{m[1]}-{a}" for m, a in ONE_PROCESS_CASES])
+def test_sharded_steps_match_one_process(runs, refs, mesh, arch):
+    run, ref = runs["runs"][mesh][arch], refs[arch]
+    _metrics_close(run["metrics"], ref["port"])
+    assert all(o == run["metrics"] for o in run["others"])  # every rank reports the same
+    _close(run["state"], ref["port_state"])
+
+
+@pytest.mark.parametrize("mesh,arch", CASES, ids=[f"{m[0]}x{m[1]}-{a}" for m, a in CASES])
+def test_sharded_steps_match_the_reference(runs, refs, mesh, arch):
+    run, ref = runs["runs"][mesh][arch], refs[arch]
+    _metrics_close(run["metrics"], ref["ref"])
+    want = ref["ref_state"]
+    moments = [n for n in want if n.startswith("opt/")]
+    _close(run["state"], want, moments)
+    eps = 1e-8  # AdamW's: an element with |m| below 0.1·100·eps moved by noise
+    mask = {n: np.abs(want[f"opt/m/{n}"]) >= 0.1 * 100 * eps
+            for n in want if not n.startswith("opt/")}
+    _close(run["state"], want, list(mask), mask)
+
+
+def test_placements_are_the_rules(runs):
+    """Local shapes on (2, 2): column, row and vocab shards of qwen3 and
+    the dense FFN's layer axis (2 layers over model 2)."""
+    run = runs["runs"][(2, 2)]["qwen3-0.6b"]
+    shapes = run["local_shapes"]
+    assert shapes["params/layers/mixer/wq"] == (2, 64, 32)
+    assert shapes["params/layers/mixer/wo"] == (2, 32, 64)
+    assert shapes["params/layers/ffn/w_gate"] == (1, 64, 128)
+    assert shapes["params/embed"] == (128, 64)
+    assert shapes["lora/q/1"] == (2, 3, 4, 64)  # LoRA replicated
+
+
+def test_zero1_moments_shard_over_data(runs, refs):
+    run, ref = runs["runs"][(2, 1)]["zero"], refs["zero"]
+    vocab = VARIANTS["zero"]["vocab_size"]
+    assert run["local_shapes"]["opt/m/params/embed"] == (vocab, 32)
+    assert run["local1"]["opt/v/params/embed"] == (vocab, 32)
+    assert run["local_shapes"]["params/embed"] == (vocab, 64)
+    _metrics_close(run["metrics"], ref["port"])
+    _close(run["state"], ref["port_state"])
+
+
+def test_moe_is_refused_at_model_above_one_and_trains_data_parallel(runs, refs):
+    assert len(runs["refused"]) == 2
+    assert all("ROADMAP Queue 1 item 8" in r for r in runs["refused"])
+    run = runs["runs"][(2, 1)]["moe"]
+    assert np.isfinite(run["metrics"][0]).all() and run["others"][0] == run["metrics"]
+
+
+def test_reshard_and_the_debug_mesh(runs):
+    """``reshard`` between a (1, n) and an (n, 1) mesh gives back every
+    leaf bit for bit, on 4 and on 2 ranks; ``make_debug_mesh`` spans the
+    world."""
+    assert all(runs["resharded"])
+    assert runs["debug_mesh"] == ({"data": 1, "model": 4}, {"data": 1, "model": 2})
+
+
+def test_elastic_restart_on_fewer_ranks_equals_uninterrupted_steps(runs):
+    first, second = runs["stdout"]
+    assert "mesh: data=1 model=4" in first and "mesh: data=1 model=2" in second
+    assert "resumed from step 2 (re-sharded onto current mesh)" in second
+    assert runs["rank1_stdout"] == ""  # rank 0 alone prints
+    mgr, whole = CheckpointManager(runs["ckpt"]), CheckpointManager(runs["whole"])
+    assert mgr.latest_step() == whole.latest_step() == 4
+    got, want = (_leaves(m.dir / "step_0000000004") for m in (mgr, whole))
+    assert got.keys() == want.keys()
+    _close(got, want)
+
+
+def _leaves(step_dir) -> dict:
+    leaves = json.loads((step_dir / "manifest.json").read_text())["leaves"]
+    return {r["name"]: np.load(step_dir / r["file"]) for r in leaves}
+
+
+def test_compress_reaches_no_step(tmp_path, monkeypatch, capsys):
+    """ROADMAP Queue 3: as the reference's launcher, ``--compress`` builds
+    the compression state and the step all-reduces plain gradients: the
+    same losses with it as without."""
+    outs = []
+    for extra in ([], ["--compress"]):
+        monkeypatch.setattr("sys.argv", ["train"] + LAUNCH + [
+            "--steps", "2", "--ckpt-dir", str(tmp_path / str(len(extra)))] + extra)
+        launcher.main()
+        outs.append(capsys.readouterr().out)
+    assert "gradient compression: int8 + error feedback enabled" in outs[1]
+    losses = [[ln for ln in o.splitlines() if ln.startswith("step")] for o in outs]
+    assert len(losses[0]) == 1 and [ln.split("(")[0] for ln in losses[0]] == \
+        [ln.split("(")[0] for ln in losses[1]]

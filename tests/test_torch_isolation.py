@@ -53,7 +53,8 @@ def test_importing_the_port_and_serving_loads_no_jax():
             "repro_torch.launch.train, repro_torch.optim, repro_torch.distributed, "
             "repro_torch.kernels.ops, repro_torch.bridge, repro_torch.sim, "
             "repro_torch.sim.h100, repro_torch.data, repro_torch.kernels.counting, "
-            "repro_torch.analysis.lint; "
+            "repro_torch.analysis.lint, repro_torch.distributed.sharded_step, "
+            "repro_torch.distributed.runner, repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

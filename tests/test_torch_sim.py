@@ -7,13 +7,16 @@ port's own H100 spec (``repro_torch.sim.h100``) serves the paper's models.
 """
 
 import dataclasses
+import itertools
 
 import pytest
 
 from repro import configs as ref_configs
 from repro import data as ref_data
 from repro import sim as ref_sim
+from repro.core import dependency_tree as ref_dependency_tree
 from repro_torch import configs, data, sim
+from repro_torch.core import dependency_tree
 from repro_torch.sim import h100
 
 TRACES = {  # short traces of the paper's three scenarios
@@ -89,7 +92,12 @@ def test_state_snapshots_reach_state_floats():
     assert port.summary()["state_hit_rate"] == ref.summary()["state_hit_rate"] > 0
 
 
-def test_traced_run_records_the_same_events():
+def test_traced_run_records_the_same_events(monkeypatch):
+    # the events carry node ids, drawn from a counter of each package's
+    # process: other tests in this process may have drawn from one and not
+    # the other, so both count from 0 here
+    for tree in (ref_dependency_tree, dependency_tree):
+        monkeypatch.setattr(tree, "_node_ids", itertools.count())
     ref_trace, port_trace = traces("chatbot")
     kw = dict(variant="fastlibra", schedule_mode="mixed", trace=True)
     a = ref_sim.ServingSimulator(ref_sim.DeployedModel(ref_configs.get("llama-7b")),
