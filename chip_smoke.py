@@ -20,7 +20,8 @@ exits non-zero:
               the shapes its path gives it (qwen3-0.6b: 8 slots, 256-token
               buckets and a 2048-token cache for the engine; 8 rows of 2016
               tokens for the fresh prefill, fused_sgmv at both paths'
-              shapes and at the engine's 64-token buckets, ragged_extend at
+              shapes and at the engine's 64-token buckets, on the q, k and
+              o projections (v has k's shape), ragged_extend at
               the engine's 256-, 64- and 8-token buckets, paged_attention
               at phase 3's lengths and at the engine's decode lengths), a
               repeat launch bitwise equal, timed with CUDA events beside
@@ -44,9 +45,9 @@ exits non-zero:
               (4096->1024), warm and cold, and fused_sgmv and sgmv at ranks
               1, 12 and 128; and the recurrent and enc-dec configs'
               shapes: fused_sgmv (rank 32, S = 256 and 1, warm and
-              cold) on recurrentgemma-2b's q (2560->2560) and k (2560->256),
-              rwkv6-1.6b's r (2048->2048) and seamless-m4t's decoder q
-              (1024->1024), and at seamless-m4t's 16/16 heads of 64
+              cold) on recurrentgemma-2b's q (2560->2560) and k (2560->256)
+              (rwkv6-1.6b's r and seamless-m4t's decoder q have shapes
+              timed above), and at seamless-m4t's 16/16 heads of 64
               ragged_extend at the 256 bucket and paged_attention at the
               engine's lengths; then phase 7c's own inputs: its prefill's
               ragged_extend (B = 2, S = 512, T = 520), its first and last
@@ -71,7 +72,9 @@ exits non-zero:
               plain bf16 version (BF16_TOL of its max) and, element by
               element, within one bf16 rounding of its plain f32 version on
               the same inputs upcast, repeat launches bitwise equal, bounds in bf16 bytes or flops / 989 TFLOP/s, SDPA in
-              bf16 as the attention kernels' library call.
+              bf16 as the attention kernels' library call; each flash case
+              names the tile loop it ran (``path``), and every bf16 flash
+              case must run ``wgmma`` (``csrc/attention_wgmma.cuh``).
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -96,8 +99,8 @@ exits non-zero:
 7. archs    — the host's MemTotal, then one line per config at full width
               in f32 (``ARCHS``: gemma-2b at full depth; llama-7b,
               qwen2-vl-7b, qwen3-4b, stablelm-12b, llama-13b and llama-34b
-              at 8 layers; deepseek-v2-lite-16b (MLA, 64 experts) at 8 and
-              phi3.5-moe (16 experts) at 4), weights drawn on the card from a
+              at 4 layers; deepseek-v2-lite-16b (MLA, 64 experts) at 4 and
+              phi3.5-moe (16 experts) at 2), weights drawn on the card from a
               seeded generator and handed to ``ServingEngine(params=...)``:
               12 requests on 4 adapters (64-512-token prompts, half behind
               one 128-token shared prompt, 16 new tokens), exact launch
@@ -156,7 +159,8 @@ exits non-zero:
               the positions at least), and
               deepseek-v2-lite-16b at all 27 layers in bf16 alone (2 x 256,
               8 steps); every projection through fused_sgmv on 8 LoRA slots
-              with a row of id -1, exact launch counts, prefill s, decode
+              with a row of id -1, exact launch counts (every flash_prefill
+              launch on the ``wgmma`` loop: ``flash_prefill_paths``), prefill s, decode
               ms a step (and in 3 more windows of 8 steps), peak GB, 8 more
               decode steps profiled (the device's busy share), and forward
               / prefill / decode held against each other within
@@ -342,6 +346,11 @@ def require(cond: bool, msg: str) -> None:
 
 
 # ----------------------------------------------------------------- phase 3
+# qwen3-0.6b's LoRA projections (d_in, d_out) that phase 3 times; v has k's
+# shape, so it is not timed again
+PROJECTIONS = (("q", 1024, 2048), ("k", 1024, 1024), ("o", 2048, 1024))
+
+
 def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
               base=True, cold=False, dtype=torch.float32):
     """fused_sgmv (``base``) or sgmv, the delta alone, on one projection,
@@ -584,7 +593,10 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
         def library():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
-    got, want = kernel(), plain()
+    paths = ops.path_launch_counts()[name]
+    got = kernel()
+    path = next(p for p, n in ops.path_launch_counts()[name].items() if n > paths[p])
+    want = plain()
     want32 = plain(*up(q, k, v)) if dtype != torch.float32 else None
     torch.cuda.synchronize()
     errs = check_out(f"{name} D={D} {dtype}", got, want, want32, dtype, ATTN_TOL)
@@ -601,7 +613,7 @@ def flash_case(ops, ref, gen, dev, lens=None, B=8, S=2016, H=16, Hkv=8,
         case=f"B={B}, S={S}, {H}/{Hkv} heads, D={D}"
              + (f", true_lens={lens}" if lens is not None else "")
              + (", bf16" if dtype == torch.bfloat16 else ""),
-        **errs, ms=ms, host_ms=host_ms,
+        path=path, **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(plain, iters=5)[0],
         bound_ms=bnd, bound_by=by, library_ms=time_ms(library, iters=5)[0],
     )
@@ -1187,16 +1199,16 @@ def tree_to(tree, dev):
 # The configs at full width: (name, layers run; None: all of them).
 # stablelm-12b (~48 GB of f32 weights at full depth), llama-13b (~52 GB,
 # and 1.6 MB of f32 KV a token) and llama-34b (~135 GB: no 80 GB card holds
-# it in f32) run 8 of their layers; deepseek-v2-lite-16b 8 of 27 (~20 GB;
-# ~65 GB at full depth, too much beside the check's CPU copy) and
-# phi3.5-moe 4 of 32 (~21 GB; ~167 GB at full depth). llama-7b, qwen2-vl-7b
-# and qwen3-4b run 8 layers too, which keeps the script near half its time
-# limit (phase 9 runs llama-7b at full depth in bf16). Every kernel sees the
-# same shapes at every depth.
-ARCHS = (("llama-7b", 8), ("qwen2-vl-7b", 8), ("qwen3-4b", 8),
-         ("gemma-2b", None), ("stablelm-12b", 8), ("llama-13b", 8),
-         ("llama-34b", 8), ("deepseek-v2-lite-16b", 8),
-         ("phi3.5-moe-42b-a6.6b", 4))
+# it in f32) run 4 of their layers; deepseek-v2-lite-16b 4 of 27 (~65 GB at
+# full depth, too much beside the check's CPU copy; layer 0 is dense, 1-3
+# MoE) and phi3.5-moe 2 of 32 (~167 GB at full depth). llama-7b,
+# qwen2-vl-7b and qwen3-4b run 4 layers too, to keep the script inside its
+# time limit on a slow host (phase 9 runs llama-7b at full depth in bf16).
+# Every kernel sees the same shapes at every depth.
+ARCHS = (("llama-7b", 4), ("qwen2-vl-7b", 4), ("qwen3-4b", 4),
+         ("gemma-2b", None), ("stablelm-12b", 4), ("llama-13b", 4),
+         ("llama-34b", 4), ("deepseek-v2-lite-16b", 4),
+         ("phi3.5-moe-42b-a6.6b", 2))
 # the static path at D = 160, 256, and on MLA and the MoE FFN
 STATIC_ARCHS = ("stablelm-12b", "gemma-2b", "deepseek-v2-lite-16b",
                 "phi3.5-moe-42b-a6.6b")
@@ -1227,8 +1239,9 @@ ARCH_SGMV = (("deepseek-v2-lite-16b", "kv_a", 2048, 576),
              ("phi3.5-moe-42b-a6.6b", "k", 4096, 1024),
              ("recurrentgemma-2b", "q", 2560, 2560),
              ("recurrentgemma-2b", "k", 2560, 256),
-             ("rwkv6-1.6b", "r", 2048, 2048),
-             ("seamless-m4t-large-v2", "q", 1024, 1024))
+             # rwkv6-1.6b's r (2048 -> 2048) has deepseek's o shape,
+             # seamless-m4t's q (1024 -> 1024) qwen3-0.6b's k: not repeated
+             )
 # the MoE configs' card-against-CPU check replays these extend calls of the
 # engine trace, each chosen by its kind before the run: the first mixed
 # step (prefill chunks with decode riders) and the first two pure decode
@@ -2283,14 +2296,13 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     {kernel: [case, ...]}."""
     out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
                            "flash_prefill", "flash_prefill_ragged")}
-    projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
-                   ("o", 2048, 1024))
+    projections = PROJECTIONS
     before = ops.launch_counts()
     for S in (256, 2016, 1):
         for p, di, do in projections:
             out["fused_sgmv"].append(sgmv_case(ops, ref, p, di, do, S, gen, dev, dtype=BF16))
     for S in (2016, 1):
-        for p, di, do in (projections[0], projections[3]):
+        for p, di, do in (projections[0], projections[2]):
             out["sgmv"].append(sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False,
                                          dtype=BF16))
     for r in (1, 128):
@@ -2323,6 +2335,11 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     after = ops.launch_counts()
     require(all(after[k] > before[k] for k in out),
             f"a kernel never launched in bf16: {before} -> {after}")
+    # qwen3-0.6b, stablelm-12b (D = 160), gemma-2b (D = 256) and the ragged
+    # case run csrc/attention_wgmma.cuh's loop (flash_prefill.bf16_path)
+    for k in ("flash_prefill", "flash_prefill_ragged"):
+        for c in out[k]:
+            require(c["path"] == "wgmma", f"bf16 {k} {c['case']} ran the {c['path']} loop")
     return out
 
 
@@ -2469,7 +2486,7 @@ def static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, step
     t3 = time.perf_counter()
     return dict(prefill_logits=plog[:, -1], logits=logits, fed=torch.stack(fed, 1).cpu(),
                 prefill_s=t1 - t0, extend_s=t2 - t1, decode_s=t3 - t2,
-                launches=ops.launch_counts(), cache=cache)
+                launches=ops.launch_counts(), paths=ops.path_launch_counts(), cache=cache)
 
 
 def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: int = 0):
@@ -2534,6 +2551,11 @@ def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: 
     launches = run["launches"]
     want = expected_launches(model, launches, 1, steps, fresh_prefills=1)
     require(launches == want, f"{name} bf16 launches {launches}, expected {want}")
+    # every bf16 prefill attention on the wgmma loop (gqa_full's transposed views)
+    paths = run["paths"]["flash_prefill"]
+    require(paths["wgmma"] == launches["flash_prefill"],
+            f"{name} bf16: flash_prefill launches by loop {paths}, not all wgmma")
+    line["flash_prefill_paths"] = paths
     peak = torch.cuda.max_memory_allocated() / 1e9
     cache = run.pop("cache")
     windows, cache, tok = decode_windows(model, params, lora, cache, run["fed"][:, -1], ids)
@@ -3009,8 +3031,7 @@ def main() -> None:
 
     # ---------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
-    projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
-                   ("o", 2048, 1024))
+    projections = PROJECTIONS
     # the engine's 256-token buckets and decode steps, then the generate
     # path's prefill: 2016 is no multiple of the 128-row tile, so tiles
     # straddle rows of different adapters (and of id -1); then the engine's
@@ -3027,7 +3048,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     delta_cases = [sgmv_case(ops, ref, p, di, do, S, gen, dev, base=False)
                    for S in (2016, 1)
-                   for p, di, do in (projections[0], projections[3])]
+                   for p, di, do in (projections[0], projections[2])]
     torch.cuda.empty_cache()
     fla = flash_case(ops, ref, gen, dev)
     torch.cuda.empty_cache()
@@ -3207,8 +3228,9 @@ def main() -> None:
             "case": m["case"]})
     # fused_sgmv's shapes differ by path: beside the engine's bucket, the q
     # projection of the generate path's prefill
+    n = len(projections)
     kernels[0]["generate_path_case"] = {
-        k: sgmv_cases[8][k] for k in ("case", "max_abs_err", "ms", "plain_ms",
+        k: sgmv_cases[2 * n][k] for k in ("case", "max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms")}
     # ragged_extend beside the 256-token bucket: the 64- and 8-token ones
     kernels[2]["bucket_cases"] = [
@@ -3219,7 +3241,7 @@ def main() -> None:
     # paged_attention at the engine's decode lengths
     keys = ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cold")
-    kernels[0]["decode_cases"] = [{k: m[k] for k in keys} for m in sgmv_cases[4:8]]
+    kernels[0]["decode_cases"] = [{k: m[k] for k in keys} for m in sgmv_cases[n:2 * n]]
     kernels[1]["decode_cases"] = [{k: m[k] for k in keys} for m in delta_cases[2:]]
     kernels[3]["cold"] = pag["cold"]
     kernels[3]["engine_case"] = {k: pag_cases[1][k] for k in keys}
@@ -3230,7 +3252,7 @@ def main() -> None:
     # the forward kernels in bf16 (phase 3's bf16 cases; their launches on
     # the bf16 path are launches_by_path["bf16"])
     for k in kernels[:6]:
-        k["bf16_cases"] = [{key: m[key] for key in ("arch",) + keys + ("max_abs_err_f32", "one_rounding_excess")
+        k["bf16_cases"] = [{key: m[key] for key in ("arch", "path") + keys + ("max_abs_err_f32", "one_rounding_excess")
                             if key in m} for m in bf16_cases[k["name"]]]
     # the backward kernels' other cases: flash_prefill_bwd at the other
     # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,

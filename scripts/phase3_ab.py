@@ -1,6 +1,7 @@
 """Time chip_smoke.py's phase 3 kernel cases of two checkouts in turns.
 
-    python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1] [--cases all|forward|backward]
+    python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1]
+        [--cases all|forward|backward|flash_bf16]
 
 on one NVIDIA GPU. A_DIR and B_DIR are checkouts of the repository (the
 parent commit and the change, say). Both build their kernels first, in
@@ -16,9 +17,11 @@ flash_prefill_ragged; then the backward cases of
 B = 8, S = 512 and at every ``ARCH_HEADS`` shape (B = 2), lora_grad on
 q/k/v/o and on q at ranks 1, 12 and 128, flash_prefill_bwd over one row of
 4096 tokens (run here where a checkout's ``chip_smoke.py`` lacks it, so
-both sides time it). ``--cases`` keeps the forward or
-the backward cases only. Each case's checks run as in chip_smoke (a failed
-one ends the turn with an error). Prints the card's name and power limit
+both sides time it); and bf16 flash_prefill at qwen3-0.6b's 8 x 2016,
+stablelm-12b's and gemma-2b's 2 x 2048 and flash_prefill_ragged at its
+ragged lengths (``chip_smoke.bf16_kernel_cases``' flash cases). ``--cases``
+keeps the forward, the backward or the bf16 flash cases only. Each case's
+checks run as in chip_smoke (a failed one ends the turn with an error). Prints the card's name and power limit
 (``nvidia-smi``), then one JSON line per turn ({"turn", "dir", "ms": {case:
 ms}, "cold_ms": {case: ms}, "plain_ms", "library_ms"}) and then one
 summary line: per case, the mean of each checkout's turns and B / A; over
@@ -38,7 +41,7 @@ from pathlib import Path
 
 def turn(root: Path, which: str = "all") -> dict:
     """Phase 3's cases of the checkout at ``root`` (``which``: all,
-    forward or backward): {label: case}."""
+    forward, backward or flash_bf16): {label: case}."""
     sys.path.insert(0, str(root))
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -53,7 +56,7 @@ def turn(root: Path, which: str = "all") -> dict:
     projections = (("q", 1024, 2048), ("k", 1024, 1024), ("v", 1024, 1024),
                    ("o", 2048, 1024))
     cases = {}
-    if which != "forward":
+    if which in ("all", "backward"):
         bwd = cs.backward_kernel_cases(ops, ref, gen, dev)
         for c in bwd["flash_prefill_bwd"]:
             cases[f"flash_prefill_bwd {c.get('arch', 'qwen3-0.6b')} {c['case']}"] = c
@@ -65,6 +68,19 @@ def turn(root: Path, which: str = "all") -> dict:
             cases[long_case] = cs.flash_bwd_case(ops, ref, gen, dev, B=1, S=4096)
             torch.cuda.empty_cache()
     if which == "backward":
+        return cases
+    if which in ("all", "flash_bf16"):
+        bf16 = torch.bfloat16
+        cases["flash_prefill bf16"] = cs.flash_case(ops, ref, gen, dev, dtype=bf16)
+        torch.cuda.empty_cache()
+        cases["flash_prefill_ragged bf16"] = cs.flash_case(
+            ops, ref, gen, dev, lens=[0, 1, 37, 1000, 2015, 2016, 2016, 2016], dtype=bf16)
+        torch.cuda.empty_cache()
+        for arch, B, S, H, Hkv, D in cs.ARCH_FLASH[:2]:  # stablelm-12b, gemma-2b
+            cases[f"flash_prefill bf16 {arch}"] = cs.flash_case(
+                ops, ref, gen, dev, B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=bf16)
+            torch.cuda.empty_cache()
+    if which == "flash_bf16":
         return cases
     for S in (256, 1, 2016, 64):
         for p, di, do in projections:
@@ -93,7 +109,8 @@ def main() -> None:
     ap.add_argument("a", nargs="?")
     ap.add_argument("b", nargs="?")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--cases", choices=("all", "forward", "backward"), default="all")
+    ap.add_argument("--cases", choices=("all", "forward", "backward", "flash_bf16"),
+                    default="all")
     ap.add_argument("--run", help="(internal) run one turn in this checkout")
     args = ap.parse_args()
     if args.run:

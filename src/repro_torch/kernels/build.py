@@ -12,7 +12,8 @@ code of its launch, ``<source>_error_string`` names it):
 The build runs at first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
 name carries a hash of its source, of every header ``csrc/*.cuh`` (the
-sources share them: ``tf32x3.cuh``, ``bf16_mma.cuh``, ``attention_tc.cuh``)
+sources share them: ``tf32x3.cuh``, ``bf16_mma.cuh``, ``attention_tc.cuh``,
+``attention_wgmma.cuh``)
 and of the flags,
 so an edited source or header rebuilds and an unchanged one is reused.
 All missing libraries compile at once, one ``nvcc`` process per source,
@@ -23,7 +24,8 @@ A source may export more than one kernel (``fused_sgmv.cu`` holds
 ``fused_sgmv`` and ``sgmv``; ``flash_prefill.cu`` holds ``flash_prefill``
 and ``flash_prefill_ragged``), and each forward source exports a
 ``*_bf16_launch`` beside each f32 entry (:func:`entry`): libraries are
-keyed by source, launch counts by kernel. ``flash_prefill_bwd.cu`` and
+keyed by source, launch counts by kernel (and, for the two flash kernels,
+by tile loop: ``path_launches``). ``flash_prefill_bwd.cu`` and
 ``lora_grad.cu`` are the backward passes of ``flash_prefill`` and
 ``fused_sgmv``; a launch of each (one call of its wrapper, several CUDA
 kernels) counts once. This module holds the
@@ -60,6 +62,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset (see ops.reset_launch_counts)
 launches: collections.Counter = collections.Counter()
+# the tile loops of a kernel that has more than one: bf16 flash_prefill and
+# flash_prefill_ragged run attention_wgmma.cuh ("wgmma") or attention_tc.cuh
+# ("mma"; f32 always), picked by shape before the launch (flash_prefill.bf16_path)
+PATHS = {"flash_prefill": ("wgmma", "mma"), "flash_prefill_ragged": ("wgmma", "mma")}
+# (kernel, path) -> launches since the last reset, beside ``launches``
+path_launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}
 

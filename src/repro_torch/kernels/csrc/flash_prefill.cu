@@ -21,11 +21,16 @@
 // tensor cores (3xTF32); bf16 inputs at 989 TFLOP/s.
 //
 // flash_prefill_launch takes f32 q, k, v and out; flash_prefill_bf16_launch
-// bf16 ones (attention_tc.cuh: bf16 products, f32 softmax and sums), with
-// lse f32 in both.
+// bf16 ones (attention_tc.cuh: bf16 mma.sync products, f32 softmax and
+// sums); flash_prefill_bf16_wgmma_launch bf16 ones on attention_wgmma.cuh's
+// loop (wgmma for Q·Kᵀ and P·V, K/V tiles by TMA), for a head dim that is a
+// multiple of 16 up to 256 on 16-byte bases and strides; lse f32 in all.
+// flash_prefill.py's bf16_path picks the bf16 entry by shape before the
+// launch; each entry refuses a shape it does not take.
 //
-// What the design does about it: one block per (q tile, b, kv head) runs
-// the tensor-core tile loop of attention_tc.cuh, which ragged_extend.cu
+// What the design does about it (f32, and bf16 shapes that attention_wgmma.cuh
+// does not take; the bf16 wgmma loop's design is in its header): one block
+// per (q tile, b, kv head) runs the tensor-core tile loop of attention_tc.cuh, which ragged_extend.cu
 // runs too (here with start = 0 and T = S): 3xTF32 mma.sync for Q·Kᵀ and
 // P·V, a cp.async ring of K/V tiles, the G heads of a group packed into
 // the rows of the mma tile (128 query vectors, 64 for a head dim past 128;
@@ -41,7 +46,10 @@
 
 #include <cuda_runtime.h>
 
+#include <stdio.h>
+
 #include "attention_tc.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -177,6 +185,109 @@ extern "C" int flash_prefill_bf16_launch(const bf16* q, const bf16* k, const bf1
                   kss, vsb, vsh, vss, stream);
 }
 
+namespace {
+
+// cuTensorMapEncodeTiled, a driver API function, through the runtime's entry
+// point query: the library links nothing but the runtime
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return e == cudaSuccess && res == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
+  }();
+  return fn;
+}
+
+// error codes past the runtime's: the driver refused a tensor map (+ its CUresult)
+constexpr int TENSOR_MAP_ERROR = 100000;
+
+// The 4-D tensor map (D, S, Hkv, B) of k or v with its element strides:
+// boxes of 64 d x ``keys`` keys, the 128-byte swizzle, zeros out of bounds.
+int kv_map(CUtensorMap* map, const bf16* base, int B, int S, int Hkv, int D, Strides st,
+           int keys) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hkv, (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)keys, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims, bytes, box,
+                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+template <int DC>
+int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const int* true_lens, bf16* out,
+                 float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
+                 Strides vs, cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  int err = kv_map(&kmap, k, B, S, Hkv, D, ks, wg::BK);
+  if (err == 0) err = kv_map(&vmap, v, B, S, Hkv, D, vs, wg::BK);
+  if (err != 0) return err;
+  const size_t smem = wg::smem_bytes<DC>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      wg::flash_prefill_wgmma_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long vectors = (long long)S * (H / Hkv);  // of one (row, kv head)
+  const int n_tiles = (int)((vectors + wg::ROWS - 1) / wg::ROWS);
+  const long long blocks = (long long)n_tiles * B * Hkv;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  wg::flash_prefill_wgmma_kernel<DC><<<(unsigned)blocks, wg::THREADS, smem, stream>>>(
+      kmap, vmap, q, true_lens, out, lse, B, S, H, Hkv, D, n_tiles, qs.b, qs.h, qs.s);
+  return (int)cudaGetLastError();
+}
+
+bool wgmma_shape_ok(const void* p, Strides st) {
+  return (uintptr_t)p % 16 == 0 && st.b > 0 && st.h > 0 && st.s > 0 && st.b % 8 == 0 &&
+         st.h % 8 == 0 && st.s % 8 == 0;
+}
+
+}  // namespace
+
+// The same as flash_prefill_bf16_launch on attention_wgmma.cuh's loop: D a
+// multiple of 16 up to 256, q, k and v on 16-byte bases with positive b, h
+// and s strides of multiples of 8 elements (flash_prefill.py's bf16_path);
+// anything else returns cudaErrorInvalidValue.
+extern "C" int flash_prefill_bf16_wgmma_launch(const bf16* q, const bf16* k, const bf16* v,
+                                               const int* true_lens, bf16* out, float* lse,
+                                               int B, int S, int H, int Hkv, int D,
+                                               long long qsb, long long qsh, long long qss,
+                                               long long ksb, long long ksh, long long kss,
+                                               long long vsb, long long vsh, long long vss,
+                                               void* stream) {
+  const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss};
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D % 16 != 0 || D <= 0 || D > 256 ||
+      !wgmma_shape_ok(q, qs) || !wgmma_shape_ok(k, ks) || !wgmma_shape_ok(v, vs) ||
+      (uintptr_t)out % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch ((D + 63) / 64) {  // chunks of 64 of D
+    case 1: return launch_wgmma<1>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 2: return launch_wgmma<2>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    case 3: return launch_wgmma<3>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+    default: return launch_wgmma<4>(q, k, v, true_lens, out, lse, B, S, H, Hkv, D, qs, ks, vs, st);
+  }
+}
+
 extern "C" const char* flash_prefill_error_string(int err) {
+  if (err >= TENSOR_MAP_ERROR) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled refused the K/V tensor map (CUresult %d)",
+             err - TENSOR_MAP_ERROR);
+    return msg;
+  }
   return cudaGetErrorString((cudaError_t)err);
 }

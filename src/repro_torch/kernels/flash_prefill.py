@@ -8,7 +8,12 @@ the same with ``true_lens`` (B,) live tokens per row; padded queries and
 rows of length 0 come out as zeros. Any group size and any head dim that is
 a multiple of 4 up to 256 is taken, in float32 or bfloat16 (all of one
 type; the output takes it: a bf16 launch runs Q·Kᵀ on the bf16 values with
-f32 sums, the softmax and P·V in f32, and rounds the output once). The
+f32 sums, the softmax in f32 and P·V on P split into bf16 hi + lo, and
+rounds the output once). bf16 launches take one of two tile loops, chosen
+by :func:`bf16_path` from the shape, strides and addresses and counted per
+loop (``ops.path_launch_counts``): ``csrc/attention_wgmma.cuh`` (wgmma and
+TMA) for a head dim that is a multiple of 16 on 16-byte strides, else
+``csrc/attention_tc.cuh`` (mma.sync), which f32 launches always take. The
 inputs may be strided views (a
 ``(B, S, H, D)`` tensor transposed to head-major is read in place) as long
 as D has unit stride; the output has q's strides. A tensor on the CPU takes
@@ -40,7 +45,10 @@ _SOURCE = "flash_prefill"
 # Hkv, D, then the b, h, s element strides of q, k and v (out has q's),
 # stream
 _SIGNATURES = {"flash_prefill_launch": "ppppppiiiiilllllllllp",
-               "flash_prefill_bf16_launch": "ppppppiiiiilllllllllp"}  # bf16 q, k, v, out
+               "flash_prefill_bf16_launch": "ppppppiiiiilllllllllp",  # bf16 q, k, v, out
+               # the same on attention_wgmma.cuh's loop (:func:`bf16_path`)
+               "flash_prefill_bf16_wgmma_launch": "ppppppiiiiilllllllllp"}
+WGMMA_MAX_D = 256  # head dims of the wgmma loop: multiples of 16 up to this
 _BWD_SOURCE = "flash_prefill_bwd"
 _BWD_SIGNATURES = {
     # q, k, v, o, dout, lse, delta, part (NULL: no head parts), dQ partials
@@ -78,6 +86,21 @@ def bwd_plan(B: int, S: int, H: int, Hkv: int, D: int, sms: int) -> tuple[int, b
     return hs, dq_part_rows(S) * B * H * D <= DQ_FOLD_FLOATS
 
 
+def bf16_path(D: int, strides, ptrs) -> str:
+    """The tile loop of a bf16 launch of ``csrc/flash_prefill.cu``, from its
+    shape alone: ``"wgmma"`` (``csrc/attention_wgmma.cuh``: TMA loads and
+    warpgroup products) for a head dim ``D`` that is a multiple of 16 up to
+    256, every b, h and s element stride of q, k and v in ``strides`` a
+    positive multiple of 8 (16 bytes) and every base address in ``ptrs`` on
+    16 bytes; else ``"mma"`` (``csrc/attention_tc.cuh``, which takes any
+    multiple of 4 on 8-byte rows). A pure function: nothing is tried and
+    nothing falls back."""
+    ok = (D % 16 == 0 and 0 < D <= WGMMA_MAX_D
+          and all(st > 0 and st % 8 == 0 for st in strides)
+          and all(p % 16 == 0 for p in ptrs))
+    return "wgmma" if ok else "mma"
+
+
 def _launch(name, q, k, v, true_lens, lse=None):
     dev = q.device
     if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape):
@@ -100,15 +123,21 @@ def _launch(name, q, k, v, true_lens, lse=None):
         return out
     if out.stride() != q.stride():
         raise ValueError(f"{name}: q must be a permutation of a dense tensor")
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    path = "mma"
+    if dtype == torch.bfloat16:
+        path = bf16_path(D, strides, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    fname = ("flash_prefill_bf16_wgmma_launch" if path == "wgmma"
+             else build.entry("flash_prefill_launch", dtype))
     lib = build.load(_SOURCE, _SIGNATURES)
-    code = getattr(lib, build.entry("flash_prefill_launch", dtype))(
+    code = getattr(lib, fname)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        B, S, H, Hkv, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        torch.cuda.current_stream(dev).cuda_stream)
+        B, S, H, Hkv, D, *strides, torch.cuda.current_stream(dev).cuda_stream)
     build.check_error(name, _SOURCE, lib, code)
     build.launches[name] += 1
+    build.path_launches[name, path] += 1
     return out
 
 

@@ -29,8 +29,17 @@ def launch_counts() -> dict[str, int]:
     return {name: build.launches[name] for name in build.KERNELS}
 
 
+def path_launch_counts() -> dict[str, dict[str, int]]:
+    """Launches of each tile loop of the kernels that have more than one
+    (``build.PATHS``: bf16 ``flash_prefill`` and ``flash_prefill_ragged`` on
+    ``wgmma`` or ``mma``) since the last :func:`reset_launch_counts`."""
+    return {name: {path: build.path_launches[name, path] for path in paths}
+            for name, paths in build.PATHS.items()}
+
+
 def reset_launch_counts() -> None:
     build.launches.clear()
+    build.path_launches.clear()
 
 
 __all__ = [
@@ -43,6 +52,7 @@ __all__ = [
     "launch_counts",
     "lora_grad",
     "paged_attention",
+    "path_launch_counts",
     "ragged_extend",
     "ref",
     "reset_launch_counts",

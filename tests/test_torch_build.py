@@ -21,14 +21,15 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
+HEADERS = ["tf32x3.cuh", "attention_tc.cuh", "bf16_mma.cuh", "attention_wgmma.cuh"]
+
+
 def test_sources_and_headers_are_in_the_package():
     assert {p.stem for p in build.CSRC.glob("*.cu")} == set(build.SOURCES)
-    assert {p.name for p in build.CSRC.glob("*.cuh")} == {"tf32x3.cuh",
-                                                          "attention_tc.cuh",
-                                                          "bf16_mma.cuh"}
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == set(HEADERS)
 
 
-@pytest.mark.parametrize("header", ["tf32x3.cuh", "attention_tc.cuh", "bf16_mma.cuh"])
+@pytest.mark.parametrize("header", HEADERS)
 def test_editing_a_header_changes_every_library_path(csrc, header):
     before = {s: build.library_path(s) for s in build.SOURCES}
     assert all(p.parent == build.BUILD_DIR for p in before.values())

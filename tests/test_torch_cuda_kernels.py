@@ -532,6 +532,24 @@ def test_sgmv_cuda_matches_plain(cuda, dtype, B, S, d_in, d_out, r, N):
     assert torch.equal(sgmv(*args, scale=2.0), got)  # a fixed order of sums
 
 
+def _flash_path(dtype, D, q, k, v):
+    """The tile loop a flash launch on these tensors takes: bf16 by
+    ``flash_prefill.bf16_path``, f32 always attention_tc.cuh's."""
+    if dtype == torch.float32:
+        return "mma"
+    return flash_prefill_mod.bf16_path(
+        D, (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]),
+        (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+
+
+def _one_path_launch(name, before, path):
+    """Exactly one launch of ``name`` since ``before`` (path_launch_counts),
+    on ``path``."""
+    after = ops.path_launch_counts()[name]
+    return {p: after[p] - before[p] for p in after} == {
+        p: int(p == path) for p in after}
+
+
 @pytest.mark.parametrize("B,H,Hkv,S,D", [
     (8, 16, 8, 2016, 128),  # the generate path; S off the 16-token q tiles
     (2, 4, 2, 100, 128),
@@ -547,6 +565,8 @@ def test_sgmv_cuda_matches_plain(cuda, dtype, B, S, d_in, d_out, r, N):
     (2, 4, 4, 65, 160),     # G = 1 at D = 160
     (2, 16, 16, 512, 64),   # seamless-m4t's decoder at its static prefill
     (2, 16, 16, 256, 64),   # the same at its identities' forward
+    (2, 14, 2, 300, 64),    # G = 7 at D = 64 (bf16: the wgmma loop)
+    (1, 7, 1, 129, 128),    # G = 7 at D = 128, MQA
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_prefill_cuda_matches_plain(cuda, dtype, B, H, Hkv, S, D):
@@ -555,17 +575,53 @@ def test_flash_prefill_cuda_matches_plain(cuda, dtype, B, H, Hkv, S, D):
     k = rng.standard_normal((B, Hkv, S, D), np.float32)
     v = rng.standard_normal((B, Hkv, S, D), np.float32)
     args = [_t(a, cuda, dtype) for a in (q, k, v)]
+    path = _flash_path(dtype, D, *args)
+    # bf16: every head dim that is a multiple of 16 takes the wgmma loop
+    assert path == ("wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "mma")
     before = ops.launch_counts()["flash_prefill"]
+    paths = ops.path_launch_counts()["flash_prefill"]
     got = flash_prefill(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_prefill"] == before + 1
+    assert _one_path_launch("flash_prefill", paths, path)
     want, want32 = _plain(ref.flash_prefill_ref, *args)
     assert _match(got, want, 1e-5, dtype, want32)
     # (B, S, H, D) tensors transposed to head-major are read in place
     qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in args)
+    assert _flash_path(dtype, D, qt, kt, vt) == path
     got_t = flash_prefill(qt, kt, vt)
     assert got_t.stride() == qt.stride()
     assert torch.equal(got_t, got)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", [
+    (2, 16, 8, 300, 128),  # qwen3-0.6b's heads
+    (1, 8, 1, 200, 256),   # gemma-2b's
+])
+def test_flash_prefill_bf16_strided_views_take_the_mma_loop(cuda, B, H, Hkv, S, D):
+    """bf16 inputs the wgmma loop cannot read, q on an 8-byte base and k, v
+    views whose token stride is 4 elements past a 16-byte step (rows of
+    D + 4 in a wider tensor), go to attention_tc.cuh's loop by the rule,
+    counted as such; dense copies take the wgmma loop; both within the bf16
+    bar of the plain versions."""
+    rng = np.random.default_rng(6)
+    flat = _t(rng.standard_normal(B * H * S * D + 4, np.float32), cuda, torch.bfloat16)
+    q = flat[4:].view(B, H, S, D)
+    k, v = (_t(rng.standard_normal((B, Hkv, S, D + 4), np.float32), cuda,
+               torch.bfloat16)[..., :D] for _ in "kv")
+    assert _flash_path(torch.bfloat16, D, q, k, v) == "mma"
+    paths = ops.path_launch_counts()["flash_prefill"]
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert _one_path_launch("flash_prefill", paths, "mma")
+    want, want32 = _plain(ref.flash_prefill_ref, q, k, v)
+    assert _match(got, want, 1e-5, torch.bfloat16, want32)
+    dense = [t.clone(memory_format=torch.contiguous_format) for t in (q, k, v)]
+    paths = ops.path_launch_counts()["flash_prefill"]
+    got_w = flash_prefill(*dense)
+    torch.cuda.synchronize()
+    assert _one_path_launch("flash_prefill", paths, "wgmma")
+    assert _match(got_w, want, 1e-5, torch.bfloat16, want32)
 
 
 @pytest.mark.parametrize("S,lens,H,Hkv,D", [
@@ -575,6 +631,8 @@ def test_flash_prefill_cuda_matches_plain(cuda, dtype, B, H, Hkv, S, D):
     (2048, [0, 2048, 513, 1], 8, 1, 256),    # gemma-2b
     (300, [300, 1, 0, 129], 28, 4, 128),     # G = 7
     (77, [77, 5, 0], 8, 8, 20),              # G = 1, D = 20
+    (150, [0, 150, 71], 14, 2, 64),          # G = 7 at D = 64 (bf16: wgmma)
+    (130, [130, 0, 1], 7, 1, 128),           # G = 7 at D = 128, MQA
 ])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_prefill_ragged_cuda_matches_plain(cuda, dtype, S, lens, H, Hkv, D):
@@ -584,12 +642,16 @@ def test_flash_prefill_ragged_cuda_matches_plain(cuda, dtype, S, lens, H, Hkv, D
     k = rng.standard_normal((B, Hkv, S, D), np.float32)
     v = rng.standard_normal((B, Hkv, S, D), np.float32)
     args = [_t(a, cuda, dtype) for a in (q, k, v, np.asarray(lens, np.int32))]
+    path = _flash_path(dtype, D, *args[:3])
+    assert path == ("wgmma" if dtype == torch.bfloat16 and D % 16 == 0 else "mma")
     before = ops.launch_counts()
+    paths = ops.path_launch_counts()["flash_prefill_ragged"]
     got = flash_prefill_ragged(*args)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["flash_prefill_ragged"] == before["flash_prefill_ragged"] + 1
     assert after["flash_prefill"] == before["flash_prefill"]
+    assert _one_path_launch("flash_prefill_ragged", paths, path)
     want, want32 = _plain(ref.flash_prefill_ragged_ref, *args)
     assert _match(got, want, 1e-5, dtype, want32)
     for b, n in enumerate(lens):  # padded queries and empty rows are zeros
