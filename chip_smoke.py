@@ -72,9 +72,14 @@ exits non-zero:
               plain bf16 version (BF16_TOL of its max) and, element by
               element, within one bf16 rounding of its plain f32 version on
               the same inputs upcast, repeat launches bitwise equal, bounds in bf16 bytes or flops / 989 TFLOP/s, SDPA in
-              bf16 as the attention kernels' library call; each flash case
-              names the tile loop it ran (``path``), and every bf16 flash
-              case must run ``wgmma`` (``csrc/attention_wgmma.cuh``).
+              bf16 as the attention kernels' library call; each flash and
+              fused_sgmv case names the tile loop it ran (``path``), and
+              every bf16 flash case must run ``wgmma``
+              (``csrc/attention_wgmma.cuh``), every bf16 fused_sgmv case
+              ``wgmma`` (``csrc/fused_sgmv_wgmma.cu``) or, at S = 1,
+              ``skinny``; each bf16 fused_sgmv case times cuBLAS's bf16
+              ``x @ W`` beside it (``cublas_xw_ms``: the base term alone,
+              a yardstick, not ``library_ms``).
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -160,7 +165,10 @@ exits non-zero:
               deepseek-v2-lite-16b at all 27 layers in bf16 alone (2 x 256,
               8 steps); every projection through fused_sgmv on 8 LoRA slots
               with a row of id -1, exact launch counts (every flash_prefill
-              launch on the ``wgmma`` loop: ``flash_prefill_paths``), prefill s, decode
+              launch on the ``wgmma`` loop: ``flash_prefill_paths``; every
+              fused_sgmv launch of the prefill and the extend on the
+              ``wgmma`` loop and of the decode steps on the ``skinny`` one:
+              ``fused_sgmv_paths``), prefill s, decode
               ms a step (and in 3 more windows of 8 steps), peak GB, 8 more
               decode steps profiled (the device's busy share), and forward
               / prefill / decode held against each other within
@@ -192,8 +200,10 @@ exits non-zero:
               again with ``--steps 4``, which must resume from step 2.
 
 Every phase's line carries the script's seconds so far (``t_s``). Then the
-script's seconds. The line before the last is the ``kernels`` JSON; the
-last line is ``{"ok": true, "device": {...}}``.
+script's seconds. The line before the last is the ``kernels`` JSON (one
+entry a kernel, and bf16 fused_sgmv's ``wgmma`` loop, its own source,
+as ``fused_sgmv_wgmma`` with phase 9's launches); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -378,6 +388,7 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         return ref.sgmv_ref(xx, aa, bb, ids, scale)
 
     errs, errs32, excess, first = [], [], [], None
+    paths = ops.path_launch_counts()["fused_sgmv"]
     for ww in ((w, torch.zeros_like(w)) if base else (w,)):
         got, want = kernel(ww), plain(ww)
         want32 = plain(*up(ww, a, b, x)) if dtype != torch.float32 else None
@@ -388,6 +399,13 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         errs32.append(e.get("max_abs_err_f32", 0.0))
         excess.append(e.get("one_rounding_excess", -math.inf))
         first = got if first is None else first
+    # the loop fused_sgmv's launches took (sgmv.bf16_path): one for both
+    took = {p: n - paths[p] for p, n in ops.path_launch_counts()["fused_sgmv"].items()}
+    path = None
+    if base:
+        path = next((p for p, n in took.items() if n == 2), None)
+        require(path is not None and sum(took.values()) == 2,
+                f"fused_sgmv {proj} S={S} {dtype}: launches by loop {took}")
     require(torch.equal(kernel(w), first), f"{name} {proj} S={S}: a repeat "
                                            "launch differs")
     live = ids >= 0
@@ -406,9 +424,13 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         plain_ms=time_ms(lambda: plain(w))[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
+    if base:
+        out["path"] = path
     if dtype != torch.float32:
         out["max_abs_err_f32"] = max(errs32)
         out["one_rounding_excess"] = max(excess)
+        if base:  # a yardstick, not library_ms: cuBLAS's x·W alone, no delta
+            out["cublas_xw_ms"] = time_ms(lambda: torch.matmul(x, w))[0]
     if S == 1 or cold:
         n = cold_copies(es * ((d_in * d_out if base else 0) + lora_bytes))
         copies = [(w.clone() if base else w, a.clone(), b.clone()) for _ in range(n)]
@@ -2284,6 +2306,17 @@ MIN_CLEAR_SHARE = 0.25
 DECODE_WINDOWS = 3
 
 
+# fused_sgmv's tiled shapes of phase 9 beyond qwen3-0.6b's prefill, each a
+# plan of its own (csrc/fused_sgmv_wgmma.cu: make_plan): (arch, projection,
+# B, S, d_in, d_out). The 8 x 32 extend splits the tile loop into 4 parts
+# and the shrink into 2; llama-7b's d_in = 4096 splits the shrink into 8;
+# deepseek's kv_a (d_out = 576) ends in a part-filled tile and splits both
+SGMV_PHASE9 = (("qwen3-0.6b extend", "q", 8, 32, 1024, 2048),
+               ("llama-7b", "q", 2, 512, 4096, 4096),
+               ("deepseek-v2-lite-16b", "q", 2, 256, 2048, 3072),
+               ("deepseek-v2-lite-16b", "kv_a", 2, 256, 2048, 576))
+
+
 def bf16_kernel_cases(ops, ref, gen, dev):
     """Phase 3 in bf16: each forward kernel at the shapes of its f32 row
     (qwen3-0.6b's q/k/v/o at S = 256, 2016 and 1; sgmv at S = 2016 and 1;
@@ -2292,8 +2325,8 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     at its ragged lengths), then ragged_extend and paged_attention at
     llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160) and
     gemma-2b (D = 256), flash_prefill at the two wide heads, and
-    fused_sgmv at ranks 1 and 128. Every launch counted. Returns
-    {kernel: [case, ...]}."""
+    fused_sgmv at ranks 1 and 128 and at phase 9's other tiled shapes
+    (``SGMV_PHASE9``). Every launch counted. Returns {kernel: [case, ...]}."""
     out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
                            "flash_prefill", "flash_prefill_ragged")}
     projections = PROJECTIONS
@@ -2309,6 +2342,9 @@ def bf16_kernel_cases(ops, ref, gen, dev):
         for S in (256, 1):
             m = sgmv_case(ops, ref, "q", 1024, 2048, S, gen, dev, r=r, dtype=BF16)
             out["fused_sgmv"].append({"arch": "qwen3-0.6b", **m})
+    for arch, proj, B, S, d_in, d_out in SGMV_PHASE9:
+        m = sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=B, dtype=BF16)
+        out["fused_sgmv"].append({"arch": arch, **m})
     torch.cuda.empty_cache()
     out["ragged_extend"].append(ragged_case(ops, ref, gen, dev, 256, *RAGGED_BUCKETS[256],
                                             dtype=BF16))
@@ -2335,6 +2371,11 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     after = ops.launch_counts()
     require(all(after[k] > before[k] for k in out),
             f"a kernel never launched in bf16: {before} -> {after}")
+    # fused_sgmv: every tiled case on csrc/fused_sgmv_wgmma.cu's loop, every
+    # decode case (S = 1) on the skinny one (sgmv.bf16_path)
+    for c in out["fused_sgmv"]:
+        want = "skinny" if ", S=1," in c["case"] else "wgmma"
+        require(c["path"] == want, f"bf16 fused_sgmv {c['case']} ran the {c['path']} loop")
     # qwen3-0.6b, stablelm-12b (D = 160), gemma-2b (D = 256) and the ragged
     # case run csrc/attention_wgmma.cuh's loop (flash_prefill.bf16_path)
     for k in ("flash_prefill", "flash_prefill_ragged"):
@@ -2475,6 +2516,7 @@ def static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, step
     tok = elog[:, -1].argmax(-1).to(torch.int32) if feed is None else feed[:, 0]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    before_decode = dict(launches=ops.launch_counts(), paths=ops.path_launch_counts())
     logits, fed = [elog[:, -1]], [tok]
     for i in range(steps):
         lg, cache = model.decode(params, cache, tok[:, None], lora=lora, adapter_ids=ids)
@@ -2486,7 +2528,8 @@ def static_run(ops, model, params, lora, tokens, chunk, lens, ids, max_len, step
     t3 = time.perf_counter()
     return dict(prefill_logits=plog[:, -1], logits=logits, fed=torch.stack(fed, 1).cpu(),
                 prefill_s=t1 - t0, extend_s=t2 - t1, decode_s=t3 - t2,
-                launches=ops.launch_counts(), paths=ops.path_launch_counts(), cache=cache)
+                launches=ops.launch_counts(), paths=ops.path_launch_counts(),
+                before_decode=before_decode, cache=cache)
 
 
 def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: int = 0):
@@ -2556,6 +2599,16 @@ def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: 
     require(paths["wgmma"] == launches["flash_prefill"],
             f"{name} bf16: flash_prefill launches by loop {paths}, not all wgmma")
     line["flash_prefill_paths"] = paths
+    # every fused_sgmv launch of the prefill and the extend on the wgmma
+    # loop, every decode launch on the skinny one (sgmv.bf16_path)
+    pre = run["before_decode"]["paths"]["fused_sgmv"]
+    n_pre = run["before_decode"]["launches"]["fused_sgmv"]
+    dec = {p: n - pre[p] for p, n in run["paths"]["fused_sgmv"].items()}
+    require(pre == {"wgmma": n_pre, "mma": 0, "skinny": 0}
+            and dec == {"wgmma": 0, "mma": 0, "skinny": launches["fused_sgmv"] - n_pre},
+            f"{name} bf16: fused_sgmv launches by loop {pre} (prefill, extend), {dec} "
+            "(decode), not all wgmma, then skinny")
+    line["fused_sgmv_paths"] = {"prefill_extend": pre, "decode": dec}
     peak = torch.cuda.max_memory_allocated() / 1e9
     cache = run.pop("cache")
     windows, cache, tok = decode_windows(model, params, lora, cache, run["fed"][:, -1], ids)
@@ -3226,6 +3279,20 @@ def main() -> None:
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
             "case": m["case"]})
+    # bf16 fused_sgmv's wgmma loop (csrc/fused_sgmv_wgmma.cu), its own
+    # source: qwen3-0.6b's q over 8 x 2016 tokens, launches of phase 9
+    wq = next(m for m in bf16_cases["fused_sgmv"]
+              if m["case"].startswith("q ") and ", S=2016," in m["case"])
+    wgmma_launches = sum(line["fused_sgmv_paths"]["prefill_extend"]["wgmma"]
+                         for line in bf16_lines.values())
+    require(wgmma_launches > 0, "fused_sgmv's wgmma loop never ran in phase 9")
+    kernels.append({
+        "name": "fused_sgmv_wgmma", "kernel": "fused_sgmv", "path": "wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_sgmv_wgmma.cu",
+        "replaces": "src/repro/kernels/sgmv.py:115", "launches": wgmma_launches,
+        "launches_by_path": {"bf16": wgmma_launches},
+        **{k: wq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "case", "cublas_xw_ms")}})
     # fused_sgmv's shapes differ by path: beside the engine's bucket, the q
     # projection of the generate path's prefill
     n = len(projections)
@@ -3257,7 +3324,7 @@ def main() -> None:
     # the backward kernels' other cases: flash_prefill_bwd at the other
     # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,
     # 12, 128
-    for k in kernels[6:]:
+    for k in kernels[6:8]:
         k["other_cases"] = [{key: m[key] for key in ("arch",) + keys if key in m}
                             for m in bwd_cases[k["name"]][1:]]
     emit({"phase": "total", "seconds": time.perf_counter() - t_script})

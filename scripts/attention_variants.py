@@ -53,10 +53,13 @@ VARIANTS = {
 }
 
 
-def build_variants(tmp: Path, variants: dict, sources: tuple[str, ...]
+def build_variants(tmp: Path, variants: dict, sources: tuple[str, ...],
+                   flags: tuple[str, ...] = (), logs: dict | None = None
                    ) -> dict[str, dict[str, Path]]:
     """variant -> source -> library, all compiled in parallel: each variant
-    is a copy of ``csrc`` with its edits."""
+    is a copy of ``csrc`` with its edits. ``flags`` go to nvcc after
+    ``build.NVCC_FLAGS``; ``logs``, where given, receives nvcc's output per
+    (variant, source)."""
     nvcc, procs, libs = build.nvcc_path(), [], {}
     for i, (name, edits) in enumerate(variants.items()):
         src = tmp / f"v{i}"
@@ -71,13 +74,15 @@ def build_variants(tmp: Path, variants: dict, sources: tuple[str, ...]
         for source in sources:
             out = src / f"lib{source}.so"
             libs[name][source] = out
-            procs.append(subprocess.Popen(
-                [nvcc, *build.NVCC_FLAGS, "-o", str(out), str(src / f"{source}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for p in procs:
+            procs.append(((name, source), subprocess.Popen(
+                [nvcc, *build.NVCC_FLAGS, *flags, "-o", str(out), str(src / f"{source}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for key, p in procs:
         log, _ = p.communicate()
         if p.returncode != 0:
             raise SystemExit(f"nvcc failed:\n{log}")
+        if logs is not None:
+            logs[key] = log
     return libs
 
 

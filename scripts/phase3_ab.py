@@ -1,7 +1,7 @@
 """Time chip_smoke.py's phase 3 kernel cases of two checkouts in turns.
 
     python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1]
-        [--cases all|forward|backward|flash_bf16]
+        [--cases all|forward|backward|flash_bf16|sgmv_bf16|prefill_bf16]
 
 on one NVIDIA GPU. A_DIR and B_DIR are checkouts of the repository (the
 parent commit and the change, say). Both build their kernels first, in
@@ -20,7 +20,17 @@ q/k/v/o and on q at ranks 1, 12 and 128, flash_prefill_bwd over one row of
 both sides time it); and bf16 flash_prefill at qwen3-0.6b's 8 x 2016,
 stablelm-12b's and gemma-2b's 2 x 2048 and flash_prefill_ragged at its
 ragged lengths (``chip_smoke.bf16_kernel_cases``' flash cases). ``--cases``
-keeps the forward, the backward or the bf16 flash cases only. Each case's
+keeps the forward, the backward or the bf16 flash cases only, or takes
+``sgmv_bf16``: bf16 fused_sgmv (``chip_smoke.sgmv_case``) on qwen3-0.6b's
+q, k, v and o at S = 256, 2016 and 1, q at ranks 1 and 128 (S = 256) and
+at phase 9's 8 x 32 extend, llama-7b's q at 2 x 512 and deepseek's q and
+kv_a at 2 x 256, bf16 sgmv on q and o at S = 2016 and 1, each with the loop
+it took and cuBLAS's bf16 ``x @ W`` (the base term alone) beside it; and
+the device time of each CUDA kernel of one fused_sgmv call (q at S = 256
+and 2016, ``torch.profiler`` over 10 calls); or ``prefill_bf16``: phase 9's
+bf16 ``LM.prefill`` (``chip_smoke.BF16_ARCHS``: qwen3-0.6b 8 x 2016,
+llama-7b 2 x 512, deepseek-v2-lite-16b 2 x 256, full width and depth,
+random weights, 8 LoRA slots) as :func:`prefill_turn` times it. Each case's
 checks run as in chip_smoke (a failed one ends the turn with an error). Prints the card's name and power limit
 (``nvidia-smi``), then one JSON line per turn ({"turn", "dir", "ms": {case:
 ms}, "cold_ms": {case: ms}, "plain_ms", "library_ms"}) and then one
@@ -82,6 +92,28 @@ def turn(root: Path, which: str = "all") -> dict:
             torch.cuda.empty_cache()
     if which == "flash_bf16":
         return cases
+    if which == "sgmv_bf16":
+        bf16 = torch.bfloat16
+        for S in (256, 2016, 1):
+            for p, di, do in projections:
+                cases[f"fused_sgmv bf16 {p} S={S}"] = cs.sgmv_case(ops, ref, p, di, do, S, gen,
+                                                                   dev, dtype=bf16)
+        for r in (1, 128):
+            cases[f"fused_sgmv bf16 q S=256 r={r}"] = cs.sgmv_case(
+                ops, ref, "q", 1024, 2048, 256, gen, dev, r=r, dtype=bf16)
+        for name, proj, B, S, di, do in (
+                ("qwen3-0.6b extend", "q", 8, 32, 1024, 2048),
+                ("llama-7b", "q", 2, 512, 4096, 4096),
+                ("deepseek-v2-lite-16b", "q", 2, 256, 2048, 3072),
+                ("deepseek-v2-lite-16b", "kv_a", 2, 256, 2048, 576)):
+            cases[f"fused_sgmv bf16 {name} {proj} B={B} S={S}"] = cs.sgmv_case(
+                ops, ref, proj, di, do, S, gen, dev, B=B, dtype=bf16)
+        torch.cuda.empty_cache()
+        for S in (2016, 1):
+            for p, di, do in (projections[0], projections[3]):
+                cases[f"sgmv bf16 {p} S={S}"] = cs.sgmv_case(ops, ref, p, di, do, S, gen, dev,
+                                                             base=False, dtype=bf16)
+        return cases
     for S in (256, 1, 2016, 64):
         for p, di, do in projections:
             cases[f"fused_sgmv {p} S={S}"] = cs.sgmv_case(ops, ref, p, di, do, S, gen, dev)
@@ -104,22 +136,109 @@ def turn(root: Path, which: str = "all") -> dict:
     return cases
 
 
+def prefill_turn(root: Path, reps: int = 7) -> dict:
+    """Phase 9's bf16 prefill of each ``BF16_ARCHS`` config of the checkout
+    at ``root``, as ``chip_smoke.static_run`` runs it (weights drawn on the
+    card from seed 0, ``random_lora`` slots, ids 0.. with the last row -1,
+    a cache of phase 9's length): one warm-up call, then ``reps`` calls,
+    each synchronised on both sides. ms is their median; every call's wall
+    ms is kept in ``reps_ms``."""
+    sys.path.insert(0, str(root))
+    sys.path.insert(0, str(root / "src"))
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cases = {}
+    for name, B, S, chunk_len, steps, _ in cs.BF16_ARCHS:
+        cfg = configs.get(name)
+        max_len = -(-(S + chunk_len + steps + 8 * (cs.DECODE_WINDOWS + 1)) // 128) * 128
+        tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                               generator=torch.Generator().manual_seed(2))
+        ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1][:B - 1] + [-1], dtype=torch.int32)
+        model = build_model(cfg, device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        lora = cs.random_lora(model, 8, 1)
+        times = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, tokens, max_len, lora=lora, adapter_ids=ids)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        cases[f"prefill bf16 {name} {B}x{S}"] = dict(
+            ms=statistics.median(times), reps_ms=times, plain_ms=None, library_ms=None)
+        del model, params, lora
+        torch.cuda.empty_cache()
+    return cases
+
+
+def launch_split(S: int, calls: int = 10) -> dict:
+    """Device µs per call of each CUDA kernel of one bf16 fused_sgmv call
+    on qwen3-0.6b's q projection (B = 8, rank 32), from ``torch.profiler``
+    over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    x = torch.randn((8, S, 1024), generator=gen, device=dev).to(bf16)
+    w = (torch.randn((1024, 2048), generator=gen, device=dev) / 32).to(bf16)
+    a = (torch.randn((8, 1024, 32), generator=gen, device=dev) / 32).to(bf16)
+    b = (torch.randn((8, 32, 2048), generator=gen, device=dev) * 0.1).to(bf16)
+    ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7], dtype=torch.int32, device=dev)
+    for _ in range(3):
+        ops.fused_sgmv(x, w, a, b, ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.fused_sgmv(x, w, a, b, ids)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            out[e.key[:80]] = us / calls
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("a", nargs="?")
     ap.add_argument("b", nargs="?")
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--cases", choices=("all", "forward", "backward", "flash_bf16"),
-                    default="all")
+    ap.add_argument("--cases", choices=("all", "forward", "backward", "flash_bf16",
+                                        "sgmv_bf16", "prefill_bf16"), default="all")
     ap.add_argument("--run", help="(internal) run one turn in this checkout")
     args = ap.parse_args()
     if args.run:
-        cases = turn(Path(args.run).resolve(), args.cases)
+        root = Path(args.run).resolve()
+        cases = (prefill_turn(root) if args.cases == "prefill_bf16"
+                 else turn(root, args.cases))
         print(json.dumps({"ms": {k: c["ms"] for k, c in cases.items()},
                           "cold_ms": {k: c["cold"]["ms"] for k, c in cases.items()
                                       if "cold" in c},
                           "plain_ms": {k: c["plain_ms"] for k, c in cases.items()},
-                          "library_ms": {k: c["library_ms"] for k, c in cases.items()}}),
+                          "library_ms": {k: c["library_ms"] for k, c in cases.items()},
+                          "path": {k: c["path"] for k, c in cases.items() if "path" in c},
+                          "cublas_xw_ms": {k: c["cublas_xw_ms"] for k, c in cases.items()
+                                           if "cublas_xw_ms" in c},
+                          "reps_ms": {k: c["reps_ms"] for k, c in cases.items()
+                                      if "reps_ms" in c},
+                          **({"launch_split_us": {f"q S={S}": launch_split(S)
+                                                  for S in (256, 2016)}}
+                             if args.cases == "sgmv_bf16" else {})}),
               flush=True)
         return
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

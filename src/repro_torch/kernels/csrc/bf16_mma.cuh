@@ -109,6 +109,36 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 __device__ __forceinline__ void store1(float* p, float a) { *p = a; }
 __device__ __forceinline__ void store1(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
 
+// The tiled paths of fused_sgmv.cu and fused_sgmv_wgmma.cu with d_in split
+// over blocks: y = part[0] + part[1] + ... in that order, ``parts`` f32
+// partials of n elements each, rounded once to E. V4: n % 4 == 0. Both
+// launch blocks of 256 threads.
+template <class E, bool V4>
+__global__ void __launch_bounds__(256) sum_parts_kernel(const float* __restrict__ part, E* __restrict__ y, size_t n,
+                                 int parts) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  if constexpr (V4) {
+    const float4* p = reinterpret_cast<const float4*>(part);
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n / 4; i += stride) {
+      float4 v = p[i];
+      for (int z = 1; z < parts; ++z) {
+        const float4 u = p[z * (n / 4) + i];
+        v.x += u.x;
+        v.y += u.y;
+        v.z += u.z;
+        v.w += u.w;
+      }
+      store4(y + 4 * i, v);
+    }
+  } else {
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+      float v = part[i];
+      for (int z = 1; z < parts; ++z) v += part[z * n + i];
+      store1(y + i, v);
+    }
+  }
+}
+
 // a = hi + lo + e, hi and lo bf16 (hi rounded to nearest, lo the rounded
 // rest), |e| <= 2^-17·|a|: two bf16 products on an f32 operand keep ~16 bits
 __device__ __forceinline__ void split_bf16(float a0, float a1, unsigned& hi, unsigned& lo) {

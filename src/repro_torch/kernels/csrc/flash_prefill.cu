@@ -187,32 +187,6 @@ extern "C" int flash_prefill_bf16_launch(const bf16* q, const bf16* k, const bf1
 
 namespace {
 
-// cuTensorMapEncodeTiled, a driver API function, through the runtime's entry
-// point query: the library links nothing but the runtime
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return e == cudaSuccess && res == cudaDriverEntryPointSuccess ? (EncodeTiledFn)p : nullptr;
-  }();
-  return fn;
-}
-
-// error codes past the runtime's: the driver refused a tensor map (+ its CUresult)
-constexpr int TENSOR_MAP_ERROR = 100000;
-
 // The 4-D tensor map (D, S, Hkv, B) of k or v with its element strides:
 // boxes of 64 d x ``keys`` keys, the 128-byte swizzle, zeros out of bounds.
 int kv_map(CUtensorMap* map, const bf16* base, int B, int S, int Hkv, int D, Strides st,

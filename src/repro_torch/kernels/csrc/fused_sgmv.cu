@@ -73,11 +73,15 @@
 // parity checks; tests/test_torch_tf32x3.py emulates the arithmetic on the
 // CPU. One TF32 product per term would keep ~11 bits and break them.
 //
-// Why mma.sync and not yet wgmma: wgmma reads TF32 operands from shared
+// Why the f32 path stays on mma.sync: wgmma reads TF32 operands from shared
 // memory only K-major, and W is (d_in, d_out) row-major, N-major; it would
 // need a transpose of every W tile in shared memory or a transposed copy of
 // the weights in the model. mma.sync fragments are loaded thread by thread,
-// so the [k][n] W tile is read as it lies. wgmma is later work.
+// so the [k][n] W tile is read as it lies. bf16 wgmma reads an MN-major B
+// through the descriptor's transpose bit, so bf16 launches of fused_sgmv
+// with more than 16 rows, d_in and d_out multiples of 8 and 16-byte bases
+// run fused_sgmv_wgmma.cu's loop (sgmv.py's bf16_path); this file's bf16
+// tiled loop takes the other bf16 shapes and sgmv.
 //
 // Skinny (M <= 16, the decode steps). Bound by the bytes of W: at M = 8
 // the q projection reads 8 MB of W, ~0.9 MB of the live A and ~1.8 MB of
@@ -642,33 +646,6 @@ __global__ void __launch_bounds__(THREADS) fused_sgmv_tiled_kernel(
     tiled_store<HAS_BASE>(acc, total, y, m0, n0, wm, wn, M, d_out);
 }
 
-// Tiled path with d_in split: y = part[0] + part[1] + ... in that order.
-template <class E, bool V4>
-__global__ void __launch_bounds__(THREADS) fused_sgmv_sum_parts_kernel(
-    const float* __restrict__ part, E* __restrict__ y, size_t n, int parts) {
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  if constexpr (V4) {
-    const float4* p = reinterpret_cast<const float4*>(part);
-    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n / 4; i += stride) {
-      float4 v = p[i];
-      for (int z = 1; z < parts; ++z) {
-        const float4 u = p[z * (n / 4) + i];
-        v.x += u.x;
-        v.y += u.y;
-        v.z += u.z;
-        v.w += u.w;
-      }
-      store4(y + 4 * i, v);
-    }
-  } else {
-    for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-      float v = part[i];
-      for (int z = 1; z < parts; ++z) v += part[z * n + i];
-      store1(y + i, v);
-    }
-  }
-}
-
 // Skinny path, pass 1 (see the header). Block x < cols is a W block: rows
 // [0, M) times columns [64·x, 64·x + 64) over k split blockIdx.y, written
 // to part[split][M][d_out]. Block x >= cols is a shrink block: ranks
@@ -938,7 +915,7 @@ int launch_tiled(const E* x, const E* w, const E* lora_a,
   const size_t n = (size_t)M * d_out;
   const size_t blocks = (n / (V4 ? 4 : 1) + THREADS - 1) / THREADS;
   const int cap = 4 * sm_count();
-  fused_sgmv_sum_parts_kernel<E, V4><<<blocks < (size_t)cap ? (int)blocks : cap, THREADS, 0,
+  sum_parts_kernel<E, V4><<<blocks < (size_t)cap ? (int)blocks : cap, THREADS, 0,
                                     stream>>>(part, y, n, sp.base);
   return (int)cudaGetLastError();
 }

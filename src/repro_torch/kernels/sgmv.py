@@ -12,7 +12,12 @@ kernel or raises. Every rank from 1 to ``MAX_RANK`` is taken. The inputs
 are float32 or bfloat16, all of one type (the output takes it); bfloat16
 computes what the reference's kernel computes on bf16 inputs (products of
 the bf16 values with f32 sums, h = x·A kept in f32, B promoted, y rounded
-once).
+once). A launch takes one of three loops, chosen from its shape and
+counted per loop (``ops.path_launch_counts``): M = B·S <= 16 rows the
+skinny path (decode), bf16 launches with d_in and d_out multiples of 8 on
+16-byte bases the ``wgmma`` + TMA loop of ``csrc/fused_sgmv_wgmma.cu``,
+the rest the ``mma.sync`` loop of ``csrc/fused_sgmv.cu``
+(:func:`bf16_path`).
 
 ``fused_sgmv`` is differentiable: under autograd, with an input that
 requires grad, it runs as a ``torch.autograd.Function``. Its backward
@@ -44,6 +49,15 @@ _SIGNATURES = {
     "sgmv_bf16_launch": "ppppppiiiiifp",
     # (M, d_in, d_out, R, has_base) -> floats of scratch a launch needs
     "fused_sgmv_scratch_floats": "iiiii",
+}
+_WGMMA_SOURCE = "fused_sgmv_wgmma"
+_WGMMA_SIGNATURES = {
+    # x, w, lora_a, lora_b, ids, y, scratch, its floats, counters (NULL: the
+    # shrink is not split), their count, M, S, d_in, d_out, r, N, SMs,
+    # scale, stream
+    "fused_sgmv_bf16_wgmma_launch": "ppppppplpiiiiiiiifp",
+    # B, S, d_in, d_out, r, SMs, out: 6 int64s -> the launch's plan
+    "fused_sgmv_wgmma_plan": "iiiiiip",
 }
 _GRAD_SOURCE = "lora_grad"
 _GRAD_SIGNATURES = {
@@ -78,6 +92,41 @@ def skinny_plan(M: int, d_in: int, d_out: int, has_base: bool, sms: int):
     return cols, -(-KT // kper), kper
 
 
+def bf16_path(M: int, d_in: int, d_out: int, ptrs, dtype: torch.dtype) -> str:
+    """The loop of a ``fused_sgmv`` launch of M = B·S rows in ``dtype``,
+    from its shape alone: ``"skinny"`` (``csrc/fused_sgmv.cu``'s decode
+    path) for at most 16 rows with d_in and d_out multiples of 4;
+    ``"wgmma"`` (``csrc/fused_sgmv_wgmma.cu``: TMA loads and warpgroup
+    products) for bf16 with d_in and d_out multiples of 8 (TMA's 16-byte
+    strides) and every base address in ``ptrs`` (x, W, A, B) on 16 bytes;
+    else ``"mma"`` (``csrc/fused_sgmv.cu``'s tiled mma.sync loop, which
+    takes 8-byte rows, and every tiled f32 launch). A pure function:
+    nothing is tried and nothing falls back."""
+    if M <= SKINNY_MAX_M and d_in % 4 == 0 and d_out % 4 == 0:
+        return "skinny"
+    if (dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "mma"
+
+
+WGMMA_PLAN_KEYS = ("shrink_parts", "shrink_kper", "base_parts", "base_kper",
+                   "scratch_floats", "counters")
+
+
+def wgmma_plan(lib, B: int, S: int, d_in: int, d_out: int, r: int, sms: int) -> dict:
+    """How ``csrc/fused_sgmv_wgmma.cu`` (``lib``) splits a launch on a card
+    of ``sms`` SMs, from the source's own ``make_plan``: the shrink's and
+    the tile loop's parts of d_in and k stages a part, and the f32 scratch
+    and int32 counters the launch needs ({``WGMMA_PLAN_KEYS``})."""
+    import ctypes
+
+    out = (ctypes.c_int64 * len(WGMMA_PLAN_KEYS))()
+    code = lib.fused_sgmv_wgmma_plan(B, S, d_in, d_out, r, sms, ctypes.addressof(out))
+    build.check_error("fused_sgmv", _WGMMA_SOURCE, lib, code)
+    return dict(zip(WGMMA_PLAN_KEYS, out))
+
+
 # csrc/lora_grad.cu's tiles, which lora_grad_plan splits the work over
 LORA_GRAD_TM = 64  # tokens of a shrink tile
 LORA_GRAD_KC = 32  # d rows of a shrink stage
@@ -108,8 +157,10 @@ _counters: dict = {}
 
 
 def _zero_counters(dev, stream, n: int) -> torch.Tensor:
-    """lora_grad's counts of finished shrink parts: at least ``n`` int32
-    zeros, one buffer per device and stream. The kernel leaves them zero."""
+    """The counts of finished shrink parts of lora_grad and of the wgmma
+    loop of fused_sgmv: at least ``n`` int32 zeros, one buffer per device and
+    stream (the launches on a stream run in turn). The kernels leave them
+    zero."""
     buf = _counters.get((dev, stream))
     if buf is None or buf.numel() < n:
         buf = _counters[(dev, stream)] = torch.zeros((n,), device=dev, dtype=torch.int32)
@@ -169,24 +220,46 @@ def _launch(name, x, w, lora_a, lora_b, adapter_ids, scale):
     y = torch.empty((B, S, d_out), device=dev, dtype=dtype)
     if B * S == 0 or d_out == 0:
         return y
-    lib = build.load(_SOURCE, _SIGNATURES)
-    scratch = torch.empty(
-        (max(1, lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, w is not None)),),
-        device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if w is None:
+        lib = build.load(_SOURCE, _SIGNATURES)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch(lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 0), dev)
         code = getattr(lib, build.entry("sgmv_launch", dtype))(
             x.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(), ids.data_ptr(),
             y.data_ptr(), scratch.data_ptr(), B * S, S, d_in, d_out, r,
             float(scale), stream)
+        build.check_error(name, _SOURCE, lib, code)
+        build.launches[name] += 1
+        return y
+    ptrs = (x.data_ptr(), w.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr())
+    path = bf16_path(B * S, d_in, d_out, ptrs, dtype)
+    source = _WGMMA_SOURCE if path == "wgmma" else _SOURCE
+    lib = build.load(source, _WGMMA_SIGNATURES if path == "wgmma" else _SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if path == "wgmma":
+        sms = build.sm_count(dev)
+        plan = wgmma_plan(lib, B, S, d_in, d_out, r, sms)
+        scratch = _scratch(plan["scratch_floats"], dev)
+        counters = (_zero_counters(dev, stream, plan["counters"]) if plan["counters"]
+                    else None)
+        code = lib.fused_sgmv_bf16_wgmma_launch(
+            *ptrs, ids.data_ptr(), y.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            None if counters is None else counters.data_ptr(),
+            0 if counters is None else counters.numel(), B * S, S, d_in, d_out, r,
+            lora_a.shape[0], sms, float(scale), stream)
     else:
+        scratch = _scratch(lib.fused_sgmv_scratch_floats(B * S, d_in, d_out, r, 1), dev)
         code = getattr(lib, build.entry("fused_sgmv_launch", dtype))(
-            x.data_ptr(), w.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr(),
-            ids.data_ptr(), y.data_ptr(), scratch.data_ptr(), B * S, S, d_in,
+            *ptrs, ids.data_ptr(), y.data_ptr(), scratch.data_ptr(), B * S, S, d_in,
             d_out, r, float(scale), stream)
-    build.check_error(name, _SOURCE, lib, code)
+    build.check_error(name, source, lib, code)
     build.launches[name] += 1
+    build.path_launches[name, path] += 1
     return y
+
+
+def _scratch(floats: int, dev) -> torch.Tensor:
+    return torch.empty((max(1, floats),), device=dev, dtype=torch.float32)
 
 
 def weight_grad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

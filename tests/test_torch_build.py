@@ -21,7 +21,8 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-HEADERS = ["tf32x3.cuh", "attention_tc.cuh", "bf16_mma.cuh", "attention_wgmma.cuh"]
+HEADERS = ["tf32x3.cuh", "attention_tc.cuh", "bf16_mma.cuh", "wgmma.cuh",
+           "attention_wgmma.cuh"]
 
 
 def test_sources_and_headers_are_in_the_package():

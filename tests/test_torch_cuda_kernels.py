@@ -352,6 +352,162 @@ def test_paged_attention_cuda_matches_plain(cuda, dtype, B, T, H, Hkv, D, page):
     assert torch.equal(got[0], torch.zeros_like(got[0]))  # length 0
 
 
+# bf16 fused_sgmv on csrc/fused_sgmv_wgmma.cu (sgmv.bf16_path: M > 16, d_in
+# and d_out multiples of 8, 16-byte bases): the tensor-core shrink, 128 x
+# 256 tiles on wgmma with x, W and B[id] by TMA, the expand after x·W in
+# the same accumulator, d_in split where the tiles do not fill the card.
+# qwen3-0.6b's q, k and o at S = 2016 and 256; tiles straddling batch rows
+# (S = 37, 2016); ranks 1, 12, 32, 128; deepseek's kv_a (d_out = 576, a
+# part-filled tile); d_in = 4096 with all-positive inputs (the longest
+# chain of k16 steps rounding toward zero); the engine's 8 x 32 extend
+# (d_in split into 8 parts, summed in order). ids as in _TILED.
+_WGMMA = [
+    # B, S, d_in, d_out, r, N, ids, scale, positive
+    (8, 2016, 1024, 2048, 32, 8, "mixed", 1.0, False),  # qwen3-0.6b q, fresh prefill
+    (8, 2016, 1024, 1024, 32, 8, "repeat", 1.0, False),  # k
+    (8, 2016, 2048, 1024, 32, 8, "mixed", 1.0, False),  # o
+    (8, 256, 1024, 2048, 32, 8, "mixed", 2.0, False),   # q at the engine's bucket
+    (8, 256, 1024, 1024, 32, 8, "repeat", 1.0, False),  # k: d_in in 2 parts
+    (8, 32, 1024, 2048, 32, 8, "mixed", 1.0, False),    # the 8 x 32 extend: 8 parts
+    (4, 37, 256, 320, 16, 3, "mixed", 0.5, False),      # tiles straddle 4 batch rows
+    (4, 37, 256, 320, 16, 3, "repeat", 2.0, False),
+    (2, 100, 256, 256, 1, 3, "mixed", 0.25, False),     # ranks 1, 12, 32, 128
+    (2, 100, 256, 256, 12, 3, "repeat", 0.25, False),
+    (2, 100, 256, 256, 32, 3, "mixed", 0.25, False),
+    (2, 100, 256, 256, 128, 3, "mixed", 0.25, False),
+    (2, 256, 2048, 576, 32, 8, "mixed", 1.0, False),    # deepseek kv_a
+    (2, 64, 4096, 512, 32, 4, "repeat", 1.0, True),     # d_in = 4096, all positive
+    (3, 50, 128, 256, 32, 2, "none", 2.0, False),       # every id -1
+]
+
+
+def _wgmma_inputs(B, S, d_in, d_out, r, N, ids, positive, dev):
+    x, w, a, b, idv = _tiled_inputs(B, S, d_in, d_out, r, N, ids, dev, seed=9,
+                                    dtype=torch.bfloat16)
+    if positive:
+        x, w, a, b = (t.abs() for t in (x, w, a, b))
+    return x, w, a, b, idv
+
+
+def _sgmv_path(x, w, a, b):
+    B, S, d_in = x.shape
+    return sgmv_mod.bf16_path(B * S, d_in, w.shape[1],
+                              (x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr()),
+                              x.dtype)
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,want", [
+    # want: (shrink parts, kper, base parts, kper) on an H100's 132 SMs
+    (8, 2016, 1024, 2048, 32, (1, 16, 1, 16)),  # qwen3-0.6b q: 1008 tiles
+    (8, 2016, 2048, 1024, 32, (1, 32, 1, 32)),  # o
+    (8, 256, 1024, 2048, 32, (2, 8, 1, 16)),    # 128 tiles: one wave
+    (8, 256, 1024, 1024, 32, (2, 8, 1, 16)),    # 64 tiles: half the card
+    (8, 32, 1024, 2048, 32, (2, 8, 4, 4)),      # the extend: 16 tiles
+    (2, 256, 2048, 576, 32, (4, 8, 5, 7)),      # deepseek kv_a: 12 tiles
+    (2, 512, 4096, 4096, 32, (8, 8, 1, 64)),    # llama-7b: 128 tiles
+    (4, 37, 256, 320, 16, (1, 4, 2, 2)),        # 4 k stages in parts of 2
+    (2, 100, 128, 256, 128, (1, 2, 1, 2)),      # 2 k stages: one part
+    (3, 40, 128, 256, 12, (1, 2, 1, 2)),        # r % 8 != 0: at most 2 stages a part
+])
+def test_fused_sgmv_cuda_wgmma_plan(cuda, B, S, d_in, d_out, r, want):
+    """fused_sgmv_wgmma.cu's make_plan, as sgmv.wgmma_plan reads it: parts
+    cover d_in's k stages of 64 with none empty; the scratch holds h (ranks
+    padded to 32), the shrink's partials where it is split and the partial
+    tiles where the tile loop is; one counter a shrink block of a part."""
+    lib = build.load(sgmv_mod._WGMMA_SOURCE, sgmv_mod._WGMMA_SIGNATURES)
+    plan = sgmv_mod.wgmma_plan(lib, B, S, d_in, d_out, r, 132)
+    sp, skper, bp, bkper = (plan[k] for k in sgmv_mod.WGMMA_PLAN_KEYS[:4])
+    assert (sp, skper, bp, bkper) == want
+    KT = -(-d_in // 64)
+    for parts, kper in ((sp, skper), (bp, bkper)):
+        assert 1 <= parts <= 8 and (parts - 1) * kper < KT <= parts * kper
+    M, rs = B * S, -(-r // 32) * 32
+    assert plan["scratch_floats"] == (M * rs + (sp * M * rs if sp > 1 else 0)
+                                      + (bp * M * d_out if bp > 1 else 0))
+    assert plan["counters"] == (B * -(-S // 64) * rs // 32 if sp > 1 else 0)
+
+
+@pytest.mark.parametrize("short", ["scratch", "counters"])
+def test_fused_sgmv_cuda_wgmma_refuses_short_buffers(cuda, short):
+    """The C entry sizes the plan itself and refuses a scratch or a counter
+    buffer shorter than it needs (cudaErrorInvalidValue), writing nothing."""
+    B, S, d_in, d_out, r = 8, 32, 1024, 2048, 32  # the extend: both buffers in use
+    x, w, a, b, idv = _wgmma_inputs(B, S, d_in, d_out, r, 8, "mixed", False, cuda)
+    lib = build.load(sgmv_mod._WGMMA_SOURCE, sgmv_mod._WGMMA_SIGNATURES)
+    sms = build.sm_count(cuda)
+    plan = sgmv_mod.wgmma_plan(lib, B, S, d_in, d_out, r, sms)
+    assert plan["counters"] > 0 and plan["scratch_floats"] > 0
+    floats = plan["scratch_floats"] - (short == "scratch")
+    n_count = plan["counters"] - (short == "counters")
+    scratch = torch.zeros((plan["scratch_floats"],), device=cuda)
+    counters = torch.zeros((plan["counters"],), device=cuda, dtype=torch.int32)
+    y = torch.zeros((B, S, d_out), device=cuda, dtype=torch.bfloat16)
+    code = lib.fused_sgmv_bf16_wgmma_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idv.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), floats, counters.data_ptr(), n_count, B * S, S, d_in, d_out, r,
+        a.shape[0], sms, 1.0, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 1  # cudaErrorInvalidValue
+    assert not y.any() and not counters.any()
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale,positive", _WGMMA)
+def test_fused_sgmv_cuda_wgmma_path(cuda, B, S, d_in, d_out, r, N, ids, scale, positive):
+    """On the wgmma loop (counted), within the bf16 bar of the plain bf16
+    and f32 versions, repeat launches bitwise equal, and every row of id -1
+    bitwise equal to the same launch with every id -1: bf16(x·W) as the
+    loop sums it, no delta."""
+    x, w, a, b, idv = _wgmma_inputs(B, S, d_in, d_out, r, N, ids, positive, cuda)
+    assert _sgmv_path(x, w, a, b) == "wgmma"
+    paths = ops.path_launch_counts()["fused_sgmv"]
+    got = fused_sgmv(x, w, a, b, idv, scale=scale)
+    torch.cuda.synchronize()
+    assert _one_path_launch("fused_sgmv", paths, "wgmma")
+    want, want32 = _plain(ref.fused_sgmv_ref, x, w, a, b, idv, scale)
+    assert _match(got, want, 1e-4 * float(want.abs().max()), torch.bfloat16, want32)
+    assert torch.equal(fused_sgmv(x, w, a, b, idv, scale=scale), got)
+    base = fused_sgmv(x, w, a, b, torch.full_like(idv, -1), scale=scale)
+    dead = idv < 0
+    assert torch.equal(got[dead], base[dead])
+    bwant, bwant32 = _plain(ref.fused_sgmv_ref, x, w, a, b, torch.full_like(idv, -1), scale)
+    assert _match(base, bwant, 1e-4 * float(bwant.abs().max()), torch.bfloat16, bwant32)
+
+
+@pytest.mark.parametrize("case", ["d_out % 8", "x on 8 bytes"])
+def test_fused_sgmv_cuda_bf16_shapes_off_the_wgmma_loop(cuda, case):
+    """bf16 launches the wgmma loop cannot read take fused_sgmv.cu's tiled
+    mma.sync loop by the rule, counted as such: d_out = 324 (no multiple
+    of 8) and x on an 8-byte offset (a contiguous view 4 elements into a
+    buffer). Within the bf16 bar either way."""
+    d_out = 324 if case == "d_out % 8" else 256
+    x, w, a, b, idv = _wgmma_inputs(4, 37, 256, d_out, 16, 3, "mixed", False, cuda)
+    if case == "x on 8 bytes":
+        flat = torch.empty(x.numel() + 4, device=cuda, dtype=x.dtype)
+        flat[4:] = x.reshape(-1)
+        x = flat[4:].view(x.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    assert _sgmv_path(x, w, a, b) == "mma"
+    paths = ops.path_launch_counts()["fused_sgmv"]
+    got = fused_sgmv(x, w, a, b, idv, scale=0.5)
+    torch.cuda.synchronize()
+    assert _one_path_launch("fused_sgmv", paths, "mma")
+    want, want32 = _plain(ref.fused_sgmv_ref, x, w, a, b, idv, 0.5)
+    assert _match(got, want, 1e-4 * float(want.abs().max()), torch.bfloat16, want32)
+
+
+def test_fused_sgmv_cuda_decode_takes_the_skinny_loop(cuda):
+    """M <= 16 rows (a decode step of 8 rows) take the skinny loop in bf16
+    and f32, counted as such."""
+    for dtype in DTYPES:
+        x, w, a, b, idv = _tiled_inputs(8, 1, 1024, 2048, 32, 8, "mixed", cuda, seed=3,
+                                        dtype=dtype)
+        assert _sgmv_path(x, w, a, b) == "skinny"
+        paths = ops.path_launch_counts()["fused_sgmv"]
+        fused_sgmv(x, w, a, b, idv)
+        torch.cuda.synchronize()
+        assert _one_path_launch("fused_sgmv", paths, "skinny")
+
+
 # The skinny path of fused_sgmv.cu (M <= 16): d_in split over blocks with
 # the shrink in the same grid, then a merge pass. d_in off the 32-row ring
 # stage (100, 2048 + 4), d_out that part-fills a 64-column slab, ranks 4
