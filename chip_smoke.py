@@ -75,7 +75,11 @@ exits non-zero:
               bf16 as the attention kernels' library call; each flash and
               fused_sgmv case names the tile loop it ran (``path``), and
               every bf16 flash case must run ``wgmma``
-              (``csrc/attention_wgmma.cuh``), every bf16 fused_sgmv case
+              (``csrc/attention_wgmma.cuh``), every bf16 ragged_extend case
+              ``wgmma`` (phase 9's extend among them: 8 KV parts at
+              qwen3-0.6b), every bf16 paged_attention case ``split`` where
+              G·D <= 512 (phase 9's decode among them) and ``chunk`` past
+              it, every bf16 fused_sgmv case
               ``wgmma`` (``csrc/fused_sgmv_wgmma.cu``) or, at S = 1,
               ``skinny``; each bf16 fused_sgmv case times cuBLAS's bf16
               ``x @ W`` beside it (``cublas_xw_ms``: the base term alone,
@@ -454,8 +458,9 @@ RAGGED_BUCKETS = {
 
 def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
                 D=128, cold=False, dtype=torch.float32):
-    """ragged_extend on one bucket, in ``dtype``: checked, zeros past every
-    row's length, a repeat launch bitwise equal, timed warm and, with
+    """ragged_extend on one bucket, in ``dtype``: the loop it took
+    (``path``), checked, zeros past every row's length, a repeat launch
+    bitwise equal, timed warm and, with
     ``cold``, with a cold L2 (q and the KV rotated over
     :func:`cold_copies` copies)."""
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
@@ -463,7 +468,15 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
     v = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
     tl = torch.tensor(lens, dtype=torch.int32, device=dev)
     st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    paths = ops.path_launch_counts()["ragged_extend"]
     got = ops.ragged_extend(q, k, v, st, tl)
+    path = next(p for p, n in ops.path_launch_counts()["ragged_extend"].items() if n > paths[p])
+    parts = None
+    if path == "wgmma":  # the launch's KV parts (csrc/ragged_split.cuh: split_count)
+        from repro_torch.kernels import build
+        from repro_torch.kernels.ragged_extend import _WGMMA_SIGNATURES
+        lib = build.load("ragged_extend_wgmma", _WGMMA_SIGNATURES)
+        parts = lib.ragged_extend_wgmma_kv_parts(B, S, T, H, Hkv, D)
     want = ref.ragged_extend_ref(q, k, v, st, tl)
     want32 = ref.ragged_extend_ref(*up(q, k, v), st, tl) if dtype != torch.float32 else None
     torch.cuda.synchronize()
@@ -491,7 +504,7 @@ def ragged_case(ops, ref, gen, dev, S, lens, starts, B=8, T=2048, H=16, Hkv=8,
     out = dict(
         case=f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, true_lens={lens}"
              + (", bf16" if dtype == torch.bfloat16 else ""),
-        **errs, ms=ms, host_ms=host_ms,
+        path=path, kv_parts=parts, **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: ref.ragged_extend_ref(q, k, v, st, tl))[0],
         bound_ms=bnd, bound_by=by, library_ms=lib,
     )
@@ -518,8 +531,8 @@ PAGED_LENGTHS = {
 
 def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
                ps=128, dtype=torch.float32):
-    """paged_attention on full-width qwen3-0.6b heads, in ``dtype``:
-    checked, a repeat launch bitwise equal, timed warm and with a cold L2
+    """paged_attention on full-width qwen3-0.6b heads, in ``dtype``: the
+    loop it took (``path``), checked, a repeat launch bitwise equal, timed warm and with a cold L2
     (``cold``: the KV rotated over :func:`cold_copies` copies). The library
     call is SDPA with the equivalent boolean mask (it reads the whole
     table)."""
@@ -544,7 +557,11 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
-    got, want = kernel(kc, vc), plain(kc, vc)
+    paths = ops.path_launch_counts()["paged_attention"]
+    got = kernel(kc, vc)
+    path = next(p for p, n in ops.path_launch_counts()["paged_attention"].items()
+                if n > paths[p])
+    want = plain(kc, vc)
     want32 = plain(*up(kc, vc, q)) if dtype != torch.float32 else None
     torch.cuda.synchronize()
     errs = check_out(f"paged_attention {lens} D={D} {dtype}", got, want, want32, dtype,
@@ -563,7 +580,7 @@ def paged_case(ops, ref, gen, dev, lens, B=8, T=2048, H=16, Hkv=8, D=128,
     out = dict(
         case=f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, lengths={lens}"
              + (", bf16" if dtype == torch.bfloat16 else ""),
-        **errs, ms=ms, host_ms=host_ms,
+        path=path, **errs, ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: plain(kc, vc))[0],
         bound_ms=bnd, bound_by=by, library_ms=time_ms(lambda: library(kt, vt))[0],
     )
@@ -2317,6 +2334,29 @@ SGMV_PHASE9 = (("qwen3-0.6b extend", "q", 8, 32, 1024, 2048),
                ("deepseek-v2-lite-16b", "kv_a", 2, 256, 2048, 576))
 
 
+# ragged_extend and paged_attention at phase 9's shapes (BF16_ARCHS' rows,
+# prompts, ragged extend lengths and cache length, as bf16_phase sets them):
+# (arch, kv heads' query heads H, Hkv). qwen3-0.6b's 8 x 32 extend makes one
+# q tile a (row, kv head) over 2176 keys, split in 8 KV parts and combined;
+# llama-7b's 2 x 32 over 640 keys in 3. Their decode's first step: pages of
+# 128, 5-block clusters at both
+ATTN_PHASE9 = (("qwen3-0.6b", 16, 8), ("llama-7b", 32, 32))
+
+
+def phase9_attention_shapes():
+    """(arch, B, prompt tokens, cache length T, extend chunk, its true_lens,
+    H, Hkv) of each ATTN_PHASE9 config, from BF16_ARCHS as
+    :func:`bf16_phase` builds its run."""
+    heads = {arch: (H, Hkv) for arch, H, Hkv in ATTN_PHASE9}
+    out = []
+    for name, B, S, chunk_len, steps, _ in BF16_ARCHS:
+        if name in heads:
+            T = -(-(S + chunk_len + steps + 8 * (DECODE_WINDOWS + 1)) // 128) * 128
+            lens = [chunk_len - (7 * b) % chunk_len for b in range(B)]
+            out.append((name, B, S, T, chunk_len, lens, *heads[name]))
+    return out
+
+
 def bf16_kernel_cases(ops, ref, gen, dev):
     """Phase 3 in bf16: each forward kernel at the shapes of its f32 row
     (qwen3-0.6b's q/k/v/o at S = 256, 2016 and 1; sgmv at S = 2016 and 1;
@@ -2324,7 +2364,8 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     the engine's lengths; flash_prefill 8 x 2016 and flash_prefill_ragged
     at its ragged lengths), then ragged_extend and paged_attention at
     llama-7b (G = 1), qwen2-vl-7b (G = 7), stablelm-12b (D = 160) and
-    gemma-2b (D = 256), flash_prefill at the two wide heads, and
+    gemma-2b (D = 256), both again at phase 9's extend and first decode
+    step (``ATTN_PHASE9``), flash_prefill at the two wide heads, and
     fused_sgmv at ranks 1 and 128 and at phase 9's other tiled shapes
     (``SGMV_PHASE9``). Every launch counted. Returns {kernel: [case, ...]}."""
     out = {k: [] for k in ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
@@ -2359,6 +2400,13 @@ def bf16_kernel_cases(ops, ref, gen, dev):
                        dtype=BF16)
         out["paged_attention"].append({"arch": arch, **m})
         torch.cuda.empty_cache()
+    for arch, B, S0, T, chunk_len, lens, H, Hkv in phase9_attention_shapes():
+        m = ragged_case(ops, ref, gen, dev, chunk_len, lens, [S0] * B, B=B, T=T, H=H,
+                        Hkv=Hkv, dtype=BF16)
+        out["ragged_extend"].append({"arch": f"{arch} phase 9 extend", **m})
+        m = paged_case(ops, ref, gen, dev, [S0 + n + 1 for n in lens], B=B, T=T, H=H,
+                       Hkv=Hkv, dtype=BF16)
+        out["paged_attention"].append({"arch": f"{arch} phase 9 decode", **m})
     out["flash_prefill"].append(flash_case(ops, ref, gen, dev, dtype=BF16))
     torch.cuda.empty_cache()
     out["flash_prefill_ragged"].append(flash_case(
@@ -2377,10 +2425,25 @@ def bf16_kernel_cases(ops, ref, gen, dev):
         want = "skinny" if ", S=1," in c["case"] else "wgmma"
         require(c["path"] == want, f"bf16 fused_sgmv {c['case']} ran the {c['path']} loop")
     # qwen3-0.6b, stablelm-12b (D = 160), gemma-2b (D = 256) and the ragged
-    # case run csrc/attention_wgmma.cuh's loop (flash_prefill.bf16_path)
-    for k in ("flash_prefill", "flash_prefill_ragged"):
+    # case run csrc/attention_wgmma.cuh's loop (flash_prefill.bf16_path), and
+    # so does every ragged_extend case (ragged_extend_wgmma.cu,
+    # ragged_extend.bf16_path), qwen3-0.6b's phase 9 extend split in 8 KV
+    # parts (the most); paged_attention runs paged_attention.cu's split loop
+    # at qwen3-0.6b and llama-7b (G·D 256 and 128) and the chunk loop at
+    # qwen2-vl-7b, stablelm-12b and gemma-2b (G·D 896, 640, 2048: past
+    # paged_attention.SPLIT_MAX_GD, where the chunk loop is faster)
+    for k in ("flash_prefill", "flash_prefill_ragged", "ragged_extend"):
         for c in out[k]:
             require(c["path"] == "wgmma", f"bf16 {k} {c['case']} ran the {c['path']} loop")
+    extend9 = next(c for c in out["ragged_extend"]
+                   if c.get("arch") == "qwen3-0.6b phase 9 extend")
+    require(extend9["kv_parts"] == 8, f"bf16 ragged_extend {extend9['case']}: "
+                                      f"{extend9['kv_parts']} KV parts, not 8")
+    chunk_archs = ("qwen2-vl-7b", "stablelm-12b", "gemma-2b")
+    for c in out["paged_attention"]:
+        want = "chunk" if c.get("arch") in chunk_archs else "split"
+        require(c["path"] == want, f"bf16 paged_attention {c['case']} ran the "
+                                   f"{c['path']} loop, not {want}")
     return out
 
 
@@ -2609,6 +2672,14 @@ def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: 
             f"{name} bf16: fused_sgmv launches by loop {pre} (prefill, extend), {dec} "
             "(decode), not all wgmma, then skinny")
     line["fused_sgmv_paths"] = {"prefill_extend": pre, "decode": dec}
+    # every extend attention on ragged_extend_wgmma.cu, every decode
+    # attention on paged_attention.cu's split loop (MLA calls neither)
+    att = {k: run["paths"][k] for k in ("ragged_extend", "paged_attention")}
+    require(att["ragged_extend"] == {"wgmma": launches["ragged_extend"], "mma": 0}
+            and att["paged_attention"] == {"split": launches["paged_attention"], "chunk": 0},
+            f"{name} bf16: attention launches by loop {att}, not all wgmma and split")
+    line["attention_paths"] = att
+    line["paths"] = run["paths"]
     peak = torch.cuda.max_memory_allocated() / 1e9
     cache = run.pop("cache")
     windows, cache, tok = decode_windows(model, params, lora, cache, run["fed"][:, -1], ids)
@@ -3112,6 +3183,12 @@ def main() -> None:
     bwd_cases = backward_kernel_cases(ops, ref, gen, dev)
     refused, grad_errors = grad_guard(ops, ref, dev)
     bf16_cases = bf16_kernel_cases(ops, ref, gen, dev)
+    # every f32 attention launch stays on its own loop
+    for c in rag_cases + [m for m in arch_cases["ragged_extend"] if "path" in m]:
+        require(c["path"] == "mma", f"f32 ragged_extend {c['case']} ran the {c['path']} loop")
+    for c in pag_cases + [m for m in arch_cases["paged_attention"] if "path" in m]:
+        require(c["path"] == "chunk", f"f32 paged_attention {c['case']} ran the "
+                                      f"{c['path']} loop")
     emit({"phase": "kernels", "fused_sgmv": sgmv_cases,
           "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr, "arch_cases": arch_cases,
@@ -3293,6 +3370,28 @@ def main() -> None:
         "launches_by_path": {"bf16": wgmma_launches},
         **{k: wq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "case", "cublas_xw_ms")}})
+    # the bf16 attention loops of this port's own design (their launches:
+    # phase 9's): paged_attention's split loop at phase 3's table lengths,
+    # ragged_extend's wgmma loop at the engine's 256-token bucket
+    for name, kernel, path, src, tpu in (
+            ("paged_attention_split", "paged_attention", "split", "paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:99"),
+            ("ragged_extend_wgmma", "ragged_extend", "wgmma", "ragged_extend_wgmma.cu",
+             "src/repro/kernels/ragged_extend.py:121")):
+        m = bf16_cases[kernel][0]
+        n = sum(line["attention_paths"][kernel][path] for line in bf16_lines.values())
+        require(n > 0, f"{kernel}'s {path} loop never ran in phase 9")
+        kernels.append({
+            "name": name, "kernel": kernel, "path": path, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": tpu, "launches": n,
+            "launches_by_path": {"bf16": n},
+            **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "case")}})
+    # each kernel's launches by loop in phase 9 (build.PATHS)
+    for k in kernels:
+        if k["name"] in build.PATHS:
+            k["bf16_paths"] = {p: sum(line["paths"][k["name"]][p] for line in bf16_lines.values())
+                               for p in build.PATHS[k["name"]]}
     # fused_sgmv's shapes differ by path: beside the engine's bucket, the q
     # projection of the generate path's prefill
     n = len(projections)
@@ -3319,7 +3418,8 @@ def main() -> None:
     # the forward kernels in bf16 (phase 3's bf16 cases; their launches on
     # the bf16 path are launches_by_path["bf16"])
     for k in kernels[:6]:
-        k["bf16_cases"] = [{key: m[key] for key in ("arch", "path") + keys + ("max_abs_err_f32", "one_rounding_excess")
+        k["bf16_cases"] = [{key: m[key] for key in ("arch", "path", "kv_parts") + keys
+                            + ("max_abs_err_f32", "one_rounding_excess")
                             if key in m} for m in bf16_cases[k["name"]]]
     # the backward kernels' other cases: flash_prefill_bwd at the other
     # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,

@@ -1,7 +1,7 @@
 """Time chip_smoke.py's phase 3 kernel cases of two checkouts in turns.
 
     python3 scripts/phase3_ab.py A_DIR B_DIR [--rounds 1]
-        [--cases all|forward|backward|flash_bf16|sgmv_bf16|prefill_bf16]
+        [--cases all|forward|backward|flash_bf16|sgmv_bf16|prefill_bf16|attn_bf16]
 
 on one NVIDIA GPU. A_DIR and B_DIR are checkouts of the repository (the
 parent commit and the change, say). Both build their kernels first, in
@@ -30,7 +30,15 @@ the device time of each CUDA kernel of one fused_sgmv call (q at S = 256
 and 2016, ``torch.profiler`` over 10 calls); or ``prefill_bf16``: phase 9's
 bf16 ``LM.prefill`` (``chip_smoke.BF16_ARCHS``: qwen3-0.6b 8 x 2016,
 llama-7b 2 x 512, deepseek-v2-lite-16b 2 x 256, full width and depth,
-random weights, 8 LoRA slots) as :func:`prefill_turn` times it. Each case's
+random weights, 8 LoRA slots) as :func:`prefill_turn` times it; or
+``attn_bf16``: bf16 ragged_extend and paged_attention at every shape of
+``chip_smoke.bf16_kernel_cases`` (the 256-token bucket and phase 3's table
+and engine lengths at qwen3-0.6b, then llama-7b, qwen2-vl-7b, stablelm-12b
+and gemma-2b, and phase 9's extend and first decode step of qwen3-0.6b
+and llama-7b), each with the loop it took, warm (and paged_attention cold),
+SDPA beside it; then, in the same turn, phase 9's bf16 extend and 8 decode
+steps of qwen3-0.6b and llama-7b in device time (:func:`phase9_device_ms`:
+``torch.profiler``'s busy ms and the attention kernels' ms). Each case's
 checks run as in chip_smoke (a failed one ends the turn with an error). Prints the card's name and power limit
 (``nvidia-smi``), then one JSON line per turn ({"turn", "dir", "ms": {case:
 ms}, "cold_ms": {case: ms}, "plain_ms", "library_ms"}) and then one
@@ -91,6 +99,34 @@ def turn(root: Path, which: str = "all") -> dict:
                 ops, ref, gen, dev, B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=bf16)
             torch.cuda.empty_cache()
     if which == "flash_bf16":
+        return cases
+    if which == "attn_bf16":
+        bf16 = torch.bfloat16
+        cases["ragged_extend bf16 S=256"] = cs.ragged_case(ops, ref, gen, dev, 256,
+                                                           *cs.RAGGED_BUCKETS[256], dtype=bf16)
+        for k in ("table", "engine"):
+            cases[f"paged_attention bf16 {k}"] = cs.paged_case(ops, ref, gen, dev,
+                                                               cs.PAGED_LENGTHS[k], dtype=bf16)
+        for arch, H, Hkv, D in cs.ARCH_HEADS[:4]:
+            cases[f"ragged_extend bf16 {arch}"] = cs.ragged_case(
+                ops, ref, gen, dev, 256, *cs.RAGGED_BUCKETS[256], H=H, Hkv=Hkv, D=D, dtype=bf16)
+            cases[f"paged_attention bf16 {arch}"] = cs.paged_case(
+                ops, ref, gen, dev, cs.PAGED_LENGTHS["engine"], H=H, Hkv=Hkv, D=D, dtype=bf16)
+            torch.cuda.empty_cache()
+        # phase 9's extend and first decode step of qwen3-0.6b and llama-7b
+        # (the shapes of phase9_device_ms, computed here so that a checkout
+        # without chip_smoke.phase9_attention_shapes times them too)
+        for (name, B, S, chunk_len, steps, _), (H, Hkv) in zip(cs.BF16_ARCHS[:2],
+                                                               ((16, 8), (32, 32))):
+            T = -(-(S + chunk_len + steps + 8 * (cs.DECODE_WINDOWS + 1)) // 128) * 128
+            lens = [chunk_len - (7 * b) % chunk_len for b in range(B)]
+            cases[f"ragged_extend bf16 {name} phase 9"] = cs.ragged_case(
+                ops, ref, gen, dev, chunk_len, lens, [S] * B, B=B, T=T, H=H, Hkv=Hkv,
+                dtype=bf16)
+            cases[f"paged_attention bf16 {name} phase 9"] = cs.paged_case(
+                ops, ref, gen, dev, [S + n + 1 for n in lens], B=B, T=T, H=H, Hkv=Hkv,
+                dtype=bf16)
+        cases.update(phase9_device_ms(root))
         return cases
     if which == "sgmv_bf16":
         bf16 = torch.bfloat16
@@ -179,6 +215,68 @@ def prefill_turn(root: Path, reps: int = 7) -> dict:
     return cases
 
 
+def phase9_device_ms(root: Path, reps: int = 3) -> dict:
+    """Phase 9's bf16 extend (a B x 32 chunk, rows left ragged) and 8 greedy
+    decode steps after it, of qwen3-0.6b (8 x 2016) and llama-7b (2 x 512)
+    at full width and depth as ``chip_smoke.static_run`` runs them, each
+    under ``chip_smoke.profiled`` after a fresh prefill: ms is the median of
+    ``reps`` device busy times, ``attn_ms`` the ragged_extend (extend) or
+    paged_attention (decode) kernels' device ms in the same window."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    cases = {}
+    for name, B, S, chunk_len, steps, _ in cs.BF16_ARCHS[:2]:
+        cfg = configs.get(name)
+        max_len = -(-(S + chunk_len + steps + 8 * (cs.DECODE_WINDOWS + 1)) // 128) * 128
+        g = torch.Generator().manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+        chunk = torch.randint(0, cfg.vocab_size, (B, chunk_len), generator=g)
+        lens = torch.tensor([chunk_len - (7 * b) % chunk_len for b in range(B)],
+                            dtype=torch.int32)
+        ids = torch.tensor([0, 1, 2, 3, 4, 5, 6, -1][:B - 1] + [-1], dtype=torch.int32)
+        start = torch.full((B,), S, dtype=torch.int32)
+        last = (lens.long() - 1).clamp(min=0)[:, None]
+        model = build_model(cfg, device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        lora = cs.random_lora(model, 8, 1)
+        runs = {"extend": [], "decode": []}
+        for _ in range(reps + 1):  # the first run warms up
+            _, cache = model.prefill(params, tokens, max_len, lora=lora, adapter_ids=ids)
+            box = {}
+
+            def extend():
+                box["lg"], box["cache"] = model.extend(
+                    params, cache, chunk, start, lora=lora, adapter_ids=ids, true_lens=lens,
+                    logit_positions=last)
+
+            def decode():
+                tok = box["lg"][:, -1].argmax(-1).to(torch.int32)
+                c = box["cache"]
+                for _ in range(8):
+                    lg, c = model.decode(params, c, tok[:, None], lora=lora, adapter_ids=ids)
+                    tok = lg[:, -1].argmax(-1).to(torch.int32)
+
+            torch.cuda.synchronize()
+            runs["extend"].append(cs.profiled(extend))
+            runs["decode"].append(cs.profiled(decode))
+        for part, group in (("extend", "ragged_extend"), ("decode", "paged_attention")):
+            prof = runs[part][1:]
+            cases[f"phase9 {name} {part} (device)"] = dict(
+                ms=statistics.median(r["device_busy_ms"] for r in prof),
+                attn_ms=statistics.median((r["device_ms_by_group"] or {}).get(group, 0.0)
+                                          for r in prof),
+                wall_ms=statistics.median(r["wall_ms"] for r in prof),
+                plain_ms=None, library_ms=None)
+        del model, params, lora, cache, box
+        torch.cuda.empty_cache()
+    return cases
+
+
 def launch_split(S: int, calls: int = 10) -> dict:
     """Device µs per call of each CUDA kernel of one bf16 fused_sgmv call
     on qwen3-0.6b's q projection (B = 8, rank 32), from ``torch.profiler``
@@ -219,7 +317,8 @@ def main() -> None:
     ap.add_argument("b", nargs="?")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--cases", choices=("all", "forward", "backward", "flash_bf16",
-                                        "sgmv_bf16", "prefill_bf16"), default="all")
+                                        "sgmv_bf16", "prefill_bf16", "attn_bf16"),
+                    default="all")
     ap.add_argument("--run", help="(internal) run one turn in this checkout")
     args = ap.parse_args()
     if args.run:
@@ -236,6 +335,8 @@ def main() -> None:
                                            if "cublas_xw_ms" in c},
                           "reps_ms": {k: c["reps_ms"] for k, c in cases.items()
                                       if "reps_ms" in c},
+                          "attn_ms": {k: c["attn_ms"] for k, c in cases.items()
+                                      if "attn_ms" in c},
                           **({"launch_split_us": {f"q S={S}": launch_split(S)
                                                   for S in (256, 2016)}}
                              if args.cases == "sgmv_bf16" else {})}),

@@ -13,7 +13,7 @@ The build runs at first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the root of the checkout. A library's file
 name carries a hash of its source, of every header ``csrc/*.cuh`` (the
 sources share them: ``tf32x3.cuh``, ``bf16_mma.cuh``, ``attention_tc.cuh``,
-``wgmma.cuh``, ``attention_wgmma.cuh``)
+``wgmma.cuh``, ``attention_wgmma.cuh``, ``ragged_split.cuh``)
 and of the flags,
 so an edited source or header rebuilds and an unchanged one is reused.
 All missing libraries compile at once, one ``nvcc`` process per source,
@@ -25,9 +25,10 @@ A source may export more than one kernel (``fused_sgmv.cu`` holds
 and ``flash_prefill_ragged``), and each forward source exports a
 ``*_bf16_launch`` beside each f32 entry (:func:`entry`), and a kernel may
 run on more than one source (bf16 ``fused_sgmv`` on ``fused_sgmv.cu`` or,
-in its own translation unit, ``fused_sgmv_wgmma.cu``): libraries are keyed
-by source, launch counts by kernel (and, for the two flash kernels and
-``fused_sgmv``, by tile loop: ``path_launches``). ``flash_prefill_bwd.cu`` and
+in its own translation unit, ``fused_sgmv_wgmma.cu``; bf16 ``ragged_extend``
+on ``ragged_extend.cu`` or ``ragged_extend_wgmma.cu``): libraries are keyed
+by source, launch counts by kernel (and, for the kernels of ``PATHS``, by
+tile loop: ``path_launches``). ``flash_prefill_bwd.cu`` and
 ``lora_grad.cu`` are the backward passes of ``flash_prefill`` and
 ``fused_sgmv``; a launch of each (one call of its wrapper, several CUDA
 kernels) counts once. This module holds the
@@ -50,8 +51,8 @@ from pathlib import Path
 import torch
 
 # csrc/<source>.cu, one library each
-SOURCES = ("fused_sgmv", "fused_sgmv_wgmma", "ragged_extend", "paged_attention",
-           "flash_prefill", "flash_prefill_bwd", "lora_grad")
+SOURCES = ("fused_sgmv", "fused_sgmv_wgmma", "ragged_extend", "ragged_extend_wgmma",
+           "paged_attention", "flash_prefill", "flash_prefill_bwd", "lora_grad")
 # the kernels whose launches are counted
 KERNELS = ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
            "flash_prefill", "flash_prefill_ragged", "flash_prefill_bwd", "lora_grad")
@@ -69,9 +70,14 @@ launches: collections.Counter = collections.Counter()
 # attention_wgmma.cuh ("wgmma") or attention_tc.cuh ("mma"; f32 always)
 # (flash_prefill.bf16_path); fused_sgmv runs fused_sgmv.cu's decode loop
 # ("skinny", M <= 16 rows), fused_sgmv_wgmma.cu ("wgmma", bf16 only) or
-# fused_sgmv.cu's tiled loop ("mma") (sgmv.bf16_path)
+# fused_sgmv.cu's tiled loop ("mma") (sgmv.bf16_path); bf16 ragged_extend
+# runs ragged_extend_wgmma.cu ("wgmma") or ragged_extend.cu ("mma"; f32
+# always) (ragged_extend.bf16_path); bf16 paged_attention runs
+# paged_attention.cu's split loop ("split") or its chunk loop ("chunk"; f32
+# always) (paged_attention.bf16_path)
 PATHS = {"flash_prefill": ("wgmma", "mma"), "flash_prefill_ragged": ("wgmma", "mma"),
-         "fused_sgmv": ("wgmma", "mma", "skinny")}
+         "fused_sgmv": ("wgmma", "mma", "skinny"), "ragged_extend": ("wgmma", "mma"),
+         "paged_attention": ("split", "chunk")}
 # (kernel, path) -> launches since the last reset, beside ``launches``
 path_launches: collections.Counter = collections.Counter()
 

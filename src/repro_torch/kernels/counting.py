@@ -23,12 +23,13 @@ Everything here is host-side integer arithmetic on static shapes.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from .paged_attention import chunk_plan, chunk_tokens
+from .paged_attention import SPLIT_TOKENS, chunk_plan, chunk_tokens, split_plan
 from .sgmv import SKINNY_COLS, SKINNY_MAX_M, skinny_plan
 
 # ---------------------------------------------------------- the H100 (SXM)
@@ -296,6 +297,8 @@ ATTN_NARROW_D = 128  # csrc/attention_tc.cuh:97 NARROW_D
 SGMV_TILE_M = 128  # csrc/fused_sgmv.cu:150 TM: rows of an output tile
 SGMV_TILE_N = 128  # csrc/fused_sgmv.cu:151 TN: columns of an output tile
 SGMV_SHRINK_ROWS = 64  # csrc/fused_sgmv.cu:175 SH_ROWS: rows of a shrink block
+WGMMA_ROWS = 128  # csrc/attention_wgmma.cuh:104 ROWS: query vectors of a q tile
+RAGGED_PART_TILES = 4  # csrc/ragged_split.cuh:25 PART_TILES: K/V tiles of a KV part
 
 
 def attn_stage_keys(D: int) -> int:
@@ -314,22 +317,72 @@ def port_flash_prefill_counts(B: int, H: int, Hkv: int, S: int, D: int, block_q:
 
 def port_ragged_extend_counts(B: int, H: int, Hkv: int, S: int, T: int, D: int,
                               start: Sequence[int], true_lens: Sequence[int],
-                              block_q: int, *, itemsize: int = 4) -> dict:
-    """:func:`ragged_extend_counts` on the port's schedule: 64-key K/V tiles
-    up to each row's frontier, q tiles of ``block_q`` tokens."""
-    return ragged_extend_counts(B, H, Hkv, S, T, D, start, true_lens, block_q=block_q,
-                                block_k=ATTN_BLOCK_K, itemsize=itemsize)
+                              block_q: int, *, itemsize: int = 4, path: str = "mma",
+                              n_split: int = 1) -> dict:
+    """:func:`ragged_extend_counts` on the port's schedule of ``path``.
+    ``"mma"`` (``csrc/attention_tc.cuh``): 64-key K/V tiles up to each
+    row's frontier, q tiles of ``block_q`` tokens. ``"wgmma"``
+    (``csrc/ragged_extend_wgmma.cu``): one block per (q tile of 128 query
+    vectors of a kv head, row, kv head, KV part) over the 64-key tiles up to
+    min(frontier, the tile's diagonal), a tile's range cut into
+    min(``n_split``, one a RAGGED_PART_TILES tiles) parts, where ``n_split``
+    is the launch's part count (``ragged_extend_wgmma_kv_parts`` of the
+    library, from the card's SM count); each tile's K and V read once by
+    the part that owns it, the rows past T not at all; ``flops`` counts the
+    products issued (4·64·64·D a live warpgroup of 64 rows and a tile),
+    ``grid_steps`` the blocks that work."""
+    if path == "mma":
+        return ragged_extend_counts(B, H, Hkv, S, T, D, start, true_lens, block_q=block_q,
+                                    block_k=ATTN_BLOCK_K, itemsize=itemsize)
+    G = H // Hkv
+    n_tiles = _cdiv(S * G, WGMMA_ROWS)
+    kv_bytes = q_bytes = flops = blocks = fetches = 0
+    for b in range(B):
+        n, st = min(max(true_lens[b], 0), S), start[b]
+        for i in range(n_tiles):
+            v_lo = i * WGMMA_ROWS
+            q_hi = min(_cdiv(v_lo + WGMMA_ROWS, G), S, n)
+            if v_lo // G >= q_hi:
+                continue
+            kv_end = min(st + q_hi, T)
+            tiles = _cdiv(kv_end, ATTN_BLOCK_K)
+            live_vectors = min(q_hi * G, v_lo + WGMMA_ROWS) - v_lo
+            warpgroups = _cdiv(live_vectors, 64)
+            rows = min(T, tiles * ATTN_BLOCK_K)  # keys the map reads (none past T)
+            blocks += Hkv * min(_cdiv(tiles, RAGGED_PART_TILES), n_split)
+            fetches += Hkv * tiles
+            kv_bytes += Hkv * 2 * rows * D * itemsize
+            q_bytes += Hkv * live_vectors * D * itemsize
+            flops += Hkv * warpgroups * tiles * 4 * 64 * ATTN_BLOCK_K * D
+    return {"grid_steps": blocks, "kv_block_fetches": fetches, "kv_bytes": kv_bytes,
+            "q_bytes": q_bytes, "hbm_bytes": kv_bytes + 2 * q_bytes, "flops": flops}
 
 
 def port_paged_attention_counts(B: int, H: int, Hkv: int, D: int, page_size: int,
                                 pages_per_seq: int, lengths: Sequence[int], *,
-                                itemsize: int = 4) -> dict:
-    """:func:`paged_attention_counts` on the port's schedule: one block per
-    chunk of ``chunk_tokens(D)`` tokens of the table
-    (``paged_attention.chunk_plan``), dead chunks fetching nothing new."""
-    return paged_attention_counts(B, H, Hkv, D, chunk_tokens(D),
-                                  chunk_plan(page_size, pages_per_seq, D), lengths,
-                                  itemsize=itemsize)
+                                itemsize: int = 4, path: str = "chunk",
+                                sms: int = H100_SMS) -> dict:
+    """:func:`paged_attention_counts` on the port's schedule of ``path``.
+    ``"chunk"``: one block per chunk of ``chunk_tokens(D)`` tokens of the
+    table (``paged_attention.chunk_plan``), dead chunks fetching nothing
+    new. ``"split"`` (bf16): ``paged_attention.split_plan`` blocks per (row,
+    kv head) on a card of ``sms`` SMs (``grid_steps``), each over its share
+    of the live 64-token tiles, loaded in TMA boxes of gcd(page, 64) tokens
+    of which only those holding a live token are read
+    (``kv_block_fetches``: the boxes of K and of V)."""
+    if path == "chunk":
+        return paged_attention_counts(B, H, Hkv, D, chunk_tokens(D),
+                                      chunk_plan(page_size, pages_per_seq, D), lengths,
+                                      itemsize=itemsize)
+    G, T = H // Hkv, page_size * pages_per_seq
+    bt = math.gcd(page_size, SPLIT_TOKENS)
+    boxes = sum(_cdiv(min(max(n, 0), T), bt) for n in lengths) * Hkv
+    live = sum(min(max(n, 0), T) for n in lengths)
+    kv_bytes = 2 * boxes * bt * D * itemsize
+    q_bytes = B * H * D * itemsize
+    return {"grid_steps": B * Hkv * split_plan(B, Hkv, sms), "kv_block_fetches": 2 * boxes,
+            "kv_bytes": kv_bytes, "q_bytes": q_bytes, "hbm_bytes": kv_bytes + 2 * q_bytes,
+            "flops": 4 * G * live * Hkv * D}
 
 
 def port_sgmv_counts(B: int, S: int, d_in: int, d_out: int, r: int, *,

@@ -1,13 +1,16 @@
-// The bf16 tile loop of flash_prefill.cu on Hopper's warpgroup tensor
-// cores (sm_90a): wgmma for both products, K and V tiles brought by TMA.
+// The bf16 tile loop of flash_prefill.cu and ragged_extend_wgmma.cu on
+// Hopper's warpgroup tensor cores (sm_90a): wgmma for both products, K and
+// V tiles brought by TMA.
 //
 // Replaces, for bf16 inputs, the Pallas TPU kernels flash_prefill and
 // flash_prefill_ragged of src/repro/kernels/flash_prefill.py (body
-// _flash_ragged_kernel): causal GQA attention over a fresh sequence. The
-// f32 path and ragged_extend stay on attention_tc.cuh's mma.sync loop
-// (3xTF32): TF32 wgmma reads B from shared memory K-major only, and V in
-// P·V is N-major; 16-bit wgmma reads an MN-major B through the
-// descriptor's transpose bit, so V is read as it lies.
+// _flash_ragged_kernel): causal GQA attention over a fresh sequence; and
+// ragged_extend of src/repro/kernels/ragged_extend.py: padded chunks whose
+// query s sits at absolute position start[b] + s against a cache of T
+// keys. The f32 paths stay on attention_tc.cuh's mma.sync loop (3xTF32):
+// TF32 wgmma reads B from shared memory K-major only, and V in P·V is
+// N-major; 16-bit wgmma reads an MN-major B through the descriptor's
+// transpose bit, so V is read as it lies.
 //
 // What bounds it on this card: a row of S tokens does 4·H·D·S(S+1)/2 flops
 // on 2·(H + 2·Hkv)·S·D bytes, so past a few dozen tokens the tensor cores
@@ -71,6 +74,15 @@
 // - Epilogue: O·(1/l), rounded once to bf16, goes through the warpgroup's
 //   own Q rows of shared memory to 16-byte stores; rows of tokens past the
 //   live ones are exact zeros; with lse, each live row's m + log(l).
+// - ragged_extend (RAGGED): the keys of a q tile run over [0,
+//   min(start + the tile's live end, T)) (the row frontier or the tile's
+//   diagonal), the causal mask (key > start + s) applies only on the K/V
+//   tiles that reach past the tile's first position, and where the q tiles
+//   do not fill the card the KV range is split over n_split blocks
+//   (ragged_split.cuh): a block of a split tile writes its live rows'
+//   (m·ln 2, l, Σ p·v) in f32 to part_o for the combine pass. A consumer
+//   warpgroup whose 64 rows are all past the live vectors (a decode rider
+//   fills G of 128 rows) issues no products and only releases its stages.
 // Sums run in a fixed order: repeat launches give the same bits.
 // tests/test_torch_attn_wgmma.py emulates the arithmetic, the tensor
 // cores' rounding toward zero included, against the Pallas kernel.
@@ -83,6 +95,7 @@
 #pragma once
 
 #include "attention_tc.cuh"
+#include "ragged_split.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -111,17 +124,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// One block: q tile ``n_tiles - 1 - blockIdx.x / (B·Hkv)`` of (row b, kv
-// head hkv). q and out (B, H, S, D) with element strides qsb, qsh, qss (out
-// has q's); K and V through kmap and vmap (4-D: D, S, Hkv, B; boxes of 64 x
-// 64 keys); true_lens (B,) or nullptr for S in every row; lse (B, H,
-// S) contiguous or nullptr. DC = chunks of 64 of D (D <= 64·DC).
-template <int DC>
-__global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
-    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
-    const bf16* __restrict__ q, const int* __restrict__ true_lens, bf16* __restrict__ out,
-    float* __restrict__ lse, int B, int S, int H, int Hkv, int D, int n_tiles, long long qsb,
-    long long qsh, long long qss) {
+// One block: KV part ``blockIdx.x % n_split`` of q tile ``n_tiles - 1 -
+// blockIdx.x / n_split / (B·Hkv)`` of (row b, kv head hkv). q and out
+// (token s, head h of row b at b·qsb + h·qsh + s·qss; out has q's strides);
+// K and V through kmap and vmap (4-D: D, T, Hkv, B; boxes of 64 x 64 keys);
+// true_lens (B,) or nullptr for S in every row; start (B,) (RAGGED; a
+// fresh sequence has 0 and T = S); lse (B, H, S) contiguous or nullptr;
+// part_o: the split's scratch (n_split > 1 only). DC = chunks of 64 of D
+// (D <= 64·DC). RAGGED: ragged_extend's source (start, T, the split);
+// flash_prefill compiles without it, so its loop carries none of that. The
+// kernels below call it.
+template <int DC, bool RAGGED>
+__device__ __forceinline__ void attention_wgmma(
+    const CUtensorMap& kmap, const CUtensorMap& vmap, const bf16* __restrict__ q,
+    const int* __restrict__ true_lens, bf16* __restrict__ out, float* __restrict__ lse, int B,
+    int S, int H, int Hkv, int D, int n_tiles, long long qsb, long long qsh, long long qss,
+    const int* __restrict__ start, int T, int n_split, float* __restrict__ part_o) {
   constexpr int ST = STAGES;
   constexpr uint32_t QC = ROWS * 128;     // bytes of a Q chunk: 128 rows of 64 d
   constexpr uint32_t KC = BK * 128;       // bytes of a K or V chunk: BK keys of 64 d
@@ -134,22 +152,33 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
   const uint32_t full0 = sring + ST * STAGE, empty0 = full0 + 8 * ST;
 
   const int G = H / Hkv;
-  const int tile = n_tiles - 1 - (int)(blockIdx.x / (B * Hkv));
-  const int b = (blockIdx.x % (B * Hkv)) / Hkv, hkv = blockIdx.x % Hkv;
+  const int part = (int)(blockIdx.x % n_split), rest = (int)(blockIdx.x / n_split);
+  const int tile = n_tiles - 1 - rest / (B * Hkv);
+  const int b = (rest % (B * Hkv)) / Hkv, hkv = rest % Hkv;
   const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, ..)
   const int n = true_lens ? min(max(true_lens[b], 0), S) : S;
   const int q_hi = min(attn::tile_token_end(v_lo, ROWS, G, S), n);  // live below q_hi
+  const int st = RAGGED ? start[b] : 0;  // the absolute position of token 0
   const long long qbase = b * qsb + (long long)hkv * G * qsh;
   auto qoff = [&](int vec) { return qbase + (vec % G) * qsh + (long long)(vec / G) * qss; };
   const int D8 = D / 8;  // 16-byte groups of a row
   if (v_lo / G >= q_hi) {
-    // a q tile past the row's length (or a row of length 0): zeros
+    // a q tile past the row's length (or a row of length 0): zeros, written
+    // by the combine pass where the KV range is split
     const int v_hi = min(v_lo + ROWS, S * G);
-    for (int e = threadIdx.x; e < (v_hi - v_lo) * D8; e += THREADS)
-      *reinterpret_cast<uint4*>(out + qoff(v_lo + e / D8) + 8 * (e % D8)) = make_uint4(0, 0, 0, 0);
+    if (n_split == 1)
+      for (int e = threadIdx.x; e < (v_hi - v_lo) * D8; e += THREADS)
+        *reinterpret_cast<uint4*>(out + qoff(v_lo + e / D8) + 8 * (e % D8)) = make_uint4(0, 0, 0, 0);
     return;
   }
-  const int nt = (q_hi + BK - 1) / BK;  // K/V tiles: keys [0, q_hi), the q tile's diagonal
+  // keys [0, kv_end): the row frontier or the q tile's diagonal; this
+  // block's part: K/V tiles [u0, u0 + nt)
+  const int kv_end = min(st + q_hi, T);
+  const int kv_tiles = (kv_end + BK - 1) / BK;
+  const int parts = RAGGED ? kv_parts(kv_tiles, n_split) : 1;
+  if (part >= parts) return;
+  const int u0 = part * kv_tiles / parts;
+  const int nt = (part + 1) * kv_tiles / parts - u0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(full0 + 8 * s, 1);
@@ -163,14 +192,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       for (int u = 0; u < nt; ++u) {
-        const int st = u % ST;
-        if (u >= ST) mbar_wait(empty0 + 8 * st, (u / ST - 1) & 1);  // stage released
-        const uint32_t fb = full0 + 8 * st, ks = sring + st * STAGE, vs = ks + DC * KC;
+        const int sg = u % ST;
+        if (u >= ST) mbar_wait(empty0 + 8 * sg, (u / ST - 1) & 1);  // stage released
+        const uint32_t fb = full0 + 8 * sg, ks = sring + sg * STAGE, vs = ks + DC * KC;
         mbar_expect_tx(fb, STAGE);
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          tma_load4(ks + c * KC, &kmap, fb, 64 * c, u * BK, hkv, b);
-          tma_load4(vs + c * KC, &vmap, fb, 64 * c, u * BK, hkv, b);
+          tma_load4(ks + c * KC, &kmap, fb, 64 * c, (u0 + u) * BK, hkv, b);
+          tma_load4(vs + c * KC, &vmap, fb, 64 * c, (u0 + u) * BK, hkv, b);
         }
       }
     }
@@ -198,6 +227,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
   const int s0 = (v_lo + r0) / G, s1 = (v_lo + r1) / G;
   const bool live0 = s0 < q_hi, live1 = s1 < q_hi;
   const int s_first = v_lo / G;
+  const bool wg_live = !RAGGED || (v_lo + 64 * c) / G < q_hi;  // a live row among its 64
   const float sl2 = LOG2E / sqrtf((float)D);  // scores to log2 units: one multiply
   const uint32_t qa = sq + c * 64 * 128;       // A: this warpgroup's 64 rows
   float o[DC * 32];  // 64 x 64·DC of O, DC·8 n8 blocks
@@ -205,14 +235,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
   for (int i = 0; i < DC * 32; ++i) o[i] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
 
-  for (int u = 0; u < nt; ++u) {
-    const uint32_t ks = opaque(sring + (u % ST) * STAGE), vs = ks + DC * KC;
-    mbar_wait(full0 + 8 * (u % ST), (u / ST) & 1);  // tile u's K and V have landed
-    // In the last tile, keys [q_hi, min(S, tile end)) (later tokens or a
-    // ragged row's padding, never attended) are zeroed in V, so no stale V
-    // reaches P·V.
-    const int z0 = q_hi - u * BK, z1 = min(S - u * BK, BK);
-    if (u == nt - 1 && z0 < z1) {
+  for (int i = 0; i < nt; ++i) {
+    const int u = u0 + i;  // keys u·BK ..
+    const uint32_t ks = opaque(sring + (i % ST) * STAGE), vs = ks + DC * KC;
+    mbar_wait(full0 + 8 * (i % ST), (i / ST) & 1);  // tile u's K and V have landed
+    // In the last tile, keys [kv_end, min(T, tile end)) (later tokens, a
+    // ragged row's padding or cache past the frontier, never attended) are
+    // zeroed in V, so no stale V reaches P·V.
+    const int z0 = kv_end - u * BK, z1 = min(T - u * BK, BK);
+    if (u == kv_tiles - 1 && z0 < z1) {
       for (int e = threadIdx.x - 128; e < (z1 - z0) * DC * 8; e += 128 * CONSUMERS) {
         const int r = z0 + e / (8 * DC), cc = (e / 8) % DC;
         *reinterpret_cast<uint4*>(smem + (vs - sq) + cc * KC + r * 128 + 16 * (e % 8)) =
@@ -220,6 +251,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
       }
       fence_proxy_async();
       bar_sync(1, 128 * CONSUMERS);
+    }
+    if (!wg_live) {  // no live row: the stage is only released
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * (i % ST));
+      continue;
     }
 
     // S = Q·Kᵀ over all of D: k16 step kk reads 32 bytes into its chunk.
@@ -239,14 +275,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
 
     // online softmax: sc[4j + i] is row r0 (i < 2) or r1, key u·BK + 8j +
     // 2·t4 + (i & 1)
-    const bool diag = (u + 1) * BK > s_first + 1;  // a key past the tile's first token
+    const bool diag = (u + 1) * BK > st + s_first + 1;  // a key past the tile's first position
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = sc[4 * j + i] * sl2;
-        if (diag && u * BK + 8 * j + 2 * t4 + (i & 1) > (i < 2 ? s0 : s1)) x = NEG_INF;
+        if (diag && u * BK + 8 * j + 2 * t4 + (i & 1) > st + (i < 2 ? s0 : s1)) x = NEG_INF;
         sc[4 * j + i] = x;
       }
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
@@ -297,12 +333,33 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
     wgmma_wait();
     fence_regs(o);
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * (u % ST));  // this warp is done with the stage
+    if (lane == 0) mbar_arrive(empty0 + 8 * (i % ST));  // this warp is done with the stage
   }
 
   // epilogue
   l0 = attn::quad_sum(l0);
   l1 = attn::quad_sum(l1);
+  if (RAGGED && parts > 1) {  // a part of a split tile: its live rows' partials, f32
+    const size_t stride = (size_t)B * S * H;
+    float* ml = part_o + (size_t)n_split * stride * D;
+    auto row = [&](int r) { return part * stride + ((size_t)b * S + (v_lo + r) / G) * H + hkv * G + (v_lo + r) % G; };
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? live1 : live0)) continue;
+      const size_t pr = row(half ? r1 : r0);
+#pragma unroll
+      for (int j = 0; j < DC * 8; ++j)
+        if (8 * j < D)
+          *reinterpret_cast<float2*>(part_o + pr * D + 8 * j + 2 * t4) =
+              make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+      if (t4 == 0) {
+        const float m = half ? m1 : m0;
+        ml[2 * pr] = m * LN2;  // natural-log units of the scaled scores
+        ml[2 * pr + 1] = half ? l1 : l0;
+      }
+    }
+    return;
+  }
   if (lse != nullptr && t4 == 0) {
     if (live0)
       lse[((size_t)b * H + hkv * G + (v_lo + r0) % G) * S + s0] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
@@ -328,6 +385,47 @@ __global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
     *reinterpret_cast<uint4*>(out + qoff(vec) + 8 * j) = *reinterpret_cast<const uint4*>(
         qrows + (j / 8) * QC + r * 128 + (((j % 8) ^ (r % 8)) << 4));
   }
+}
+
+// The two kernels of the loop, one name each (profiles group kernels by
+// name): flash_prefill's, compiled without the ragged source, and
+// ragged_extend's.
+template <int DC>
+__global__ void __launch_bounds__(THREADS, 1) flash_prefill_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, const int* __restrict__ true_lens, bf16* __restrict__ out,
+    float* __restrict__ lse, int B, int S, int H, int Hkv, int D, int n_tiles, long long qsb,
+    long long qsh, long long qss) {
+  attention_wgmma<DC, false>(kmap, vmap, q, true_lens, out, lse, B, S, H, Hkv, D, n_tiles, qsb,
+                             qsh, qss, nullptr, S, 1, nullptr);
+}
+
+template <int DC>
+__global__ void __launch_bounds__(THREADS, 1) ragged_extend_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, const int* __restrict__ start,
+    const int* __restrict__ true_lens, bf16* __restrict__ out, float* __restrict__ part_o,
+    int B, int S, int T, int H, int Hkv, int D, int n_tiles, int n_split) {
+  const long long qs = (long long)H * D;  // q (B, S, H, D): the s stride
+  attention_wgmma<DC, true>(kmap, vmap, q, true_lens, out, nullptr, B, S, H, Hkv, D, n_tiles,
+                            S * qs, D, qs, start, T, n_split, part_o);
+}
+
+// The 4-D tensor map (D, S, Hkv, B) of k or v with its element strides sb,
+// sh, ss: boxes of 64 d x BK keys, the 128-byte swizzle, zeros out of
+// bounds.
+inline int kv_map(CUtensorMap* map, const bf16* base, int B, int S, int Hkv, int D,
+                  long long sb, long long sh, long long ss) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hkv, (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)BK, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims, bytes, box,
+                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
 }  // namespace wg

@@ -187,29 +187,13 @@ extern "C" int flash_prefill_bf16_launch(const bf16* q, const bf16* k, const bf1
 
 namespace {
 
-// The 4-D tensor map (D, S, Hkv, B) of k or v with its element strides:
-// boxes of 64 d x ``keys`` keys, the 128-byte swizzle, zeros out of bounds.
-int kv_map(CUtensorMap* map, const bf16* base, int B, int S, int Hkv, int D, Strides st,
-           int keys) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return TENSOR_MAP_ERROR + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Hkv, (cuuint64_t)B};
-  const cuuint64_t bytes[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)keys, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)base, dims, bytes, box,
-                         unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
-}
-
 template <int DC>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, const int* true_lens, bf16* out,
                  float* lse, int B, int S, int H, int Hkv, int D, Strides qs, Strides ks,
                  Strides vs, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
-  int err = kv_map(&kmap, k, B, S, Hkv, D, ks, wg::BK);
-  if (err == 0) err = kv_map(&vmap, v, B, S, Hkv, D, vs, wg::BK);
+  int err = wg::kv_map(&kmap, k, B, S, Hkv, D, ks.b, ks.h, ks.s);
+  if (err == 0) err = wg::kv_map(&vmap, v, B, S, Hkv, D, vs.b, vs.h, vs.s);
   if (err != 0) return err;
   const size_t smem = wg::smem_bytes<DC>();
   const cudaError_t e = cudaFuncSetAttribute(

@@ -15,7 +15,9 @@
 //
 // ragged_extend_launch takes f32 q, k, v and out; ragged_extend_bf16_launch
 // bf16 ones (attention_tc.cuh: bf16 products, f32 softmax and sums); the
-// partials' scratch is f32 in both.
+// partials' scratch is f32 in both. A bf16 launch whose head dim is a
+// multiple of 16 on 16-byte bases takes ragged_extend_wgmma.cu instead
+// (ragged_extend.py's bf16_path).
 //
 // What the design does about it: one block per (b, kv head, q tile, KV
 // part) runs the tensor-core tile loop of attention_tc.cuh (3xTF32
@@ -28,25 +30,15 @@
 // causal diagonal): Hopper has no revisit-skip as the TPU's block pipeline
 // does, so skipping a tile means not looping over it.
 //
-// The KV split: the rows of a bucket are ragged (a 256-token chunk at a
-// long prefix beside decode riders that each walk a whole prefix in one
-// block), and the blocks of the live rows alone do not fill the card. So
-// where the q tiles do not give a few waves of blocks, the KV range of a
-// tile is cut into up to MAX_SPLIT parts of about PART_TILES K/V
-// tiles, one block each, with the part count from the SM count. A tile
-// whose range makes one part writes its result directly; the others write
-// (m, l, Σ p·v) partials to a scratch buffer the wrapper allocates, and
-// ragged_extend_combine_kernel merges the parts in a fixed order and
-// writes the zeros of padded queries.
+// Where the q tiles do not fill the card, the KV range of a tile is split
+// over blocks and a combine pass merges the parts (ragged_split.cuh).
 
 #include <cuda_runtime.h>
 
 #include "attention_tc.cuh"
+#include "ragged_split.cuh"
 
 namespace {
-
-constexpr int MAX_SPLIT = 8;       // KV parts of one q tile, at most
-constexpr int PART_TILES = 4;      // 64-key K/V tiles of a part, about
 
 template <class E>
 struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
@@ -71,18 +63,6 @@ struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
   }
   __device__ float* lse_at(int, int) const { return nullptr; }  // serving: none
 };
-
-// KV parts of a q tile whose keys span ``kv_tiles`` K/V tiles, with up to
-// ``n_split`` parts a tile
-__host__ __device__ inline int kv_parts(int kv_tiles, int n_split) {
-  const int p = (kv_tiles + PART_TILES - 1) / PART_TILES;
-  return p < n_split ? p : n_split;
-}
-
-// The keys of a q tile of row b whose tokens end at s_end: [0, kv_end)
-__device__ __forceinline__ int tile_kv_end(int st, int n_new, int T, int s_end) {
-  return min(st + min(s_end, n_new), T);
-}
 
 template <class E, int WR, int DT>
 __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
@@ -118,50 +98,6 @@ __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
                        kv_end, j0, j1, po, po ? po + (size_t)n_split * B * S * Hq * D : nullptr);
 }
 
-// One warp per (b, s, head) of a split launch: a padded query gets zeros; a
-// live query whose tile made more than one part gets
-// Σ_p w_p·o_p / Σ_p w_p·l_p with w_p = exp(m_p − max m), parts in order.
-// A lane takes 4-column chunks lane, lane + 32, ... of D.
-template <class E>
-__global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
-    const int* __restrict__ start, const int* __restrict__ true_lens,
-    const float* __restrict__ part_o, E* __restrict__ out, int B, int S, int T,
-    int Hq, int G, int D, int n_split, int rows) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * (attn::THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= (size_t)B * S * Hq) return;
-  const int b = (int)(row / ((size_t)S * Hq)), s = (int)(row / Hq % S);
-  const int n_new = min(true_lens[b], S);
-  E* o = out + row * D;
-  if (s >= n_new) {
-    for (int c = lane * 4; c < D; c += 128) store4(o + c, make_float4(0.f, 0.f, 0.f, 0.f));
-    return;
-  }
-  const int v_lo = (s * G + (int)(row % Hq) % G) / rows * rows;  // the vector's q tile
-  const int kv_end = tile_kv_end(start[b], n_new, T, attn::tile_token_end(v_lo, rows, G, S));
-  const int parts = kv_parts((kv_end + attn::BKV - 1) / attn::BKV, n_split);
-  if (parts == 1) return;  // written by the attention kernel
-  const size_t stride = (size_t)B * S * Hq;
-  const float* ml = part_o + (size_t)n_split * stride * D + 2 * row;
-  float M = attn::NEG_INF;
-  for (int p = 0; p < parts; ++p) M = fmaxf(M, ml[2 * p * stride]);
-  float L = 0.f;
-  for (int p = 0; p < parts; ++p) L += ml[2 * p * stride + 1] * expf(ml[2 * p * stride] - M);
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  for (int c = lane * 4; c < D; c += 128) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int p = 0; p < parts; ++p) {
-      const float w = expf(ml[2 * p * stride] - M);
-      const float4 x = *reinterpret_cast<const float4*>(part_o + (p * stride + row) * D + c);
-      a.x += x.x * w;
-      a.y += x.y * w;
-      a.z += x.z * w;
-      a.w += x.w * w;
-    }
-    store4(o + c, make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
-  }
-}
-
 struct Plan {
   int wr, dt, n_split, n_tiles;
 };
@@ -173,12 +109,7 @@ Plan plan(int B, int S, int T, int Hq, int Hkv, int D) {
   const int vectors = S * (Hq / Hkv);  // of one (row, kv head)
   Plan p{attn::tile_rows(vectors, D) / 16, attn::d_tiles(D), 1, 0};
   p.n_tiles = (vectors + 16 * p.wr - 1) / (16 * p.wr);
-  const int kv_tiles = (T + attn::BKV - 1) / attn::BKV;
-  int most = (kv_tiles + PART_TILES - 1) / PART_TILES;
-  most = most < MAX_SPLIT ? most : MAX_SPLIT;
-  const long long blocks = (long long)B * Hkv * p.n_tiles;
-  const int n_split = (int)((4LL * sm_count() + blocks - 1) / blocks);
-  p.n_split = n_split < 1 ? 1 : (n_split > most ? most : n_split);
+  p.n_split = split_count((long long)B * Hkv * p.n_tiles, T);
   return p;
 }
 

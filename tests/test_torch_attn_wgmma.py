@@ -44,9 +44,11 @@ import torch
 
 from repro.kernels import flash_prefill as jax_flash_prefill
 from repro.kernels import flash_prefill_ragged as jax_flash_prefill_ragged
+from repro.kernels import ragged_extend as jax_ragged_extend
 from repro_torch.kernels import ref
 
 fp = importlib.import_module("repro_torch.kernels.flash_prefill")
+rex = importlib.import_module("repro_torch.kernels.ragged_extend")
 
 ROWS = 128  # query vectors of a q tile
 ATTN_TOL = 1e-5  # chip_smoke.ATTN_TOL
@@ -80,6 +82,7 @@ def wgmma_chain(acc, a, b):
 
 
 BK = 64  # attention_wgmma.cuh: keys of a K/V tile
+PART_TILES = 4  # ragged_split.cuh: K/V tiles of a KV part, about
 
 
 def acc_coords(n_blocks: int):
@@ -120,28 +123,36 @@ def a_fragments(p: np.ndarray) -> list[np.ndarray]:
     return out
 
 
-def warpgroup(q_rows, k, v, s_row, live, s_first, q_hi, S, D):
-    """One consumer warpgroup's 64 rows over K/V tiles 0 .. ceil(q_hi / BK)
-    - 1. q_rows (64, D) bf16 values (zeros where not live), k and v (S, D)
-    of one kv head. Returns (out rows (64, D) bf16 values, m, l)."""
+def warpgroup(q_rows, k, v, s_row, live, s_first, q_hi, S, D, st=0, T=None, u0=0, nt=None,
+              partial=False):
+    """One consumer warpgroup's 64 rows over K/V tiles u0 .. u0 + nt - 1 of
+    the keys [0, kv_end), kv_end = min(st + q_hi, T) (T = S, st = 0: a fresh
+    sequence; all of them by default). q_rows (64, D) bf16 values (zeros
+    where not live) of tokens s_row at positions st + s_row, k and v (T, D)
+    of one kv head. Returns (out rows (64, D) bf16 values, m, l) or, with
+    ``partial``, (Σ p·v (64, D) f32, m·ln 2, l) for the combine pass. A
+    warpgroup with no live row issues no products."""
+    T = S if T is None else T
     DP = 64 * -(-D // 64)
     sl2 = F32(LOG2E / np.sqrt(F32(D)))
     m = np.full(64, -np.inf, F32)
     lq = np.zeros((64, 4), F32)  # each lane's share of l
     o = np.zeros((64, DP), F32)
-    nt = -(-q_hi // BK)
-    for u in range(nt):
+    kv_end = min(st + q_hi, T)
+    kv_tiles = -(-kv_end // BK)
+    nt = kv_tiles - u0 if nt is None else nt
+    for u in range(u0, u0 + nt if live.any() else u0):
         t = u * BK + np.arange(BK)
         kt = np.zeros((BK, D), F32)
         vt = np.zeros((BK, DP), F32)
-        kt[t < S] = k[t[t < S]]
-        vt[t < S, :D] = v[t[t < S]]
-        if u == nt - 1:
-            vt[t >= q_hi] = 0  # later tokens or padding: zeroed before P·V
+        kt[t < T] = k[t[t < T]]
+        vt[t < T, :D] = v[t[t < T]]
+        if u == kv_tiles - 1:
+            vt[t >= kv_end] = 0  # later tokens, padding or cache past the frontier
         sc = wgmma_chain(np.zeros((64, BK), F32), q_rows, kt.T)
         x = (sc * sl2).astype(F32)
-        if (u + 1) * BK > s_first + 1:  # a key past the q tile's first token
-            x = np.where(t[None] > s_row[:, None], F32(-np.inf), x)
+        if (u + 1) * BK > st + s_first + 1:  # a key past the q tile's first position
+            x = np.where(t[None] > st + s_row[:, None], F32(-np.inf), x)
         mn = np.maximum(m, x.max(1))
         mu = np.where(mn == -np.inf, F32(0), mn)
         al = np.exp2(m - mu).astype(F32)
@@ -160,6 +171,8 @@ def warpgroup(q_rows, k, v, s_row, live, s_first, q_hi, S, D):
             o = wgmma_chain(o, lo, vs)
             o = wgmma_chain(o, hi, vs)
     l = (lq[:, 0] + lq[:, 1]) + (lq[:, 2] + lq[:, 3])  # the quad's shuffles
+    if partial:
+        return o[:, :D], (m * F32(np.log(2.0))).astype(F32), l
     f = (F32(1) / np.maximum(l, F32(1e-30))).astype(F32)
     rows = np.where(live[:, None], bf16((o * f[:, None]).astype(F32)), F32(0))
     return rows[:, :D], m, l
@@ -283,6 +296,139 @@ def test_rounding_toward_zero_stays_inside_the_bar_at_full_length():
     want = ((w / w.sum(1, keepdims=True)) @ v.astype(np.float64)).astype(F32)
     atol = ATTN_TOL + BF16_SPLIT_REL * float(np.abs(want).max())
     assert one_rounding_excess(got, want, atol / 4) <= 0
+
+
+# ------------------------------------------------------- ragged_extend
+def emulate_ragged(q, k, v, start, true_lens, n_split):
+    """bf16 ragged_extend on ``csrc/ragged_extend_wgmma.cu``: q (B, S, Hq, D)
+    and k, v (B, T, Hkv, D) bf16 values as f32 arrays. One block per (q tile
+    of 128 vectors, row, kv head, KV part): a tile whose keys make one part
+    writes its rows (zeros past the live tokens); the parts of a split tile
+    write (Σ p·v, m·ln 2, l) and the combine pass merges them in part order
+    (M = max m, w = e^(m - M), Σ w·o / Σ w·l, rounded once) and writes the
+    zeros of padded queries. ``n_split``: the launch's part count
+    (``ragged_extend_wgmma_kv_parts``); a tile takes min(n_split, one part
+    a PART_TILES of its K/V tiles). Returns the output and the writes of
+    each (b, s, head) by the attention blocks."""
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    out = np.full(q.shape, np.nan, F32)
+    writes = np.zeros((B, S, Hq), np.int64)
+    parts_of = {}  # (b, s, h) -> the partials of its split tile, in part order
+    for b in range(B):
+        n, st = min(max(int(true_lens[b]), 0), S), int(start[b])
+        for hkv in range(Hkv):
+            for v_lo in range(0, S * G, ROWS):
+                vec = v_lo + np.arange(ROWS)
+                s, h = vec // G, vec % G
+                kept = s < S
+                q_hi = min(-(-(v_lo + ROWS) // G), S, n)
+                if v_lo // G >= q_hi:
+                    if n_split == 1:  # zeros; else the combine writes them
+                        out[b, s[kept], hkv * G + h[kept]] = 0
+                        np.add.at(writes, (b, s[kept], hkv * G + h[kept]), 1)
+                    continue
+                live = s < q_hi
+                kv_tiles = -(-min(st + q_hi, T) // BK)
+                parts = min(-(-kv_tiles // PART_TILES), n_split)
+                tile = np.zeros((ROWS, D), F32)
+                for part in range(parts):
+                    u0 = part * kv_tiles // parts
+                    nt = (part + 1) * kv_tiles // parts - u0
+                    for c in range(2):
+                        r = slice(64 * c, 64 * c + 64)
+                        qr = np.zeros((64, D), F32)
+                        lv = live[r]
+                        qr[lv] = q[b, s[r][lv], hkv * G + h[r][lv]]
+                        res = warpgroup(qr, k[b, :, hkv], v[b, :, hkv], s[r], lv, v_lo // G,
+                                        q_hi, S, D, st=st, T=T, u0=u0, nt=nt,
+                                        partial=parts > 1)
+                        if parts == 1:
+                            tile[r] = res[0]
+                            continue
+                        for i in np.flatnonzero(lv):
+                            key = (b, int(s[r][i]), hkv * G + int(h[r][i]))
+                            parts_of.setdefault(key, []).append(
+                                (res[0][i], res[1][i], res[2][i]))
+                if parts == 1:
+                    out[b, s[kept], hkv * G + h[kept]] = tile[kept]
+                    np.add.at(writes, (b, s[kept], hkv * G + h[kept]), 1)
+    if n_split > 1:  # the combine pass
+        for b in range(B):
+            n = min(max(int(true_lens[b]), 0), S)
+            out[b, n:] = 0
+        for (b, s_, h), states in parts_of.items():
+            M = F32(-1e30)
+            for _, m, _ in states:
+                M = max(M, m)
+            L = F32(0)
+            for _, m, l in states:
+                L = F32(L + F32(l * np.exp(F32(m - M))))
+            a = np.zeros(D, F32)
+            for o, m, _ in states:
+                a = (a + o * np.exp(F32(m - M))).astype(F32)
+            out[b, s_, h] = bf16(a * (F32(1) / max(L, F32(1e-30))))
+    return out, writes
+
+
+_RAGGED = [
+    # B, S, T, Hq, Hkv, D, lens, starts, n_split: the engine's buckets cut to
+    # size, each with the part count its launch would take on an H100
+    (4, 16, 300, 4, 2, 64, [0, 1, 16, 9], [0, 299, 200, 37], 2),   # riders, a 0 row
+    (3, 8, 600, 14, 2, 128, [8, 1, 5], [592, 599, 0], 3),          # G = 7 over tiles
+    (2, 20, 260, 8, 1, 256, [20, 13], [240, 0], 2),                # G = 8, D = 256
+    (3, 70, 600, 2, 2, 160, [70, 1, 33], [530, 599, 10], 3),       # G = 1, D = 160
+    (2, 40, 700, 4, 2, 64, [40, 1], [600, 699], 1),                # one part a tile
+    (2, 5, 100, 4, 1, 32, [5, 3], [95, 0], 1),                     # a frontier at T
+    (2, 8, 2048, 2, 1, 64, [8, 5], [2040, 1500], 8),               # 8 parts, 6 parts
+]
+
+
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,D,lens,starts,n_split", _RAGGED)
+def test_ragged_wgmma_loop_matches_pallas_and_one_rounding_of_f32(B, S, T, Hq, Hkv, D, lens,
+                                                                 starts, n_split):
+    """The KV split and its combine, decode riders (one live query at a
+    long start), padded queries and empty rows exact zeros, warpgroups with
+    no live row; against the Pallas kernel (interpret) and the plain f32
+    version at chip_smoke's bars."""
+    rng = np.random.default_rng(S + T + D)
+    q = bf16(rng.standard_normal((B, S, Hq, D), F32))
+    k = bf16(rng.standard_normal((B, T, Hkv, D), F32))
+    v = bf16(rng.standard_normal((B, T, Hkv, D), F32))
+    tl, st = np.asarray(lens, np.int32), np.asarray(starts, np.int32)
+    got, writes = emulate_ragged(q, k, v, st, tl, n_split)
+    assert not np.isnan(got).any()
+    for b, n in enumerate(lens):
+        assert np.all(got[b, n:] == 0)
+    if n_split == 1:
+        assert np.all(writes == 1)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jax_ragged_extend(jq, jk, jv, st, tl, block_q=16, block_k=16,
+                                        interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert float(np.abs(got - want).max()) <= 2e-2 * float(np.abs(want).max())
+    want32 = ref.ragged_extend_ref(*(torch.from_numpy(a) for a in (q, k, v, st, tl))).numpy()
+    atol = ATTN_TOL + BF16_SPLIT_REL * float(np.abs(want32).max())
+    assert one_rounding_excess(got, want32, atol) <= 0
+
+
+@pytest.mark.parametrize("name,B,S,T,Hq,Hkv,D,ptr,path", [
+    ("qwen3-0.6b bucket", 8, 256, 2048, 16, 8, 128, 0, "wgmma"),
+    ("llama-7b", 8, 256, 2048, 32, 32, 128, 0, "wgmma"),
+    ("qwen2-vl-7b", 8, 256, 2048, 28, 4, 128, 0, "wgmma"),
+    ("stablelm-12b", 8, 256, 2048, 32, 8, 160, 0, "wgmma"),
+    ("gemma-2b", 8, 256, 2048, 8, 1, 256, 0, "wgmma"),
+    ("seamless-m4t", 8, 256, 2048, 16, 16, 64, 0, "wgmma"),
+    ("a decode rider bucket", 8, 1, 2048, 16, 8, 128, 0, "wgmma"),
+    ("D = 20", 4, 64, 700, 8, 8, 20, 0, "mma"),
+    ("D = 36", 2, 16, 64, 4, 1, 36, 0, "mma"),
+    ("D = 272", 1, 8, 64, 2, 1, 272, 0, "mma"),
+    ("an 8-byte base", 8, 256, 2048, 16, 8, 128, 8, "mma"),
+])
+def test_ragged_bf16_path_rule(name, B, S, T, Hq, Hkv, D, ptr, path):
+    assert rex.bf16_path(B, S, T, Hq, Hkv, D, (4096 + ptr, 8192, 12288)) == path
+    assert rex.bf16_path(B, S, T, Hq, Hkv, D, (4096, 8192, 12288 + ptr)) == path
 
 
 # ------------------------------------------------------------ the path rule

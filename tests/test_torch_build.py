@@ -22,7 +22,7 @@ def csrc(tmp_path, monkeypatch):
 
 
 HEADERS = ["tf32x3.cuh", "attention_tc.cuh", "bf16_mma.cuh", "wgmma.cuh",
-           "attention_wgmma.cuh"]
+           "attention_wgmma.cuh", "ragged_split.cuh"]
 
 
 def test_sources_and_headers_are_in_the_package():

@@ -118,6 +118,39 @@ def test_port_attention_tiles_trimmed_strictly_cheaper(D, block_q):
     assert trim["kv_bytes"] < full["kv_bytes"]
 
 
+def test_port_attention_counts_follow_each_path():
+    """The bf16 loops' schedules: the split loop runs split_plan blocks a
+    (row, kv head), not one a 64-token chunk of the table, and reads only
+    the TMA boxes that hold a live token; the wgmma ragged_extend runs a
+    block per KV part of a 128-vector q tile and reads each K/V tile of a
+    tile's range once, issuing products only for warpgroups with a live
+    row (a decode rider: one of two)."""
+    lengths = [0, 1, 129, 2048, 2048, 129, 1, 2049]
+    chunk = counting.port_paged_attention_counts(8, 16, 8, 128, 128, 16, lengths, itemsize=2)
+    split = counting.port_paged_attention_counts(8, 16, 8, 128, 128, 16, lengths, itemsize=2,
+                                                 path="split")
+    assert split["grid_steps"] == 8 * 8 * 5 < chunk["grid_steps"] == 8 * 8 * 32
+    assert split["kv_bytes"] <= chunk["kv_bytes"] and split["q_bytes"] == chunk["q_bytes"]
+    s8 = counting.port_paged_attention_counts(1, 2, 1, 64, 8, 10, [17], itemsize=2,
+                                              path="split")
+    assert s8["kv_block_fetches"] == 2 * 3 and s8["kv_bytes"] == 2 * 24 * 64 * 2
+    starts, lens = [0, 2047, 500, 0, 1792, 1011, 64, 300], [0, 1, 37, 256, 256, 37, 1, 256]
+    mma = counting.port_ragged_extend_counts(8, 16, 8, 256, 2048, 128, starts, lens, 128,
+                                             itemsize=2)
+    wg = counting.port_ragged_extend_counts(8, 16, 8, 256, 2048, 128, starts, lens, 128,
+                                            itemsize=2, path="wgmma", n_split=3)
+    assert wg["kv_bytes"] < mma["kv_bytes"]
+    # the split adds blocks, not bytes: each K/V tile still read once
+    one = counting.port_ragged_extend_counts(8, 16, 8, 256, 2048, 128, starts, lens, 128,
+                                             itemsize=2, path="wgmma", n_split=1)
+    assert one["grid_steps"] < wg["grid_steps"] and one["kv_bytes"] == wg["kv_bytes"]
+    rider = counting.port_ragged_extend_counts(2, 16, 8, 1, 2048, 128, [2047, 100], [1, 1],
+                                               128, itemsize=2, path="wgmma", n_split=8)
+    assert rider["grid_steps"] == 8 * (8 + 1)  # 32 and 2 K/V tiles: 8 parts and 1
+    assert rider["flops"] == 8 * (32 + 2) * 4 * 64 * 64 * 128
+    assert rider["kv_bytes"] == 8 * 2 * (2048 + 128) * 128 * 2
+
+
 def test_port_attention_stages_half_tiles_past_d_128():
     assert [counting.attn_stage_keys(D) for D in (64, 128, 160, 256)] == [64, 64, 32, 32]
     assert counting.ATTN_BLOCK_K == 2 * counting.ATTN_WIDE_STAGE_K

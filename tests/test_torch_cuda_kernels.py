@@ -1109,3 +1109,127 @@ def test_lora_grad_cuda_matches_plain(cuda, B, S, d_in, d_out, r, N):
     assert torch.equal(da, da2) and torch.equal(db, db2)
     # the last block of each split shrink tile zeroes its counter again
     assert not any(c.any() for c in sgmv_mod._counters.values())
+
+
+# The bf16 attention loops of their own design. paged_attention's split
+# loop (paged_attention.bf16_path: G <= 16, G·D <= 512, D a multiple of 8): split_plan
+# blocks a (row, kv head) as one cluster, TMA boxes of gcd(page, 64) tokens,
+# the merge in distributed shared memory; pages of 8, 16, 24 and 128
+# tokens, lengths 0, 1, page ± 1, T and past T, permuted tables, one row
+# long enough to reload its block's table window. ragged_extend's wgmma loop
+# (ragged_extend_wgmma.cu: D a multiple of 16): the engine's buckets with
+# decode riders at long starts, the KV split and its combine, G 1 to 8, D
+# 32 to 256. Each against its plain bf16 version and within one bf16
+# rounding of the plain f32 version (``_match``), bitwise on repeat, rows of
+# length 0 and padded queries exact zeros, on the loop its rule names.
+_SPLIT = [
+    # B, T, H, Hkv, D, page
+    (8, 2048, 16, 8, 128, 128),   # qwen3-0.6b: G = 2
+    (6, 1024, 8, 8, 128, 16),     # G = 1, 16-token pages
+    (6, 512, 16, 4, 64, 8),       # G = 4, D = 64, 8-token pages
+    (6, 640, 16, 4, 128, 128),    # G = 4, D = 128: G·D = 512
+    (6, 640, 2, 1, 256, 128),     # D = 256, G = 2
+    (6, 640, 24, 8, 160, 128),    # D = 160, G = 3 (padded to 4)
+    (4, 384, 32, 2, 32, 24),      # G = 16, D = 32, 24-token pages (boxes of 8)
+    (2, 20480, 2, 1, 64, 8),      # 2560 pages a row, 320 a block: the window reloads
+]
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,D,page", _SPLIT)
+def test_paged_attention_cuda_split_path(cuda, B, T, H, Hkv, D, page):
+    pa = importlib.import_module("repro_torch.kernels.paged_attention")
+    rng = np.random.default_rng(21)
+    pages = T // page
+    P = B * pages + 5
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    vp = rng.standard_normal((P, page, Hkv, D), np.float32)
+    tables = rng.permutation(P)[: B * pages].reshape(B, pages).astype(np.int32)
+    lens = ([T - 7, 0, 1, page - 1, page + 1, T, T + 1] + [T] * B)[:B]
+    args = [_t(v, cuda, torch.bfloat16) for v in (q, kp, vp, tables, np.asarray(lens, np.int32))]
+    assert pa.bf16_path(B, H // Hkv, Hkv, D, [a.data_ptr() for a in args[:3]]) == "split"
+    paths = ops.path_launch_counts()["paged_attention"]
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    assert _one_path_launch("paged_attention", paths, "split")
+    want, want32 = _plain(ref.paged_attention_ref, *args)
+    assert _match(got, want, 1e-5, torch.bfloat16, want32)
+    for bb, n in enumerate(lens):
+        if n == 0:
+            assert torch.equal(got[bb], torch.zeros_like(got[bb]))
+    assert torch.equal(paged_attention(*args), got)  # no atomics: the same bits
+
+
+_RAGGED_WGMMA = [
+    # B, S, T, H, Hkv, D, lens, starts
+    (8, 256, 2048, 16, 8, 128, [0, 1, 37, 256, 256, 37, 1, 256],     # the 256 bucket
+     [0, 2047, 500, 0, 1792, 1011, 64, 300]),
+    (8, 64, 2048, 16, 8, 128, [0, 1, 37, 64, 64, 37, 1, 64],          # 64
+     [0, 2047, 500, 0, 1984, 1011, 1500, 300]),
+    (8, 8, 2048, 16, 8, 128, [0, 1, 5, 8, 8, 5, 1, 8],                # 8
+     [0, 2047, 500, 0, 2040, 1011, 1500, 300]),
+    (8, 1, 2048, 16, 8, 128, [1, 1, 0, 1, 1, 1, 1, 1],                # riders alone
+     [2047, 5, 0, 64, 1000, 1500, 2000, 100]),
+    (4, 64, 900, 32, 32, 128, [64, 1, 0, 50], [800, 899, 0, 300]),     # llama-7b: G = 1
+    (4, 50, 1200, 28, 4, 128, [50, 1, 17, 0], [1100, 1199, 0, 5]),     # qwen2-vl-7b: G = 7
+    (4, 64, 900, 12, 4, 160, [64, 1, 0, 50], [800, 899, 0, 300]),      # D = 160, G = 3
+    (4, 50, 1200, 8, 1, 256, [50, 1, 17, 0], [1100, 1199, 0, 5]),      # gemma-2b: D = 256
+    (2, 512, 520, 16, 16, 64, [512, 512], [0, 0]),                     # seamless's prefill
+    (3, 33, 400, 8, 2, 32, [33, 20, 1], [367, 0, 399]),                # D = 32
+]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,lens,starts", _RAGGED_WGMMA)
+def test_ragged_extend_cuda_wgmma_path(cuda, B, S, T, H, Hkv, D, lens, starts):
+    rex = importlib.import_module("repro_torch.kernels.ragged_extend")
+    rng = np.random.default_rng(31)
+    q = rng.standard_normal((B, S, H, D), np.float32)
+    k = rng.standard_normal((B, T, Hkv, D), np.float32)
+    v = rng.standard_normal((B, T, Hkv, D), np.float32)
+    args = [_t(a, cuda, torch.bfloat16) for a in (q, k, v, np.asarray(starts, np.int32),
+                                               np.asarray(lens, np.int32))]
+    assert rex.bf16_path(B, S, T, H, Hkv, D, [a.data_ptr() for a in args[:3]]) == "wgmma"
+    paths = ops.path_launch_counts()["ragged_extend"]
+    got = ragged_extend(*args)
+    torch.cuda.synchronize()
+    assert _one_path_launch("ragged_extend", paths, "wgmma")
+    want, want32 = _plain(ref.ragged_extend_ref, *args)
+    assert _match(got, want, 1e-5, torch.bfloat16, want32)
+    for b, n in enumerate(lens):
+        assert torch.equal(got[b, n:], torch.zeros_like(got[b, n:]))
+    assert torch.equal(ragged_extend(*args), got)
+    # the plan: 1 to 8 parts, the most at the one-tile buckets (64 blocks)
+    # over 2048 keys on a card of 113 SMs or more
+    lib = build.load("ragged_extend_wgmma", rex._WGMMA_SIGNATURES)
+    parts = lib.ragged_extend_wgmma_kv_parts(B, S, T, H, Hkv, D)
+    assert 1 <= parts <= 8
+    if B * Hkv == 64 and S * (H // Hkv) <= 128 and T == 2048:
+        assert parts == 8
+
+
+def test_bf16_attention_shapes_off_the_new_loops(cuda):
+    """bf16 shapes the new loops do not take run the old ones by the rules:
+    ragged_extend at D = 20 on attention_tc.cuh ("mma"), paged_attention
+    at G = 32 and at qwen2-vl-7b's G·D = 7 · 128 on the chunk loop; all
+    still match their plain versions."""
+    rng = np.random.default_rng(41)
+    q = rng.standard_normal((2, 16, 8, 20), np.float32)
+    k = rng.standard_normal((2, 64, 4, 20), np.float32)
+    args = [_t(a, cuda, torch.bfloat16) for a in (q, k, k, np.asarray([48, 0], np.int32),
+                                               np.asarray([16, 0], np.int32))]
+    paths = ops.path_launch_counts()["ragged_extend"]
+    got = ragged_extend(*args)
+    assert _one_path_launch("ragged_extend", paths, "mma")
+    want, want32 = _plain(ref.ragged_extend_ref, *args)
+    assert _match(got, want, 1e-5, torch.bfloat16, want32)
+    for G, D in ((32, 64), (7, 128)):
+        qp = rng.standard_normal((2, G, D), np.float32)
+        kp = rng.standard_normal((4, 16, 1, D), np.float32)
+        pargs = [_t(a, cuda, torch.bfloat16) for a in (qp, kp, kp,
+                                                    np.asarray([[0, 1], [2, 3]], np.int32),
+                                                    np.asarray([20, 32], np.int32))]
+        paths = ops.path_launch_counts()["paged_attention"]
+        got = paged_attention(*pargs)
+        assert _one_path_launch("paged_attention", paths, "chunk")
+        want, want32 = _plain(ref.paged_attention_ref, *pargs)
+        assert _match(got, want, 1e-5, torch.bfloat16, want32)
