@@ -202,6 +202,21 @@ exits non-zero:
               --arch qwen3-0.6b --full-config --steps 2 --ckpt-every 2
               --compress`` in a subprocess (``torchrun`` on more cards), and
               again with ``--steps 4``, which must resume from step 2.
+              Before them, the tensor- and expert-parallel families
+              (``FAMILY_RUNS``: deepseek-v2-lite-16b (MLA, MoE) and
+              rwkv6-1.6b at 2 layers, recurrentgemma-2b at 3,
+              seamless-m4t-large-v2 at 2 + 2; full width, f32, B = 4 x
+              128): 2 unsharded steps on the card, then the same 2 steps
+              through ``make_sharded_train_step`` on a (1, 2) mesh of two
+              ranks on the one card over gloo (NCCL refuses two ranks on
+              one device), losses within TRAIN_LOSS_TOL and grad norms
+              within FAMILY_GRAD_NORM_TOL (f32's own spread at full width),
+              both ranks' losses equal, every rank's local shapes the rules'
+              shards, exact launches a step
+              on each rank (also in ``launches_by_path["dist"]``); their
+              step times go through the host and are no tensor-parallel
+              timings. ``tp_kernel_cases`` also holds the kernels at
+              deepseek's, rwkv6's, phi3.5-moe's and seamless's local shapes.
 
 Every phase's line carries the script's seconds so far (``t_s``). Then the
 script's seconds. The line before the last is the ``kernels`` JSON (one
@@ -2888,9 +2903,48 @@ DIST_GRAD_NORM_TOL = 1e-4  # relative
 
 
 # phase 11's kernels at the local shapes tensor parallelism gives them, on
-# the last rank of a model axis of M: (config, M). One card runs the path
-# on a 1 × 1 mesh, so these shapes are checked here, apart from the path.
-TP_SHAPES = (("qwen3-0.6b", 2), ("qwen3-0.6b", 4), ("gemma-2b", 2))
+# the last rank of a model axis of M: (config, M). One card runs the
+# qwen3-0.6b path on a 1 × 1 mesh and the families on two ranks (M = 2), so
+# these shapes are checked here, apart from the path: deepseek's MLA LoRA
+# targets, rwkv6's r/k/v/o, phi3.5-moe's 8 of 32 heads on 2 kv heads,
+# seamless's 8 of 16 heads at D = 64.
+TP_SHAPES = (("qwen3-0.6b", 2), ("qwen3-0.6b", 4), ("gemma-2b", 2),
+             ("deepseek-v2-lite-16b", 2), ("rwkv6-1.6b", 2), ("phi3.5-moe-42b-a6.6b", 4),
+             ("seamless-m4t-large-v2", 2))
+# phase 11's families: (config, field overrides cutting its depth for time,
+# kernel launches a step on each rank: fused_sgmv and lora_grad on every
+# LoRA projection, flash_prefill and flash_prefill_bwd on every causal
+# window-free GQA layer; MLA and the encoder attend through the plain sdpa,
+# recurrentgemma's attention layer has a window). Two unsharded steps on
+# the card, then the same two on a (1, 2) mesh of two gloo ranks on it.
+FAMILY_RUNS = (
+    ("deepseek-v2-lite-16b", {"num_layers": 2}, {"fused_sgmv": 6, "lora_grad": 6}),
+    ("rwkv6-1.6b", {"num_layers": 2}, {"fused_sgmv": 8, "lora_grad": 8}),
+    ("recurrentgemma-2b", {"num_layers": 3}, {"fused_sgmv": 4, "lora_grad": 4}),
+    ("seamless-m4t-large-v2", {"num_layers": 2, "encoder_layers": 2},
+     {"fused_sgmv": 8, "lora_grad": 8, "flash_prefill": 2, "flash_prefill_bwd": 2}))
+FAMILY_STEPS = 2
+FAMILY_B, FAMILY_S = 4, 128  # 512 tokens a step (seamless: 32 frames a row)
+FAMILY_MESH = (1, 2)
+# the families' grad norms against the unsharded steps, relative, a step.
+# Two f32 computations of one step differ by f32's own spread, which is
+# wider here than phase 11's 1 x 1 (bitwise) check: rwkv6's unsharded f32
+# step at full width lies 1.6e-4 under a float64 step of the host on the
+# same weights, the same step with a plain fused_sgmv 1.0e-4 over it
+# (scripts/family_precision.py). The second step starts from weights that
+# AdamW's first update moved apart: an element whose gradient is below that
+# spread moves by up to lr in either direction
+FAMILY_GRAD_NORM_TOL = (1e-3, 1e-2)
+
+
+def lora_bases(cfg) -> dict[str, str]:
+    """Each LoRA target's base projection, by its param path name."""
+    if cfg.mla is not None:
+        return {"q": "layers/mixer/wq", "kv_a": "layers/mixer/w_kv_a", "o": "layers/mixer/wo"}
+    if cfg.rwkv is not None:
+        return {t: f"layers/mixer/w{t}" for t in ("r", "k", "v", "o")}
+    home = "decoder/attn" if cfg.is_encdec else "layers/mixer"
+    return {t: f"{home}/w{t}" for t in ("q", "k", "v", "o")}
 
 
 def grad_check(what: str, kernel, plain, inputs, gen, out_tol: float, out_abs: bool) -> dict:
@@ -2923,11 +2977,12 @@ def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
     rank's heads, at the local shapes of the last rank of each TP_SHAPES
     model axis: the base weight's shard by the rules (``spec_for_param``
     without ``cfg``, as the launcher places it), LoRA A/B as
-    ``TensorParallel.prepare`` cuts them (B's columns for q/k/v, A's rows
-    for o), the heads ``TensorParallel.heads`` gives (gemma-2b at 2: four
-    query heads on one kv head). f32, TRAIN_B rows of TRAIN_S tokens with
-    TRAIN_IDS, rank 32 on 4 slots. Run before the path's counts are reset,
-    so none of these launches is counted as the path's."""
+    ``TensorParallel.prepare`` cuts them (B's columns for q/k/v/r, A's rows
+    for o; MLA's kv_a whole), the heads ``TensorParallel.heads`` gives
+    (gemma-2b at 2: four query heads on one kv head; no flash case for MLA
+    and RWKV, which attend without it). f32, TRAIN_B rows of TRAIN_S tokens
+    with TRAIN_IDS, rank 32 on 4 slots. Run before the path's counts are
+    reset, so none of these launches is counted as the path's."""
     from repro_torch.distributed.sharding import make_shardings, spec_for_param
     from repro_torch.distributed.tensor_parallel import TensorParallel
     from repro_torch.models import build_model
@@ -2939,7 +2994,7 @@ def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
         meta = build_model(cfg, dtype=torch.float32, device=torch.device("meta"))
         dims, r, N, scale = meta.lora_dims(), cfg.lora.rank, 4, meta.lora_scale
         mesh = {"data": 1, "model": M}
-        names = {t: f"layers/mixer/w{t}" for t in ("q", "k", "v", "o")}
+        names = lora_bases(cfg)
         whole_shapes = {t: (cfg.num_layers, *dims[t]) for t in names}
         specs = {names[t]: spec_for_param(names[t], whole_shapes[t], mesh) for t in names}
         shard = make_shardings(specs, mesh)
@@ -2963,6 +3018,9 @@ def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
                           **grad_check(what, lambda *z: ops.fused_sgmv(*z, ids, scale=scale),
                                        lambda *z: ref.fused_sgmv_ref(*z, ids, scale),
                                        inputs, gen, SGMV_TOL, False)})
+        if cfg.mla is not None or cfg.rwkv is not None:
+            torch.cuda.empty_cache()
+            continue
         q0, q1, k0, k1 = tp.heads(cfg)
         D = cfg.resolved_head_dim
         # (B, S, heads, D) leaves, handed over head-major as gqa_full does
@@ -3028,6 +3086,172 @@ def dist_rank(rank: int, world: int, cfg, device_type: str) -> dict:
                            "int8": wire_bytes(local, compressed=True)}}
 
 
+def family_cfg(configs, arch: str, cut: dict):
+    return dataclasses.replace(configs.get(arch), **cut)
+
+
+def family_batch(cfg, step: int, dev) -> dict:
+    """``train_batch``'s FAMILY_B x FAMILY_S batch, with an
+    encoder-decoder's frames (FAMILY_S / 4 a row) drawn from the same
+    generator after it."""
+    batch = train_batch(cfg, DIST_STEP0 + step, dev, FAMILY_B, FAMILY_S)
+    if cfg.is_encdec:
+        gen = torch.Generator(device=dev).manual_seed(2000 + step)
+        batch["frames"] = torch.randn((FAMILY_B, FAMILY_S // 4, cfg.d_model),
+                                      generator=gen, device=dev)
+    return batch
+
+
+def family_rank(rank: int, world: int, cfgs: list, device_type: str) -> list:
+    """Phase 11's families on one rank of a (1, world) mesh over gloo, all
+    ranks on one card: for each config, the seed-0 train state drawn on the
+    card (``make_train_state``'s draws; its zero moments made on the
+    shards) and cut to this rank's shards by the rules (the ranks in turn,
+    so one whole set of weights at a time is on the card), FAMILY_STEPS sharded steps
+    on ``family_batch``'s batches with the launch counts reset just before
+    and read just after; the metrics, the local and whole shapes, the
+    launches, seconds a step and the peak GB."""
+    from repro_torch.distributed import batch_specs, build_mesh, make_shardings
+    from repro_torch.distributed.elastic import ElasticPlan
+    from repro_torch.distributed.sharded_step import (make_sharded_train_step,
+                                                      train_state_specs)
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models import TrainState, build_model
+    from repro_torch.optim import OptState, adamw_init
+    from repro_torch.tree import flatten_with_names, tree_map
+
+    on_card = device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device(device_type))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    mesh = build_mesh(ElasticPlan(data=FAMILY_MESH[0], model=FAMILY_MESH[1],
+                                  dropped_devices=0), device_type)
+    axes = {"data": FAMILY_MESH[0], "model": FAMILY_MESH[1]}
+    out = []
+    for cfg in cfgs:
+        model = build_model(cfg, dtype=torch.float32, device=dev)
+        for turn in range(world):
+            if turn == rank:
+                # make_train_state's draws, its zero moments made on the shards
+                gen = torch.Generator(device=dev).manual_seed(0)
+                params, lora = model.init_params(gen), model.init_lora(gen, 4)
+                full = TrainState(params=params, lora=lora, opt=adamw_init(tree_map(
+                    lambda t: t.to("meta"), {"params": params, "lora": lora})),
+                    step=torch.zeros((), dtype=torch.int32))
+                whole = {n: tuple(t.shape) for n, t in flatten_with_names(full)}
+                rules = {n: sh.local_shape(whole[n]) for n, sh in make_shardings(
+                    train_state_specs(full, axes), axes).items()}
+                shardings = make_shardings(train_state_specs(full, mesh), mesh)
+                state = shard_tree(full, shardings)
+                zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype, device=dev)  # noqa: E731
+                state = dataclasses.replace(state, opt=OptState(
+                    m=tree_map(zeros, state.opt.m), v=tree_map(zeros, state.opt.v),
+                    step=torch.zeros((), dtype=torch.int32)))
+                del full, params, lora
+                if on_card:
+                    torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        step_fn = make_sharded_train_step(model, shardings, lr=3e-4)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics, seconds = [], []
+        for step in range(FAMILY_STEPS):
+            t0 = time.perf_counter()
+            batch = family_batch(cfg, step, dev)
+            local = shard_tree(batch, make_shardings(batch_specs(batch, mesh), mesh))
+            state, met = step_fn(state, local)
+            if on_card:
+                torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            metrics.append(met)
+        out.append({"arch": cfg.name, "coordinate": mesh.get_coordinate(),
+                    "losses": [float(m["loss"]) for m in metrics],
+                    "grad_norms": [float(m["grad_norm"]) for m in metrics],
+                    "local_shapes": {n: tuple(t.shape) for n, t in flatten_with_names(state)},
+                    "whole_shapes": whole, "rules": rules, "launches": ops.launch_counts(),
+                    "step_seconds": seconds,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0})
+        del state, step_fn, model
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def family_runs(configs, dev) -> tuple[list, dict]:
+    """FAMILY_RUNS: FAMILY_STEPS unsharded ``make_train_step`` steps of each
+    config on the card, then (one spawn for all) the same steps through
+    ``make_sharded_train_step`` on a (1, 2) mesh of two ranks on this card
+    over gloo (NCCL refuses two ranks on one device; gloo carries the CUDA
+    tensors of ``all_reduce`` and ``all_gather`` through the host, so the
+    step times are no tensor-parallel timings). Held: losses within
+    TRAIN_LOSS_TOL and grad norms within FAMILY_GRAD_NORM_TOL of the
+    unsharded steps, both ranks' losses equal, every rank's local shapes the
+    rules' shards, launches a step exact on each rank. Returns (a line a
+    config, launches summed over the ranks)."""
+    from repro_torch.distributed.runner import run_ranks
+    from repro_torch.models import build_model, make_train_state, make_train_step
+
+    cfgs = [family_cfg(configs, arch, cut) for arch, cut, _ in FAMILY_RUNS]
+    unsharded = []
+    for cfg in cfgs:
+        t0 = time.perf_counter()
+        model = build_model(cfg, dtype=torch.float32, device=dev)
+        state = make_train_state(model, torch.Generator(device=dev).manual_seed(0),
+                                 n_lora_slots=4)
+        step_fn = make_train_step(model, lr=3e-4)
+        mets = []
+        for step in range(FAMILY_STEPS):
+            state, met = step_fn(state, family_batch(cfg, step, dev))
+            mets.append((float(met["loss"]), float(met["grad_norm"])))
+        unsharded.append({"metrics": mets, "seconds": time.perf_counter() - t0})
+        del state, model, step_fn
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(family_rank, FAMILY_MESH[1], DIST_DIR / "family_stores",
+                      backend="gloo", args=(cfgs, dev.type), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    lines, launches = [], {}
+    for i, ((arch, cut, per_step), cfg, one) in enumerate(zip(FAMILY_RUNS, cfgs, unsharded)):
+        runs = [r[i] for r in ranks]
+        r0 = runs[0]
+        rules = r0["rules"]
+        for r in runs:
+            require(r["local_shapes"] == rules,
+                    f"{arch}: rank {r['coordinate']} local shapes off the rules' shards")
+            want = dict.fromkeys(r["launches"], 0)
+            want.update({k: n * FAMILY_STEPS for k, n in per_step.items()})
+            require(r["launches"] == want, f"{arch} rank {r['coordinate']} launches "
+                                           f"{r['launches']} != {want}")
+            require(r["losses"] == r0["losses"], f"{arch}: the ranks' losses differ")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        loss_err = max(abs(a - b[0]) / abs(b[0]) for a, b in zip(r0["losses"], one["metrics"]))
+        norm_errs = [abs(a - b[1]) / b[1] for a, b in zip(r0["grad_norms"], one["metrics"])]
+        require(loss_err <= TRAIN_LOSS_TOL, f"{arch} sharded losses {r0['losses']} against "
+                                            f"the unsharded {one['metrics']}")
+        require(all(e <= tol for e, tol in zip(norm_errs, FAMILY_GRAD_NORM_TOL)),
+                f"{arch} sharded grad norms {r0['grad_norms']} against the unsharded "
+                f"{one['metrics']}")
+        sharded = {n: list(s) for n, s in rules.items()
+                   if n.startswith("params/") and s != r0["whole_shapes"][n]}
+        require(bool(sharded), f"{arch}: no parameter is sharded over model")
+        lines.append({"arch": arch, "cut": cut, "mesh": list(FAMILY_MESH), "backend": "gloo",
+                      "batch": FAMILY_B, "seq": FAMILY_S, "losses": r0["losses"],
+                      "grad_norms": r0["grad_norms"], "unsharded": one["metrics"],
+                      "loss_rel_err": loss_err, "grad_norm_rel_errs": norm_errs,
+                      "sharded_param_shapes": sharded,
+                      "launches_per_step": {k: v // FAMILY_STEPS
+                                            for k, v in r0["launches"].items() if v},
+                      "unsharded_seconds": one["seconds"],
+                      "step_seconds_gloo": [r["step_seconds"] for r in runs],
+                      "peak_gb_per_rank": [r["peak_gb"] for r in runs]})
+    lines.append({"spawn_seconds": spawn_s})
+    return lines, launches
+
+
 def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
     """Phase 11: the multi-device layer on every card of the machine, one
     rank a card over NCCL (in this process on one card, through the rank
@@ -3076,6 +3300,7 @@ def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
         require(r["launches"] == want, f"dist rank launches {r['launches']} != {want}")
         for k, n in r["launches"].items():
             launches[k] += n
+    ranks_launches = dict(launches)
     loss_err = max(abs(a - b[0]) / abs(b[0]) for a, b in zip(ranks[0]["losses"], unsharded))
     norm_err = max(abs(a - b[1]) / b[1] for a, b in zip(ranks[0]["grad_norms"], unsharded))
     require(all(r["losses"] == ranks[0]["losses"] for r in ranks), "ranks' losses differ")
@@ -3083,6 +3308,14 @@ def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
                                         f"unsharded {unsharded}")
     require(norm_err <= DIST_GRAD_NORM_TOL, f"dist grad norms {ranks[0]['grad_norms']} "
                                             f"against the unsharded {unsharded}")
+
+    # the families on two gloo ranks on this card
+    torch.cuda.empty_cache()
+    t_fam = time.perf_counter()
+    families, fam_launches = family_runs(configs, dev)
+    families.append({"seconds": time.perf_counter() - t_fam})
+    for k, n in fam_launches.items():
+        launches[k] += n
 
     # the train launcher: 2 steps and a checkpoint, then a restart to step 4
     shutil.rmtree(DIST_DIR, ignore_errors=True)
@@ -3113,8 +3346,9 @@ def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
             "step_seconds": [r["step_seconds"] for r in ranks],
             "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
             "wire_bytes_per_rank": [r["wire_bytes"] for r in ranks],
-            "launches_per_step": {k: v // (DIST_STEPS * world) for k, v in launches.items()},
-            "launcher": runs, "tp_kernel_cases": tp_cases,
+            "launches_per_step": {k: v // (DIST_STEPS * world)
+                                  for k, v in ranks_launches.items()},
+            "launcher": runs, "tp_kernel_cases": tp_cases, "families": families,
             "seconds": time.perf_counter() - t_start}
     return line, launches
 

@@ -7,10 +7,11 @@ Each rank holds its local shards of the train state as plain tensors
 (:func:`train_state_specs`, ``make_shardings``, ``shard_tree``) and its
 rows of the batch (``batch_specs``). A step:
 
-* the forward on the local shards, with the tensor-parallel collectives of
-  :mod:`repro_torch.distributed.tensor_parallel` where ``model`` > 1 (the
-  dense GQA decoders; the other families raise ``NotImplementedError``
-  there and train data-parallel);
+* the forward on the local shards, with the tensor- and
+  expert-parallel collectives of
+  :mod:`repro_torch.distributed.tensor_parallel` where ``model`` > 1, for
+  every family: dense GQA, MLA, MoE (each rank its experts), RWKV-6, the
+  RG-LRU hybrid and the encoder-decoder;
 * the cross-entropy of the rank's rows divided by the whole batch's count
   of labelled positions (an all-reduce over ``data``), so the gradients,
   summed over ``data``, are those of the global mean, as GSPMD computes
@@ -43,12 +44,6 @@ from ..optim import adamw_update
 from ..tree import flatten_with_names, unflatten
 from .sharding import axis_sizes, moment_specs, param_specs, spec_axes
 from .tensor_parallel import TensorParallel, gather_from
-
-
-def tensor_parallel_supported(cfg) -> bool:
-    """The dense GQA decoders: the families the tensor-parallel forward
-    covers."""
-    return not (cfg.moe or cfg.mla or cfg.rwkv or cfg.rglru or cfg.is_encdec)
 
 
 def train_state_specs(state: TrainState, mesh, cfg=None) -> dict[str, tuple]:
@@ -84,11 +79,6 @@ def make_sharded_train_step(model, shardings: dict, *, lr: float = 3e-4):
         raise ValueError(f"a ('data', 'model') mesh, not {tuple(axes)}")
     n_data, n_model = axes["data"], axes["model"]
     cfg = model.cfg
-    if n_model > 1 and not tensor_parallel_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism (model axis {n_model}) covers the dense "
-            "GQA decoders; MoE, MLA, RWKV-6, the RG-LRU hybrid and the encoder-decoder "
-            "train data-parallel (model axis 1) until ROADMAP Queue 1 item 8")
     data_group, model_group = mesh.get_group("data"), mesh.get_group("model")
     data_index = mesh.get_coordinate()[0]
     if n_model > 1:

@@ -12,9 +12,9 @@ launcher runs one rank. It trains on the cards by default (NCCL, one card
 a rank, the CUDA kernels and their backward kernels); ``--device cpu``
 runs the kernels' plain versions over gloo. Without ``--full-config`` it
 trains the reduced config. As the reference's: the mesh is
-``plan_mesh(world, preferred_model=min(4, heads))`` (model axis 1 for the
-families without tensor parallelism, see ``sharded_step``), the state is
-placed by ``param_specs`` / ``moment_specs`` without ``cfg``, and the
+``plan_mesh(world, preferred_model=min(4, heads))`` for every family
+(tensor and expert parallelism over ``model``, see ``sharded_step``), the
+state is placed by ``param_specs`` / ``moment_specs`` without ``cfg``, and the
 latest checkpoint (whole leaves, the reference's format, written by rank
 0) is restored onto the current mesh, so a restart on fewer ranks resumes.
 ``--compress`` builds the int8 error-feedback state and reports it, and,
@@ -40,9 +40,7 @@ from repro_torch.distributed import (CheckpointManager, batch_specs, build_mesh,
                                      init_state as compression_init, make_shardings,
                                      plan_mesh)
 from repro_torch.distributed.runner import single_rank
-from repro_torch.distributed.sharded_step import (make_sharded_train_step,
-                                                  tensor_parallel_supported,
-                                                  train_state_specs)
+from repro_torch.distributed.sharded_step import make_sharded_train_step, train_state_specs
 from repro_torch.distributed.sharding import gather_tree, shard_tree
 from repro_torch.models import build_model, make_train_state
 
@@ -95,8 +93,7 @@ def train(args: argparse.Namespace) -> None:
     if not args.full_config:
         cfg = configs.reduced(cfg)
     model = build_model(cfg, dtype=torch.float32, device=dev)
-    preferred = min(4, cfg.num_heads) if tensor_parallel_supported(cfg) else 1
-    plan = plan_mesh(world, preferred_model=preferred)
+    plan = plan_mesh(world, preferred_model=min(4, cfg.num_heads))
     mesh = build_mesh(plan, dev.type)
     say(f"mesh: data={plan.data} model={plan.model} (dropped {plan.dropped_devices} "
         f"devices) over {dist.get_backend()}")

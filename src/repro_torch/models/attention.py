@@ -44,7 +44,7 @@ import torch.utils.checkpoint
 from ..configs.base import ModelConfig
 from ..kernels import ops as kernel_ops
 from .common import (causal_mask, dense_init, init_rms, mrope_tables, rms_norm,
-                     rope_tables, rotate, window_mask)
+                     rope_tables, rotate, scaled, window_mask)
 
 
 def _proj(x, w, lora, name, adapter_ids, scale):
@@ -504,12 +504,19 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
 
 
-def _mla_q(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale):
-    """(q_nope, q_rope) (B, S, H, ·); ``rope`` is the rope slice's width."""
+def _mla_q(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None,
+           part=None):
+    """(q_nope, q_rope) (B, S, H, ·); ``rope`` is the rope slice's width.
+    Under ``tp``, the heads ``part`` (None: all)."""
     m = cfg.mla
     B, S, _ = x.shape
-    q = _proj(x, p["wq"], lora, "q", adapter_ids, lora_scale)
-    q = q.reshape(B, S, cfg.num_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    width = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if tp is None:
+        q = _proj(x, p["wq"], lora, "q", adapter_ids, lora_scale)
+    else:
+        q = tp.column(lambda h, w: _proj(h, w, lora, "q", adapter_ids, lora_scale), x,
+                      p["wq"], cfg.num_heads * width, scaled(part, width))
+    q = q.reshape(B, S, -1, width)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, rotate(q_rope, *rope)
 
@@ -533,24 +540,46 @@ def mla_full(
     lora=None,
     adapter_ids=None,
     lora_scale: float = 1.0,
+    tp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence MLA in the expanded form (the reference's
     ``mla_full``): the latent is up-projected to per-head K and V and
     attended through the plain :func:`sdpa` (score scale 1/√(nope + rope);
     the v head dim differs), as the reference computes it outside every
-    kernel. Returns ``(out, (latent, k_rope))``, the cache's layout."""
+    kernel. Returns ``(out, (latent, k_rope))``, the cache's layout.
+
+    Under tensor parallelism (``tp``) the latent and k_rope are computed
+    whole on every rank (``w_kv_a`` and its LoRA are replicated), then each
+    rank up-projects and attends over its heads where the axis divides
+    them (``wq`` and ``w_kv_b`` column shards hold whole heads; the shared
+    k_rope enters them through ``copy_to``) and ``wo``'s partial sums are
+    completed over the axis."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    q_nope, q_rope = _mla_q(p, x, cfg, rope, lora, adapter_ids, lora_scale)
+    part = None if tp is None else tp.units(H)
+    q_nope, q_rope = _mla_q(p, x, cfg, rope, lora, adapter_ids, lora_scale, tp, part)
     latent, k_rope = _mla_latent(p, x, cfg, rope, lora, adapter_ids, lora_scale)
-    kv = (latent @ p["w_kv_b"]).reshape(B, S, H, m.qk_nope_head_dim + m.v_head_dim)
+    kv_width = m.qk_nope_head_dim + m.v_head_dim
+    if tp is None:
+        kv = latent @ p["w_kv_b"]
+    else:
+        kv = tp.column(torch.matmul, latent, p["w_kv_b"], H * kv_width,
+                       scaled(part, kv_width))
+        if part is not None:
+            k_rope = tp.fan(k_rope)
+    kv = kv.reshape(B, S, -1, kv_width)
+    Hl = kv.shape[2]
     k_nope, v = kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)],
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, Hl, m.qk_rope_head_dim)],
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     pos = torch.arange(S, device=x.device)
     out = sdpa(q, k, v, causal_mask(pos, pos)[None]).reshape(B, S, -1)
+    if tp is not None:
+        out = tp.row(lambda h, w: _proj(h, w, lora, "o", adapter_ids, lora_scale), out,
+                     p["wo"], H * m.v_head_dim, scaled(part, m.v_head_dim))
+        return out, (latent, k_rope)
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale), (latent, k_rope)
 
 

@@ -128,3 +128,9 @@ def window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int) -> torch.
     key visible iff q_pos - window < k_pos <= q_pos."""
     m = causal_mask(q_pos, k_pos)
     return m & (k_pos[..., None, :] > q_pos[..., :, None] - window)
+
+
+def scaled(part, width: int):
+    """A part [u0, u1) of heads or channels (None: all) as the part of
+    their ``width``-wide columns (tensor parallelism's layouts)."""
+    return None if part is None else (part[0] * width, part[1] * width)

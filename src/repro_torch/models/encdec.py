@@ -68,6 +68,27 @@ def _cross_attend(p, x, ck, cv, cfg: ModelConfig):
     return sdpa(q, ck, cv, mask).reshape(B, S, -1) @ p["wo"]
 
 
+def _plain(x, w, name=None):
+    return x @ w
+
+
+def _attend_tp(p, x, kv_x, cfg: ModelConfig, tp, rope=None):
+    """Bidirectional attention of x (B, S, d) over kv_x (B, T, d), or over
+    itself where ``kv_x`` is None, on this rank's heads (``tp.qkv``): q and
+    k rotated by ``rope`` where given (the encoder's self-attention;
+    cross-attention has none), the o projection completed over the model
+    axis."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    (q, k, v), (hq, hk) = tp.qkv(_plain, p, x, cfg, kv_x=kv_x)
+    q, k = q.reshape(B, S, hq, hd), k.reshape(B, -1, hk, hd)
+    if rope is not None:
+        q, k = rotate(q, *rope), rotate(k, *rope)
+    mask = torch.ones((B, S, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = sdpa(q, k, v.reshape(B, -1, hk, hd), mask).reshape(B, S, -1)
+    return tp.out_proj(_plain, out, p["wo"], cfg)
+
+
 @dataclasses.dataclass
 class EncDecLM:
     cfg: ModelConfig
@@ -75,6 +96,9 @@ class EncDecLM:
     device: torch.device | str | None = None  # None: the card, raising without one
     remat: bool = False  # recompute each decoder layer of forward in the backward
     remat_policy: str = "full"  # or "dots": keep the matrix products
+    # tensor parallelism over a mesh's model axis (``forward`` on local
+    # shards): a distributed.tensor_parallel.TensorParallel
+    tp: object = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -145,11 +169,14 @@ class EncDecLM:
         mask = torch.ones((1, S, S), dtype=torch.bool, device=dev)  # bidirectional
         for lp in layer_views(params["encoder"], cfg.encoder_layers):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            q = (h @ lp["attn"]["wq"]).reshape(B, S, cfg.num_heads, hd)
-            k = (h @ lp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-            v = (h @ lp["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-            o = sdpa(rotate(q, *rope), rotate(k, *rope), v, mask)
-            x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
+            if self.tp is not None:
+                x = x + _attend_tp(lp["attn"], h, None, cfg, self.tp, rope)
+            else:
+                q = (h @ lp["attn"]["wq"]).reshape(B, S, cfg.num_heads, hd)
+                k = (h @ lp["attn"]["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+                v = (h @ lp["attn"]["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+                o = sdpa(rotate(q, *rope), rotate(k, *rope), v, mask)
+                x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"]
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = x + dense_ffn(lp["ffn"], h2, cfg.activation)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -162,16 +189,27 @@ class EncDecLM:
 
     def _embed(self, params, tokens):
         tokens = torch.as_tensor(tokens).to(self.device, torch.int64, non_blocking=True)
+        if self.tp is not None:
+            return self.tp.embed(params["embed"], tokens, self.cfg.vocab_size).to(self.dtype)
         return params["embed"][tokens].to(self.dtype)
 
     def _unembed(self, params, x):
-        return rms_norm(x, params["final_norm"], self.cfg.norm_eps) @ params["lm_head"]
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if self.tp is not None:
+            return self.tp.logits(x, params["lm_head"], self.cfg.vocab_size,
+                                  transposed=False)
+        return x @ params["lm_head"]
 
     # ----------------------------------------------------------------- train
     def forward(self, params, frames, tokens, *, lora=None, adapter_ids=None):
         """Teacher-forced decode over the whole target ``tokens`` (B, S):
-        returns (logits (B, S, vocab), aux = 0)."""
+        returns (logits (B, S, vocab), aux = 0). Under ``tp`` the params
+        are this rank's shards, every attention (the encoder's, the
+        decoder's self- and cross-attention) runs on the rank's heads, and
+        the logits are whole."""
         cfg, dev = self.cfg, self.device
+        if self.tp is not None:
+            params, lora = self.tp.prepare(params, lora, cfg)
         enc_out = self.encode(params, frames)
         x = self._embed(params, tokens)
         S = x.shape[1]
@@ -181,11 +219,14 @@ class EncDecLM:
         def layer(lp, lsl, x, enc_out):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             mixed, _ = gqa_full(lp["attn"], h, rope, cfg, lora=lsl, adapter_ids=ids,
-                                lora_scale=self.lora_scale)
+                                lora_scale=self.lora_scale, tp=self.tp)
             x = x + mixed
             hc = rms_norm(x, lp["norm_c"], cfg.norm_eps)
-            x = x + _cross_attend(lp["cross"], hc, *_cross_kv(lp["cross"], enc_out, cfg),
-                                  cfg)
+            if self.tp is not None:
+                x = x + _attend_tp(lp["cross"], hc, enc_out, cfg, self.tp)
+            else:
+                x = x + _cross_attend(lp["cross"], hc,
+                                      *_cross_kv(lp["cross"], enc_out, cfg), cfg)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
             return x + dense_ffn(lp["ffn"], h2, cfg.activation)
 

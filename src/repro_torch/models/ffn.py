@@ -73,7 +73,7 @@ def add_choices(gk: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
-            data_group=None) -> tuple[torch.Tensor, torch.Tensor]:
+            data_group=None, tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE with the reference's dropping dispatch
     (``repro.models.ffn.moe_ffn``). Returns ``(out, aux_loss)``.
 
@@ -93,7 +93,17 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
     the pairs of the ranks before this one fill them first (an all-gather
     of the E queue lengths). ``f_e`` is the whole batch's load (an
     all-reduce) and ``p_e`` this rank's mean, so the mean of the ranks'
-    ``aux_loss`` is the whole batch's, gradients included."""
+    ``aux_loss`` is the whole batch's, gradients included.
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel``): where its
+    axis divides E, the expert stacks hold this rank's E/M experts. Every
+    rank routes the (replicated) tokens as one process would, with the same
+    C and queue places, runs only its experts and combines only their
+    outputs; an all-reduce completes the sum. The tokens and the gates
+    enter the rank's experts through ``copy_to``, so their gradients (and
+    the router's through the gates) are summed over the axis, while the
+    auxiliary loss, computed alike on every rank from the replicated
+    routing, reaches the router once."""
     m = cfg.moe
     act = activation(cfg.activation)
     B, S, d = x.shape
@@ -112,19 +122,27 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig,
         before = sum(lengths[:dist.get_rank(data_group)], torch.zeros_like(lengths[0]))
         room = (C - before)[flat_e]
     keep = slot < room
+    w = gate_vals.reshape(-1, 1).to(x.dtype)
+    part = None if tp is None or p["w_gate"].shape[0] == E else tp.units(E)
+    src = xt
+    if part is not None:  # this rank's experts: a pair of another's is not kept here
+        keep = keep & (flat_e >= part[0]) & (flat_e < part[1])
+        flat_e = (flat_e - part[0]).clamp(0, part[1] - part[0] - 1)
+        src, w = tp.fan(xt), tp.fan(w)
     # dropped pairs all go to one spare place past the queue, which no kept
     # pair reads: no boolean indexing, so no wait on the device. A queue
     # holds at most C pairs, and at most this rank's T·k
     places = min(C, T * k)
     slot = torch.where(keep, slot, places)
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
-    disp = x.new_zeros((E, places + 1, d))
-    disp[flat_e, slot] = xt[tok]
+    disp = x.new_zeros((p["w_gate"].shape[0], places + 1, d))
+    disp[flat_e, slot] = src[tok]
     h = act(torch.bmm(disp, p["w_gate"])) * torch.bmm(disp, p["w_up"])
-    eout = torch.bmm(h, p["w_down"])  # (E, places + 1, d)
+    eout = torch.bmm(h, p["w_down"])  # (experts, places + 1, d)
     gathered = torch.where(keep[:, None], eout[flat_e, slot], 0)  # (T·k, d)
-    w = gate_vals.reshape(-1, 1).to(x.dtype)
     out = add_choices((gathered * w).reshape(T, k, d))
+    if part is not None:
+        out = tp.reduce(out)
     if "shared" in p:
         out = out + dense_ffn(p["shared"], xt, cfg.activation)
     density = F.one_hot(expert_ids, E).float().mean(dim=(0, 1))

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .attention import _proj
-from .common import dense_init
+from .common import dense_init, scaled
 
 
 # ================================================================== RWKV-6
@@ -106,27 +106,45 @@ def _shifted(x: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
 
 
 def rwkv_time_mix(p, x, state, cfg: ModelConfig, lora, adapter_ids,
-                  lora_scale: float, token_mask=None):
+                  lora_scale: float, token_mask=None, tp=None):
     """RWKV-6 time mix of x (B, S, d) from ``state``; returns (out, new
     state). The WKV recurrence S_t = w_t ⊙ S_{t-1} + k_t v_tᵀ runs as a
     loop over time with y_t = r_t·S_{t-1} + (r_t·(u ⊙ k_t)) v_t, the
     reference's r_t·(S_{t-1} + u ⊙ k_t v_tᵀ) with the bonus term taken out
     of the loop. A pad step is w = 1, k = 0: the state passes unchanged,
-    exactly."""
+    exactly.
+
+    Under tensor parallelism (``tp``) the heads are independent, so where
+    the axis divides them each rank runs its own: r, k, v and g from the
+    column shards, its heads of ``u``, ``ln_x`` and the decay (``w0`` and
+    ``wb`` cut by ``TensorParallel.prepare``), its heads of the WKV state,
+    and ``wo``'s partial sums completed over the axis."""
     r = cfg.rwkv
     B, S, d = x.shape
     H, N = d // r.head_dim, r.head_dim
+    part = None if tp is None else tp.units(H)
+    cols = scaled(part, N)
     dx = _shifted(x, state["tm_x"]) - x
 
     def mix(mu):
         return x + dx * mu
 
-    rr = _proj(mix(p["mu_r"]), p["wr"], lora, "r", adapter_ids, lora_scale)
-    kk = _proj(mix(p["mu_k"]), p["wk"], lora, "k", adapter_ids, lora_scale)
-    vv = _proj(mix(p["mu_v"]), p["wv"], lora, "v", adapter_ids, lora_scale)
-    gg = F.silu(mix(p["mu_g"]) @ p["wg"])
+    def col(h, w, name):
+        if tp is None:
+            return _proj(h, w, lora, name, adapter_ids, lora_scale)
+        return tp.column(lambda a, b: _proj(a, b, lora, name, adapter_ids, lora_scale),
+                         h, w, d, cols)
+
+    rr = col(mix(p["mu_r"]), p["wr"], "r")
+    kk = col(mix(p["mu_k"]), p["wk"], "k")
+    vv = col(mix(p["mu_v"]), p["wv"], "v")
+    gg = F.silu(col(mix(p["mu_g"]), p["wg"], "g"))
+    H = rr.shape[-1] // N  # this rank's heads
     # data-dependent decay (Finch): w_t = exp(-exp(w0 + lora_w(x_w)))
-    w_log = p["w0"].float() + ((mix(p["mu_w"]) @ p["wa"]) @ p["wb"]).float()
+    w_low = mix(p["mu_w"]) @ p["wa"]
+    if part is not None:  # into this rank's columns of wb
+        w_low = tp.fan(w_low)
+    w_log = p["w0"].float() + (w_low @ p["wb"]).float()
     w = torch.exp(-torch.exp(w_log)).reshape(B, S, H, N)
     rr = rr.reshape(B, S, H, N).float()
     kk = kk.reshape(B, S, H, N).float()
@@ -136,13 +154,18 @@ def rwkv_time_mix(p, x, state, cfg: ModelConfig, lora, adapter_ids,
         m = token_mask[:, :, None, None]
         w = torch.where(m, w, 1.0)
         kk = torch.where(m, kk, 0.0)
-    y, wkv = wkv_scan(rr, kk, vv, w, state["wkv"])
+    wkv0 = state["wkv"] if part is None else state["wkv"][:, part[0]:part[1]]
+    y, wkv = wkv_scan(rr, kk, vv, w, wkv0)
     y = y + bonus  # (B, S, H, N)
     # per-head group norm
     y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-5)
-    y = y.reshape(B, S, d) * (1.0 + p["ln_x"].float())
+    y = y.reshape(B, S, H * N) * (1.0 + p["ln_x"].float())
     y = (y * gg.float()).to(x.dtype)
-    out = _proj(y, p["wo"], lora, "o", adapter_ids, lora_scale)
+    if tp is None:
+        out = _proj(y, p["wo"], lora, "o", adapter_ids, lora_scale)
+    else:
+        out = tp.row(lambda a, b: _proj(a, b, lora, "o", adapter_ids, lora_scale), y,
+                     p["wo"], d, cols)
     tm_x = (x[:, -1, :] if token_mask is None
             else _last_real(x, state["tm_x"], token_mask))
     return out, {"tm_x": tm_x, "wkv": wkv, "cm_x": state["cm_x"]}
@@ -160,13 +183,22 @@ def wkv_scan(r, k, v, w, wkv):
     return torch.stack(ys, dim=1), wkv
 
 
-def rwkv_channel_mix(p, x, state, cfg: ModelConfig, token_mask=None):
-    """RWKV-6 channel mix of x (B, S, d); returns (out, new state)."""
+def rwkv_channel_mix(p, x, state, cfg: ModelConfig, token_mask=None, tp=None):
+    """RWKV-6 channel mix of x (B, S, d); returns (out, new state). Under
+    tensor parallelism (``tp``) the key runs on the rank's columns of
+    ``w_ck``, the value is ``w_cv``'s partial sums completed over the axis,
+    and the receptance, which gates every channel, is gathered whole."""
     dx = _shifted(x, state["cm_x"]) - x
     xk = x + dx * p["mu_ck"]
     xr = x + dx * p["mu_cr"]
-    k = F.relu(xk @ p["w_ck"]).square()
-    out = torch.sigmoid(xr @ p["w_cr"]) * (k @ p["w_cv"])
+    if tp is None:
+        k = F.relu(xk @ p["w_ck"]).square()
+        out = torch.sigmoid(xr @ p["w_cr"]) * (k @ p["w_cv"])
+    else:
+        part = tp.units(cfg.d_ff)
+        k = F.relu(tp.column(torch.matmul, xk, p["w_ck"], cfg.d_ff, part)).square()
+        gate = torch.sigmoid(tp.column(torch.matmul, xr, p["w_cr"], cfg.d_model, None))
+        out = gate * tp.row(torch.matmul, k, p["w_cv"], cfg.d_ff, part)
     new_state = dict(state)
     new_state["cm_x"] = (x[:, -1, :] if token_mask is None
                          else _last_real(x, state["cm_x"], token_mask))
@@ -251,16 +283,41 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rglru_block(p, x, state, cfg: ModelConfig, token_mask=None):
+def rglru_block(p, x, state, cfg: ModelConfig, token_mask=None, tp=None):
     """Griffin's recurrent block: (gelu gate) ⊙ RG-LRU(conv1d(W_in x)) →
-    W_out. Returns (out, new state)."""
+    W_out. Returns (out, new state).
+
+    Under tensor parallelism (``tp``) the recurrence is per channel, so
+    where the axis divides the width each rank runs its channels: the gate
+    and the conv input from the column shards of ``w_gel`` and ``w_in``,
+    its channels of the conv, the biases and ``lam`` (cut by
+    ``TensorParallel.prepare``) and of the state; ``w_a`` and ``w_i`` read
+    every channel of the conv output, which is gathered; ``w_out``'s
+    partial sums are completed over the axis."""
     g = cfg.rglru
     B = x.shape[0]
-    gate = F.gelu(x @ p["w_gel"], approximate="tanh")
-    u, conv_carry = _causal_depthwise_conv(x @ p["w_in"], p["conv_w"], p["conv_b"],
+    width = g.lru_width or cfg.d_model
+    part = None if tp is None else tp.units(width)
+    if tp is None:
+        gate_in, conv_in = x @ p["w_gel"], x @ p["w_in"]
+    else:
+        xs = tp.fan(x)
+        gate_in, conv_in = (tp.column(torch.matmul, x, p[n], width, part, xs)
+                            for n in ("w_gel", "w_in"))
+    if part is not None:
+        state = {k: v[..., part[0]:part[1]] for k, v in state.items()}
+    gate = F.gelu(gate_in, approximate="tanh")
+    u, conv_carry = _causal_depthwise_conv(conv_in, p["conv_w"], p["conv_b"],
                                            state["conv"], token_mask)
-    r = torch.sigmoid(u @ p["w_a"] + p["b_a"]).float()
-    i = torch.sigmoid(u @ p["w_i"] + p["b_i"]).float()
+    if tp is None:
+        r_in, i_in = u @ p["w_a"], u @ p["w_i"]
+    else:
+        whole = u if part is None else tp.gather(u)
+        us = tp.fan(whole)
+        r_in, i_in = (tp.column(torch.matmul, whole, p[n], width, part, us)
+                      for n in ("w_a", "w_i"))
+    r = torch.sigmoid(r_in + p["b_a"]).float()
+    i = torch.sigmoid(i_in + p["b_i"]).float()
     log_a_base = -F.softplus(-p["lam"].float())  # log σ(Λ) < 0
     log_a = g.c_exponent * r * log_a_base  # (B, S, W)
     a = torch.exp(log_a)
@@ -274,5 +331,6 @@ def rglru_block(p, x, state, cfg: ModelConfig, token_mask=None):
     a_all = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
     b_all = torch.cat([state["h"][:, None, :], b], dim=1)
     h_all = linear_scan(a_all, b_all)
-    y = (h_all[:, 1:].to(x.dtype) * gate) @ p["w_out"]
+    y = h_all[:, 1:].to(x.dtype) * gate
+    y = y @ p["w_out"] if tp is None else tp.row(torch.matmul, y, p["w_out"], width, part)
     return y, {"h": h_all[:, -1], "conv": conv_carry}

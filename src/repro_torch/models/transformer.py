@@ -143,7 +143,7 @@ class LM:
     q_chunk: int = 0  # > 0: windowed / soft-capped attention blockwise
     remat_policy: str = "full"  # or "dots": keep the matrix products
     # tensor parallelism over a mesh's model axis (``forward`` on local
-    # shards, dense GQA only): a distributed.tensor_parallel.TensorParallel
+    # shards): a distributed.tensor_parallel.TensorParallel
     tp: object = None
     # the data-parallel process group whose ranks hold the batch's rows: an
     # MoE FFN fills its queues and counts its load over the whole batch
@@ -295,7 +295,7 @@ class LM:
     def _ffn(self, lp, h2):
         """The layer's FFN: (out, MoE aux loss, or None for a dense FFN)."""
         if self.cfg.moe is not None:
-            return moe_ffn(lp["ffn"], h2, self.cfg, self.data_group)
+            return moe_ffn(lp["ffn"], h2, self.cfg, self.data_group, self.tp)
         return dense_ffn(lp["ffn"], h2, self.cfg.activation), None
 
     def _layer_full(self, lp, lora_slice, x, rope, adapter_ids):
@@ -305,7 +305,8 @@ class LM:
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         if cfg.mla is not None:
             mixed, kv = mla_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
-                                 adapter_ids=adapter_ids, lora_scale=self.lora_scale)
+                                 adapter_ids=adapter_ids, lora_scale=self.lora_scale,
+                                 tp=self.tp)
         else:
             mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
                                  adapter_ids=adapter_ids, lora_scale=self.lora_scale,
@@ -325,10 +326,10 @@ class LM:
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         mixed, state = rwkv_time_mix(lp["mixer"], h, state, cfg, lora_slice,
-                                     adapter_ids, self.lora_scale, token_mask)
+                                     adapter_ids, self.lora_scale, token_mask, self.tp)
         x = x + mixed
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        out, state = rwkv_channel_mix(lp["mixer"], h2, state, cfg, token_mask)
+        out, state = rwkv_channel_mix(lp["mixer"], h2, state, cfg, token_mask, self.tp)
         return x + out, state
 
     def _hybrid_layers(self, params, x, mixer):
@@ -363,10 +364,10 @@ class LM:
         def mixer(kind, j, lp, i, h):
             if kind == "rec":
                 return rglru_block(lp, h, rglru_state_init(cfg, B, self.dtype, dev),
-                                   cfg)[0]
+                                   cfg, tp=self.tp)[0]
             return gqa_full(lp, h, rope, cfg, lora=loras[i],
                             adapter_ids=adapter_ids, lora_scale=self.lora_scale,
-                            window=cfg.window_size, q_chunk=self.q_chunk)[0]
+                            window=cfg.window_size, q_chunk=self.q_chunk, tp=self.tp)[0]
 
         return self._hybrid_layers(params, x, mixer)
 

@@ -24,10 +24,11 @@ reference, on the CPU: ranks are spawned processes over gloo
 * The elastic restart through the train launcher: 2 steps on 4 ranks (mesh
   1 × 4), a checkpoint, then 2 steps on 2 ranks (1 × 2), equal to 4
   uninterrupted steps of one rank within ``LEAF_TOL``.
-* An MoE config at model > 1 raises ``NotImplementedError``; at model 1 it
-  trains data-parallel: reduced phi3.5-moe with a capacity factor of 1, so
-  its experts' queues overflow, on (2, 1) against the port's single
-  process (the queues and the load-balancing loss are the whole batch's).
+* An MoE config trains data-parallel: reduced phi3.5-moe with a capacity
+  factor of 1, so its experts' queues overflow, on (2, 1) against the
+  port's single process (the queues and the load-balancing loss are the
+  whole batch's). Its tensor- and expert-parallel meshes, and those of the
+  other families, are ``tests/test_torch_distributed_families.py``'s.
 * ROADMAP Queue 3's pin: ``--compress`` reaches no step, as in the
   reference: the launcher prints the same losses with it as without.
 """
@@ -147,18 +148,16 @@ def _case(refs, key, mesh):
 
 @pytest.fixture(scope="module")
 def runs(refs, tmp_path_factory):
-    """Both spawns: {mesh: {arch: run}}, the refusals, the launchers' output
-    and checkpoint directory, and one rank's uninterrupted launcher run."""
+    """Both spawns: {mesh: {arch: run}}, the launchers' output and
+    checkpoint directory, and one rank's uninterrupted launcher run."""
     tmp = tmp_path_factory.mktemp("dist")
     ckpt, whole = str(tmp / "ckpt"), str(tmp / "whole")
     four = run_ranks(ranks.job, 4, tmp / "stores", timeout=120, args=(
         [_case(refs, a, m) for m in MESHES_4 for a in ARCHS] + [_case(refs, "heads6", (1, 4))],
-        [_case(refs, "moe", (1, 4))],
         LAUNCH + ["--ckpt-dir", ckpt, "--steps", "2"]))
     two = run_ranks(ranks.job, 2, tmp / "stores", timeout=120, args=(
         [_case(refs, a, m) for m in MESHES_2 for a in ARCHS]
         + [_case(refs, "zero", (2, 1)), _case(refs, "moe", (2, 1))],
-        [_case(refs, "moe", (1, 2))],
         LAUNCH + ["--ckpt-dir", ckpt, "--steps", "4"]))
     with single_rank("gloo"):
         launcher.train(launcher.parse_args(LAUNCH + ["--ckpt-dir", whole, "--steps", "4"]))
@@ -169,8 +168,7 @@ def runs(refs, tmp_path_factory):
     cases2 = [(m, a) for m in MESHES_2 for a in ARCHS] + [((2, 1), "zero"), ((2, 1), "moe")]
     for (m, a), r0, r1 in zip(cases2, *(w["runs"] for w in two)):
         out[m][a] = dict(r0, others=[r1["metrics"]], local1=r1["local_shapes"])
-    return {"runs": out, "refused": four[0]["refused"] + two[0]["refused"],
-            "resharded": [w["resharded"] for w in four + two],
+    return {"runs": out, "resharded": [w["resharded"] for w in four + two],
             "debug_mesh": (four[0]["debug_mesh"], two[0]["debug_mesh"]),
             "stdout": (four[0]["launcher_stdout"], two[0]["launcher_stdout"]),
             "rank1_stdout": four[1]["launcher_stdout"], "ckpt": ckpt, "whole": whole}
@@ -236,13 +234,6 @@ def test_zero1_moments_shard_over_data(runs, refs):
     assert run["local_shapes"]["params/embed"] == (vocab, 64)
     _metrics_close(run["metrics"], ref["port"])
     _close(run["state"], ref["port_state"])
-
-
-def test_moe_is_refused_at_model_above_one_and_trains_data_parallel(runs, refs):
-    assert len(runs["refused"]) == 2
-    assert all("ROADMAP Queue 1 item 8" in r for r in runs["refused"])
-    run = runs["runs"][(2, 1)]["moe"]
-    assert np.isfinite(run["metrics"][0]).all() and run["others"][0] == run["metrics"]
 
 
 def test_reshard_and_the_debug_mesh(runs):

@@ -1,6 +1,7 @@
-"""Rank functions for ``tests/test_torch_distributed.py``. The ranks are
-spawned processes that import this module by name, so it imports no JAX:
-weights and batches arrive as numpy arrays, results leave as numpy."""
+"""Rank functions for ``tests/test_torch_distributed.py`` and
+``tests/test_torch_distributed_families.py``. The ranks are spawned
+processes that import this module by name, so it imports no JAX: weights
+and batches arrive as numpy arrays, results leave as numpy."""
 
 import contextlib
 import dataclasses
@@ -17,7 +18,7 @@ from repro_torch.distributed.sharding import axis_sizes, gather_tree, shard_tree
 from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import TrainState, build_model
-from repro_torch.optim import adamw_init
+from repro_torch.optim import OptState, adamw_init
 from repro_torch.tree import flatten_with_names
 
 
@@ -64,18 +65,6 @@ def sharded_run(rank: int, case: dict) -> dict:
             "state": named_numpy(full) if rank == 0 else None}
 
 
-def refusal(case: dict) -> str:
-    """The error of building the sharded step where it is refused."""
-    model = model_of(case["arch"], case["overrides"])
-    mesh = mesh_of(*case["mesh"])
-    whole = initial_state(case["params"], case["lora"])
-    try:
-        make_sharded_train_step(model, make_shardings(train_state_specs(whole, mesh), mesh))
-    except NotImplementedError as e:
-        return str(e)
-    return ""
-
-
 def resharded(case: dict) -> bool:
     """``reshard`` from a (1, world) mesh's shardings to a (world, 1) one's
     (both over every rank), then gathered: the whole state, bit for bit."""
@@ -88,11 +77,10 @@ def resharded(case: dict) -> bool:
                                                           flatten_with_names(whole)))
 
 
-def job(rank: int, world: int, cases: list, refused: list, launcher_argv: list) -> dict:
+def job(rank: int, world: int, cases: list, launcher_argv: list) -> dict:
     """Every case on this world, ``reshard`` and the debug mesh, then the
     train launcher (its stdout)."""
     out = {"runs": [sharded_run(rank, c) for c in cases],
-           "refused": [refusal(c) for c in refused],
            "resharded": resharded(cases[0]),
            "debug_mesh": axis_sizes(make_debug_mesh(model=world))}
     buf = io.StringIO()
@@ -102,12 +90,65 @@ def job(rank: int, world: int, cases: list, refused: list, launcher_argv: list) 
     return out
 
 
+def numpy_state(state: TrainState) -> dict:
+    """A whole ``TrainState`` as nested numpy trees."""
+    def np_tree(tree):
+        if isinstance(tree, dict):
+            return {k: np_tree(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(np_tree(v) for v in tree)
+        return tree.detach().numpy().copy()
+    return {"params": np_tree(state.params), "lora": np_tree(state.lora),
+            "m": np_tree(state.opt.m), "v": np_tree(state.opt.v), "step": int(state.step)}
+
+
+def state_of(tree: dict) -> TrainState:
+    """:func:`numpy_state`'s inverse."""
+    t = {k: bridge.tensor_tree(tree[k], "cpu") for k in ("params", "lora", "m", "v")}
+    step = torch.tensor(tree["step"], dtype=torch.int32)
+    return TrainState(params=t["params"], lora=t["lora"],
+                      opt=OptState(m=t["m"], v=t["v"], step=step.clone()), step=step)
+
+
+def stepwise_run(rank: int, case: dict) -> dict:
+    """One sharded step from each whole state of ``case["starts"]`` (a
+    :func:`numpy_state` each), on its batch of ``case["batches"]``, on a
+    (data, model) mesh: each step's loss and grad_norm, this rank's local
+    shapes of the state, and (rank 0) each step's whole new state."""
+    model = model_of(case["arch"], case["overrides"])
+    mesh = mesh_of(*case["mesh"])
+    metrics, states, shardings, step_fn = [], [], None, None
+    for start, b in zip(case["starts"], case["batches"]):
+        whole = state_of(start)
+        if shardings is None:
+            shardings = make_shardings(train_state_specs(whole, mesh), mesh)
+            step_fn = make_sharded_train_step(model, shardings)
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        local = shard_tree(batch, make_shardings(batch_specs(batch, mesh), mesh))
+        state, met = step_fn(shard_tree(whole, shardings), local)
+        metrics.append((float(met["loss"]), float(met["grad_norm"])))
+        full = gather_tree(state, shardings)
+        states.append(named_numpy({"params": full.params, "lora": full.lora,
+                                   "opt": {"m": full.opt.m, "v": full.opt.v}})
+                      if rank == 0 else None)
+    return {"metrics": metrics, "states": states,
+            "local_shapes": {n: tuple(t.shape) for n, t in flatten_with_names(state)}}
+
+
+def family_job(rank: int, world: int, cases: list) -> list:
+    """:func:`stepwise_run` of every case on this world."""
+    return [stepwise_run(rank, c) for c in cases]
+
+
 def numpy_batch(cfg, seed: int, B: int = 4, S: int = 12) -> dict:
     """Labels with ignored positions in one row only, so the data shards'
-    counts of labelled positions differ; ids of two adapters and a base row."""
+    counts of labelled positions differ; ids of two adapters and a base row;
+    an encoder-decoder's frames (B, S / 2, d)."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
              "adapter_ids": np.array([1, -1, 1, 0][:B], np.int32)}
     batch["labels"][0, :3] = -1
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal((B, S // 2, cfg.d_model)).astype(np.float32)
     return batch
