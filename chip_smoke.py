@@ -83,7 +83,16 @@ exits non-zero:
               ``wgmma`` (``csrc/fused_sgmv_wgmma.cu``) or, at S = 1,
               ``skinny``; each bf16 fused_sgmv case times cuBLAS's bf16
               ``x @ W`` beside it (``cublas_xw_ms``: the base term alone,
-              a yardstick, not ``library_ms``).
+              a yardstick, not ``library_ms``). Then ``lse_kernel_cases``:
+              paged_attention and ragged_extend with their log-sum-exp
+              output (``return_lse``) in every loop (ragged ``mma`` in f32
+              and bf16, ``wgmma``; paged ``chunk`` in f32 and bf16,
+              ``split``) at phase 3's lengths, phase 9's shapes and phase
+              11's time shard (``LSE_SHARD``: rows of local count 0), the
+              output within ATTN_TOL (bf16: the rule above) and bitwise
+              that of the launch without the flag, lse -inf exactly where
+              the plain version's is and within ATTN_TOL·max(1, |lse|)
+              elsewhere, timed with and without the flag.
 4. engine   — the serving engine on qwen3-0.6b at full width (28 layers,
               random weights from seed 0), 36 requests on 6 adapters with
               shared system prompts and repeated prompts, a 4 GiB KV pool and
@@ -217,6 +226,26 @@ exits non-zero:
               step times go through the host and are no tensor-parallel
               timings. ``tp_kernel_cases`` also holds the kernels at
               deepseek's, rwkv6's, phi3.5-moe's and seamless's local shapes.
+              Then the serving runs (``SERVE_RUNS``): the sharded prefill
+              and decode steps (``make_sharded_prefill_step``,
+              ``make_sharded_decode_step``) on the same (1, 2) gloo mesh:
+              qwen3-0.6b at 28 layers (cache by kv heads), gemma-2b at 4
+              (one kv head: cache in time, paged_attention with lse and the
+              merge over the model axis), deepseek-v2-lite-16b, rwkv6-1.6b,
+              recurrentgemma-2b and seamless-m4t-large-v2 at the depths
+              above, f32, and qwen3-0.6b and gemma-2b again in bf16: 4
+              prompts of 156 tokens on 4 adapters into 320 positions, then 8
+              decode steps fed the unsharded run's tokens (the time shard's
+              boundary at 160 crossed at the fifth); against the unsharded
+              steps on the card: both ranks' logits bitwise equal, f32
+              logits within ARCH_TOL·(1 + |logit|), bf16 rows within
+              SERVE_BF16_TOL, the greedy tokens equal wherever the top-2 gap
+              exceeds twice the row's difference (in f32 at every
+              position, in bf16 at MIN_CLEAR_SHARE of them at least); one
+              ``make_sharded_decode_step`` step bitwise the decode's; the
+              local cache shapes the rules' and their bytes the dry run's
+              ``device_bytes``; exact launches on each rank; peak GB a rank
+              and launches a decode step by loop.
 
 Every phase's line carries the script's seconds so far (``t_s``). Then the
 script's seconds. The line before the last is the ``kernels`` JSON (one
@@ -2462,6 +2491,156 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     return out
 
 
+# the attention kernels' log-sum-exp output (``return_lse``), which the
+# sharded decode merges over the model axis where the cache is sharded in
+# time: phase 11's time shard, gemma-2b's heads (8 on one kv head, D = 256)
+# over T = 160 slots (320 positions over two ranks) in pages of 32, with
+# rows whose local count is 0 (a rank whose slots all lie past the row's
+# last position), a row that fills the shard and rows in between; the
+# multi-token case shifts its queries as ``attention.gqa_cached`` does
+LSE_SHARD = dict(B=4, T=160, H=8, Hkv=1, D=256, page=32)
+LSE_SHARD_LENGTHS = [0, 1, 97, 160]  # paged_attention's local counts
+LSE_SHARD_RAGGED = ([0, 1, 3, 4], [0, 0, 40, 157])  # (true_lens, starts), S = 4
+
+
+def lse_check(what: str, got_lse, want_lse) -> float:
+    """``got_lse`` against the plain version's: -inf exactly where it is
+    -inf, and elsewhere within ATTN_TOL · max(1, |lse|)."""
+    empty = torch.isneginf(want_lse)
+    require(torch.equal(torch.isneginf(got_lse), empty),
+            f"{what}: lse is -inf at other places than the plain version's")
+    g, w = got_lse[~empty], want_lse[~empty]
+    err = float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) if w.numel() else 0.0
+    require(err <= ATTN_TOL, f"{what}: lse off by {err} (relative) > {ATTN_TOL}")
+    return err
+
+
+def lse_kernel_cases(ops, ref, gen, dev) -> list:
+    """paged_attention and ragged_extend with ``return_lse`` against their
+    plain versions, in every loop and both dtypes: phase 3's lengths
+    (ragged: the 256-token bucket over T = 2048; paged: the table's
+    lengths, an empty row among them), phase 9's shapes (qwen3-0.6b's 8 x 32
+    extend over 2176 keys, split in KV parts and combined; its first decode
+    step), and phase 11's time shard (``LSE_SHARD``: rows of local count 0),
+    the bf16 ragged_extend also at D = 20 (the ``mma`` loop) and the bf16
+    paged_attention also at gemma-2b's heads (the ``chunk`` loop). Each
+    case: the output within ATTN_TOL (bf16: BF16_TOL and one bf16 rounding
+    of the f32 plain value), lse by :func:`lse_check`, the output bitwise
+    that of the same launch without the flag, and both timed. Run before
+    any path's counts are reset."""
+    cases = []
+    (_, B9, S9, T9, chunk9, lens9, H9, Hkv9), = [
+        a for a in phase9_attention_shapes() if a[0] == "qwen3-0.6b"]
+    sh = LSE_SHARD
+    rag_shapes = [("phase 3", 256, *RAGGED_BUCKETS[256], 8, 2048, 16, 8, 128),
+                  ("phase 9 extend", chunk9, lens9, [S9] * B9, B9, T9, H9, Hkv9, 128),
+                  ("phase 11 time shard", 4, *LSE_SHARD_RAGGED, sh["B"], sh["T"], sh["H"],
+                   sh["Hkv"], sh["D"]),
+                  ("D = 20", 64, *RAGGED_BUCKETS[64], 8, 512, 8, 2, 20)]
+    pag_shapes = [("phase 3", PAGED_LENGTHS["table"], 8, 2048, 16, 8, 128, 128),
+                  ("phase 9 decode", [S9 + n + 1 for n in lens9], B9, T9, H9, Hkv9, 128, 128),
+                  ("phase 11 time shard", LSE_SHARD_LENGTHS, sh["B"], sh["T"], sh["H"],
+                   sh["Hkv"], sh["D"], sh["page"]),
+                  ("gemma-2b heads", PAGED_LENGTHS["table"], 8, 2048, 8, 1, 256, 128)]
+    for dtype in (torch.float32, BF16):
+        for name, S, lens, starts, B, T, H, Hkv, D in rag_shapes:
+            if D == 20 and dtype == torch.float32:
+                continue  # f32 takes the mma loop at every shape above
+            q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+            tl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            st = torch.tensor(starts, dtype=torch.int32, device=dev)
+            paths = ops.path_launch_counts()["ragged_extend"]
+            n0 = ops.launch_counts()["ragged_extend"]
+            got, got_lse = ops.ragged_extend(q, k, v, st, tl, return_lse=True)
+            path = next(p for p, n in ops.path_launch_counts()["ragged_extend"].items()
+                        if n > paths[p])
+            plain = ops.ragged_extend(q, k, v, st, tl)
+            require(ops.launch_counts()["ragged_extend"] == n0 + 2,
+                    f"ragged_extend lse {name}: not one launch a call")
+            want, want_lse = ref.ragged_extend_ref(q, k, v, st, tl, return_lse=True)
+            want32 = (ref.ragged_extend_ref(*up(q, k, v), st, tl) if dtype != torch.float32
+                      else None)
+            torch.cuda.synchronize()
+            what = f"ragged_extend lse {name} {dtype}"
+            errs = check_out(what, got, want, want32, dtype, ATTN_TOL)
+            require(torch.equal(got, plain), f"{what}: the output differs without the flag")
+            es = esize(dtype)
+            bnd, by = bound_ms(*work("ragged_extend", B=B, S=S, H=H, Hkv=Hkv, D=D,
+                                     starts=starts, true_lens=lens, itemsize=es, lse=True),
+                               dtype)
+            cases.append({"kernel": "ragged_extend", "case": name, "path": path,
+                          "shape": f"B={B}, S={S}, T={T}, {H}/{Hkv} heads, D={D}, "
+                                   f"true_lens={lens}, starts={starts}",
+                          "dtype": str(dtype), **errs,
+                          "lse_rel_err": lse_check(what, got_lse, want_lse),
+                          "empty_rows": int(torch.isneginf(want_lse).sum()),
+                          "ms": time_ms(lambda: ops.ragged_extend(q, k, v, st, tl,
+                                                                  return_lse=True))[0],
+                          "ms_without_lse": time_ms(lambda: ops.ragged_extend(q, k, v, st,
+                                                                              tl))[0],
+                          "plain_ms": time_ms(lambda: ref.ragged_extend_ref(
+                              q, k, v, st, tl, return_lse=True))[0],
+                          "bound_ms": bnd, "bound_by": by})
+            del q, k, v
+        for name, lens, B, T, H, Hkv, D, ps in pag_shapes:
+            pages = T // ps
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+            kp = torch.randn((B * pages, ps, Hkv, D), generator=gen, device=dev).to(dtype)
+            vp = torch.randn((B * pages, ps, Hkv, D), generator=gen, device=dev).to(dtype)
+            tables = torch.arange(B * pages, dtype=torch.int32, device=dev).view(B, pages)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            paths = ops.path_launch_counts()["paged_attention"]
+            n0 = ops.launch_counts()["paged_attention"]
+            got, got_lse = ops.paged_attention(q, kp, vp, tables, ln, return_lse=True)
+            path = next(p for p, n in ops.path_launch_counts()["paged_attention"].items()
+                        if n > paths[p])
+            plain = ops.paged_attention(q, kp, vp, tables, ln)
+            require(ops.launch_counts()["paged_attention"] == n0 + 2,
+                    f"paged_attention lse {name}: not one launch a call")
+            want, want_lse = ref.paged_attention_ref(q, kp, vp, tables, ln, return_lse=True)
+            want32 = (ref.paged_attention_ref(*up(q, kp, vp), tables, ln)
+                      if dtype != torch.float32 else None)
+            torch.cuda.synchronize()
+            what = f"paged_attention lse {name} {dtype}"
+            errs = check_out(what, got, want, want32, dtype, ATTN_TOL)
+            require(torch.equal(got, plain), f"{what}: the output differs without the flag")
+            for b, n in enumerate(lens):
+                if n == 0:
+                    require(bool((got[b] == 0).all()), f"{what}: a row of length 0 is not 0")
+            es = esize(dtype)
+            bnd, by = bound_ms(*work("paged_attention", B=B, H=H, Hkv=Hkv, D=D, T=T,
+                                     page_size=ps, lengths=lens, itemsize=es, lse=True),
+                               dtype)
+            cases.append({"kernel": "paged_attention", "case": name, "path": path,
+                          "shape": f"B={B}, T={T}, page={ps}, {H}/{Hkv} heads, D={D}, "
+                                   f"lengths={lens}",
+                          "dtype": str(dtype), **errs,
+                          "lse_rel_err": lse_check(what, got_lse, want_lse),
+                          "empty_rows": int(torch.isneginf(want_lse).sum()),
+                          "ms": time_ms(lambda: ops.paged_attention(
+                              q, kp, vp, tables, ln, return_lse=True))[0],
+                          "ms_without_lse": time_ms(lambda: ops.paged_attention(
+                              q, kp, vp, tables, ln))[0],
+                          "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+                              q, kp, vp, tables, ln, return_lse=True))[0],
+                          "bound_ms": bnd, "bound_by": by})
+            del q, kp, vp
+        torch.cuda.empty_cache()
+    # every loop ran with the flag, and rows of local count 0 were met
+    loops = {(c["kernel"], c["path"]) for c in cases}
+    want_loops = {("ragged_extend", "mma"), ("ragged_extend", "wgmma"),
+                  ("paged_attention", "chunk"), ("paged_attention", "split")}
+    require(want_loops <= loops, f"lse cases ran the loops {sorted(loops)}")
+    require(all(c["empty_rows"] > 0 for c in cases if c["case"] == "phase 11 time shard"),
+            "the time shard's lse cases have no row of local count 0")
+    require(any(c["kernel"] == "ragged_extend" and c["dtype"] == str(BF16)
+                and c["path"] == "mma" for c in cases), "bf16 ragged_extend's mma loop "
+                                                        "never ran with the flag")
+    return cases
+
+
 def cast_tree(tree, dtype):
     """The float leaves of ``tree`` in ``dtype``, but the MoE router, which
     the reference keeps in f32 in a bf16 model."""
@@ -2971,6 +3150,25 @@ def grad_check(what: str, kernel, plain, inputs, gen, out_tol: float, out_abs: b
                                 iters=5)[0]}
 
 
+def fwd_bwd_bound(kernel: str, **shape) -> tuple[float, str]:
+    """The bound of a training kernel's forward and backward together (what
+    ``grad_check`` times): the sum of ``counting.work`` of the forward and
+    of its backward; ``fused_sgmv``'s backward is ``lora_grad`` (the delta's
+    dx, dA, dB) and the base term's two products, dx = dy·Wᵀ and dW = xᵀ·dy
+    (dy, W and x read, dW written), ``flash_prefill``'s ``flash_prefill_bwd``."""
+    if kernel == "fused_sgmv":
+        B, S, d_in, d_out = shape["B"], shape["S"], shape["d_in"], shape["d_out"]
+        fb, ff = work("fused_sgmv", B=B, S=S, d_in=d_in, d_out=d_out, r=shape["r"],
+                      ids=shape["ids"])
+        bb, bf = work("lora_grad", **shape)
+        M = B * S
+        nbytes = fb + bb + 4 * (M * d_out + 2 * d_in * d_out + M * d_in)
+        return bound_ms(nbytes, ff + bf + 4 * M * d_in * d_out)
+    fb, ff = work("flash_prefill", **shape)
+    bb, bf = work("flash_prefill_bwd", **shape)
+    return bound_ms(fb + bb, ff + bf)
+
+
 def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
     """fused_sgmv (its backward through lora_grad) on each LoRA projection
     and flash_prefill (its backward through flash_prefill_bwd) on the
@@ -3013,11 +3211,14 @@ def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
             w = torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5
             inputs = [z.detach().contiguous().requires_grad_(True) for z in (x, w, a, b)]
             what = f"fused_sgmv {arch} model {M} {t} {d_in}->{d_out}"
+            bnd, by = fwd_bwd_bound("fused_sgmv", B=TRAIN_B, S=TRAIN_S, d_in=d_in,
+                                    d_out=d_out, r=r, slots=N, ids=list(TRAIN_IDS))
             cases.append({"kernel": "fused_sgmv", "arch": arch, "model_axis": M, "proj": t,
                           "d_in": d_in, "d_out": d_out, "whole": list(dims[t]),
                           **grad_check(what, lambda *z: ops.fused_sgmv(*z, ids, scale=scale),
                                        lambda *z: ref.fused_sgmv_ref(*z, ids, scale),
-                                       inputs, gen, SGMV_TOL, False)})
+                                       inputs, gen, SGMV_TOL, False),
+                          "bound_ms": bnd, "bound_by": by, "library_ms": None})
         if cfg.mla is not None or cfg.rwkv is not None:
             torch.cuda.empty_cache()
             continue
@@ -3028,13 +3229,27 @@ def tp_kernel_cases(ops, ref, configs, gen, dev) -> list:
                               device=dev).requires_grad_(True)
                   for h in (q1 - q0, k1 - k0, k1 - k0)]
         what = f"flash_prefill {arch} model {M} {q1 - q0}/{k1 - k0}x{D}"
+        bnd, by = fwd_bwd_bound("flash_prefill", B=TRAIN_B, S=TRAIN_S, H=q1 - q0,
+                                Hkv=k1 - k0, D=D)
+        # SDPA's f32 forward and backward on the same inputs, head-major
+        sdpa_in = [u.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                   for u in inputs]
+        dy = torch.randn(sdpa_in[0].shape, generator=gen, device=dev)
+
+        def sdpa_fwd_bwd():
+            o = torch.nn.functional.scaled_dot_product_attention(
+                *sdpa_in, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, sdpa_in, dy)
+
         cases.append({"kernel": "flash_prefill", "arch": arch, "model_axis": M,
                       "heads": q1 - q0, "kv_heads": k1 - k0, "head_dim": D,
                       **grad_check(what, lambda *z: ops.flash_prefill(
                                        *(u.transpose(1, 2) for u in z)),
                                    lambda *z: ref.flash_prefill_ref(
                                        *(u.transpose(1, 2) for u in z)),
-                                   inputs, gen, ATTN_TOL, True)})
+                                   inputs, gen, ATTN_TOL, True),
+                      "bound_ms": bnd, "bound_by": by,
+                      "library_ms": time_ms(sdpa_fwd_bwd, iters=5)[0]})
         torch.cuda.empty_cache()
     return cases
 
@@ -3252,6 +3467,303 @@ def family_runs(configs, dev) -> tuple[list, dict]:
     return lines, launches
 
 
+# phase 11's serving runs: the sharded prefill and decode steps
+# (``make_sharded_prefill_step`` / ``make_sharded_decode_step``) of each
+# family on a (1, 2) mesh of two gloo ranks on the one card, against the
+# unsharded steps on the card, at full width: (config, depth cut for time,
+# dtype, kernel launches of the prefill and the decode steps on each rank).
+# qwen3-0.6b at all 28 layers: its cache sharded by kv heads, decoded
+# through paged_attention; gemma-2b (one kv head) at 4: its cache sharded in
+# time, decoded through paged_attention with lse and merged over the model
+# axis; deepseek-v2-lite-16b (MLA's latent in time), rwkv6-1.6b (wkv by
+# heads), recurrentgemma-2b (the RG-LRU's state replicated; its attention
+# layer's cache in time, attended through the plain path for its window)
+# and seamless-m4t-large-v2 (its cross cache by heads; its prefill through
+# ragged_extend) at phase 11's training depths; qwen3-0.6b and gemma-2b
+# again in bf16, the static path's default.
+SERVE_RUNS = (
+    ("qwen3-0.6b", {}, torch.float32,
+     {"fused_sgmv": 112 * 9, "flash_prefill": 28, "paged_attention": 28 * 8}),
+    ("gemma-2b", {"num_layers": 4}, torch.float32,
+     {"fused_sgmv": 16 * 9, "flash_prefill": 4, "paged_attention": 4 * 8}),
+    ("deepseek-v2-lite-16b", {"num_layers": 2}, torch.float32, {"fused_sgmv": 6 * 9}),
+    ("rwkv6-1.6b", {"num_layers": 2}, torch.float32, {"fused_sgmv": 8 * 9}),
+    ("recurrentgemma-2b", {"num_layers": 3}, torch.float32, {"fused_sgmv": 4 * 9}),
+    ("seamless-m4t-large-v2", {"num_layers": 2, "encoder_layers": 2}, torch.float32,
+     {"fused_sgmv": 8 * 9, "ragged_extend": 2, "paged_attention": 2 * 8}),
+    ("qwen3-0.6b", {}, torch.bfloat16,
+     {"fused_sgmv": 112 * 9, "flash_prefill": 28, "paged_attention": 28 * 8}),
+    ("gemma-2b", {"num_layers": 4}, torch.bfloat16,
+     {"fused_sgmv": 16 * 9, "flash_prefill": 4, "paged_attention": 4 * 8}))
+# B rows of S-token prompts on SERVE_IDS' 4 adapters into a cache of T
+# positions, then STEPS decode steps: at model 2 a time shard's boundary
+# (T / 2 = 160) is crossed at the fifth step, so a time-sharded cache meets
+# both an empty partial on rank 1 and a change of the writing rank
+SERVE_B, SERVE_S, SERVE_T, SERVE_STEPS, SERVE_SRC = 4, 156, 320, 8, 32
+SERVE_IDS = (0, 1, 2, 3)
+# the bf16 runs' bound on a logit row's relative L2 error against the
+# unsharded bf16 steps: about 3x the largest reading (0.0146 on qwen3-0.6b,
+# 0.0077 on gemma-2b, an H100 80GB HBM3 at 700 W), which the different
+# rounding of the sharded GEMMs and of the merge account for. The f32 runs
+# are the ones that catch a small fault, such as a rank's partial dropped
+SERVE_BF16_TOL = 0.05
+
+
+def serve_inputs(cfg) -> dict:
+    """The serving runs' prompts (and an encoder-decoder's frames), drawn on
+    the host from a fixed seed: the same on every rank and device."""
+    gen = torch.Generator().manual_seed(3000)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), generator=gen,
+                                   dtype=torch.int64).to(torch.int32),
+           "adapter_ids": torch.tensor(SERVE_IDS, dtype=torch.int32)}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((SERVE_B, SERVE_SRC, cfg.d_model), generator=gen)
+    return out
+
+
+def serve_unsharded(model, params, lora, inputs) -> dict:
+    """The unsharded prefill into SERVE_T positions and SERVE_STEPS greedy
+    decode steps on the card: each call's last logits (host, f32) and
+    greedy tokens, the tokens fed to the decode steps, and the seconds."""
+    from repro_torch.tree import flatten_with_names
+
+    dev = model.device
+    tokens = inputs["tokens"].to(dev)
+    ids = inputs["adapter_ids"].to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if model.cfg.is_encdec:
+            lg, cache = model.prefill(params, inputs["frames"].to(dev, model.dtype), tokens,
+                                      SERVE_T, lora=lora, adapter_ids=ids)
+        else:
+            lg, cache = model.prefill(params, tokens, SERVE_T, lora=lora, adapter_ids=ids)
+        logits = [lg[:, -1].float().cpu()]
+        tok = logits[0].argmax(-1).to(torch.int32)
+        fed = []
+        for _ in range(SERVE_STEPS):
+            fed.append(tok)
+            lg, cache = model.decode(params, cache, tok[:, None].to(dev), lora=lora,
+                                     adapter_ids=ids)
+            logits.append(lg[:, -1].float().cpu())
+            tok = logits[-1].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return {"logits": logits, "fed": fed, "seconds": time.perf_counter() - t0,
+            "cache_shapes": {n: list(t.shape) for n, t in flatten_with_names(cache)}}
+
+
+def serve_rank(rank: int, world: int, runs: list, device_type: str) -> list:
+    """Phase 11's serving runs on one rank of a (1, world) mesh over gloo,
+    all ranks on one card: for each (config, dtype, the unsharded run's
+    decode inputs), the seed-0 weights and LoRA drawn on the card (the
+    ranks in turn, so one whole set is on the card at a time) and cut to
+    this rank's shards by the rules, then ``make_sharded_prefill_step`` into
+    SERVE_T positions and SERVE_STEPS decode steps of the ``sharded_model``
+    both steps share, fed the unsharded run's tokens, the launch counts
+    reset just before and read just after: the last logits of each call
+    (rank 0; every rank's digest), the local cache's shapes and bytes
+    beside the rules' and the dry run's, the launches by kernel and by
+    loop, the seconds and the peak GB; then, uncounted, whether one
+    ``make_sharded_decode_step`` step gives that model's decode's greedy
+    token and cache bitwise."""
+    import hashlib
+
+    from repro_torch.distributed import (build_mesh, make_sharded_decode_step,
+                                         make_sharded_prefill_step, make_shardings,
+                                         serve_state_specs, sharded_model, whole_cache)
+    from repro_torch.distributed.elastic import ElasticPlan
+    from repro_torch.distributed.sharding import cache_specs, shard_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import device_bytes
+    from repro_torch.models import build_model
+    from repro_torch.tree import flatten_with_names, leaves, tree_map
+
+    on_card = device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device(device_type))
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it
+    mesh = build_mesh(ElasticPlan(data=1, model=world, dropped_devices=0), device_type)
+    axes = {"data": 1, "model": world}
+    out = []
+    for cfg, dtype, fed in runs:
+        model = build_model(cfg, dtype=dtype, device=dev)
+        inputs = serve_inputs(cfg)
+        src = SERVE_SRC if cfg.is_encdec else None
+        cache = whole_cache(model, SERVE_B, SERVE_T, src)
+        for turn in range(world):
+            if turn == rank:
+                params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+                lora = random_lora(model, 4, 1)
+                shardings = make_shardings(serve_state_specs(params, lora, cache, mesh), mesh)
+                sub = {p: {n[len(p):]: sh for n, sh in shardings.items() if n.startswith(p)}
+                       for p in ("params/", "lora/")}
+                lp, ll = shard_tree(params, sub["params/"]), shard_tree(lora, sub["lora/"])
+                del params, lora
+                if on_card:
+                    torch.cuda.empty_cache()
+            torch.distributed.barrier()
+        smodel = sharded_model(model, shardings)
+        prefill = make_sharded_prefill_step(smodel, shardings, cache)
+        decode = make_sharded_decode_step(smodel, shardings)
+        batch = {k: v.to(dev) for k, v in inputs.items()}
+        if "frames" in batch:
+            batch["frames"] = batch["frames"].to(dtype)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lg, c = prefill(lp, ll, batch)
+            logits = [lg[:, -1].float()]
+            prefill_paths = ops.path_launch_counts()
+            for tok in fed:
+                lg, c = smodel.decode(lp, c, torch.from_numpy(tok)[:, None].to(dev), lora=ll,
+                                      adapter_ids=batch["adapter_ids"])
+                logits.append(lg[:, -1].float())
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, paths = ops.launch_counts(), ops.path_launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        with torch.no_grad():  # the decode step, after the counts: the model's decode, bitwise
+            step_in = {"tokens": logits[-1].argmax(-1).to(torch.int32)[:, None],
+                       "adapter_ids": batch["adapter_ids"]}
+            step_tok, step_c = decode(lp, ll, tree_map(torch.clone, c), step_in)
+            lg, c = smodel.decode(lp, c, step_in["tokens"], lora=ll,
+                                  adapter_ids=batch["adapter_ids"])
+            step_agrees = bool(torch.equal(step_tok, lg[:, -1].argmax(-1).to(torch.int32))) and all(
+                torch.equal(a, b) for a, b in zip(leaves(step_c), leaves(c)))
+        decode_paths = {k: {p: n - prefill_paths[k][p] for p, n in v.items()}
+                        for k, v in paths.items()}
+        logits = [x.cpu().numpy() for x in logits]  # numpy: no shared memory to outlive the rank
+        digest = hashlib.sha1(b"".join(x.tobytes() for x in logits)).hexdigest()
+        specs = cache_specs(cache, axes)
+        whole = dict(flatten_with_names(cache))
+        rules = {n: list(sh.local_shape(tuple(whole[n].shape)))
+                 for n, sh in make_shardings(specs, axes).items()}
+        out.append({"arch": cfg.name, "dtype": str(dtype), "coordinate": mesh.get_coordinate(),
+                    "logits": logits if rank == 0 else None, "digest": digest,
+                    "local_cache_shapes": {n: list(t.shape) for n, t in flatten_with_names(c)},
+                    "rules": rules,
+                    "local_cache_bytes": sum(t.numel() * t.element_size()
+                                             for _, t in flatten_with_names(c)),
+                    "dryrun_cache_bytes": device_bytes(cache, specs, axes),
+                    "time_sharded": sorted(n for n, sp in specs.items()
+                                           if n in ("k", "v", "ck", "cv", "latent", "krope")
+                                           and len(sp) > 2 and sp[2] == "model"),
+                    "launches": {k: n for k, n in launches.items() if n},
+                    "path_launches": {k: {p: n for p, n in v.items() if n}
+                                      for k, v in paths.items() if any(v.values())},
+                    "decode_path_launches": {k: {p: n for p, n in v.items() if n}
+                                             for k, v in decode_paths.items()
+                                             if any(v.values())},
+                    "seconds": seconds, "peak_gb": peak_gb, "decode_step_agrees": step_agrees})
+        del lp, ll, c, step_c, prefill, decode, smodel, model
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_runs(configs, dev) -> tuple[list, dict]:
+    """SERVE_RUNS: the unsharded prefill and decode steps of each config on
+    the card, then (one spawn for all) the sharded steps on a (1, 2) mesh of
+    two ranks on this card over gloo, fed the unsharded run's tokens. Held:
+    both ranks' logits bitwise equal; in f32 every logit within
+    ARCH_TOL·(1 + |unsharded|), in bf16 each logit row within
+    SERVE_BF16_TOL of its norm (relative L2); the greedy token equal to the
+    unsharded one at every position whose unsharded top-2 gap exceeds twice
+    the row's largest logit difference, which must be every position in
+    f32 and MIN_CLEAR_SHARE of them in bf16; the decode step equal to the
+    model's decode;
+    every rank's local cache shapes the rules' shards and its bytes the dry
+    run's ``device_bytes``; the launches of each rank exact. Returns (a line
+    a run, launches summed over the ranks)."""
+    from repro_torch.distributed.runner import run_ranks
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfgs, runs, unsharded = [], [], []
+    for arch, cut, dtype, _ in SERVE_RUNS:
+        cfg = family_cfg(configs, arch, cut)
+        model = build_model(cfg, dtype=dtype, device=dev)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        one = serve_unsharded(model, params, random_lora(model, 4, 1), serve_inputs(cfg))
+        del params, model
+        torch.cuda.empty_cache()
+        cfgs.append(cfg)
+        unsharded.append(one)
+        runs.append((cfg, dtype, [t.numpy() for t in one["fed"]]))
+    t_one = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = run_ranks(serve_rank, 2, DIST_DIR / "serve_stores", backend="gloo",
+                      args=(runs, dev.type), timeout=600)
+    spawn_s = time.perf_counter() - t1
+    lines, launches = [], {}
+    for i, ((arch, cut, dtype, want_launches), one) in enumerate(zip(SERVE_RUNS, unsharded)):
+        per = [r[i] for r in ranks]
+        r0 = per[0]
+        what = f"serve {arch} {dtype}"
+        require(all(r["digest"] == r0["digest"] for r in per), f"{what}: the ranks' logits differ")
+        errs, compared, worst, worst_rel = [], 0, 0.0, 0.0
+        for got, want in zip(r0["logits"], one["logits"]):
+            got = torch.from_numpy(got)
+            diff = (got - want).abs()
+            if dtype == torch.float32:
+                excess = float((diff - ARCH_TOL * (1 + want.abs())).max())
+                require(excess <= 0, f"{what}: a logit {excess} past ARCH_TOL·(1 + |logit|)")
+            rel = float(rel_l2(got, want).max())
+            worst_rel = max(worst_rel, rel)
+            if dtype != torch.float32:
+                require(rel <= SERVE_BF16_TOL, f"{what}: a logit row {rel} off its norm")
+            worst = max(worst, float(diff.max()))
+            clear = top2_gap(want) > 2 * diff.max(dim=-1).values
+            compared += int(clear.sum())
+            require(bool((got.argmax(-1) == want.argmax(-1))[clear].all()),
+                    f"{what}: a greedy token differs where the top-2 gap is clear")
+            errs.append(float(diff.max()))
+        positions = SERVE_B * (SERVE_STEPS + 1)
+        need = positions if dtype == torch.float32 else MIN_CLEAR_SHARE * positions
+        require(compared >= need, f"{what}: {positions - compared} of {positions} "
+                                  f"tokens within the logits' difference of a tie")
+        for r in per:
+            require(r["decode_step_agrees"], f"{what}: rank {r['coordinate']}'s decode step "
+                                             f"differs from the model's decode")
+            require(r["local_cache_shapes"] == r["rules"],
+                    f"{what}: rank {r['coordinate']} local cache {r['local_cache_shapes']} "
+                    f"!= the rules' {r['rules']}")
+            require(r["local_cache_bytes"] == r["dryrun_cache_bytes"],
+                    f"{what}: local cache bytes {r['local_cache_bytes']} != the dry run's "
+                    f"{r['dryrun_cache_bytes']}")
+            want = {k: n for k, n in want_launches.items()}
+            require(r["launches"] == want, f"{what} rank {r['coordinate']} launches "
+                                           f"{r['launches']} != {want}")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        lines.append({"arch": arch, "cut": cut, "dtype": str(dtype), "mesh": [1, 2],
+                      "backend": "gloo", "batch": SERVE_B, "prompt": SERVE_S,
+                      "cache_positions": SERVE_T, "decode_steps": SERVE_STEPS,
+                      "time_sharded": r0["time_sharded"],
+                      "max_logit_diff_per_call": errs, "max_logit_diff": worst,
+                      "max_row_rel_l2": worst_rel,
+                      "tokens_compared": compared, "tokens": positions,
+                      "whole_cache_shapes": one["cache_shapes"],
+                      "local_cache_shapes": [r["local_cache_shapes"] for r in per],
+                      "local_cache_bytes": [r["local_cache_bytes"] for r in per],
+                      "dryrun_cache_bytes": r0["dryrun_cache_bytes"],
+                      "peak_gb_per_rank": [r["peak_gb"] for r in per],
+                      "launches_per_rank": r0["launches"],
+                      "launches_per_decode_step_by_loop": {
+                          k: {p: n / SERVE_STEPS for p, n in v.items()}
+                          for k, v in r0["decode_path_launches"].items()},
+                      "path_launches_per_rank": [r["path_launches"] for r in per],
+                      "unsharded_seconds": one["seconds"],
+                      "sharded_seconds_gloo": [r["seconds"] for r in per]})
+    lines.append({"unsharded_seconds": t_one, "spawn_seconds": spawn_s,
+                  "seconds": time.perf_counter() - t0})
+    return lines, launches
+
+
 def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
     """Phase 11: the multi-device layer on every card of the machine, one
     rank a card over NCCL (in this process on one card, through the rank
@@ -3317,6 +3829,12 @@ def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
     for k, n in fam_launches.items():
         launches[k] += n
 
+    # the families' sharded prefill and decode steps on two gloo ranks
+    torch.cuda.empty_cache()
+    serving, serve_launches = serve_runs(configs, dev)
+    for k, n in serve_launches.items():
+        launches[k] += n
+
     # the train launcher: 2 steps and a checkpoint, then a restart to step 4
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     head = ([sys.executable, "-m", "repro_torch.launch.train"] if world == 1 else
@@ -3349,6 +3867,7 @@ def dist_phase(ops, ref, configs, dev, smi: str) -> tuple[dict, dict]:
             "launches_per_step": {k: v // (DIST_STEPS * world)
                                   for k, v in ranks_launches.items()},
             "launcher": runs, "tp_kernel_cases": tp_cases, "families": families,
+            "serving": serving,
             "seconds": time.perf_counter() - t_start}
     return line, launches
 
@@ -3417,6 +3936,7 @@ def main() -> None:
     bwd_cases = backward_kernel_cases(ops, ref, gen, dev)
     refused, grad_errors = grad_guard(ops, ref, dev)
     bf16_cases = bf16_kernel_cases(ops, ref, gen, dev)
+    lse_cases = lse_kernel_cases(ops, ref, gen, dev)
     # every f32 attention launch stays on its own loop
     for c in rag_cases + [m for m in arch_cases["ragged_extend"] if "path" in m]:
         require(c["path"] == "mma", f"f32 ragged_extend {c['case']} ran the {c['path']} loop")
@@ -3427,7 +3947,8 @@ def main() -> None:
           "ragged_extend": rag_cases, "paged_attention": pag_cases, "sgmv": delta_cases,
           "flash_prefill": fla, "flash_prefill_ragged": flr, "arch_cases": arch_cases,
           "backward": bwd_cases, "refuse_autograd": refused,
-          "training_kernel_grad_errors": grad_errors, "bf16": bf16_cases})
+          "training_kernel_grad_errors": grad_errors, "bf16": bf16_cases,
+          "lse": lse_cases})
 
     # ----------------------------------------------------------- 4. engine
     torch.cuda.reset_peak_memory_stats()  # the engine's own peak
@@ -3655,6 +4176,10 @@ def main() -> None:
         k["bf16_cases"] = [{key: m[key] for key in ("arch", "path", "kv_parts") + keys
                             + ("max_abs_err_f32", "one_rounding_excess")
                             if key in m} for m in bf16_cases[k["name"]]]
+    # the attention kernels with their log-sum-exp output (phase 3's lse
+    # cases: every loop, both dtypes, the time shard's rows of local count 0)
+    for k in kernels[2:4]:
+        k["lse_cases"] = [m for m in lse_cases if m["kernel"] == k["name"]]
     # the backward kernels' other cases: flash_prefill_bwd at the other
     # configs' heads and over a long row, lora_grad at k/v/o and ranks 1,
     # 12, 128

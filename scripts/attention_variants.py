@@ -143,7 +143,7 @@ def main() -> None:
                 def rag():
                     assert rlib.ragged_extend_launch(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(),
-                        tl.data_ptr(), rout.data_ptr(), scratch.data_ptr(),
+                        tl.data_ptr(), rout.data_ptr(), scratch.data_ptr(), None,
                         B, s, T, H, Hkv, D, stream) == 0
 
                 rag()

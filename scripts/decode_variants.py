@@ -139,7 +139,7 @@ def main() -> None:
                 def pcall(kp, vp, ln=ln, out=out, scratch=scratch):
                     assert plib.paged_attention_launch(
                         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
-                        ln.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, Hkv, D,
+                        ln.data_ptr(), out.data_ptr(), None, scratch.data_ptr(), B, H, Hkv, D,
                         ps, pages, stream) == 0
 
                 pcall(*copies[0])

@@ -168,7 +168,7 @@ def main() -> None:
                 def paged():
                     assert lib.paged_attention_bf16_split_launch(
                         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), tables.data_ptr(),
-                        ln.data_ptr(), out.data_ptr(), B, H, Hkv, D, ps, pages, kp.shape[0],
+                        ln.data_ptr(), out.data_ptr(), None, B, H, Hkv, D, ps, pages, kp.shape[0],
                         n_split, stream) == 0
 
                 paged()

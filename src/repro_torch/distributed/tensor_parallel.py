@@ -44,6 +44,18 @@ head split inside, as GSPMD must handle too) is all-gathered and each rank
 takes the heads it needs. The only leaves all-gathered whole are the
 layer-stacked dense FFNs, an MoE's ``shared`` FFN included, whose LAYER
 axis the reference's rule shards (:meth:`TensorParallel.gathered`).
+
+Serving (the sharded prefill and decode steps) adds the cache's placement
+(``cache_specs``): a KV cache whose kv heads the model axis divides holds
+this rank's kv heads, and each rank attends its own query heads over them;
+one whose time axis is sharded instead (decode context parallelism: fewer
+kv heads than ranks) holds this rank's slots (:meth:`TensorParallel.
+time_shard`). There the step's query is made whole (an all-gather of the
+projection's columns, small at one token a row), each rank attends every
+head over the keys it holds and returns the output with the softmax's
+log-sum-exp, and :meth:`TensorParallel.merge` all-gathers the partials and
+merges them on every rank in rank order (:func:`merge_partials`), so every
+rank has the same bits and no cache leaf crosses the axis.
 """
 
 from __future__ import annotations
@@ -128,16 +140,38 @@ def gather_from(x, dim, group):
     return _GatherFrom.apply(x, dim, group)
 
 
+def merge_partials(outs, lses):
+    """Attention over the union of disjoint parts of the keys from each
+    part's attention ``outs[i]`` (..., H, D) and its log-sum-exp
+    ``lses[i]`` (..., H) (−inf for a part without a key, whose output is
+    0), summed in the order given: (out, lse). A query without a key in
+    any part gets 0 and −inf, never NaN."""
+    m = lses[0]
+    for x in lses[1:]:
+        m = torch.maximum(m, x)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    acc, norm = None, None
+    for o, x in zip(outs, lses):
+        w = torch.exp(x - m)  # 0 for an empty part
+        term = w[..., None] * o.to(torch.promote_types(o.dtype, torch.float32))
+        acc = term if acc is None else acc + term
+        norm = w if norm is None else norm + w
+    out = torch.where(norm[..., None] > 0, acc / norm.clamp_min(1e-30)[..., None], 0.0)
+    return out.to(outs[0].dtype), m + torch.log(norm)
+
+
 @dataclasses.dataclass
 class TensorParallel:
     """The ``model`` axis as the model's forward sees it: its process
-    group, its size and this rank's index on it, and the parameters'
-    specs (``param_specs`` of the params tree)."""
+    group, its size and this rank's index on it, the parameters' specs
+    (``param_specs`` of the params tree) and, for the sharded serving
+    steps, the cache's (``cache_specs`` of the whole cache)."""
 
     group: Any
     size: int
     index: int
     specs: dict  # {param path name: spec}
+    cache_specs: Optional[dict] = None  # {cache leaf name: spec}
 
     # -------------------------------------------------------------- layout
     def _sharded_dims(self, name: str) -> list[int]:
@@ -310,21 +344,27 @@ class TensorParallel:
         return gather_from(y, -1, self.group)
 
     # ----------------------------------------------------------- attention
-    def qkv(self, proj, p, x, cfg, kv_x=None):
+    def qkv(self, proj, p, x, cfg, kv_x=None, whole: bool = False,
+            whole_kv: bool = False):
         """(q, k, v) of this rank's heads as (B, S, cols), and (query
-        heads, kv heads). ``proj(x, w, name)`` is the layer's projection
-        (base + LoRA); k and v project ``kv_x`` where given (cross
-        attention), else ``x``."""
+        heads, kv heads). With ``whole``, every head's (a cache sharded in
+        time, or replicated, takes every kv head of its slots, and the
+        query is attended there whole); with ``whole_kv``, k and v of every
+        head beside this rank's q (a prefill that fills such a cache).
+        ``proj(x, w, name)`` is the layer's projection (base + LoRA); k and
+        v project ``kv_x`` where given (cross attention), else ``x``."""
         hd, H, Hkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-        heads = self.heads(cfg)
+        heads = None if whole else self.heads(cfg)
         q0, q1, k0, k1 = heads if heads is not None else (0, H, 0, Hkv)
+        if whole_kv:
+            k0, k1 = 0, Hkv
         xs = self.fan(x)
         kv_x, kvs = (x, xs) if kv_x is None else (kv_x, self.fan(kv_x))
         out = []
         for t, src, fanned, width, lo, hi in (("q", x, xs, H, q0, q1),
                                               ("k", kv_x, kvs, Hkv, k0, k1),
                                               ("v", kv_x, kvs, Hkv, k0, k1)):
-            part = None if heads is None else (lo * hd, hi * hd)
+            part = None if heads is None or (t != "q" and whole_kv) else (lo * hd, hi * hd)
             out.append(self.column(lambda h, w, t=t: proj(h, w, t), src, p[f"w{t}"],
                                    width * hd, part, fanned))
         return out, (q1 - q0, k1 - k0)
@@ -336,3 +376,34 @@ class TensorParallel:
         heads = self.heads(cfg)
         part = None if heads is None else (heads[0] * hd, heads[1] * hd)
         return self.row(lambda h, w: proj(h, w, "o"), out, wo, cfg.num_heads * hd, part)
+
+    # --------------------------------------------------------------- cache
+    def time_shard(self, name: str, local_slots: int) -> Optional[tuple[int, int]]:
+        """(first slot, slots) of this rank's part of the cache leaf
+        ``name`` (``k``, ``latent``, ``ck``, ...) where ``cache_specs``
+        shards its time axis (dim 2) over ``model``; None where it holds
+        every slot."""
+        spec = (self.cache_specs or {}).get(name, ())
+        if len(spec) > 2 and "model" in spec_axes(spec[2]):
+            return self.index * local_slots, local_slots
+        return None
+
+    def own_heads(self, out, cfg):
+        """This rank's query heads (:meth:`heads`) of ``out`` (B, S, H, D),
+        which holds every head; all of them where the rank runs every
+        head."""
+        heads = self.heads(cfg)
+        if heads is None:
+            return out
+        return out[:, :, heads[0]:heads[1]]
+
+    def merge(self, out, lse):
+        """Each rank's attention ``out`` (..., H, D) over its slots with its
+        log-sum-exp ``lse`` (..., H), all-gathered over the axis and merged
+        in rank order (:func:`merge_partials`): the attention over every
+        slot, the same bits on every rank. Serving only (no gradient)."""
+        outs = [torch.empty_like(out) for _ in range(self.size)]
+        lses = [torch.empty_like(lse) for _ in range(self.size)]
+        dist.all_gather(outs, out.contiguous(), group=self.group)
+        dist.all_gather(lses, lse.contiguous(), group=self.group)
+        return merge_partials(outs, lses)[0]

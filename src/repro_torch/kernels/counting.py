@@ -430,23 +430,27 @@ def _delta_work(*, B, S, d_in, d_out, r, ids, itemsize=4):
     return _sgmv_work(B, S, d_in, d_out, r, ids, itemsize, False)
 
 
-def _ragged_extend_work(*, B, S, H, Hkv, D, starts, true_lens, itemsize=4):
+def _ragged_extend_work(*, B, S, H, Hkv, D, starts, true_lens, itemsize=4, lse=False):
     """The live queries, each row's cached and new K/V up to its last
-    query, the padded output, starts and lengths; causal products."""
+    query, the padded output (and its f32 log-sum-exp with ``lse``),
+    starts and lengths; causal products."""
     live_q = sum(true_lens)
     kv_tokens = sum(s + n for s, n in zip(starts, true_lens) if n > 0)
     nbytes = itemsize * (live_q * H * D + 2 * kv_tokens * Hkv * D + B * S * H * D) + 8 * B
+    nbytes += 4 * B * S * H if lse else 0
     flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, true_lens)
                 for j in range(n))
     return nbytes, flops
 
 
-def _paged_attention_work(*, B, H, Hkv, D, T, page_size, lengths, itemsize=4):
-    """q and the output, each row's live K/V (at most the table's T
-    tokens), the block tables and lengths."""
+def _paged_attention_work(*, B, H, Hkv, D, T, page_size, lengths, itemsize=4, lse=False):
+    """q and the output (and its f32 log-sum-exp with ``lse``), each row's
+    live K/V (at most the table's T tokens), the block tables and
+    lengths."""
     pages = T // page_size
     kv_tokens = sum(min(n, T) for n in lengths)
     nbytes = itemsize * (2 * B * H * D + 2 * kv_tokens * Hkv * D) + 4 * B * (pages + 1)
+    nbytes += 4 * B * H if lse else 0
     flops = 4 * H * D * kv_tokens
     return nbytes, flops
 

@@ -151,8 +151,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // the group, 0 .. G − 1), T being the element type:
 //   const T* q_at(int s, int h), k_at(int t), v_at(int t), any();
 //   T* o_at(int s, int h); size_t part_at(int s, int h);
-//   float* lse_at(int s, int h): where a live row's log-sum-exp of its
-//   scaled scores goes (for a backward pass), or nullptr for none.
+//   float* lse_at(int s, int h): where a row's log-sum-exp of its scaled
+//   scores goes (for a backward pass, or to merge partial attentions over
+//   parts of the keys), or nullptr for none; -inf for a padded row.
 // Row r of the tile is query vector v_lo + r, token (v_lo + r) / G, head
 // (v_lo + r) % G; tokens below q_hi (<= S) are live, and token s sees keys
 // t < kv_end with t <= pos0 + s. The loop walks K/V tiles j0 .. j1 − 1 of
@@ -410,9 +411,9 @@ __device__ __forceinline__ void attend(const Src& src, float4* smem4, int G, int
     }
     const int vec = v_lo + r, s = vec / G;
     inv[r] = s < q_hi ? 1.f / fmaxf(L, 1e-30f) : 0.f;
-    if (part_o == nullptr && s < q_hi) {
+    if (part_o == nullptr && s < S) {
       float* lse = src.lse_at(s, vec % G);
-      if (lse != nullptr) *lse = M + logf(fmaxf(L, 1e-30f));
+      if (lse != nullptr) *lse = s < q_hi ? M + logf(fmaxf(L, 1e-30f)) : -__builtin_huge_valf();
     }
     if (part_o != nullptr && s < q_hi) {
       float* ml = part_ml + 2 * src.part_at(s, vec % G);
@@ -449,13 +450,16 @@ __host__ __device__ inline int tile_token_end(int v_lo, int rows, int G, int S) 
   return e < S ? e : S;
 }
 
-// Zeros for query vectors v_lo .. v_hi − 1 (token v / G, head v % G).
+// Zeros for query vectors v_lo .. v_hi − 1 (token v / G, head v % G), and
+// -inf for their log-sum-exp where the source keeps one.
 template <class Src>
 __device__ __forceinline__ void zero_vectors(const Src& src, int G, int D, int v_lo, int v_hi) {
   const int D4 = D / 4;
   for (int e = threadIdx.x; e < (v_hi - v_lo) * D4; e += THREADS) {
     const int vec = v_lo + e / D4, c = (e % D4) * 4;
     store4(src.o_at(vec / G, vec % G) + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    float* lse = c == 0 ? src.lse_at(vec / G, vec % G) : nullptr;
+    if (lse != nullptr) *lse = -__builtin_huge_valf();
   }
 }
 

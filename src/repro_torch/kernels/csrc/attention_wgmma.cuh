@@ -73,11 +73,14 @@
 //   recomputes Q·Kᵀ at any width.
 // - Epilogue: O·(1/l), rounded once to bf16, goes through the warpgroup's
 //   own Q rows of shared memory to 16-byte stores; rows of tokens past the
-//   live ones are exact zeros; with lse, each live row's m + log(l).
+//   live ones are exact zeros; with lse, each live row's m + log(l)
+//   (flash_prefill: (B, H, S); ragged_extend: (B, S, H), and -inf for a
+//   padded row, so that partial attentions over parts of the keys merge).
 // - ragged_extend (RAGGED): the keys of a q tile run over [0,
 //   min(start + the tile's live end, T)) (the row frontier or the tile's
-//   diagonal), the causal mask (key > start + s) applies only on the K/V
-//   tiles that reach past the tile's first position, and where the q tiles
+//   diagonal), the causal mask (key > start + s, and key >= the range's
+//   end, for a query at or past T) applies only on the K/V tiles that reach
+//   past the tile's first position or that end, and where the q tiles
 //   do not fill the card the KV range is split over n_split blocks
 //   (ragged_split.cuh): a block of a split tile writes its live rows'
 //   (m·ln 2, l, Σ p·v) in f32 to part_o for the combine pass. A consumer
@@ -162,13 +165,22 @@ __device__ __forceinline__ void attention_wgmma(
   const long long qbase = b * qsb + (long long)hkv * G * qsh;
   auto qoff = [&](int vec) { return qbase + (vec % G) * qsh + (long long)(vec / G) * qss; };
   const int D8 = D / 8;  // 16-byte groups of a row
+  // where a row's log-sum-exp goes: (B, S, H) for ragged_extend, (B, H, S)
+  // for flash_prefill
+  auto lse_at = [&](int vec) {
+    const int s = vec / G, h = hkv * G + vec % G;
+    return RAGGED ? ((size_t)b * S + s) * H + h : ((size_t)b * H + h) * S + s;
+  };
   if (v_lo / G >= q_hi) {
     // a q tile past the row's length (or a row of length 0): zeros, written
     // by the combine pass where the KV range is split
     const int v_hi = min(v_lo + ROWS, S * G);
-    if (n_split == 1)
+    if (n_split == 1) {
       for (int e = threadIdx.x; e < (v_hi - v_lo) * D8; e += THREADS)
         *reinterpret_cast<uint4*>(out + qoff(v_lo + e / D8) + 8 * (e % D8)) = make_uint4(0, 0, 0, 0);
+      if (RAGGED && lse != nullptr)
+        for (int vec = v_lo + threadIdx.x; vec < v_hi; vec += THREADS) lse[lse_at(vec)] = NEG_INF;
+    }
     return;
   }
   // keys [0, kv_end): the row frontier or the q tile's diagonal; this
@@ -275,14 +287,17 @@ __device__ __forceinline__ void attention_wgmma(
 
     // online softmax: sc[4j + i] is row r0 (i < 2) or r1, key u·BK + 8j +
     // 2·t4 + (i & 1)
-    const bool diag = (u + 1) * BK > st + s_first + 1;  // a key past the tile's first position
+    // a key past the tile's first position; ragged: or past kv_end (a query
+    // at or past T sees every key below T, and none of the zeros past it)
+    const bool diag = (u + 1) * BK > (RAGGED ? min(st + s_first + 1, kv_end) : st + s_first + 1);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = sc[4 * j + i] * sl2;
-        if (diag && u * BK + 8 * j + 2 * t4 + (i & 1) > st + (i < 2 ? s0 : s1)) x = NEG_INF;
+        const int key = u * BK + 8 * j + 2 * t4 + (i & 1);
+        if (diag && (key > st + (i < 2 ? s0 : s1) || (RAGGED && key >= kv_end))) x = NEG_INF;
         sc[4 * j + i] = x;
       }
       mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
@@ -362,9 +377,13 @@ __device__ __forceinline__ void attention_wgmma(
   }
   if (lse != nullptr && t4 == 0) {
     if (live0)
-      lse[((size_t)b * H + hkv * G + (v_lo + r0) % G) * S + s0] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
+      lse[lse_at(v_lo + r0)] = m0 * LN2 + logf(fmaxf(l0, 1e-30f));
+    else if (RAGGED && s0 < S)
+      lse[lse_at(v_lo + r0)] = NEG_INF;
     if (live1)
-      lse[((size_t)b * H + hkv * G + (v_lo + r1) % G) * S + s1] = m1 * LN2 + logf(fmaxf(l1, 1e-30f));
+      lse[lse_at(v_lo + r1)] = m1 * LN2 + logf(fmaxf(l1, 1e-30f));
+    else if (RAGGED && s1 < S)
+      lse[lse_at(v_lo + r1)] = NEG_INF;
   }
   const float f0 = 1.f / fmaxf(l0, 1e-30f), f1 = 1.f / fmaxf(l1, 1e-30f);
   bar_sync(2 + c, 128);  // every warp of the group is past its last Q·Kᵀ: its Q rows are free
@@ -405,9 +424,10 @@ __global__ void __launch_bounds__(THREADS, 1) ragged_extend_wgmma_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const bf16* __restrict__ q, const int* __restrict__ start,
     const int* __restrict__ true_lens, bf16* __restrict__ out, float* __restrict__ part_o,
-    int B, int S, int T, int H, int Hkv, int D, int n_tiles, int n_split) {
+    float* __restrict__ lse, int B, int S, int T, int H, int Hkv, int D, int n_tiles,
+    int n_split) {
   const long long qs = (long long)H * D;  // q (B, S, H, D): the s stride
-  attention_wgmma<DC, true>(kmap, vmap, q, true_lens, out, nullptr, B, S, H, Hkv, D, n_tiles,
+  attention_wgmma<DC, true>(kmap, vmap, q, true_lens, out, lse, B, S, H, Hkv, D, n_tiles,
                             S * qs, D, qs, start, T, n_split, part_o);
 }
 

@@ -98,6 +98,13 @@
 //   second barrier keeps every block's states alive until all have read
 //   them. A row of length 0 writes zeros. No scratch, no atomics: repeat
 //   launches give the same bits.
+//
+// Both loops take an optional lse (B, H) f32: each query's log-sum-exp of
+// its scaled scores, m + log(l) in natural-log units, written where the
+// chunks or the cluster's blocks merge; -inf for a row of length 0. A
+// caller that attends part of a sequence's keys (a time shard of the
+// cache) merges the parts' outputs with it. With a NULL lse nothing more
+// is written.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -323,7 +330,8 @@ __global__ void __launch_bounds__(THREADS, 2) paged_attention_chunk_kernel(
 template <class E, int CT>
 __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ lengths, E* __restrict__ out, int H, int D, int T, int nc) {
+    const int* __restrict__ lengths, E* __restrict__ out, float* __restrict__ lse, int H,
+    int D, int T, int nc) {
   const int bh = blockIdx.x, lane = threadIdx.x, d4 = blockIdx.y * 128 + lane * 4;
   const int len = min(max(lengths[bh / H], 0), T);
   const int n_live = (len + CT - 1) / CT;
@@ -368,11 +376,13 @@ __global__ void __launch_bounds__(32) paged_attention_merge_kernel(
     const float inv = 1.f / fmaxf(L, 1e-30f);
     store4(out + (size_t)bh * D + d4, make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv));
   }
+  if (lse != nullptr && blockIdx.y == 0 && lane == 0)
+    lse[bh] = n_live > 0 ? mx + logf(fmaxf(L, 1e-30f)) : -__builtin_huge_valf();
 }
 
 template <class E, int GF, int CT>
 int launch(const E* q, const E* k_pages, const E* v_pages,
-           const int* tables, const int* lengths, E* out, float* scratch,
+           const int* tables, const int* lengths, E* out, float* lse, float* scratch,
            int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
            cudaStream_t stream) {
   const int nc = chunks_for(page_size, pages_per_seq, D);
@@ -390,22 +400,22 @@ int launch(const E* q, const E* k_pages, const E* v_pages,
   if (err != cudaSuccess) return (int)err;
   err = launch_dependent(paged_attention_merge_kernel<E, CT>, dim3(B * H, (D + 127) / 128),
                          dim3(32), 0, stream, (const float*)part_acc, (const float*)part_ml,
-                         lengths, out, H, D, pages_per_seq * page_size, nc);
+                         lengths, out, lse, H, D, pages_per_seq * page_size, nc);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <class E, int CT>
 int launch_g(const E* q, const E* k_pages, const E* v_pages,
-             const int* tables, const int* lengths, E* out, float* scratch,
+             const int* tables, const int* lengths, E* out, float* lse, float* scratch,
              int B, int H, int Hkv, int D, int page_size, int pages_per_seq,
              cudaStream_t s) {
   switch (H / Hkv) {
-    case 1: return launch<E, 1, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 2: return launch<E, 2, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 4: return launch<E, 4, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    case 8: return launch<E, 8, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-    default: return launch<E, 0, CT>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 1: return launch<E, 1, CT>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 2: return launch<E, 2, CT>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 4: return launch<E, 4, CT>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    case 8: return launch<E, 8, CT>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+    default: return launch<E, 0, CT>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
   }
 }
 
@@ -420,33 +430,33 @@ extern "C" int paged_attention_scratch_floats(int B, int H, int Hkv, int D,
 
 template <class E>
 int dispatch(const E* q, const E* k_pages, const E* v_pages, const int* tables,
-             const int* lengths, E* out, float* scratch, int B, int H, int Hkv, int D,
+             const int* lengths, E* out, float* lse, float* scratch, int B, int H, int Hkv, int D,
              int page_size, int pages_per_seq, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || D <= 0 || D % 4 != 0 ||
       D > MAX_D || page_size <= 0 || page_size % PAGE_MULTIPLE != 0 || pages_per_seq <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (D > NARROW_D) return launch_g<E, chunk_tokens(MAX_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
-  return launch_g<E, chunk_tokens(NARROW_D)>(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  if (D > NARROW_D) return launch_g<E, chunk_tokens(MAX_D)>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
+  return launch_g<E, chunk_tokens(NARROW_D)>(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D, page_size, pages_per_seq, s);
 }
 
 extern "C" int paged_attention_launch(const float* q, const float* k_pages,
                                       const float* v_pages, const int* tables,
-                                      const int* lengths, float* out,
+                                      const int* lengths, float* out, float* lse,
                                       float* scratch, int B, int H, int Hkv,
                                       int D, int page_size, int pages_per_seq,
                                       void* stream) {
-  return dispatch(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
+  return dispatch(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D,
                   page_size, pages_per_seq, stream);
 }
 
-// The same on bf16 q, pages and out (f32 scratch).
+// The same on bf16 q, pages and out (f32 scratch and lse).
 extern "C" int paged_attention_bf16_launch(const bf16* q, const bf16* k_pages,
                                            const bf16* v_pages, const int* tables,
-                                           const int* lengths, bf16* out, float* scratch,
-                                           int B, int H, int Hkv, int D, int page_size,
-                                           int pages_per_seq, void* stream) {
-  return dispatch(q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
+                                           const int* lengths, bf16* out, float* lse,
+                                           float* scratch, int B, int H, int Hkv, int D,
+                                           int page_size, int pages_per_seq, void* stream) {
+  return dispatch(q, k_pages, v_pages, tables, lengths, out, lse, scratch, B, H, Hkv, D,
                   page_size, pages_per_seq, stream);
 }
 
@@ -517,8 +527,8 @@ template <int DC, int GP>
 __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
     const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const bf16* __restrict__ q, const int* __restrict__ tables,
-    const int* __restrict__ lengths, bf16* __restrict__ out, int Hkv, int G, int D,
-    int page_size, int pages_per_seq, int bt) {
+    const int* __restrict__ lengths, bf16* __restrict__ out, float* __restrict__ lse, int Hkv,
+    int G, int D, int page_size, int pages_per_seq, int bt) {
   constexpr int ST = stages<DC>();
   constexpr int QLD = ld<DC>();
   constexpr int K4 = (16 * DC + 31) / 32;  // 4-column groups of P·V a lane, at most
@@ -770,6 +780,8 @@ __global__ void __launch_bounds__(THREADS) paged_attention_split_kernel(
     *reinterpret_cast<uint4*>(out + ((size_t)b * H + hkv * G + g) * D + 8 * c) =
         make_uint4(pack_bf16(a[0] * inv, a[1] * inv), pack_bf16(a[2] * inv, a[3] * inv),
                    pack_bf16(a[4] * inv, a[5] * inv), pack_bf16(a[6] * inv, a[7] * inv));
+    if (lse != nullptr && c == 0)
+      lse[(size_t)b * H + hkv * G + g] = len > 0 ? M + logf(fmaxf(L, 1e-30f)) : -__builtin_huge_valf();
   }
   cluster.sync();  // no block leaves while another may still read its states
 }
@@ -795,8 +807,8 @@ int pool_map(CUtensorMap* map, const bf16* base, int P, int page_size, int Hkv, 
 
 template <int DC, int GP>
 int launch(const bf16* q, const bf16* k_pages, const bf16* v_pages, const int* tables,
-           const int* lengths, bf16* out, int B, int H, int Hkv, int D, int page_size,
-           int pages_per_seq, int P, int n_split, cudaStream_t stream) {
+           const int* lengths, bf16* out, float* lse, int B, int H, int Hkv, int D,
+           int page_size, int pages_per_seq, int P, int n_split, cudaStream_t stream) {
   const int bt = gcd(page_size, TK);
   CUtensorMap kmap, vmap;
   int err = pool_map(&kmap, k_pages, P, page_size, Hkv, D, bt);
@@ -819,21 +831,21 @@ int launch(const bf16* q, const bf16* k_pages, const bf16* v_pages, const int* t
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, paged_attention_split_kernel<DC, GP>, kmap, vmap, q, tables,
-                         lengths, out, Hkv, H / Hkv, D, page_size, pages_per_seq, bt);
+                         lengths, out, lse, Hkv, H / Hkv, D, page_size, pages_per_seq, bt);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <int DC>
 int launch_g(const bf16* q, const bf16* k_pages, const bf16* v_pages, const int* tables,
-             const int* lengths, bf16* out, int B, int H, int Hkv, int D, int page_size,
-             int pages_per_seq, int P, int n_split, cudaStream_t st) {
+             const int* lengths, bf16* out, float* lse, int B, int H, int Hkv, int D,
+             int page_size, int pages_per_seq, int P, int n_split, cudaStream_t st) {
   const int G = H / Hkv;
-  if (G <= 1) return launch<DC, 1>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
-  if (G <= 2) return launch<DC, 2>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
-  if (G <= 4) return launch<DC, 4>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
-  if (G <= 8) return launch<DC, 8>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
-  return launch<DC, 16>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
+  if (G <= 1) return launch<DC, 1>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
+  if (G <= 2) return launch<DC, 2>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
+  if (G <= 4) return launch<DC, 4>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
+  if (G <= 8) return launch<DC, 8>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
+  return launch<DC, 16>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, st);
 }
 
 }  // namespace split
@@ -846,8 +858,8 @@ int launch_g(const bf16* q, const bf16* k_pages, const bf16* v_pages, const int*
 // Anything else returns cudaErrorInvalidValue.
 extern "C" int paged_attention_bf16_split_launch(const bf16* q, const bf16* k_pages,
                                                  const bf16* v_pages, const int* tables,
-                                                 const int* lengths, bf16* out, int B, int H,
-                                                 int Hkv, int D, int page_size,
+                                                 const int* lengths, bf16* out, float* lse,
+                                                 int B, int H, int Hkv, int D, int page_size,
                                                  int pages_per_seq, int P, int n_split,
                                                  void* stream) {
   auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
@@ -858,10 +870,10 @@ extern "C" int paged_attention_bf16_split_launch(const bf16* q, const bf16* k_pa
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch ((D + 63) / 64) {  // chunks of 64 of D
-    case 1: return split::launch_g<1>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
-    case 2: return split::launch_g<2>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
-    case 3: return split::launch_g<3>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
-    default: return split::launch_g<4>(q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
+    case 1: return split::launch_g<1>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
+    case 2: return split::launch_g<2>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
+    case 3: return split::launch_g<3>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
+    default: return split::launch_g<4>(q, k_pages, v_pages, tables, lengths, out, lse, B, H, Hkv, D, page_size, pages_per_seq, P, n_split, s);
   }
 }
 

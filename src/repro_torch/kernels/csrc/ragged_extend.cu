@@ -32,6 +32,12 @@
 //
 // Where the q tiles do not fill the card, the KV range of a tile is split
 // over blocks and a combine pass merges the parts (ragged_split.cuh).
+//
+// An optional lse (B, S, Hq) f32 takes each query's log-sum-exp of its
+// scaled scores (m + log(l), natural-log units; -inf for a padded query),
+// written by the tile loop or by the combine pass: a caller that attends
+// part of a sequence's keys (a time shard of the cache) merges the parts'
+// outputs with it. With a NULL lse nothing more is written.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +50,7 @@ template <class E>
 struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
   const E *q, *k, *v;
   E* out;
+  float* lse;  // (B, S, Hq) or nullptr
   int b, hkv, S, T, Hq, Hkv, D, G, part, B;
   __device__ size_t qrow(int s, int h) const {
     return ((size_t)b * S + s) * Hq + hkv * G + h;
@@ -61,7 +68,9 @@ struct RaggedSrc {  // row b and kv head hkv of q, k, v, out (B, S|T, H, D)
   __device__ size_t part_at(int s, int h) const {
     return (size_t)part * B * S * Hq + qrow(s, h);
   }
-  __device__ float* lse_at(int, int) const { return nullptr; }  // serving: none
+  __device__ float* lse_at(int s, int h) const {
+    return lse == nullptr ? nullptr : lse + qrow(s, h);
+  }
 };
 
 template <class E, int WR, int DT>
@@ -69,14 +78,14 @@ __global__ void __launch_bounds__(attn::THREADS, 1) ragged_extend_kernel(
     const E* __restrict__ q, const E* __restrict__ k,
     const E* __restrict__ v, const int* __restrict__ start,
     const int* __restrict__ true_lens, E* __restrict__ out,
-    float* __restrict__ part_o, int B, int S, int T, int Hq, int Hkv, int D,
-    int n_split) {
+    float* __restrict__ part_o, float* __restrict__ lse, int B, int S, int T, int Hq,
+    int Hkv, int D, int n_split) {
   extern __shared__ float4 smem4[];
   constexpr int ROWS = 16 * WR;
   const int G = Hq / Hkv;
   const int tile = blockIdx.x / n_split, part = blockIdx.x % n_split;
   const int b = blockIdx.z, hkv = blockIdx.y;
-  const RaggedSrc<E> src{q, k, v, out, b, hkv, S, T, Hq, Hkv, D, G, part, B};
+  const RaggedSrc<E> src{q, k, v, out, lse, b, hkv, S, T, Hq, Hkv, D, G, part, B};
   const int v_lo = tile * ROWS;  // the tile's query vectors: tokens [v_lo / G, s_end)
   const int s_end = attn::tile_token_end(v_lo, ROWS, G, S);
   const int st = start[b], n_new = min(true_lens[b], S);
@@ -115,7 +124,7 @@ Plan plan(int B, int S, int T, int Hq, int Hkv, int D) {
 
 template <class E, int WR, int DT>
 int launch(const E* q, const E* k, const E* v, const int* start,
-           const int* true_lens, E* out, float* part_o, int B, int S, int T,
+           const int* true_lens, E* out, float* part_o, float* lse, int B, int S, int T,
            int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
   const size_t smem = attn::smem_bytes<E, WR, DT>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -123,29 +132,29 @@ int launch(const E* q, const E* k, const E* v, const int* start,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.n_tiles * p.n_split, Hkv, B);
   ragged_extend_kernel<E, WR, DT><<<grid, attn::THREADS, smem, stream>>>(
-      q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p.n_split);
+      q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p.n_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return (int)err;
   const size_t rows = (size_t)B * S * Hq;
   const int per_block = attn::THREADS / 32;
   ragged_extend_combine_kernel<E><<<(unsigned)((rows + per_block - 1) / per_block),
                                  attn::THREADS, 0, stream>>>(
-      start, true_lens, part_o, out, B, S, T, Hq, Hq / Hkv, D, p.n_split, 16 * WR);
+      start, true_lens, part_o, out, lse, B, S, T, Hq, Hq / Hkv, D, p.n_split, 16 * WR);
   return (int)cudaGetLastError();
 }
 
 // q tiles of 16·wr rows: 16 .. 128 (16 .. 64 for a wide head)
 template <class E, int DT>
 int launch_dt(const E* q, const E* k, const E* v, const int* start,
-              const int* true_lens, E* out, float* part_o, int B, int S, int T,
+              const int* true_lens, E* out, float* part_o, float* lse, int B, int S, int T,
               int Hq, int Hkv, int D, const Plan& p, cudaStream_t stream) {
   switch (p.wr) {
-    case 1: return launch<E, 1, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
-    case 2: return launch<E, 2, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
-    case 4: return launch<E, 4, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+    case 1: return launch<E, 1, DT>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, stream);
+    case 2: return launch<E, 2, DT>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, stream);
+    case 4: return launch<E, 4, DT>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, stream);
     default:
       if constexpr (attn::is_wide(DT)) return (int)cudaErrorInvalidValue;
-      else return launch<E, 8, DT>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, stream);
+      else return launch<E, 8, DT>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, stream);
   }
 }
 
@@ -165,35 +174,36 @@ extern "C" int ragged_extend_kv_parts(int B, int S, int T, int Hq, int Hkv, int 
 
 template <class E>
 int dispatch(const E* q, const E* k, const E* v, const int* start, const int* true_lens,
-             E* out, float* part_o, int B, int S, int T, int Hq, int Hkv, int D,
+             E* out, float* part_o, float* lse, int B, int S, int T, int Hq, int Hkv, int D,
              void* stream) {
   if (!valid(B, S, T, Hq, Hkv, D)) return (int)cudaErrorInvalidValue;
   const Plan p = plan(B, S, T, Hq, Hkv, D);
   if (p.n_split > 1 && part_o == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (p.dt) {
-    case 4: return launch_dt<E, 4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 8: return launch_dt<E, 8>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 16: return launch_dt<E, 16>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    case 20: return launch_dt<E, 20>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
-    default: return launch_dt<E, 32>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, p, st);
+    case 4: return launch_dt<E, 4>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, st);
+    case 8: return launch_dt<E, 8>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, st);
+    case 16: return launch_dt<E, 16>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, st);
+    case 20: return launch_dt<E, 20>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, st);
+    default: return launch_dt<E, 32>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, p, st);
   }
 }
 
-// part_o: scratch for a split launch (NULL when ragged_extend_kv_parts is 1).
+// part_o: scratch for a split launch (NULL when ragged_extend_kv_parts is
+// 1); lse: (B, S, Hq) f32, or NULL.
 extern "C" int ragged_extend_launch(const float* q, const float* k, const float* v,
                                     const int* start, const int* true_lens, float* out,
-                                    float* part_o, int B, int S, int T, int Hq, int Hkv,
-                                    int D, void* stream) {
-  return dispatch(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, stream);
+                                    float* part_o, float* lse, int B, int S, int T, int Hq,
+                                    int Hkv, int D, void* stream) {
+  return dispatch(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, stream);
 }
 
-// The same on bf16 q, k, v and out (f32 scratch).
+// The same on bf16 q, k, v and out (f32 scratch and lse).
 extern "C" int ragged_extend_bf16_launch(const bf16* q, const bf16* k, const bf16* v,
                                          const int* start, const int* true_lens, bf16* out,
-                                         float* part_o, int B, int S, int T, int Hq, int Hkv,
-                                         int D, void* stream) {
-  return dispatch(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, stream);
+                                         float* part_o, float* lse, int B, int S, int T, int Hq,
+                                         int Hkv, int D, void* stream) {
+  return dispatch(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, stream);
 }
 
 extern "C" const char* ragged_extend_error_string(int err) {

@@ -25,6 +25,10 @@
 // fill G of a tile's 128 rows) issues no products. Sums run in a fixed
 // order: repeat launches give the same bits.
 //
+// An optional lse (B, S, Hq) f32 takes each query's log-sum-exp of its
+// scaled scores (-inf for a padded query), from the tile loop or the
+// combine pass, as ragged_extend.cu writes it.
+//
 // Shapes: bf16, D a multiple of 16 up to 256, q, k, v and out contiguous
 // on 16-byte bases (ragged_extend.py's bf16_path, the rule of
 // flash_prefill.bf16_path); every other launch takes ragged_extend.cu.
@@ -49,8 +53,8 @@ bool valid(int B, int S, int T, int Hq, int Hkv, int D) {
 
 template <int DC>
 int launch(const bf16* q, const bf16* k, const bf16* v, const int* start, const int* true_lens,
-           bf16* out, float* part_o, int B, int S, int T, int Hq, int Hkv, int D, int n_split,
-           cudaStream_t stream) {
+           bf16* out, float* part_o, float* lse, int B, int S, int T, int Hq, int Hkv, int D,
+           int n_split, cudaStream_t stream) {
   const long long kvs = (long long)Hkv * D;  // (B, T, Hkv, D): s stride
   CUtensorMap kmap, vmap;
   int err = wg::kv_map(&kmap, k, B, T, Hkv, D, T * kvs, D, kvs);
@@ -64,14 +68,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int* start, const 
   const long long blocks = (long long)n_tiles * B * Hkv * n_split;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   wg::ragged_extend_wgmma_kernel<DC><<<(unsigned)blocks, wg::THREADS, smem, stream>>>(
-      kmap, vmap, q, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, n_tiles, n_split);
+      kmap, vmap, q, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, n_tiles, n_split);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   const size_t rows = (size_t)B * S * Hq;
   const int per_block = attn::THREADS / 32;
   ragged_extend_combine_kernel<bf16><<<(unsigned)((rows + per_block - 1) / per_block),
                                        attn::THREADS, 0, stream>>>(
-      start, true_lens, part_o, out, B, S, T, Hq, Hq / Hkv, D, n_split, wg::ROWS);
+      start, true_lens, part_o, out, lse, B, S, T, Hq, Hq / Hkv, D, n_split, wg::ROWS);
   return (int)cudaGetLastError();
 }
 
@@ -87,12 +91,12 @@ extern "C" int ragged_extend_wgmma_kv_parts(int B, int S, int T, int Hq, int Hkv
 
 // bf16 q (B, S, Hq, D), k and v (B, T, Hkv, D), out like q, all contiguous
 // on 16-byte bases; part_o: scratch for a split launch (NULL when
-// ragged_extend_wgmma_kv_parts is 1). Anything else returns
-// cudaErrorInvalidValue.
+// ragged_extend_wgmma_kv_parts is 1); lse: (B, S, Hq) f32, or NULL.
+// Anything else returns cudaErrorInvalidValue.
 extern "C" int ragged_extend_wgmma_launch(const bf16* q, const bf16* k, const bf16* v,
                                           const int* start, const int* true_lens, bf16* out,
-                                          float* part_o, int B, int S, int T, int Hq, int Hkv,
-                                          int D, void* stream) {
+                                          float* part_o, float* lse, int B, int S, int T, int Hq,
+                                          int Hkv, int D, void* stream) {
   auto a16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
   if (!valid(B, S, T, Hq, Hkv, D) || !a16(q) || !a16(k) || !a16(v) || !a16(out))
     return (int)cudaErrorInvalidValue;
@@ -100,10 +104,10 @@ extern "C" int ragged_extend_wgmma_launch(const bf16* q, const bf16* k, const bf
   if (n_split > 1 && part_o == nullptr) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch ((D + 63) / 64) {  // chunks of 64 of D
-    case 1: return launch<1>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, n_split, st);
-    case 2: return launch<2>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, n_split, st);
-    case 3: return launch<3>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, n_split, st);
-    default: return launch<4>(q, k, v, start, true_lens, out, part_o, B, S, T, Hq, Hkv, D, n_split, st);
+    case 1: return launch<1>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, n_split, st);
+    case 2: return launch<2>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, n_split, st);
+    case 3: return launch<3>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, n_split, st);
+    default: return launch<4>(q, k, v, start, true_lens, out, part_o, lse, B, S, T, Hq, Hkv, D, n_split, st);
   }
 }
 

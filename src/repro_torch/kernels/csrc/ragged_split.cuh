@@ -13,7 +13,8 @@
 // at part_o + (part·B·S·Hq + row)·D, the pairs after all n_split·B·S·Hq
 // sums; m in natural-log units of the scaled scores), and
 // ragged_extend_combine_kernel merges the parts in a fixed order and writes
-// the zeros of padded queries.
+// the zeros of padded queries; with an lse (B, S, Hq), each merged query's
+// m + log(l) and -inf for a padded one.
 
 #pragma once
 
@@ -53,8 +54,8 @@ inline int split_count(long long blocks, int T) {
 template <class E>
 __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
     const int* __restrict__ start, const int* __restrict__ true_lens,
-    const float* __restrict__ part_o, E* __restrict__ out, int B, int S, int T,
-    int Hq, int G, int D, int n_split, int rows) {
+    const float* __restrict__ part_o, E* __restrict__ out, float* __restrict__ lse, int B,
+    int S, int T, int Hq, int G, int D, int n_split, int rows) {
   const int lane = threadIdx.x & 31;
   const size_t row = (size_t)blockIdx.x * (attn::THREADS / 32) + (threadIdx.x >> 5);
   if (row >= (size_t)B * S * Hq) return;
@@ -63,6 +64,7 @@ __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
   E* o = out + row * D;
   if (s >= n_new) {
     for (int c = lane * 4; c < D; c += 128) store4(o + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    if (lse != nullptr && lane == 0) lse[row] = -__builtin_huge_valf();
     return;
   }
   const int v_lo = (s * G + (int)(row % Hq) % G) / rows * rows;  // the vector's q tile
@@ -76,6 +78,7 @@ __global__ void __launch_bounds__(attn::THREADS) ragged_extend_combine_kernel(
   float L = 0.f;
   for (int p = 0; p < parts; ++p) L += ml[2 * p * stride + 1] * expf(ml[2 * p * stride] - M);
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (lse != nullptr && lane == 0) lse[row] = M + logf(fmaxf(L, 1e-30f));
   for (int c = lane * 4; c < D; c += 128) {
     float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int p = 0; p < parts; ++p) {

@@ -28,14 +28,16 @@ from .ref import paged_attention_ref
 _SIGNATURES = {
     # q, k_pages, v_pages, tables, lengths, out, scratch, B, H, Hkv, D,
     # page, pages, stream
-    "paged_attention_launch": "pppppppiiiiiip",
-    "paged_attention_bf16_launch": "pppppppiiiiiip",  # bf16 q, pages, out
+    # q, k_pages, v_pages, tables, lengths, out, lse (or NULL), scratch, B,
+    # H, Hkv, D, page, pages, stream
+    "paged_attention_launch": "ppppppppiiiiiip",
+    "paged_attention_bf16_launch": "ppppppppiiiiiip",  # bf16 q, pages, out
     # (B, H, Hkv, D, page, pages_per_seq) -> floats of scratch a launch
     # needs (every chunk's partial softmax state)
     "paged_attention_scratch_floats": "iiiiii",
-    # q, k_pages, v_pages, tables, lengths, out, B, H, Hkv, D, page,
-    # pages, P, n_split, stream: the bf16 split loop (no scratch)
-    "paged_attention_bf16_split_launch": "ppppppiiiiiiiip",
+    # q, k_pages, v_pages, tables, lengths, out, lse (or NULL), B, H, Hkv,
+    # D, page, pages, P, n_split, stream: the bf16 split loop (no scratch)
+    "paged_attention_bf16_split_launch": "pppppppiiiiiiiip",
 }
 MAX_GROUP = 128  # query heads per kv head (csrc: the q heads' shared memory)
 SPLIT_TOKENS = 64  # tokens of a tile of the split loop (csrc: split::TK)
@@ -97,9 +99,16 @@ def paged_attention(
     v_pages: torch.Tensor,  # (P, page_size, Hkv, D)
     block_tables: torch.Tensor,  # (B, pages_per_seq) int
     lengths: torch.Tensor,  # (B,) int
-) -> torch.Tensor:
+    *,
+    return_lse: bool = False,
+):
+    """The attention (B, H, D); with ``return_lse``, (attention, lse (B,
+    H) f32): each query's log-sum-exp of its scaled scores, −inf for a row
+    of length 0 (whose attention is zeros), for merging partial attentions
+    over parts of the keys."""
     if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                   return_lse=return_lse)
     name = "paged_attention"
     dev = q.device
     if not (q.dim() == 3 and k_pages.dim() == 4
@@ -124,8 +133,12 @@ def paged_attention(
     tables = build.as_int32(block_tables, dev)
     lens = build.as_int32(lengths, dev)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), device=dev, dtype=torch.float32) if return_lse
+           else None)
+    lse_ptr = None if lse is None else lse.data_ptr()
     if B == 0 or tables.shape[1] == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     lib = build.load(name, _SIGNATURES)
     pages = tables.shape[1]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -136,20 +149,20 @@ def paged_attention(
     if path == "split":
         code = lib.paged_attention_bf16_split_launch(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), B, H, Hkv, D, page, pages, k_pages.shape[0],
-            split_plan(B, Hkv, build.sm_count(dev)), stream)
+            lens.data_ptr(), out.data_ptr(), lse_ptr, B, H, Hkv, D, page, pages,
+            k_pages.shape[0], split_plan(B, Hkv, build.sm_count(dev)), stream)
         build.check_error(name, name, lib, code)
         build.launches[name] += 1
         build.path_launches[name, path] += 1
-        return out
+        return (out, lse) if return_lse else out
     scratch = torch.empty(
         (lib.paged_attention_scratch_floats(B, H, Hkv, D, page, pages),),
         device=dev, dtype=torch.float32)
     code = getattr(lib, build.entry("paged_attention_launch", dtype))(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, Hkv, D, page,
-        pages, stream)
+        lens.data_ptr(), out.data_ptr(), lse_ptr, scratch.data_ptr(), B, H, Hkv, D,
+        page, pages, stream)
     build.check_error(name, name, lib, code)
     build.launches[name] += 1
     build.path_launches[name, path] += 1
-    return out
+    return (out, lse) if return_lse else out

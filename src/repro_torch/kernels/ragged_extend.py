@@ -28,16 +28,17 @@ from .flash_prefill import bf16_path as _flash_bf16_path
 from .ref import ragged_extend_ref
 
 _SIGNATURES = {
-    # q, k, v, start, true_lens, out, scratch, B, S, T, Hq, Hkv, D, stream
-    "ragged_extend_launch": "pppppppiiiiiip",
-    "ragged_extend_bf16_launch": "pppppppiiiiiip",  # the same on bf16 q, k, v, out
+    # q, k, v, start, true_lens, out, scratch, lse (or NULL), B, S, T, Hq,
+    # Hkv, D, stream
+    "ragged_extend_launch": "ppppppppiiiiiip",
+    "ragged_extend_bf16_launch": "ppppppppiiiiiip",  # the same on bf16 q, k, v, out
     # (B, S, T, Hq, Hkv, D) -> KV parts per q tile (1: no scratch)
     "ragged_extend_kv_parts": "iiiiii",
 }
 _WGMMA_SOURCE = "ragged_extend_wgmma"
 _WGMMA_SIGNATURES = {
     # the same arguments as ragged_extend_bf16_launch, on attention_wgmma.cuh
-    "ragged_extend_wgmma_launch": "pppppppiiiiiip",
+    "ragged_extend_wgmma_launch": "ppppppppiiiiiip",
     "ragged_extend_wgmma_kv_parts": "iiiiii",
 }
 
@@ -59,9 +60,15 @@ def ragged_extend(
     v: torch.Tensor,  # (B, T, Hkv, D)
     start: torch.Tensor,  # (B,) int — cache length before this chunk
     true_lens: torch.Tensor,  # (B,) int — live tokens per row (may be 0)
-) -> torch.Tensor:
+    *,
+    return_lse: bool = False,
+):
+    """The attention (B, S, Hq, D); with ``return_lse``, (attention, lse
+    (B, S, Hq) f32): each query's log-sum-exp of its scaled scores, −inf
+    for a padded query (whose attention is zeros), for merging partial
+    attentions over parts of the keys."""
     if q.device.type == "cpu":
-        return ragged_extend_ref(q, k, v, start, true_lens)
+        return ragged_extend_ref(q, k, v, start, true_lens, return_lse=return_lse)
     name = "ragged_extend"
     dev = q.device
     if not (q.dim() == 4 and k.dim() == 4 and k.shape == v.shape):
@@ -79,8 +86,10 @@ def ragged_extend(
     st = build.as_int32(start, dev)
     tl = build.as_int32(true_lens, dev)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, S, Hq), device=dev, dtype=torch.float32) if return_lse
+           else None)
     if B * S == 0:
-        return out
+        return (out, lse) if return_lse else out
     path = "mma"
     if dtype == torch.bfloat16:
         path = bf16_path(B, S, T, Hq, Hkv, D, (q.data_ptr(), k.data_ptr(), v.data_ptr()))
@@ -98,8 +107,9 @@ def ragged_extend(
                if parts > 1 else None)
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), st.data_ptr(), tl.data_ptr(),
               out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-              B, S, T, Hq, Hkv, D, torch.cuda.current_stream(dev).cuda_stream)
+              None if lse is None else lse.data_ptr(), B, S, T, Hq, Hkv, D,
+              torch.cuda.current_stream(dev).cuda_stream)
     build.check_error(name, source, lib, code)
     build.launches[name] += 1
     build.path_launches[name, path] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -71,11 +71,14 @@ def ragged_extend_ref(
     v: torch.Tensor,  # (B, T, Hkv, D)
     start: torch.Tensor,  # (B,) int
     true_lens: torch.Tensor,  # (B,) int
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Suffix attention against the cache; padded query positions are zero.
 
     Query ``s`` of row ``b`` attends cache positions
-    ``0 .. start[b] + s`` for ``s < true_lens[b]``."""
+    ``0 .. start[b] + s`` for ``s < true_lens[b]``. With ``return_lse``
+    also each query's log-sum-exp (B, S, H) f32 of its scaled scores
+    (:func:`lse_of`): −inf for a padded query or one without a key."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -95,7 +98,12 @@ def ragged_extend_ref(
     out = torch.einsum("bkgst,btkd->bskgd", w, _acc(v))
     live = torch.arange(S, device=dev)[None, :] < true_lens[:, None]  # (B, S)
     out = out * live[:, :, None, None, None]
-    return out.reshape(B, S, H, D).to(q.dtype)
+    out = out.reshape(B, S, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    valid = valid & live[:, :, None]
+    lse = lse_of(logits, valid[:, None, None])  # (B, Hkv, G, S)
+    return out, lse.permute(0, 3, 1, 2).reshape(B, S, H)
 
 
 def paged_attention_ref(
@@ -104,9 +112,12 @@ def paged_attention_ref(
     v_pages: torch.Tensor,  # (P, page_size, Hkv, D)
     block_tables: torch.Tensor,  # (B, pages_per_seq) int
     lengths: torch.Tensor,  # (B,) int — tokens in each sequence
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-token decode attention over a paged KV pool. A row whose
-    length is 0 emits zeros, not mean(V)."""
+    length is 0 emits zeros, not mean(V). With ``return_lse`` also each
+    query's log-sum-exp (B, H) f32 of its scaled scores (:func:`lse_of`):
+    −inf for a row of length 0."""
     B, H, D = q.shape
     P, page, Hkv, _ = k_pages.shape
     pages_per_seq = block_tables.shape[1]
@@ -123,8 +134,18 @@ def paged_attention_ref(
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     w = torch.where(valid[:, None, None, :], w, 0.0)
-    out = torch.einsum("bkgt,btkd->bkgd", w, v)
-    return out.reshape(B, H, D).to(q.dtype)
+    out = torch.einsum("bkgt,btkd->bkgd", w, v).reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, lse_of(logits, valid[:, None, None, :]).reshape(B, H)
+
+
+def lse_of(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The natural log of the softmax's denominator over the last dim,
+    ``m + log(l)`` in the units of the scaled scores, over the ``valid``
+    keys only, in f32: −inf where a row has no valid key."""
+    x = torch.where(valid, logits, float("-inf"))
+    return torch.logsumexp(x, dim=-1).float()
 
 def flash_prefill_ragged_ref(
     q: torch.Tensor,  # (B, H, S, D) — S is the padded length

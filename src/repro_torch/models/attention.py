@@ -30,6 +30,18 @@ write is decided once per ``extend`` call by :func:`cached_step`, on the
 host: only real tokens of kept rows, and only slots inside the cache (the
 reference's scatter drops out-of-range rows without a word; torch
 indexing would raise).
+
+Under tensor parallelism (``tp``, the sharded serving steps of
+:mod:`repro_torch.distributed.sharded_serve`) the cache is this rank's
+shard, as ``cache_specs`` places it. A cache whose kv heads the model axis
+divides holds this rank's kv heads, which its query heads attend. One
+sharded in time holds the rank's slots [o, o + T/M) of every kv head
+(:func:`cached_step` with ``shard``): only the rank that owns a slot writes
+it, the query and the new K/V are made whole, every head attends the
+local slots through the same kernels with their log-sum-exp (a rank whose
+slots all lie past a row's position gets 0 and −inf), and the partials are
+merged over the model axis (``TensorParallel.merge``); the cache itself
+never crosses it.
 """
 
 from __future__ import annotations
@@ -96,11 +108,13 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
     return p
 
 
-def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None):
+def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None,
+         whole: bool = False, whole_kv: bool = False):
     """q, k, v of one layer; ``rope`` is the step's (cos, sin) tables.
     Under tensor parallelism (``tp``, a
     :class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) they
-    hold this rank's heads."""
+    hold this rank's heads; every head with ``whole``; k and v every head
+    with ``whole_kv``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
 
@@ -111,7 +125,7 @@ def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None):
         q, k, v = (proj(x, p[f"w{t}"], t) for t in "qkv")
         hq, hk = cfg.num_heads, cfg.num_kv_heads
     else:
-        (q, k, v), (hq, hk) = tp.qkv(proj, p, x, cfg)
+        (q, k, v), (hq, hk) = tp.qkv(proj, p, x, cfg, whole=whole, whole_kv=whole_kv)
     q = q.reshape(B, S, hq, hd)
     k = k.reshape(B, S, hk, hd)
     v = v.reshape(B, S, hk, hd)
@@ -119,6 +133,29 @@ def _qkv(p, x, cfg: ModelConfig, rope, lora, adapter_ids, lora_scale, tp=None):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return rotate(q, *rope), rotate(k, *rope), v
+
+
+def _gqa_logits(q: torch.Tensor, k: torch.Tensor, softcap: float) -> torch.Tensor:
+    """The scaled (and, with ``softcap``, capped) scores (B, Hkv, G, S, T)
+    f32 of q (B, S, Hq, D) against k (B, T, Hkv, D), the query heads
+    grouped by their kv head."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    q = q.reshape(B, S, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() / math.sqrt(D)
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits
+
+
+def _partial_softmax(logits: torch.Tensor, valid: torch.Tensor):
+    """The softmax of ``logits`` over the ``valid`` entries of the last
+    axis, and its log-sum-exp (the partial that ``merge_partials`` of
+    :mod:`repro_torch.distributed.tensor_parallel` merges): (weights,
+    lse). A row without a valid entry gets weights 0 and lse −inf."""
+    lse = torch.logsumexp(torch.where(valid, logits, float("-inf")), dim=-1)
+    top = torch.where(torch.isfinite(lse), lse, 0.0)[..., None]
+    return torch.where(valid, torch.exp(logits - top), 0.0), lse
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,17 +166,24 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B,S,Hq,D)  k/v: (B,T,Hkv,D)  mask: (B,S,T) or (1,S,T) bool. The v
     head dim may differ from D (MLA).
     """
-    B, S, Hq, D = q.shape
-    Hkv = k.shape[2]
-    G = Hq // Hkv
-    q = q.reshape(B, S, Hkv, G, D)
-    logits = torch.einsum("bskgd,btkd->bkgst", q, k).float() / math.sqrt(D)
-    if softcap > 0:
-        logits = torch.tanh(logits / softcap) * softcap
+    B, S, Hq, _ = q.shape
+    logits = _gqa_logits(q, k, softcap)
     logits = torch.where(mask[:, None, None, :, :], logits, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, Hq, v.shape[-1])
+
+
+def sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor, softcap: float = 0.0):
+    """:func:`sdpa` over a part of the keys, with each query's log-sum-exp
+    (B, S, Hq) f32 of its scaled (and capped) scores over the unmasked
+    keys, for ``TensorParallel.merge``: a query with no unmasked key gets 0
+    and −inf."""
+    B, S, Hq, _ = q.shape
+    w, lse = _partial_softmax(_gqa_logits(q, k, softcap), mask[:, None, None, :, :])
+    out = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v).reshape(B, S, Hq, v.shape[-1])
+    return out, lse.permute(0, 3, 1, 2).reshape(B, S, Hq)
 
 
 def sdpa_blockwise(
@@ -223,6 +267,7 @@ def gqa_full(
     window: int = 0,
     q_chunk: int = 0,
     tp=None,
+    whole_kv: bool = False,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence causal attention (train / fresh prefill). ``rope`` is
     the (cos, sin) tables at positions 0 .. S-1, so causality by index is
@@ -240,23 +285,28 @@ def gqa_full(
     the probabilities tile by tile). Returns ``(out, (k, v))`` with k/v
     ``(B, S, Hkv, D)``, so a caller can seed a decode cache. Under tensor
     parallelism (``tp``) the attention runs on this rank's heads and the o
-    projection is completed over the model axis (k/v: this rank's)."""
+    projection is completed over the model axis (k/v: this rank's, or
+    every kv head with ``whole_kv``, for a cache that holds them all)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale, tp)
+    q, k, v = _qkv(p, x, cfg, rope, lora, adapter_ids, lora_scale, tp, whole_kv=whole_kv)
+    ka, va = k, v
+    heads = None if tp is None else tp.heads(cfg)
+    if whole_kv and heads is not None:  # this rank's kv heads attend
+        ka, va = k[:, :, heads[2]:heads[3]], v[:, :, heads[2]:heads[3]]
     if window == 0 and cfg.logit_softcap == 0.0:
         out = kernel_ops.flash_prefill(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            q.transpose(1, 2), ka.transpose(1, 2), va.transpose(1, 2)
         ).transpose(1, 2)
     elif q_chunk > 0:
         pos = torch.arange(S, device=x.device)[None].expand(B, S)
-        out = sdpa_blockwise(q, k, v, pos, pos, window=window,
+        out = sdpa_blockwise(q, ka, va, pos, pos, window=window,
                              softcap=cfg.logit_softcap, q_chunk=q_chunk,
                              k_chunk=q_chunk)
     else:
         pos = torch.arange(S, device=x.device)
         mask = (window_mask(pos, pos, window) if window > 0
                 else causal_mask(pos, pos))
-        out = sdpa(q, k, v, mask[None], cfg.logit_softcap)
+        out = sdpa(q, ka, va, mask[None], cfg.logit_softcap)
     out = out.reshape(B, S, -1)
     if tp is not None:
         return tp.out_proj(lambda h, w, name: _proj(h, w, lora, name, adapter_ids,
@@ -290,12 +340,20 @@ class CachedStep:
     ring: bool  # slots are positions modulo T (window == T)
     page_size: int  # > 0: S == 1 without mask decodes through the pages
     tables: Optional[torch.Tensor]  # (B, T / page_size) int32
-    lengths: Optional[torch.Tensor]  # (B,) int32 = start + 1
+    lengths: Optional[torch.Tensor]  # (B,) int32 = start + 1 (a shard: its count)
+    # a time shard of the cache (``cached_step``'s ``shard``): its first
+    # slot, and ragged_extend's view of it (start, true_lens; the queries
+    # moved down by ``shift`` where the row's first ones see no local slot)
+    offset: int = 0
+    time_sharded: bool = False
+    rag_start: Optional[torch.Tensor] = None  # (B,) int32 >= 0
+    rag_lens: Optional[torch.Tensor] = None  # (B,) int32
+    shift: Optional[torch.Tensor] = None  # (B,) int64; None: no row moves
 
 
 def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
                 true_lens=None, keep_rows=None, mrope_positions=None,
-                window: int = 0) -> CachedStep:
+                window: int = 0, shard=None) -> CachedStep:
     """Plan one ``extend`` of S tokens per row at offsets ``start``, with
     the rotary tables of ``cfg`` at those positions (M-RoPE at
     ``mrope_positions`` (3, B, S) where given, see :func:`step_rope`).
@@ -315,7 +373,14 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
     reference gives it: its tokens are written as the reference writes them
     and the slots they overwrote are put back after the step (``restore``).
     On every other config a row's outputs depend on that row alone, and an
-    unkept row is simply not written."""
+    unkept row is simply not written.
+
+    ``shard`` (o, n): the cache holds slots [o, o + n) of the T slots (a
+    time shard under tensor parallelism). Only the tokens whose slot lies
+    there are written, at slot − o; the pages and ``lengths`` count the
+    local slots a query sees, clamp(start + 1 − o, 0, n); ragged_extend
+    sees start − o, and a row whose first queries precede o has them moved
+    down (``shift``) so that its start is 0."""
     start_h = torch.as_tensor(start).to("cpu", torch.int64)
     B = start_h.shape[0]
     ar = torch.arange(S)
@@ -336,22 +401,33 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
         last = start_h + tl_h.clamp_min(1) - 1
     else:
         last = pos[:, -1]
+    o, n_local = (0, T) if shard is None else shard
+    if shard is not None:
+        write &= (slots >= o) & (slots < o + n_local)
     restore = None
     if keep_rows is not None:
         keep = torch.as_tensor(keep_rows).to("cpu", torch.bool)
         if cfg.moe is not None:
             rb, rs = (write & ~keep[:, None]).nonzero(as_tuple=True)
             if len(rb):
-                restore = rb * T + slots[rb, rs]
+                restore = rb * n_local + slots[rb, rs] - o
         else:
             write &= keep[:, None]
     b_idx, s_idx = write.nonzero(as_tuple=True)
-    ps = _page_size_for(T) if (S == 1 and true_lens is None) else 0
+    ps = _page_size_for(n_local) if (S == 1 and true_lens is None) else 0
     tables = lengths = None
     if ps:
-        pages = T // ps
+        pages = n_local // ps
         tables = torch.arange(B * pages, dtype=torch.int32).reshape(B, pages)
-        lengths = (start_h + 1).to(torch.int32)
+        lengths = (start_h + 1 - o).clamp(0, n_local).to(torch.int32)
+    rag_start = rag_lens = shift = None
+    if shard is not None:
+        local = start_h - o
+        sh = (-local).clamp(0, S)
+        n_real = tl_h if true_lens is not None else torch.full((B,), S)
+        rag_start = (local + sh).to(torch.int32)
+        rag_lens = (n_real - sh).clamp_min(0).to(torch.int32)
+        shift = sh if bool(sh.any()) else None
 
     def dev(t):
         return None if t is None else t.to(device, non_blocking=True)
@@ -363,7 +439,7 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
         start=dev(start_h.to(torch.int32)),
         true_lens=None if true_lens is None else dev(tl_h.to(torch.int32)),
         last=dev(last[:, None]),
-        dst=dev(b_idx * T + slots[b_idx, s_idx]),
+        dst=dev(b_idx * n_local + slots[b_idx, s_idx] - o),
         src=dev(b_idx * S + s_idx),
         restore=dev(restore),
         window=window,
@@ -371,6 +447,11 @@ def cached_step(start, S: int, T: int, device, cfg: ModelConfig,
         page_size=ps,
         tables=dev(tables),
         lengths=dev(lengths),
+        offset=o,
+        time_sharded=shard is not None,
+        rag_start=dev(rag_start),
+        rag_lens=dev(rag_lens),
+        shift=dev(shift),
     )
 
 
@@ -397,11 +478,12 @@ def _restore(step: CachedStep, caches, saved) -> None:
 
 
 def _key_positions(step: CachedStep, T: int) -> torch.Tensor:
-    """(B, T) absolute position of every cache slot: the slot index, or on
-    a ring the largest position <= the row's last real one that maps to
-    the slot. Under a token mask the trailing pads wrote nothing, so the
-    labels anchor on each row's last REAL position (``step.last``)."""
-    j = torch.arange(T, device=step.last.device)[None, :]
+    """(B, T) absolute position of each of the T local cache slots (slot
+    ``step.offset`` + j): the slot index, or on a ring the largest position
+    <= the row's last real one that maps to the slot. Under a token mask
+    the trailing pads wrote nothing, so the labels anchor on each row's
+    last REAL position (``step.last``)."""
+    j = step.offset + torch.arange(T, device=step.last.device)[None, :]
     if step.ring:
         return step.last - ((step.last - j) % step.window)
     return j.expand(step.last.shape[0], T)
@@ -420,6 +502,7 @@ def gqa_cached(
     lora_scale: float = 1.0,
     cache_k_scale: Optional[torch.Tensor] = None,  # (B, T, Hkv): int8 KV
     cache_v_scale: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Suffix attention against the dense cache (decode S=1, or chunked
     prefill). Writes the chunk's K/V into the cache as ``step`` says (int8
@@ -432,11 +515,18 @@ def gqa_cached(
     case through ``ragged_extend``. A sliding window, an int8 cache
     (dequantised first) or a logit softcap goes to the plain :func:`sdpa`
     over the whole cache, with keys past each row's last real position
-    masked."""
+    masked.
+
+    Under tensor parallelism (``tp``) the cache is this rank's shard: of
+    its kv heads, which its query heads attend; or of every kv head (a time
+    shard, ``step.time_sharded``, or a replicated cache), which every query
+    head attends, a time shard's partials merged over the model axis, and
+    the rank keeps its heads for ``wo``'s row shard."""
     B, S, _ = x.shape
     T, Hkv, Dh = cache_k.shape[1], cache_k.shape[2], cache_k.shape[3]
     quant = cache_k_scale is not None
-    q, k, v = _qkv(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
+    whole = tp is not None and Hkv == cfg.num_kv_heads
+    q, k, v = _qkv(p, x, cfg, step.rope, lora, adapter_ids, lora_scale, tp, whole)
     if quant:
         (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
         caches = (cache_k, cache_v, cache_k_scale, cache_v_scale)
@@ -448,21 +538,26 @@ def gqa_cached(
         saved = _write(step, zip(caches, (k, v)))
         k_eff, v_eff = cache_k, cache_v
     use_kernels = step.window == 0 and not quant and cfg.logit_softcap == 0.0
-    if use_kernels and S == 1 and step.true_lens is None:
-        ps = step.page_size
-        if ps > 0:
-            pages = T // ps
-            out = kernel_ops.paged_attention(
-                q[:, 0],
-                k_eff.view(B * pages, ps, Hkv, Dh),
-                v_eff.view(B * pages, ps, Hkv, Dh),
-                step.tables,
-                step.lengths,
-            )[:, None]
-        else:
-            out = kernel_ops.ragged_extend(
-                q, k_eff, v_eff, step.start,
-                torch.ones_like(step.start))
+    lse = None
+    if use_kernels and S == 1 and step.true_lens is None and step.page_size > 0:
+        pages = T // step.page_size
+        out = kernel_ops.paged_attention(
+            q[:, 0],
+            k_eff.view(B * pages, step.page_size, Hkv, Dh),
+            v_eff.view(B * pages, step.page_size, Hkv, Dh),
+            step.tables,
+            step.lengths,
+            return_lse=step.time_sharded,
+        )
+        if step.time_sharded:
+            out, lse = out[0], out[1][:, None]
+        out = out[:, None]
+    elif use_kernels and step.time_sharded:
+        out, lse = _ragged_shard(q, k_eff, v_eff, step)
+    elif use_kernels and S == 1 and step.true_lens is None:
+        out = kernel_ops.ragged_extend(
+            q, k_eff, v_eff, step.start,
+            torch.ones_like(step.start))
     elif use_kernels:
         true_lens = step.true_lens
         if true_lens is None:
@@ -475,11 +570,45 @@ def gqa_cached(
             mask = window_mask(step.positions, kpos, step.window) & valid[:, None, :]
         else:
             mask = causal_mask(step.positions, kpos, valid)
-        out = sdpa(q, k_eff, v_eff, mask, cfg.logit_softcap)
+        if step.time_sharded:
+            out, lse = sdpa_lse(q, k_eff, v_eff, mask, cfg.logit_softcap)
+        else:
+            out = sdpa(q, k_eff, v_eff, mask, cfg.logit_softcap)
     if saved:
         _restore(step, caches, saved)
+    if lse is not None:
+        out = tp.merge(out, lse)
+    if whole:  # fused_sgmv takes a contiguous x
+        out = tp.own_heads(out, cfg).contiguous()
     out = out.reshape(B, S, -1)
+    if tp is not None:
+        return tp.out_proj(lambda h, w, name: _proj(h, w, lora, name, adapter_ids,
+                                                    lora_scale), out, p["wo"], cfg)
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale)
+
+
+def _ragged_shard(q, k, v, step: CachedStep):
+    """``ragged_extend`` of q (B, S, H, D) over a time shard of the cache,
+    with its log-sum-exp: the kernel sees start − o (``step.rag_start``);
+    a row whose first queries precede the shard has its queries moved down
+    by ``step.shift`` for the launch and back after it, those first ones
+    coming out as 0 and −inf."""
+    S = q.shape[1]
+    ar = torch.arange(S, device=q.device)[None, :]
+    if step.shift is not None:
+        src = (ar + step.shift[:, None]).clamp_max(S - 1)
+        q = q.gather(1, src[:, :, None, None].expand_as(q))
+    out, lse = kernel_ops.ragged_extend(q, k, v, step.rag_start, step.rag_lens,
+                                        return_lse=True)
+    if step.shift is not None:
+        back = ar - step.shift[:, None]
+        seen = back >= 0
+        back = back.clamp_min(0)
+        out = torch.where(seen[..., None, None],
+                          out.gather(1, back[:, :, None, None].expand_as(out)), 0.0)
+        lse = torch.where(seen[..., None], lse.gather(1, back[:, :, None].expand_as(lse)),
+                          float("-inf"))
+    return out, lse
 
 
 # ====================================================================== MLA
@@ -594,32 +723,61 @@ def mla_cached(
     lora=None,
     adapter_ids=None,
     lora_scale: float = 1.0,
+    tp=None,
 ) -> torch.Tensor:
     """Cached MLA in the ABSORBED form (the reference's ``mla_cached``):
     ``w_kv_b`` folds into the query and output sides, so the step attends
     the compressed latent directly. The chunk's latent and k_rope are
     written in place through ``step`` (its rope tables are
     ``qk_rope_head_dim`` wide); keys past each row's last real position are
-    masked."""
+    masked.
+
+    Under tensor parallelism (``tp``) each rank absorbs its heads' query
+    (``wq`` and ``w_kv_b`` column shards) and, on a time shard of the
+    latent (``step.time_sharded``), gathers every head's absorbed query,
+    attends its slots with the log-sum-exp and merges the partials over the
+    model axis; then its heads' context meets ``w_kv_b``'s value side and
+    ``wo``'s row shard."""
     m = cfg.mla
     B, S, _ = x.shape
     H, T = cfg.num_heads, cache_latent.shape[1]
-    q_nope, q_rope = _mla_q(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
+    part = None if tp is None else tp.units(H)
+    q_nope, q_rope = _mla_q(p, x, cfg, step.rope, lora, adapter_ids, lora_scale, tp, part)
     latent, k_rope = _mla_latent(p, x, cfg, step.rope, lora, adapter_ids, lora_scale)
     caches = (cache_latent, cache_krope)
     saved = _write(step, zip(caches, (latent, k_rope)))
-    w_b = p["w_kv_b"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    width = m.qk_nope_head_dim + m.v_head_dim
+    w_kv_b = p["w_kv_b"]
+    if tp is not None:  # the columns of this rank's heads (all of them where part is None)
+        h0, h1 = (0, H) if part is None else part
+        if w_kv_b.shape[-1] not in (H * width, (h1 - h0) * width):
+            w_kv_b = tp.gather(w_kv_b)
+        if w_kv_b.shape[-1] == H * width:
+            w_kv_b = w_kv_b[..., h0 * width:h1 * width]
+    w_b = w_kv_b.reshape(m.kv_lora_rank, -1, width)
     w_bk, w_bv = w_b[..., :m.qk_nope_head_dim], w_b[..., m.qk_nope_head_dim:]
     q_eff = torch.einsum("bshn,lhn->bshl", q_nope, w_bk)
+    if step.time_sharded and part is not None:  # every head attends this rank's slots
+        q_eff, q_rope = tp.gather(q_eff, dim=2), tp.gather(q_rope, dim=2)
     scores = torch.einsum("bshl,btl->bhst", q_eff, cache_latent)
     scores = scores + torch.einsum("bshr,btr->bhst", q_rope, cache_krope)
     scores = scores.float() / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    kpos = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    kpos = _key_positions(step, T)
     mask = causal_mask(step.positions, kpos, kpos <= step.last)  # (B, S, T)
-    scores = torch.where(mask[:, None], scores, -1e30)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhst,btl->bshl", w, cache_latent)
+    if step.time_sharded:
+        w, lse = _partial_softmax(scores, mask[:, None])
+        ctx = tp.merge(torch.einsum("bhst,btl->bshl", w.to(x.dtype), cache_latent),
+                       lse.transpose(1, 2))
+        if part is not None:
+            ctx = ctx[:, :, part[0]:part[1]]
+    else:
+        scores = torch.where(mask[:, None], scores, -1e30)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhst,btl->bshl", w, cache_latent)
     if saved:
         _restore(step, caches, saved)
     out = torch.einsum("bshl,lhv->bshv", ctx, w_bv).reshape(B, S, -1)
+    if tp is not None:
+        return tp.row(lambda h, w: _proj(h, w, lora, "o", adapter_ids, lora_scale), out,
+                      p["wo"], H * m.v_head_dim, scaled(part, m.v_head_dim))
     return _proj(out, p["wo"], lora, "o", adapter_ids, lora_scale)

@@ -20,6 +20,14 @@ Parameters keep the reference's tree, layer-stacked: {"embed", "encoder"
 "cv" (L, B, S_src, Hkv, D), "len"} with "len" on the host; ``extend``
 writes it in place, as ``LM.extend`` does.
 
+Under tensor parallelism (``tp``) the serving steps run on this rank's
+shards of the params and of the cache, as ``tp.cache_specs`` places it:
+the cross K/V are seeded in their placement (this rank's kv heads, or its
+slice of the source positions where the model axis does not divide the kv
+heads), and the cross-attention attends them heads-sharded, or every head
+over the rank's source positions with the partials merged over the model
+axis (``TensorParallel.merge``).
+
 ``remat`` (the reference's field, which its scan leaves unused) recomputes
 each decoder layer of ``forward`` in the backward pass, and
 ``remat_policy`` picks what is kept, as in ``LM``.
@@ -33,7 +41,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import cached_step, gqa_cached, gqa_full, init_gqa, sdpa, step_rope
+from .attention import (cached_step, gqa_cached, gqa_full, init_gqa, sdpa, sdpa_lse,
+                        step_rope)
 from .common import dense_init, embed_init, init_rms, rms_norm, rope_tables, rotate
 from .ffn import dense_ffn, init_dense_ffn
 from .transformer import layer_views, remat_call
@@ -70,6 +79,44 @@ def _cross_attend(p, x, ck, cv, cfg: ModelConfig):
 
 def _plain(x, w, name=None):
     return x @ w
+
+
+def _cross_kv_tp(p, enc_out, cfg: ModelConfig, tp, ck_local):
+    """One decoder layer's cross K and V in the placement of ``ck_local``
+    (this rank's (B, S_src', Hkv', D) leaf): its kv heads, or its slice of
+    the source positions of every kv head, or all of it."""
+    B, T, _ = enc_out.shape
+    hd, Hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    heads = tp.heads(cfg)
+    split = ck_local.shape[2] != Hkv
+    part = (heads[2] * hd, heads[3] * hd) if split else None
+    k, v = (tp.column(_plain, enc_out, p[w], Hkv * hd, part).reshape(B, T, -1, hd)
+            for w in ("wk", "wv"))
+    n = ck_local.shape[1]
+    if n != T:  # a time shard: this rank's source positions
+        k, v = k[:, tp.index * n:(tp.index + 1) * n], v[:, tp.index * n:(tp.index + 1) * n]
+    return k, v
+
+
+def _cross_attend_tp(p, x, ck, cv, cfg: ModelConfig, tp, time_sharded: bool):
+    """Cross-attention of x (B, S, d) over this rank's cross cache: its kv
+    heads by its query heads; or every kv head of its source positions (or
+    of all of them) by every query head, a time shard's partials merged
+    over the model axis, this rank's heads kept for ``wo``'s row shard."""
+    B, S, _ = x.shape
+    hd, H = cfg.resolved_head_dim, cfg.num_heads
+    heads = tp.heads(cfg)
+    whole = ck.shape[2] == cfg.num_kv_heads
+    part = None if whole or heads is None else (heads[0] * hd, heads[1] * hd)
+    q = tp.column(_plain, x, p["wq"], H * hd, part).reshape(B, S, -1, hd)
+    mask = torch.ones((B, S, ck.shape[1]), dtype=torch.bool, device=x.device)
+    if time_sharded:
+        out = tp.merge(*sdpa_lse(q, ck, cv, mask))
+    else:
+        out = sdpa(q, ck, cv, mask)
+    if whole:
+        out = tp.own_heads(out, cfg)
+    return tp.out_proj(_plain, out.reshape(B, S, -1), p["wo"], cfg)
 
 
 def _attend_tp(p, x, kv_x, cfg: ModelConfig, tp, rope=None):
@@ -250,40 +297,68 @@ class EncDecLM:
                 "len": torch.zeros((batch,), dtype=torch.int32)}  # host side
 
     def prefill(self, params, frames, tokens, max_len: int, *, lora=None,
-                adapter_ids=None):
+                adapter_ids=None, cache=None):
         """Encode, seed the cross K/V, then prefill the target prefix
         ``tokens`` (B, S) into a cache of ``max_len`` positions: returns
-        (last-token logits (B, 1, vocab), cache)."""
+        (last-token logits (B, 1, vocab), cache). ``cache``: a zero cache
+        to fill instead of a new one (under ``tp``, this rank's shards of
+        one)."""
+        tp = self.tp
+        if tp is not None:
+            params, lora = tp.prepare(params, lora, self.cfg)
         enc_out = self.encode(params, frames)
         B, S = torch.as_tensor(tokens).shape
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
-        cache = self.init_cache(B, max_len, enc_out.shape[1])
+        if cache is None:
+            cache = self.init_cache(B, max_len, enc_out.shape[1])
         for i, lp in enumerate(layer_views(params["decoder"]["cross"],
                                            self.cfg.num_layers)):
-            ck, cv = _cross_kv(lp, enc_out, self.cfg)
+            if tp is None:
+                ck, cv = _cross_kv(lp, enc_out, self.cfg)
+            else:
+                ck, cv = _cross_kv_tp(lp, enc_out, self.cfg, tp, cache["ck"][i])
             cache["ck"][i] = ck
             cache["cv"][i] = cv
-        return self.extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
-                           lora=lora, adapter_ids=adapter_ids)
+        return self._extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
+                            lora=lora, adapter_ids=adapter_ids)
 
     def extend(self, params, cache, tokens, start, *, lora=None, adapter_ids=None):
         """Write ``tokens`` (B, S) at per-row offsets ``start`` (host-side)
         and return the last position's logits (B, 1, vocab) and the cache,
         updated in place with ``len`` = start + S."""
-        cfg, dev = self.cfg, self.device
+        if self.tp is not None:
+            params, lora = self.tp.prepare(params, lora, self.cfg)
+        return self._extend(params, cache, tokens, start, lora=lora,
+                            adapter_ids=adapter_ids)
+
+    def _extend(self, params, cache, tokens, start, *, lora=None, adapter_ids=None):
+        """``extend`` on params (and LoRA) ready for the forward: under
+        ``tp``, prepared."""
+        cfg, dev, tp = self.cfg, self.device, self.tp
         x = self._embed(params, tokens)
         B, S, _ = x.shape
-        step = cached_step(start, S, cache["k"].shape[2], dev, cfg)
+        T, shard = cache["k"].shape[2], None
+        cross_sharded = False
+        if tp is not None:
+            shard = tp.time_shard("k", T)
+            T = T if shard is None else T * tp.size
+            cross_sharded = tp.time_shard("ck", cache["ck"].shape[2]) is not None
+        step = cached_step(start, S, T, dev, cfg, shard=shard)
         ids = self._ids(adapter_ids)
         L = cfg.num_layers
         for i, (lp, lsl) in enumerate(zip(layer_views(params["decoder"], L),
                                           layer_views(lora or None, L))):
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             x = x + gqa_cached(lp["attn"], h, step, cache["k"][i], cache["v"][i], cfg,
-                               lora=lsl, adapter_ids=ids, lora_scale=self.lora_scale)
+                               lora=lsl, adapter_ids=ids, lora_scale=self.lora_scale,
+                               tp=tp)
             hc = rms_norm(x, lp["norm_c"], cfg.norm_eps)
-            x = x + _cross_attend(lp["cross"], hc, cache["ck"][i], cache["cv"][i], cfg)
+            if tp is None:
+                x = x + _cross_attend(lp["cross"], hc, cache["ck"][i], cache["cv"][i], cfg)
+            else:
+                x = x + _cross_attend_tp(lp["cross"], hc, cache["ck"][i], cache["cv"][i],
+                                         cfg, tp, cross_sharded)
             h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = x + dense_ffn(lp["ffn"], h2, cfg.activation)
         start_h = torch.as_tensor(start).to("cpu", torch.int64)

@@ -117,8 +117,10 @@ def rwkv_time_mix(p, x, state, cfg: ModelConfig, lora, adapter_ids,
     Under tensor parallelism (``tp``) the heads are independent, so where
     the axis divides them each rank runs its own: r, k, v and g from the
     column shards, its heads of ``u``, ``ln_x`` and the decay (``w0`` and
-    ``wb`` cut by ``TensorParallel.prepare``), its heads of the WKV state,
-    and ``wo``'s partial sums completed over the axis."""
+    ``wb`` cut by ``TensorParallel.prepare``), its heads of the WKV state
+    (a whole state is cut; a serving cache holds them already, as
+    ``cache_specs`` shards ``wkv``), and ``wo``'s partial sums completed
+    over the axis."""
     r = cfg.rwkv
     B, S, d = x.shape
     H, N = d // r.head_dim, r.head_dim
@@ -154,7 +156,9 @@ def rwkv_time_mix(p, x, state, cfg: ModelConfig, lora, adapter_ids,
         m = token_mask[:, :, None, None]
         w = torch.where(m, w, 1.0)
         kk = torch.where(m, kk, 0.0)
-    wkv0 = state["wkv"] if part is None else state["wkv"][:, part[0]:part[1]]
+    wkv0 = state["wkv"]
+    if part is not None and wkv0.shape[1] != H:  # a whole state: this rank's heads
+        wkv0 = wkv0[:, part[0]:part[1]]
     y, wkv = wkv_scan(rr, kk, vv, w, wkv0)
     y = y + bonus  # (B, S, H, N)
     # per-head group norm

@@ -56,6 +56,11 @@ without a sliding window except in the hybrid's attention layers, which
 take the config's window (and so the plain attention, as the reference
 routes a window).
 
+Under tensor parallelism (``tp``) ``forward``, ``prefill``, ``extend`` and
+``decode`` run on this rank's shards of the params and LoRA and (the
+sharded serving steps, :mod:`repro_torch.distributed.sharded_serve`) of the
+cache, as ``tp.cache_specs`` places it; the logits are whole.
+
 Training knobs, the reference's ``LM`` fields: ``remat`` recomputes each
 layer of ``forward`` in the backward pass (``torch.utils.checkpoint``,
 non-reentrant) instead of keeping its activations; ``remat_policy``
@@ -298,9 +303,9 @@ class LM:
             return moe_ffn(lp["ffn"], h2, self.cfg, self.data_group, self.tp)
         return dense_ffn(lp["ffn"], h2, self.cfg.activation), None
 
-    def _layer_full(self, lp, lora_slice, x, rope, adapter_ids):
+    def _layer_full(self, lp, lora_slice, x, rope, adapter_ids, whole_kv=False):
         """One layer over a fresh sequence; returns (x, aux, cache rows):
-        (k, v), or MLA's (latent, k_rope)."""
+        (k, v) (every kv head with ``whole_kv``), or MLA's (latent, k_rope)."""
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         if cfg.mla is not None:
@@ -310,7 +315,7 @@ class LM:
         else:
             mixed, kv = gqa_full(lp["mixer"], h, rope, cfg, lora=lora_slice,
                                  adapter_ids=adapter_ids, lora_scale=self.lora_scale,
-                                 q_chunk=self.q_chunk, tp=self.tp)
+                                 q_chunk=self.q_chunk, tp=self.tp, whole_kv=whole_kv)
         x = x + mixed
         out, aux = self._ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
         return x + out, aux, kv
@@ -377,7 +382,7 @@ class LM:
         place: a layer's new state is written for the kept rows only (all
         rows without ``keep_rows``); the hybrid's attention layers write
         their window as ``cached_step`` plans it."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, tp = self.cfg, self.device, self.tp
         B, S, _ = x.shape
         keep = None
         if keep_rows is not None:
@@ -394,8 +399,9 @@ class LM:
                 tl = torch.as_tensor(true_lens).to(dev, torch.int64, non_blocking=True)
                 mask = torch.arange(S, device=dev)[None, :] < tl[:, None]
             return self._rwkv_layers(params, x, lora, adapter_ids, cache, mask, store)
-        step = cached_step(start, S, cache["k"].shape[2], dev, cfg, true_lens=true_lens,
-                           keep_rows=keep_rows, window=cfg.window_size)
+        T, shard = self._cache_slots(cache, "k")
+        step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
+                           keep_rows=keep_rows, window=cfg.window_size, shard=shard)
         mask = None
         if step.true_lens is not None:
             mask = torch.arange(S, device=dev)[None, :] < step.true_lens[:, None]
@@ -404,13 +410,17 @@ class LM:
         def mixer(kind, j, lp, i, h):
             if kind == "rec":
                 st = {"h": cache["h"][j], "conv": cache["conv"][j]}
-                out, new = rglru_block(lp, h, st, cfg, mask)
+                out, new = rglru_block(lp, h, st, cfg, mask, tp=tp)
+                if tp is not None and tp.units(cfg.rglru.lru_width or cfg.d_model):
+                    # this rank's channels of the replicated state: gathered,
+                    # so that every replica stays equal
+                    new = {k: tp.gather(t) for k, t in new.items()}
                 for k in st:
                     store(cache[k], j, st[k], new[k])
                 return out
             return gqa_cached(lp, h, step, cache["k"][j], cache["v"][j], cfg,
                               lora=loras[i], adapter_ids=adapter_ids,
-                              lora_scale=self.lora_scale)
+                              lora_scale=self.lora_scale, tp=tp)
 
         return self._hybrid_layers(params, x, mixer)
 
@@ -443,7 +453,8 @@ class LM:
 
     def _write_full(self, cache, i: int, S: int, kv) -> None:
         """Layer ``i``'s rows of a fresh sequence into ``cache[..][i, :, :S]``
-        (quantised under ``kv_quant``)."""
+        (quantised under ``kv_quant``); on a time shard of slots [o, o + n),
+        the rows of those positions only."""
         if self.cfg.mla is not None:
             names, rows = ("latent", "krope"), kv
         elif self.kv_quant:
@@ -452,7 +463,28 @@ class LM:
         else:
             names, rows = ("k", "v"), kv
         for name, row in zip(names, rows):
-            cache[name][i, :, :S] = row
+            shard = self._cache_slots(cache, name)[1]
+            if shard is None:
+                cache[name][i, :, :S] = row
+            elif S > shard[0]:
+                o, n = shard
+                m = min(S - o, n)
+                cache[name][i, :, :m] = row[:, o:o + m]
+
+    def _cache_slots(self, cache, name: str):
+        """(T, shard) of the cache leaf ``name``: its whole number of slots,
+        and this rank's time shard of them (first slot, slots) where
+        ``tp.cache_specs`` shards its time axis (else None)."""
+        n = cache[name].shape[2]
+        shard = None if self.tp is None else self.tp.time_shard(name, n)
+        return (n if shard is None else n * self.tp.size), shard
+
+    def _holds_every_kv_head(self, cache) -> bool:
+        """Under ``tp``, whether this rank's GQA cache holds every kv head
+        (a time shard, or a replicated cache), so that a prefill hands it
+        every kv head's rows."""
+        return (self.tp is not None and self.cfg.mla is None
+                and cache["k"].shape[3] == self.cfg.num_kv_heads)
 
     def _run_full(self, params, tokens, lora, adapter_ids, cache=None,
                   extra_embeds=None, mrope_positions=None):
@@ -476,6 +508,7 @@ class LM:
         remat = self.remat and cache is None and torch.is_grad_enabled()
         lps = layer_views(params["layers"], cfg.num_layers)
         lsls = layer_views(lora or None, cfg.num_layers)
+        whole_kv = cache is not None and self._holds_every_kv_head(cache)
         for i in range(cfg.num_layers):
             lp, lsl = lps[i], lsls[i]
             if remat:
@@ -483,7 +516,7 @@ class LM:
                                   rope, ids)
                 aux = aux + a
                 continue
-            x, a, kv = self._layer_full(lp, lsl, x, rope, ids)
+            x, a, kv = self._layer_full(lp, lsl, x, rope, ids, whole_kv)
             if a is not None:
                 aux = aux + a
             if cache is not None:
@@ -502,7 +535,7 @@ class LM:
         cfg = self.cfg
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         kw = dict(lora=lora_slice, adapter_ids=adapter_ids,
-                  lora_scale=self.lora_scale)
+                  lora_scale=self.lora_scale, tp=self.tp)
         if cfg.mla is not None:
             x = x + mla_cached(lp["mixer"], h, step, lcache["latent"],
                                lcache["krope"], cfg, **kw)
@@ -529,18 +562,23 @@ class LM:
 
     # ============================================================== prefill
     def prefill(self, params, tokens, max_len: int, *, lora=None,
-                adapter_ids=None, extra_embeds=None, mrope_positions=None):
+                adapter_ids=None, extra_embeds=None, mrope_positions=None, cache=None):
         """Fresh full prefill of ``tokens`` (B, S) into a new cache of
         ``max_len`` positions: returns (last-token logits (B, 1, vocab),
-        cache) with ``cache["len"]`` S in every row."""
+        cache) with ``cache["len"]`` S in every row. ``cache``: a zero
+        cache to fill instead of a new one (under ``tp``, this rank's
+        shards of one)."""
         B, S = torch.as_tensor(tokens).shape
         if S > max_len:
             raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
-        cache = self.init_cache(B, max_len)
+        if cache is None:
+            cache = self.init_cache(B, max_len)
+        if self.tp is not None:
+            params, lora = self.tp.prepare(params, lora, self.cfg)
         if self.recurrent:  # the reference's hybrid: extend from a zero state
-            return self.extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
-                               lora=lora, adapter_ids=adapter_ids,
-                               extra_embeds=extra_embeds)
+            return self._extend(params, cache, tokens, torch.zeros((B,), dtype=torch.int32),
+                                lora=lora, adapter_ids=adapter_ids,
+                                extra_embeds=extra_embeds)
         x, _ = self._run_full(params, tokens, lora, adapter_ids, cache=cache,
                               extra_embeds=extra_embeds,
                               mrope_positions=mrope_positions)
@@ -565,6 +603,19 @@ class LM:
         caller that needs each row's last real position does not build the
         (B, S, vocab) logits. Without either, logits are for the last
         position, or every position with ``all_logits``."""
+        if self.tp is not None:
+            params, lora = self.tp.prepare(params, lora, self.cfg)
+        return self._extend(params, cache, tokens, start, lora=lora,
+                            adapter_ids=adapter_ids, extra_embeds=extra_embeds,
+                            mrope_positions=mrope_positions, all_logits=all_logits,
+                            true_lens=true_lens, keep_rows=keep_rows,
+                            logit_positions=logit_positions)
+
+    def _extend(self, params, cache, tokens, start, *, lora=None, adapter_ids=None,
+                extra_embeds=None, mrope_positions=None, all_logits=False,
+                true_lens=None, keep_rows=None, logit_positions=None):
+        """``extend`` on params (and LoRA) ready for the forward: under
+        ``tp``, prepared."""
         cfg = self.cfg
         dev = self.device
         tokens = torch.as_tensor(tokens)
@@ -579,9 +630,10 @@ class LM:
             x = self._recurrent_cached(params, cache, x, start, lora, ids,
                                        true_lens=true_lens, keep_rows=keep_rows)
         else:
-            T = (cache["latent"] if cfg.mla is not None else cache["k"]).shape[2]
+            T, shard = self._cache_slots(cache, "latent" if cfg.mla is not None else "k")
             step = cached_step(start, S, T, dev, cfg, true_lens=true_lens,
-                               keep_rows=keep_rows, mrope_positions=mrope_positions)
+                               keep_rows=keep_rows, mrope_positions=mrope_positions,
+                               shard=shard)
             arrays = {k: v for k, v in cache.items() if k != "len"}
             L = cfg.num_layers
             for i, (lp, lsl) in enumerate(zip(layer_views(params["layers"], L),

@@ -1,7 +1,8 @@
-"""Rank functions for ``tests/test_torch_distributed.py`` and
-``tests/test_torch_distributed_families.py``. The ranks are spawned
-processes that import this module by name, so it imports no JAX: weights
-and batches arrive as numpy arrays, results leave as numpy."""
+"""Rank functions for ``tests/test_torch_distributed.py``,
+``tests/test_torch_distributed_families.py`` and
+``tests/test_torch_sharded_serve.py``. The ranks are spawned processes that
+import this module by name, so it imports no JAX: weights and batches
+arrive as numpy arrays, results leave as numpy."""
 
 import contextlib
 import dataclasses
@@ -19,13 +20,14 @@ from repro_torch.launch import train as launcher
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import TrainState, build_model
 from repro_torch.optim import OptState, adamw_init
-from repro_torch.tree import flatten_with_names
+from repro_torch.tree import flatten_with_names, tree_map
+from repro_torch.tree import leaves as leaves_of
 
 
-def model_of(arch: str, overrides: dict):
+def model_of(arch: str, overrides: dict, kv_quant: bool = False):
     """The reduced config of ``arch`` with ``overrides`` of its fields."""
     cfg = dataclasses.replace(configs.reduced(configs.get(arch)), **overrides)
-    return build_model(cfg, dtype=torch.float32, device="cpu")
+    return build_model(cfg, dtype=torch.float32, device="cpu", kv_quant=kv_quant)
 
 
 def mesh_of(data: int, model: int):
@@ -152,3 +154,155 @@ def numpy_batch(cfg, seed: int, B: int = 4, S: int = 12) -> dict:
     if cfg.is_encdec:
         batch["frames"] = rng.standard_normal((B, S // 2, cfg.d_model)).astype(np.float32)
     return batch
+
+
+# cache leaves whose dim 2 is time (RWKV's wkv has its heads there)
+_TIMED = ("k", "v", "k_scale", "v_scale", "ck", "cv", "latent", "krope")
+_COLLECTIVES = ("all_gather", "all_reduce", "all_gather_into_tensor", "broadcast",
+                "reduce_scatter", "reduce_scatter_tensor", "all_to_all")
+
+
+@contextlib.contextmanager
+def collective_spy(log: list):
+    """Every ``torch.distributed`` collective called inside, as (name, the
+    data pointers of its tensors' storages, elements this rank sends)."""
+    saved = {n: getattr(torch.distributed, n) for n in _COLLECTIVES}
+
+    def wrap(name, fn):
+        def spy(*args, **kwargs):
+            ts = [t for a in args for t in (a if isinstance(a, list) else [a])
+                  if torch.is_tensor(t)]
+            sent = ts[-1].numel() if name.startswith("all_gather") else ts[0].numel()
+            log.append((name, {t.untyped_storage().data_ptr() for t in ts}, sent))
+            return fn(*args, **kwargs)
+        return spy
+
+    for n, fn in saved.items():
+        setattr(torch.distributed, n, wrap(n, fn))
+    try:
+        yield log
+    finally:
+        for n, fn in saved.items():
+            setattr(torch.distributed, n, fn)
+
+
+@contextlib.contextmanager
+def attended_keys(log: list):
+    """The key slots a row of each attention kernel call spans: the paged
+    table's tokens (``paged_attention``) or the cache's (``ragged_extend``)."""
+    from repro_torch.kernels import ops
+    saved = ops.paged_attention, ops.ragged_extend
+
+    def paged(q, k_pages, v_pages, tables, lengths, **kw):
+        log.append(("paged_attention", tables.shape[1] * k_pages.shape[1]))
+        return saved[0](q, k_pages, v_pages, tables, lengths, **kw)
+
+    def ragged(q, k, v, start, true_lens, **kw):
+        log.append(("ragged_extend", k.shape[1]))
+        return saved[1](q, k, v, start, true_lens, **kw)
+
+    ops.paged_attention, ops.ragged_extend = paged, ragged
+    try:
+        yield log
+    finally:
+        ops.paged_attention, ops.ragged_extend = saved
+
+
+def lora_written_in_place(model, shardings, smodel, params, lora, cache, batch) -> dict:
+    """One decode step of ``smodel`` (whose weights are prepared once) on
+    copies of ``cache`` before and after every LoRA leaf is written in
+    place, and the second beside a newly sharded model's: whether the write
+    moved the logits, and whether the first model then gives the new
+    model's bits (no stale preparation)."""
+    from repro_torch.distributed import sharded_model
+
+    def step(m):
+        return m.decode(params, tree_map(torch.clone, cache), batch["tokens"], lora=lora,
+                        adapter_ids=batch["adapter_ids"])[0]
+
+    before = step(smodel)
+    for t in leaves_of(lora):
+        t.mul_(1.5)
+    after = step(smodel)
+    return {"moved": not torch.equal(before, after),
+            "fresh": torch.equal(after, step(sharded_model(model, shardings)))}
+
+
+def serve_run(rank: int, case: dict) -> dict:
+    """The sharded prefill of ``case["tokens"]`` into a cache of
+    ``case["T"]`` positions, then ``case["steps"]`` greedy decode steps, on
+    a (data, model) mesh, from whole numpy weights placed by the rules:
+    this rank's coordinate, its rows' prefill logits, tokens and logits of
+    each step, its local cache shapes and bytes beside the dry run's
+    ``device_bytes`` of the same tree and mesh, its leaves the rules
+    replicate over ``model``, the collectives of the decode steps, the key
+    slots each attention kernel call spans, and (rank 0) the whole cache
+    gathered after the steps."""
+    from repro_torch.distributed import (make_sharded_decode_step, make_sharded_prefill_step,
+                                         serve_state_specs, sharded_model, whole_cache)
+    from repro_torch.distributed.sharding import cache_specs, spec_axes
+    from repro_torch.launch.dryrun import device_bytes
+
+    model = model_of(case["arch"], case["overrides"], case.get("kv_quant", False))
+    mesh = mesh_of(*case["mesh"])
+    axes = {"data": case["mesh"][0], "model": case["mesh"][1]}
+    params = bridge.tensor_tree(case["params"], "cpu")
+    lora = bridge.tensor_tree(case["lora"], "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    B = batch["tokens"].shape[0]
+    src = batch["frames"].shape[1] if "frames" in batch else None
+    cache = whole_cache(model, B, case["T"], src)
+    shardings = make_shardings(serve_state_specs(params, lora, cache, mesh), mesh)
+
+    def sub(prefix):
+        return {n[len(prefix):]: s for n, s in shardings.items() if n.startswith(prefix)}
+
+    lp, ll = shard_tree(params, sub("params/")), shard_tree(lora, sub("lora/"))
+    local = shard_tree(batch, make_shardings(batch_specs(batch, mesh), mesh))
+    ids = local["adapter_ids"]
+    smodel = sharded_model(model, shardings)
+    prefill = make_sharded_prefill_step(smodel, shardings, cache)
+    decode = make_sharded_decode_step(smodel, shardings)
+    keys: list = []
+    with torch.no_grad(), attended_keys(keys):
+        logits0, c = prefill(lp, ll, local)
+        tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)
+        toks, logits, sent, aliased, agrees = [], [], [], False, []
+        for _ in range(case["steps"]):
+            log: list = []
+            leaves = {t.untyped_storage().data_ptr() for _, t in flatten_with_names(c)}
+            fed = {"tokens": tok[:, None], "adapter_ids": ids}
+            step_c = tree_map(torch.clone, c)
+            with collective_spy(log):
+                lg, c = smodel.decode(lp, c, fed["tokens"], lora=ll, adapter_ids=ids)
+            aliased |= any(ptrs & leaves for _, ptrs, _ in log)
+            sent.append(sum(n for _, _, n in log))
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
+            step_tok, step_c = decode(lp, ll, step_c, fed)
+            agrees.append(bool(torch.equal(step_tok, tok)) and all(
+                torch.equal(a, b) for a, b in zip(leaves_of(step_c), leaves_of(c))))
+            toks.append(tok.numpy().copy())
+            logits.append(lg.numpy().copy())
+        inplace = lora_written_in_place(model, shardings, smodel, lp, ll, c, fed)
+    specs = cache_specs(cache, axes)
+    replicated = {n: t.numpy().copy() for n, t in flatten_with_names(c)
+                  if not any("model" in spec_axes(e) for e in specs[n])}
+    whole = gather_tree(c, sub("cache/"))
+    return {"coordinate": mesh.get_coordinate(), "prefill_logits": logits0.numpy().copy(),
+            "tokens": toks, "logits": logits,
+            "local_shapes": {n: tuple(t.shape) for n, t in flatten_with_names(c)},
+            "rules": {n: make_shardings(specs, axes)[n].local_shape(tuple(t.shape))
+                      for n, t in flatten_with_names(cache)},
+            "cache_bytes": sum(t.numel() * t.element_size() for _, t in flatten_with_names(c)),
+            "dryrun_bytes": device_bytes(cache, specs, axes),
+            "replicated": replicated, "collectives_alias_cache": aliased,
+            "decode_step_agrees": agrees, "lora_written_in_place": inplace,
+            "sent_per_step": sent, "attended": keys,
+            "time_sharded": sorted(n for n, s in specs.items() if n in _TIMED
+                                   and len(s) > 2 and "model" in spec_axes(s[2])),
+            "whole_cache": named_numpy(whole) if rank == 0 else None}
+
+
+def serve_job(rank: int, world: int, cases: list) -> list:
+    """:func:`serve_run` of every case on this world."""
+    return [serve_run(rank, c) for c in cases]
