@@ -193,6 +193,8 @@ def prefill_turn(root: Path, reps: int = 7) -> dict:
     cases = {}
     for name, B, S, chunk_len, steps, _ in cs.BF16_ARCHS:
         cfg = configs.get(name)
+        if cfg.is_encdec:  # its prefill takes frames: no decoder-only turn
+            continue
         max_len = -(-(S + chunk_len + steps + 8 * (cs.DECODE_WINDOWS + 1)) // 128) * 128
         tokens = torch.randint(0, cfg.vocab_size, (B, S),
                                generator=torch.Generator().manual_seed(2))

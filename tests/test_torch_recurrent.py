@@ -179,10 +179,10 @@ def test_linear_scan_is_the_recurrence():
 
 
 # ---------------------------------------------------------------------- LM
-def _pair(arch, backend):
+def _pair(arch, backend, **fields):
     """The reference LM on ``backend`` and the port's, sharing weights and
-    non-zero LoRA slots."""
-    tcfg, jcfg = _cfg(arch)
+    non-zero LoRA slots; ``fields`` replaced in both configs."""
+    tcfg, jcfg = (dataclasses.replace(c, **fields) for c in _cfg(arch))
     jm = jax_build_model(jcfg, dtype=jnp.float32, kernel_backend=backend)
     jparams = jm.init_params(jax.random.PRNGKey(3))
     rng = np.random.default_rng(4)
@@ -286,3 +286,27 @@ def test_hybrid_window_passes_only_to_attention():
         if window:
             windowed = got
     assert not torch.allclose(windowed[:, 17:], got[:, 17:], atol=1e-3)
+
+
+@pytest.mark.parametrize("prompt", [17, 40])
+def test_hybrid_prefill_past_its_window_is_the_references(prompt):
+    """A fresh prefill longer than the window (16) into a 48-position
+    cache, at 6 layers (two local-attention layers): the port's last-token
+    logits and state are the reference's on the same weights. Both write
+    only the last 16 tokens into the ring and attend over it, so every
+    query but the last few loses in-window keys, and through the second
+    attention layer the last token's logits differ from a windowed
+    ``forward``, in both packages alike (ROADMAP Queue 3 item 2)."""
+    (jm, jp, jl), (tm, tp, tl) = _pair("recurrentgemma-2b", "jnp", num_layers=6)
+    assert tm.cfg.window_size == 16
+    tokens = np.random.default_rng(10).integers(0, 256, (3, prompt)).astype(np.int32)
+    ids = np.array([0, -1, 2], np.int32)
+    jids, tids = jnp.asarray(ids), _t(ids)
+    wlast, jc = jm.prefill(jp, jnp.asarray(tokens), 48, lora=jl, adapter_ids=jids)
+    glast, tc = tm.prefill(tp, _t(tokens), 48, lora=tl, adapter_ids=tids)
+    _close(glast, wlast)
+    _check_cache(tc, jc)
+    want, _ = jm.forward(jp, jnp.asarray(tokens), lora=jl, adapter_ids=jids)
+    got, _ = tm.forward(tp, _t(tokens), lora=tl, adapter_ids=tids)
+    for full, last in ((got.numpy(), glast.numpy()), (np.asarray(want), np.asarray(wlast))):
+        assert np.abs(full[:, -1] - last[:, 0]).max() > 1e-2
