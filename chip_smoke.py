@@ -81,8 +81,13 @@ exits non-zero:
               G·D <= 512 (phase 9's decode among them) and ``chunk`` past
               it, every bf16 fused_sgmv case
               ``wgmma`` (``csrc/fused_sgmv_wgmma.cu``) or, at S = 1,
-              ``skinny``; each bf16 fused_sgmv case times cuBLAS's bf16
-              ``x @ W`` beside it (``cublas_xw_ms``: the base term alone,
+              the loop the rule gives it (``decode_path``: ``cluster``,
+              ``csrc/fused_sgmv_cluster.cu``, for W of 2^22 elements or
+              2^21 past 8 rows, else ``skinny``; also at B = 16, llama-7b's
+              q and deepseek's kv_a), a cluster call one kernel and no copy
+              or memset beside it (``torch.profiler``: ``device_ops``); each
+              bf16 fused_sgmv case times cuBLAS's bf16 ``x @ W`` beside it
+              (``cublas_xw_ms``, at S = 1 also cold: the base term alone,
               a yardstick, not ``library_ms``). Then ``lse_kernel_cases``:
               paged_attention and ragged_extend with their log-sum-exp
               output (``return_lse``) in every loop (ragged ``mma`` in f32
@@ -180,8 +185,10 @@ exits non-zero:
               with a row of id -1, exact launch counts (every flash_prefill
               launch on the ``wgmma`` loop: ``flash_prefill_paths``; every
               fused_sgmv launch of the prefill and the extend on the
-              ``wgmma`` loop and of the decode steps on the ``skinny`` one:
-              ``fused_sgmv_paths``), prefill s, decode
+              ``wgmma`` loop and of the decode steps on the loop the rule
+              gives each projection, ``cluster`` or ``skinny``:
+              ``fused_sgmv_paths``; the f32 run's decode steps on the
+              ``skinny`` one: ``fused_sgmv_paths_f32``), prefill s, decode
               ms a step (and in 3 more windows of 8 steps), peak GB, 8 more
               decode steps profiled (the device's busy share), and forward
               / prefill / decode held against each other within
@@ -249,8 +256,9 @@ exits non-zero:
 
 Every phase's line carries the script's seconds so far (``t_s``). Then the
 script's seconds. The line before the last is the ``kernels`` JSON (one
-entry a kernel, and bf16 fused_sgmv's ``wgmma`` loop, its own source,
-as ``fused_sgmv_wgmma`` with phase 9's launches); the last line is
+entry a kernel, and bf16 fused_sgmv's ``wgmma`` and ``cluster`` loops,
+each its own source, as ``fused_sgmv_wgmma`` and ``fused_sgmv_cluster``
+with phase 9's launches); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -432,7 +440,7 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     a = (torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5).to(dtype)
     b = (torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1).to(dtype)
     es = esize(dtype)
-    ids = torch.tensor([-1, 0, 1, 2, 3, 4, 5, 7][:B], dtype=torch.int32, device=dev)
+    ids = torch.tensor(([-1, 0, 1, 2, 3, 4, 5, 7] * 2)[:B], dtype=torch.int32, device=dev)
     scale = 1.0
     name = "fused_sgmv" if base else "sgmv"
 
@@ -479,7 +487,7 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
     out = dict(
         case=f"{proj} {d_in}->{d_out}, B={B}, S={S}, r={r}"
              + (", bf16" if dtype == torch.bfloat16 else ""),
-        max_abs_err=max(errs), ms=ms, host_ms=host_ms,
+        shape=[B, S, d_in, d_out], max_abs_err=max(errs), ms=ms, host_ms=host_ms,
         plain_ms=time_ms(lambda: plain(w), **PLAIN)[0],
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
@@ -496,6 +504,9 @@ def sgmv_case(ops, ref, proj, d_in, d_out, S, gen, dev, B=8, N=8, r=32,
         ms_c, host_c = time_ms(rotating([lambda c=c: kernel(*c) for c in copies]))
         out["cold"] = dict(copies=n, ms=ms_c, host_ms=host_c, plain_ms=time_ms(
             rotating([lambda c=c: plain(*c) for c in copies]), **PLAIN)[0])
+        if base and dtype != torch.float32:  # the yardstick on the same cold W
+            out["cold"]["cublas_xw_ms"] = time_ms(
+                rotating([lambda c=c: torch.matmul(x, c[0]) for c in copies]))[0]
         del copies
     out["seconds"] = time.perf_counter() - t_case
     return out
@@ -2425,12 +2436,60 @@ SGMV_PHASE9 = (("qwen3-0.6b extend", "q", 8, 32, 1024, 2048),
                ("deepseek-v2-lite-16b", "q", 2, 256, 2048, 3072),
                ("deepseek-v2-lite-16b", "kv_a", 2, 256, 2048, 576))
 # ... and the LoRA projections of phase 9's other families at their
-# prefill (``wgmma``) and decode (``skinny``): (arch, projection, d_in,
+# prefill (``wgmma``) and decode (``cluster``): (arch, projection, d_in,
 # d_out), B and S from BF16_ARCHS: rwkv6-1.6b's r (k, v, o alike),
 # recurrentgemma-2b's q and its k (one kv head: d_out 256), seamless's
 # decoder q (k, v, o alike)
 SGMV_FAMILIES = (("rwkv6-1.6b", "r", 2048, 2048), ("recurrentgemma-2b", "q", 2560, 2560),
                  ("recurrentgemma-2b", "k", 2560, 256), (ENCDEC_ARCH, "q", 1024, 1024))
+# ... and more decode shapes (S = 1) of the cluster loop's rule
+# (sgmv.bf16_path): (arch, projection, B, d_in, d_out). qwen3-0.6b's q at
+# 16 rows, llama-7b's q and deepseek's q (24 slabs at cs = 8) take the
+# cluster loop; deepseek's kv_a (a part-filled slab) stays on the skinny
+# one, where it was faster
+SGMV_DECODE = (("qwen3-0.6b 16 rows", "q", 16, 1024, 2048),
+               ("llama-7b", "q", 2, 4096, 4096),
+               ("deepseek-v2-lite-16b", "q", 2, 2048, 3072),
+               ("deepseek-v2-lite-16b", "kv_a", 2, 2048, 576))
+# the decode case whose device operations phase 3 counts, and that the
+# kernels line reports for the cluster loop
+SGMV_CLUSTER_CASE = "q 1024->2048, B=16, S=1, r=32, bf16"
+
+
+def decode_path(B: int, d_in: int, d_out: int) -> str:
+    """The loop sgmv.bf16_path gives a bf16 decode launch of B rows on
+    16-byte bases (every phase 3 and phase 9 decode launch)."""
+    sg = importlib.import_module("repro_torch.kernels.sgmv")
+    return sg.bf16_path(B, d_in, d_out, (0, 0, 0, 0), BF16)
+
+
+def sgmv_device_ops(ops, proj, d_in, d_out, gen, dev, B=8, calls: int = 10) -> dict:
+    """The device operations (kernels, copies, memsets) of each bf16
+    fused_sgmv call at S = 1, from ``torch.profiler`` over ``calls`` calls:
+    per call in all and by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn((B, 1, d_in), generator=gen, device=dev).to(BF16)
+    w = (torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5).to(BF16)
+    a = (torch.randn((8, d_in, 32), generator=gen, device=dev) * d_in ** -0.5).to(BF16)
+    b = (torch.randn((8, 32, d_out), generator=gen, device=dev) * 0.1).to(BF16)
+    ids = torch.tensor(([-1, 0, 1, 2, 3, 4, 5, 7] * 2)[:B], dtype=torch.int32, device=dev)
+    ops.fused_sgmv(x, w, a, b, ids)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.fused_sgmv(x, w, a, b, ids)
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name[:80]] = names.get(e.name[:80], 0) + 1
+    return {"case": f"{proj} {d_in}->{d_out}, B={B}, S=1, r=32, bf16", "calls": calls,
+            "per_call": sum(names.values()) / calls,
+            "names": {k: n / calls for k, n in names.items()}}
+
+
 # ... and flash_prefill at seamless's decoder self-attention over 2 x 512
 # (phase 9's bf16_identities run its forward over 2 x 256)
 FLASH_FAMILIES = ((ENCDEC_ARCH, ENCDEC_B, ENCDEC_S, 16, 16, 64),)
@@ -2511,6 +2570,19 @@ def bf16_kernel_cases(ops, ref, gen, dev):
         for s in (S, 1):
             m = sgmv_case(ops, ref, proj, d_in, d_out, s, gen, dev, B=B, dtype=BF16)
             out["fused_sgmv"].append({"arch": f"{arch} phase 9", **m})
+    # the cluster loop at its most rows and at llama-7b's and deepseek's q,
+    # and deepseek's kv_a decode (a part-filled slab)
+    for arch, proj, B, d_in, d_out in SGMV_DECODE:
+        m = sgmv_case(ops, ref, proj, d_in, d_out, 1, gen, dev, B=B, dtype=BF16)
+        out["fused_sgmv"].append({"arch": arch, **m})
+    # a decode call on the cluster loop is one kernel: no second pass, no
+    # copy or memset beside it
+    q1 = next(c for c in out["fused_sgmv"] if c["case"] == SGMV_CLUSTER_CASE)
+    q1["device_ops"] = sgmv_device_ops(ops, "q", 1024, 2048, gen, dev, B=16)
+    require(q1["device_ops"]["per_call"] == 1
+            and all("fused_sgmv_cluster" in k for k in q1["device_ops"]["names"]),
+            f"bf16 fused_sgmv {q1['case']}: device operations a call "
+            f"{q1['device_ops']}, not one cluster kernel")
     torch.cuda.empty_cache()
     out["ragged_extend"].append(ragged_case(ops, ref, gen, dev, 256, *RAGGED_BUCKETS[256],
                                             dtype=BF16))
@@ -2545,9 +2617,11 @@ def bf16_kernel_cases(ops, ref, gen, dev):
     require(all(after[k] > before[k] for k in out),
             f"a kernel never launched in bf16: {before} -> {after}")
     # fused_sgmv: every tiled case on csrc/fused_sgmv_wgmma.cu's loop, every
-    # decode case (S = 1) on the skinny one (sgmv.bf16_path)
+    # decode case (S = 1) on the loop the rule gives it: csrc/
+    # fused_sgmv_cluster.cu's or fused_sgmv.cu's skinny one (sgmv.bf16_path)
     for c in out["fused_sgmv"]:
-        want = "skinny" if ", S=1," in c["case"] else "wgmma"
+        B, S, d_in, d_out = c["shape"]
+        want = decode_path(B, d_in, d_out) if S == 1 else "wgmma"
         require(c["path"] == want, f"bf16 fused_sgmv {c['case']} ran the {c['path']} loop")
     # qwen3-0.6b, stablelm-12b (D = 160), gemma-2b (D = 256) and the ragged
     # case run csrc/attention_wgmma.cuh's loop (flash_prefill.bf16_path), and
@@ -2980,15 +3054,27 @@ def bf16_phase(ops, configs, dev, name, B, S, chunk_len, steps, with_f32, seed: 
             f"{name} bf16: flash_prefill launches by loop {paths}, not all wgmma")
     line["flash_prefill_paths"] = paths
     # every fused_sgmv launch of the prefill and the extend on the wgmma
-    # loop, every decode launch on the skinny one (sgmv.bf16_path)
+    # loop, every decode launch on the loop the rule gives its projection
+    # (sgmv.bf16_path: each LoRA target the same count of launches); the
+    # f32 run's decode launches on the skinny one
     pre = run["before_decode"]["paths"]["fused_sgmv"]
     n_pre = run["before_decode"]["launches"]["fused_sgmv"]
     dec = {p: n - pre[p] for p, n in run["paths"]["fused_sgmv"].items()}
-    require(pre == {"wgmma": n_pre, "mma": 0, "skinny": 0}
-            and dec == {"wgmma": 0, "mma": 0, "skinny": launches["fused_sgmv"] - n_pre},
+    n_dec = launches["fused_sgmv"] - n_pre
+    dims = model.lora_dims()
+    n_cluster = n_dec * sum(decode_path(B, *dims[t]) == "cluster" for t in dims) // len(dims)
+    require(pre == {"wgmma": n_pre, "mma": 0, "skinny": 0, "cluster": 0}
+            and dec == {"wgmma": 0, "mma": 0, "skinny": n_dec - n_cluster, "cluster": n_cluster},
             f"{name} bf16: fused_sgmv launches by loop {pre} (prefill, extend), {dec} "
-            "(decode), not all wgmma, then skinny")
+            f"(decode), not all wgmma, then {n_cluster} cluster and the rest skinny")
     line["fused_sgmv_paths"] = {"prefill_extend": pre, "decode": dec}
+    if f32 is not None:
+        pre32 = f32["before_decode"]["paths"]["fused_sgmv"]
+        dec32 = {p: n - pre32[p] for p, n in f32["paths"]["fused_sgmv"].items()}
+        n_dec32 = f32["launches"]["fused_sgmv"] - f32["before_decode"]["launches"]["fused_sgmv"]
+        require(n_dec32 > 0 and dec32 == {"wgmma": 0, "mma": 0, "skinny": n_dec32, "cluster": 0},
+                f"{name} f32: fused_sgmv decode launches by loop {dec32}, not all skinny")
+        line["fused_sgmv_paths_f32"] = {"prefill_extend": pre32, "decode": dec32}
     # every extend attention on ragged_extend_wgmma.cu, every decode
     # attention on paged_attention.cu's split loop (MLA calls neither)
     att = {k: run["paths"][k] for k in ("ragged_extend", "paged_attention")}
@@ -4297,6 +4383,19 @@ def main() -> None:
         "launches_by_path": {"bf16": wgmma_launches},
         **{k: wq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "case", "cublas_xw_ms")}})
+    # bf16 fused_sgmv's cluster loop (csrc/fused_sgmv_cluster.cu), its own
+    # source: qwen3-0.6b's q at a decode step of 16 rows, launches of phase 9
+    cq = next(m for m in bf16_cases["fused_sgmv"] if m["case"] == SGMV_CLUSTER_CASE)
+    cluster_launches = sum(line["fused_sgmv_paths"]["decode"]["cluster"]
+                           for line in bf16_lines.values())
+    require(cluster_launches > 0, "fused_sgmv's cluster loop never ran in phase 9")
+    kernels.append({
+        "name": "fused_sgmv_cluster", "kernel": "fused_sgmv", "path": "cluster",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/fused_sgmv_cluster.cu",
+        "replaces": "src/repro/kernels/sgmv.py:115", "launches": cluster_launches,
+        "launches_by_path": {"bf16": cluster_launches},
+        **{k: cq[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "case", "cublas_xw_ms", "cold", "device_ops")}})
     # the bf16 attention loops of this port's own design (their launches:
     # phase 9's): paged_attention's split loop at phase 3's table lengths,
     # ragged_extend's wgmma loop at the engine's 256-token bucket

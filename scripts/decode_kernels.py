@@ -1,20 +1,29 @@
 """Time the decode kernels on the card with a cold L2, kernel by kernel.
 
-    python3 scripts/decode_kernels.py [--iters 40]
+    python3 scripts/decode_kernels.py [--iters 40] [--dtype f32|bf16]
 
-Cases: the skinny ``fused_sgmv`` at the four projections of a qwen3-0.6b
-decode step (B=8, S=1, r=32, ids as in ``chip_smoke.py``) and
+f32 (the default): the skinny ``fused_sgmv`` at the four projections of a
+qwen3-0.6b decode step (B=8, S=1, r=32, ids as in ``chip_smoke.py``) and
 ``paged_attention`` at ``chip_smoke.py``'s two length sets (B=8, a
-2048-token table of 128-token pages, 16/8 heads of 128). Inputs that a
+2048-token table of 128-token pages, 16/8 heads of 128). bf16: ``fused_sgmv``
+at every decode projection of phase 9 (``DECODE_BF16``: qwen3-0.6b's q, k,
+o at B=8; llama-7b's q, deepseek-v2-lite-16b's q and kv_a, rwkv6-1.6b's r,
+recurrentgemma-2b's q and k, seamless-m4t's decoder q at B=2) and at more
+rows (``DECODE_BF16_ROWS``: the rows between those, on both sides of the
+rule's limits), each on ``csrc/fused_sgmv_cluster.cu``'s loop and
+``csrc/fused_sgmv.cu``'s bf16 skinny loop, both through their C entries
+whatever the rule says, in turns (cluster, skinny, skinny, cluster), with
+the loop ``sgmv.bf16_path`` gives the shape (``path``). Inputs that a
 decode step finds in device memory (W, A, B; the KV) rotate over copies
-that exceed twice the L2, as in ``chip_smoke.time_ms``. Each case prints
-one JSON line: CUDA-event ms per call behind a spin kernel, and from
-``torch.profiler`` over the same calls the device ms per call of each
-kernel and the span from the first kernel's start to the last one's end.
-For ``fused_sgmv`` also the time of one library GEMM ``x @ W`` on the
-same rotated W: the base product alone, a yardstick of how fast a single
-kernel streams W. Needs a CUDA device; the card's name and power limit
-come first.
+that exceed twice the L2, as
+in ``chip_smoke.time_ms``. Each case prints one JSON line: CUDA-event ms
+per call behind a spin kernel, and from ``torch.profiler`` over the same
+calls the device ms per call of each kernel, the kernels a call launches
+and the span from the first kernel's start to the last one's end. For
+``fused_sgmv`` also the time of one library GEMM ``x @ W`` on the same
+rotated W: the base product alone, a yardstick of how fast a single kernel
+streams W. Needs a CUDA device; the card's name and power limit come
+first.
 """
 
 from __future__ import annotations
@@ -59,9 +68,94 @@ def per_kernel(fn, calls: int) -> dict:
             "span_ms": sum(spans) / 1e3 / calls, "kernels_per_call": per_call}
 
 
+# (config, projection, B, d_in, d_out) of phase 9's bf16 decode steps, and q
+# at 16 rows
+DECODE_BF16 = (("qwen3-0.6b", "q", 8, 1024, 2048), ("qwen3-0.6b", "k", 8, 1024, 1024),
+               ("qwen3-0.6b", "o", 8, 2048, 1024), ("qwen3-0.6b", "q", 16, 1024, 2048),
+               ("llama-7b", "q", 2, 4096, 4096), ("deepseek-v2-lite-16b", "q", 2, 2048, 3072),
+               ("deepseek-v2-lite-16b", "kv_a", 2, 2048, 576), ("rwkv6-1.6b", "r", 2, 2048, 2048),
+               ("recurrentgemma-2b", "q", 2, 2560, 2560), ("recurrentgemma-2b", "k", 2, 2560, 256),
+               ("seamless-m4t-large-v2", "q", 2, 1024, 1024))
+
+
+# ... and the rows around the rule's limits: W of 2^24 (llama-7b q) and of
+# 2^22 (rwkv6-1.6b r) at 4, 8 and 16 rows, W of 2^21 (qwen3-0.6b q, o) at
+# 9 and 12 rows (and o at 16)
+DECODE_BF16_ROWS = tuple(
+    [("llama-7b", "q", B, 4096, 4096) for B in (4, 8, 16)]
+    + [("rwkv6-1.6b", "r", B, 2048, 2048) for B in (4, 8, 16)]
+    + [("qwen3-0.6b", "q", B, 1024, 2048) for B in (9, 12)]
+    + [("qwen3-0.6b", "o", B, 2048, 1024) for B in (9, 12, 16)])
+
+
+def bf16_cases(cs, iters: int) -> None:
+    """bf16 fused_sgmv at each DECODE_BF16 and DECODE_BF16_ROWS shape, cold:
+    the cluster loop and fused_sgmv.cu's skinny loop through their C
+    entries, in turns (cluster, skinny, skinny, cluster)."""
+    import importlib
+
+    from repro_torch.kernels import build, ref
+
+    sgmv_mod = importlib.import_module("repro_torch.kernels.sgmv")
+    lib = build.load(sgmv_mod._SOURCE, sgmv_mod._SIGNATURES)
+    clib = build.load(sgmv_mod._CLUSTER_SOURCE, sgmv_mod._CLUSTER_SIGNATURES)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, N, r = torch.bfloat16, 8, 32
+    sms = build.sm_count(dev)
+    for arch, proj, B, d_in, d_out in DECODE_BF16 + DECODE_BF16_ROWS:
+        ids = torch.tensor(([-1, 0, 1, 2, 3, 4, 5, 7] * 2)[:B], dtype=torch.int32, device=dev)
+        x = torch.randn((B, 1, d_in), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((d_in, d_out), generator=gen, device=dev) * d_in ** -0.5).to(bf16)
+        a = (torch.randn((N, d_in, r), generator=gen, device=dev) * d_in ** -0.5).to(bf16)
+        b = (torch.randn((N, r, d_out), generator=gen, device=dev) * 0.1).to(bf16)
+        live = int(torch.unique(ids[ids >= 0]).numel())
+        n = cs.cold_copies(2 * (d_in * d_out + live * r * (d_in + d_out)))
+        copies = [(w.clone(), a.clone(), b.clone()) for _ in range(n)]
+        scratch = torch.empty((lib.fused_sgmv_scratch_floats(B, d_in, d_out, r, 1),), device=dev)
+        y = torch.empty((B, 1, d_out), device=dev, dtype=bf16)
+        yc = torch.empty((B, 1, d_out), device=dev, dtype=bf16)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        h = sgmv_mod.cluster_h(dev, stream, B, r)
+
+        def skinny(c):
+            code = lib.fused_sgmv_bf16_launch(
+                x.data_ptr(), c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(),
+                ids.data_ptr(), y.data_ptr(), scratch.data_ptr(), B, 1, d_in, d_out, r, 1.0,
+                stream)
+            assert code == 0, code
+
+        def cluster(c):
+            code = clib.fused_sgmv_cluster_launch(
+                x.data_ptr(), c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(),
+                ids.data_ptr(), yc.data_ptr(), h.data_ptr(), h.numel(), B, 1, d_in, d_out, r,
+                sms, 1.0, stream)
+            assert code == 0, code
+
+        new = cs.rotating([lambda c=c: cluster(c) for c in copies])
+        old = cs.rotating([lambda c=c: skinny(c) for c in copies])
+        want32 = ref.fused_sgmv_ref(*cs.up(x, w, a, b), ids, 1.0)
+        for got in ((cluster((w, a, b)), yc)[1], (skinny((w, a, b)), y)[1]):
+            cs.check_out(f"{arch} {proj} B={B}", got, ref.fused_sgmv_ref(x, w, a, b, ids, 1.0),
+                         want32, bf16, cs.SGMV_TOL * float(want32.abs().max()))
+        turns = [cs.time_ms(f, iters=iters)[0] for f in (new, old, old, new)]
+        x2 = x.view(B, d_in)
+        base = cs.rotating([lambda c=c: x2 @ c[0] for c in copies])
+        cs.emit({"kernel": "fused_sgmv", "dtype": "bf16", "arch": arch,
+                 "case": f"{proj} {d_in}->{d_out}, B={B}, S=1",
+                 "path": sgmv_mod.bf16_path(B, d_in, d_out, (x.data_ptr(), w.data_ptr(),
+                                                             a.data_ptr(), b.data_ptr()), bf16),
+                 "cluster_cold_ms": (turns[0] + turns[3]) / 2,
+                 "skinny_cold_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                 "cluster": per_kernel(new, iters), "skinny": per_kernel(old, iters),
+                 "x_at_w_cold_ms": cs.time_ms(base, iters=iters)[0]})
+        del copies
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=40)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("decode_kernels: needs a CUDA device")
@@ -74,6 +168,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip(), flush=True)
     build.build_all()
+    if args.dtype == "bf16":
+        bf16_cases(cs, args.iters)
+        return
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, r = 8, 8, 32

@@ -24,10 +24,13 @@ keeps the forward, the backward or the bf16 flash cases only, or takes
 ``sgmv_bf16``: bf16 fused_sgmv (``chip_smoke.sgmv_case``) on qwen3-0.6b's
 q, k, v and o at S = 256, 2016 and 1, q at ranks 1 and 128 (S = 256) and
 at phase 9's 8 x 32 extend, llama-7b's q at 2 x 512 and deepseek's q and
-kv_a at 2 x 256, bf16 sgmv on q and o at S = 2016 and 1, each with the loop
-it took and cuBLAS's bf16 ``x @ W`` (the base term alone) beside it; and
-the device time of each CUDA kernel of one fused_sgmv call (q at S = 256
-and 2016, ``torch.profiler`` over 10 calls); or ``prefill_bf16``: phase 9's
+kv_a at 2 x 256, bf16 sgmv on q and o at S = 2016 and 1, then the decode
+steps (S = 1): q at ranks 1 and 128, phase 9's B = 2 projections
+(``DECODE_B2``) and q at B = 16 (where the checkout's ``sgmv_case`` takes
+16 rows), each with the loop it took and cuBLAS's bf16 ``x @ W`` (the base
+term alone; cold too at S = 1 where the checkout times it) beside it; and
+the device time of each CUDA kernel of one fused_sgmv call (q at S = 256,
+2016 and 1, ``torch.profiler`` over 10 calls); or ``prefill_bf16``: phase 9's
 bf16 ``LM.prefill`` (``chip_smoke.BF16_ARCHS``: qwen3-0.6b 8 x 2016,
 llama-7b 2 x 512, deepseek-v2-lite-16b 2 x 256, full width and depth,
 random weights, 8 LoRA slots) as :func:`prefill_turn` times it; or
@@ -55,6 +58,14 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+
+# phase 9's decode projections of the configs run at B = 2: (config,
+# projection, d_in, d_out)
+DECODE_B2 = (("llama-7b", "q", 4096, 4096), ("deepseek-v2-lite-16b", "q", 2048, 3072),
+             ("deepseek-v2-lite-16b", "kv_a", 2048, 576), ("rwkv6-1.6b", "r", 2048, 2048),
+             ("recurrentgemma-2b", "q", 2560, 2560), ("recurrentgemma-2b", "k", 2560, 256),
+             ("seamless-m4t-large-v2", "q", 1024, 1024))
 
 
 def turn(root: Path, which: str = "all") -> dict:
@@ -149,6 +160,18 @@ def turn(root: Path, which: str = "all") -> dict:
             for p, di, do in (projections[0], projections[3]):
                 cases[f"sgmv bf16 {p} S={S}"] = cs.sgmv_case(ops, ref, p, di, do, S, gen, dev,
                                                              base=False, dtype=bf16)
+        # the decode steps (S = 1): q at ranks 1 and 128, phase 9's other
+        # configs' projections at B = 2, and (where the checkout's
+        # sgmv_case takes 16 rows) q at B = 16
+        for r in (1, 128):
+            cases[f"fused_sgmv bf16 q S=1 r={r}"] = cs.sgmv_case(
+                ops, ref, "q", 1024, 2048, 1, gen, dev, r=r, dtype=bf16)
+        for name, proj, di, do in DECODE_B2:
+            cases[f"fused_sgmv bf16 {name} {proj} B=2 S=1"] = cs.sgmv_case(
+                ops, ref, proj, di, do, 1, gen, dev, B=2, dtype=bf16)
+        if hasattr(cs, "SGMV_DECODE"):
+            cases["fused_sgmv bf16 q B=16 S=1"] = cs.sgmv_case(
+                ops, ref, "q", 1024, 2048, 1, gen, dev, B=16, dtype=bf16)
         return cases
     for S in (256, 1, 2016, 64):
         for p, di, do in projections:
@@ -335,12 +358,15 @@ def main() -> None:
                           "path": {k: c["path"] for k, c in cases.items() if "path" in c},
                           "cublas_xw_ms": {k: c["cublas_xw_ms"] for k, c in cases.items()
                                            if "cublas_xw_ms" in c},
+                          "cublas_xw_cold_ms": {k: c["cold"]["cublas_xw_ms"]
+                                                for k, c in cases.items()
+                                                if "cublas_xw_ms" in c.get("cold", {})},
                           "reps_ms": {k: c["reps_ms"] for k, c in cases.items()
                                       if "reps_ms" in c},
                           "attn_ms": {k: c["attn_ms"] for k, c in cases.items()
                                       if "attn_ms" in c},
                           **({"launch_split_us": {f"q S={S}": launch_split(S)
-                                                  for S in (256, 2016)}}
+                                                  for S in (256, 2016, 1)}}
                              if args.cases == "sgmv_bf16" else {})}),
               flush=True)
         return

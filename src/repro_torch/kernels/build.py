@@ -25,7 +25,8 @@ A source may export more than one kernel (``fused_sgmv.cu`` holds
 and ``flash_prefill_ragged``), and each forward source exports a
 ``*_bf16_launch`` beside each f32 entry (:func:`entry`), and a kernel may
 run on more than one source (bf16 ``fused_sgmv`` on ``fused_sgmv.cu`` or,
-in its own translation unit, ``fused_sgmv_wgmma.cu``; bf16 ``ragged_extend``
+in translation units of their own, ``fused_sgmv_wgmma.cu`` and
+``fused_sgmv_cluster.cu``; bf16 ``ragged_extend``
 on ``ragged_extend.cu`` or ``ragged_extend_wgmma.cu``): libraries are keyed
 by source, launch counts by kernel (and, for the kernels of ``PATHS``, by
 tile loop: ``path_launches``). ``flash_prefill_bwd.cu`` and
@@ -51,8 +52,9 @@ from pathlib import Path
 import torch
 
 # csrc/<source>.cu, one library each
-SOURCES = ("fused_sgmv", "fused_sgmv_wgmma", "ragged_extend", "ragged_extend_wgmma",
-           "paged_attention", "flash_prefill", "flash_prefill_bwd", "lora_grad")
+SOURCES = ("fused_sgmv", "fused_sgmv_wgmma", "fused_sgmv_cluster", "ragged_extend",
+           "ragged_extend_wgmma", "paged_attention", "flash_prefill", "flash_prefill_bwd",
+           "lora_grad")
 # the kernels whose launches are counted
 KERNELS = ("fused_sgmv", "sgmv", "ragged_extend", "paged_attention",
            "flash_prefill", "flash_prefill_ragged", "flash_prefill_bwd", "lora_grad")
@@ -68,15 +70,17 @@ launches: collections.Counter = collections.Counter()
 # the tile loops of a kernel that has more than one, picked by shape before
 # the launch: bf16 flash_prefill and flash_prefill_ragged run
 # attention_wgmma.cuh ("wgmma") or attention_tc.cuh ("mma"; f32 always)
-# (flash_prefill.bf16_path); fused_sgmv runs fused_sgmv.cu's decode loop
-# ("skinny", M <= 16 rows), fused_sgmv_wgmma.cu ("wgmma", bf16 only) or
-# fused_sgmv.cu's tiled loop ("mma") (sgmv.bf16_path); bf16 ragged_extend
+# (flash_prefill.bf16_path); fused_sgmv runs, at M <= 16 rows,
+# fused_sgmv_cluster.cu ("cluster", bf16 only) or fused_sgmv.cu's decode
+# loop ("skinny"), and past them fused_sgmv_wgmma.cu ("wgmma", bf16 only)
+# or fused_sgmv.cu's tiled loop ("mma") (sgmv.bf16_path); bf16 ragged_extend
 # runs ragged_extend_wgmma.cu ("wgmma") or ragged_extend.cu ("mma"; f32
 # always) (ragged_extend.bf16_path); bf16 paged_attention runs
 # paged_attention.cu's split loop ("split") or its chunk loop ("chunk"; f32
 # always) (paged_attention.bf16_path)
 PATHS = {"flash_prefill": ("wgmma", "mma"), "flash_prefill_ragged": ("wgmma", "mma"),
-         "fused_sgmv": ("wgmma", "mma", "skinny"), "ragged_extend": ("wgmma", "mma"),
+         "fused_sgmv": ("wgmma", "mma", "skinny", "cluster"),
+         "ragged_extend": ("wgmma", "mma"),
          "paged_attention": ("split", "chunk")}
 # (kernel, path) -> launches since the last reset, beside ``launches``
 path_launches: collections.Counter = collections.Counter()

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .paged_attention import SPLIT_TOKENS, chunk_plan, chunk_tokens, split_plan
-from .sgmv import SKINNY_COLS, SKINNY_MAX_M, skinny_plan
+from .sgmv import CLUSTER_COLS, SKINNY_COLS, SKINNY_MAX_M, skinny_plan
 
 # ---------------------------------------------------------- the H100 (SXM)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -386,19 +386,53 @@ def port_paged_attention_counts(B: int, H: int, Hkv: int, D: int, page_size: int
 
 
 def port_sgmv_counts(B: int, S: int, d_in: int, d_out: int, r: int, *,
-                     itemsize: int = 4, fused: bool = True, sms: int = H100_SMS) -> dict:
+                     itemsize: int = 4, fused: bool = True, sms: int = H100_SMS,
+                     path: str = "skinny", cluster_size: int | None = None,
+                     adapter_ids=None) -> dict:
     """:func:`sgmv_counts` on the port's schedule: the B·S rows as one M,
     in 128 × 128 output tiles beside one shrink block a 64 rows (the tiled
-    path), or, at M <= 16, in one row block against 64-column W slabs with
-    one shrink block per row in each k split of ``sgmv.skinny_plan`` on a
-    card of ``sms`` SMs (the skinny path). ``shrink_blocks`` adds to the
-    reference's keys."""
+    path), or, at M <= 16, in one row block against W slabs. ``path``
+    "skinny" (``csrc/fused_sgmv.cu``): 64-column slabs with one shrink block
+    per row in each k split of ``sgmv.skinny_plan`` on a card of ``sms``
+    SMs, the splits' f32 partials of x·W and of h written to device memory
+    and read back by a second kernel. "cluster" (bf16,
+    ``csrc/fused_sgmv_cluster.cu``): 128-column slabs and one shrink
+    cluster a batch row, each of ``cluster_size`` blocks (``sgmv.cluster_plan``'s
+    cs: the card's cluster capacity picks it), one kernel; the partials of
+    x·W meet in distributed shared memory, and only h goes to device
+    memory, as 8-byte words (an f32 beside its launch's 32-bit tag): the
+    shrink cluster of each live id (``adapter_ids``, one a batch row; None:
+    every row live) writes cs parts of r words for each row of that id, and
+    in every slab each block whose share of the slab's outputs (its units
+    [z·U/cs, (z + 1)·U/cs) of U = M·32 units of 4 columns) meets a live row
+    reads that row's cs·r words (a word read again while its block waits
+    for it is not counted). Rows of id -1 are neither written nor read.
+    ``shrink_blocks``, ``partial_write_bytes`` and ``partial_read_bytes``
+    add to the reference's keys."""
     M = B * S
+    if M <= SKINNY_MAX_M and path == "cluster":
+        cs = cluster_size
+        cols, nb = _cdiv(d_out, CLUSTER_COLS), M // S
+        ids = [0] * B if adapter_ids is None else [int(i) for i in adapter_ids]
+        live = [ids[m // S] >= 0 for m in range(M)]
+        ur = CLUSTER_COLS // 4
+        U = M * ur
+        # (block, live row) pairs of a slab: the live rows of each block's share
+        met = sum(live[m] for z in range(cs)
+                  for m in range(z * U // cs // ur, ((z + 1) * U // cs - 1) // ur + 1))
+        out = sgmv_counts(1, M, d_in, d_out, r, block_s=SKINNY_MAX_M,
+                          block_o=CLUSTER_COLS, itemsize=itemsize, fused=fused)
+        return {**out, "grid_steps": (cols + nb) * cs, "shrink_blocks": nb * cs,
+                "partial_write_bytes": 8 * cs * sum(live) * r,
+                "partial_read_bytes": 8 * cs * r * met * cols}
     if M <= SKINNY_MAX_M:
         out = sgmv_counts(1, M, d_in, d_out, r, block_s=SKINNY_MAX_M,
                           block_o=SKINNY_COLS, itemsize=itemsize, fused=fused)
         _, splits, _ = skinny_plan(M, d_in, d_out, True, sms)
-        return {**out, "shrink_blocks": M * splits}
+        R = max(4, 1 << (r - 1).bit_length())  # the compiled rank r runs on
+        part = 4 * splits * M * (R + d_out)
+        return {**out, "shrink_blocks": M * splits, "partial_write_bytes": part,
+                "partial_read_bytes": part}
     out = sgmv_counts(1, M, d_in, d_out, r, block_s=SGMV_TILE_M, block_o=SGMV_TILE_N,
                       itemsize=itemsize, fused=fused)
     return {**out, "shrink_blocks": _cdiv(M, SGMV_SHRINK_ROWS)}

@@ -33,7 +33,8 @@ def path_launch_counts() -> dict[str, dict[str, int]]:
     """Launches of each tile loop of the kernels that have more than one
     (``build.PATHS``: bf16 ``flash_prefill``, ``flash_prefill_ragged`` and
     ``ragged_extend`` on ``wgmma`` or ``mma``; ``fused_sgmv`` on ``wgmma``
-    (bf16), ``mma`` or ``skinny``; ``paged_attention`` on ``split`` (bf16)
+    (bf16), ``mma``, ``skinny`` or ``cluster`` (bf16); ``paged_attention``
+    on ``split`` (bf16)
     or ``chunk``) since the last :func:`reset_launch_counts`."""
     return {name: {path: build.path_launches[name, path] for path in paths}
             for name, paths in build.PATHS.items()}

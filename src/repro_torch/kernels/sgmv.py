@@ -12,11 +12,14 @@ kernel or raises. Every rank from 1 to ``MAX_RANK`` is taken. The inputs
 are float32 or bfloat16, all of one type (the output takes it); bfloat16
 computes what the reference's kernel computes on bf16 inputs (products of
 the bf16 values with f32 sums, h = x·A kept in f32, B promoted, y rounded
-once). A launch takes one of three loops, chosen from its shape and
-counted per loop (``ops.path_launch_counts``): M = B·S <= 16 rows the
-skinny path (decode), bf16 launches with d_in and d_out multiples of 8 on
-16-byte bases the ``wgmma`` + TMA loop of ``csrc/fused_sgmv_wgmma.cu``,
-the rest the ``mma.sync`` loop of ``csrc/fused_sgmv.cu``
+once). A launch takes one of four loops, chosen from its shape and
+counted per loop (``ops.path_launch_counts``): M = B·S <= 16 rows (decode)
+the one-launch cluster loop of ``csrc/fused_sgmv_cluster.cu`` in bf16
+with d_in and d_out multiples of 8 on 16-byte bases where W is large
+enough for it to win, else the skinny loop of ``csrc/fused_sgmv.cu``
+(every f32 decode launch); more rows the
+``wgmma`` + TMA loop of ``csrc/fused_sgmv_wgmma.cu`` in bf16 on the same
+shapes and bases, the rest the ``mma.sync`` loop of ``csrc/fused_sgmv.cu``
 (:func:`bf16_path`).
 
 ``fused_sgmv`` is differentiable: under autograd, with an input that
@@ -59,6 +62,16 @@ _WGMMA_SIGNATURES = {
     # B, S, d_in, d_out, r, SMs, out: 6 int64s -> the launch's plan
     "fused_sgmv_wgmma_plan": "iiiiiip",
 }
+_CLUSTER_SOURCE = "fused_sgmv_cluster"
+_CLUSTER_SIGNATURES = {
+    # x, w, lora_a, lora_b, ids, y, h (tagged f32 scratch, zeros at first),
+    # its 64-bit words, M, S, d_in, d_out, r, SMs, scale, stream
+    "fused_sgmv_cluster_launch": "pppppppliiiiiifp",
+    # M, S, d_in, d_out, SMs, out: 4 int64s -> the plan
+    "fused_sgmv_cluster_plan": "iiiiip",
+    # cluster size -> clusters of that size the card holds at once
+    "fused_sgmv_cluster_capacity": "i",
+}
 _GRAD_SOURCE = "lora_grad"
 _GRAD_SIGNATURES = {
     # x, dy, a, b, ids, h, g, parts_h, parts_g, parts_a, parts_b (NULL where
@@ -92,22 +105,71 @@ def skinny_plan(M: int, d_in: int, d_out: int, has_base: bool, sms: int):
     return cols, -(-KT // kper), kper
 
 
+# csrc/fused_sgmv_cluster.cu's geometry and plan (make_plan)
+CLUSTER_COLS = 128  # output columns of a W slab: 256 bytes of a bf16 W row
+CLUSTER_KS = 64  # k rows of a ring stage
+CLUSTER_MAX_CS = 16  # blocks of a cluster at most (non-portable past 8)
+# The decode launches the cluster loop takes: W of at least 2^22 elements
+# (8 MB in bf16), or 2^21 at more than 8 rows. Below them its fixed costs
+# (a cluster launch, the merge in distributed shared memory, the hand-off
+# of h) outweigh the W it streams faster, and the skinny loop was as fast
+# or faster. Both loops through their C entries, in turns on the H100
+# (scripts/decode_kernels.py --dtype bf16, NVIDIA H100 80GB HBM3, 700 W,
+# us cold, cluster against skinny): W of 2^24 (4096 x 4096) at 2, 4, 8, 16
+# rows 20.62/27.19, 21.14/30.50, 22.42/33.60, 26.63/58.74; 2^22 (2048 x
+# 2048) at 2, 4, 8, 16 rows 11.76/12.79, 12.23/13.50, 11.95/14.49,
+# 13.44/23.29; 2^21 (1024 x 2048, 2048 x 1024) at 8 rows 10.35/10.08,
+# 10.78/10.44, at 9 rows 11.35/13.90, 11.14/15.21, at 12 rows
+# 11.57/14.41, 11.13/14.83, at 16 rows 11.42/15.30, 11.52/16.94; below
+# 2^21 at 2 or 8 rows (1024 x 1024, 2048 x 576, 2560 x 256) 9.94/8.33,
+# 9.30/8.45, 9.70/8.57, 9.44/7.49. Rows between those measured are
+# taken as their neighbours.
+CLUSTER_MIN_WEIGHTS = 1 << 22
+CLUSTER_MIN_WEIGHTS_WIDE = 1 << 21  # at more than 8 rows
+
+
 def bf16_path(M: int, d_in: int, d_out: int, ptrs, dtype: torch.dtype) -> str:
     """The loop of a ``fused_sgmv`` launch of M = B·S rows in ``dtype``,
-    from its shape alone: ``"skinny"`` (``csrc/fused_sgmv.cu``'s decode
-    path) for at most 16 rows with d_in and d_out multiples of 4;
-    ``"wgmma"`` (``csrc/fused_sgmv_wgmma.cu``: TMA loads and warpgroup
-    products) for bf16 with d_in and d_out multiples of 8 (TMA's 16-byte
-    strides) and every base address in ``ptrs`` (x, W, A, B) on 16 bytes;
-    else ``"mma"`` (``csrc/fused_sgmv.cu``'s tiled mma.sync loop, which
-    takes 8-byte rows, and every tiled f32 launch). A pure function:
-    nothing is tried and nothing falls back."""
+    from its shape alone. At most 16 rows with d_in and d_out multiples of
+    4: ``"cluster"`` (``csrc/fused_sgmv_cluster.cu``: one launch on
+    split-K clusters) for bf16 with d_in and d_out multiples of 8, every
+    base address in ``ptrs`` (x, W, A, B) on 16 bytes (its 16-byte copies)
+    and W of at least ``CLUSTER_MIN_WEIGHTS`` elements
+    (``CLUSTER_MIN_WEIGHTS_WIDE`` past 8 rows), else ``"skinny"``
+    (``csrc/fused_sgmv.cu``'s decode loop, every f32 decode launch). More
+    rows: ``"wgmma"`` (``csrc/fused_sgmv_wgmma.cu``: TMA loads and
+    warpgroup products) for bf16 on the same shapes and bases (TMA's
+    16-byte strides); else ``"mma"`` (``csrc/fused_sgmv.cu``'s tiled
+    mma.sync loop, which takes 8-byte rows, and every tiled f32 launch). A
+    pure function: nothing is tried and nothing falls back."""
+    wide = (dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
+            and all(p % 16 == 0 for p in ptrs))
     if M <= SKINNY_MAX_M and d_in % 4 == 0 and d_out % 4 == 0:
-        return "skinny"
-    if (dtype == torch.bfloat16 and d_in % 8 == 0 and d_out % 8 == 0
-            and all(p % 16 == 0 for p in ptrs)):
-        return "wgmma"
-    return "mma"
+        least = CLUSTER_MIN_WEIGHTS if M <= 8 else CLUSTER_MIN_WEIGHTS_WIDE
+        return "cluster" if wide and d_in * d_out >= least else "skinny"
+    return "wgmma" if wide else "mma"
+
+
+def cluster_plan(M: int, S: int, d_in: int, d_out: int, sms: int, capacity) -> dict:
+    """The plan of a ``"cluster"`` launch (``csrc/fused_sgmv_cluster.cu``:
+    make_plan) on a card of ``sms`` SMs that holds ``capacity(cs)``
+    clusters of ``cs`` blocks at once: ``cols`` W slabs of 128 columns and
+    ``nb`` = M / S shrink clusters (one a batch row), each of ``cs`` blocks,
+    the largest power of two up to ``CLUSTER_MAX_CS`` with cols·cs <= 2·sms, 8·cs <=
+    d_in and cols + nb <= capacity(cs), so the whole grid is co-resident.
+    Block z of a cluster takes k rows ``k_ranges[z]`` = [8·floor(z·(d_in /
+    8) / cs), 8·floor((z + 1)·(d_in / 8) / cs)). None where no size fits."""
+    cols, nb = -(-d_out // CLUSTER_COLS), M // S
+    cs = CLUSTER_MAX_CS
+    while cs >= 1:
+        if (cs == 1 or (cols * cs <= 2 * sms and 8 * cs <= d_in)) and cols + nb <= capacity(cs):
+            break
+        cs //= 2
+    if cs < 1:
+        return None
+    k8 = d_in // 8
+    return {"cols": cols, "nb": nb, "cs": cs, "blocks": (cols + nb) * cs,
+            "k_ranges": [(8 * (z * k8 // cs), 8 * ((z + 1) * k8 // cs)) for z in range(cs)]}
 
 
 WGMMA_PLAN_KEYS = ("shrink_parts", "shrink_kper", "base_parts", "base_kper",
@@ -154,6 +216,27 @@ def _lora_grad_layout(M, N, d_in, d_out, r, r8, ks_h, ks_g, ms):
 
 
 _counters: dict = {}
+_cluster_h: dict = {}
+
+
+def cluster_h(dev, stream, M: int, r: int) -> torch.Tensor:
+    """The cluster loop's scratch of h for a launch of M rows at rank r: the
+    shrink's k parts, each an f32 and its launch's tag in 64 bits. No two
+    launches that share one may run at the same time (one would overwrite
+    the other's parts, whose readers then wait until the kernel traps).
+    Outside a graph capture: 16 parts of 16 rows x 128 ranks, zeros when
+    made, one per device and stream (the launches on a stream run in
+    turn), kept from launch to launch, so a launch needs no memset or
+    allocation. Inside a capture: 16 parts of M x r of its own, zeros
+    (the graph zeroes them before the launch at each replay), so a replay
+    on any stream shares no scratch with a live launch."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros((CLUSTER_MAX_CS * M * r,), device=dev, dtype=torch.int64)
+    h = _cluster_h.get((dev, stream))
+    if h is None:
+        h = _cluster_h[(dev, stream)] = torch.zeros(
+            (CLUSTER_MAX_CS * SKINNY_MAX_M * MAX_RANK,), device=dev, dtype=torch.int64)
+    return h
 
 
 def _zero_counters(dev, stream, n: int) -> torch.Tensor:
@@ -233,10 +316,17 @@ def _launch(name, x, w, lora_a, lora_b, adapter_ids, scale):
         return y
     ptrs = (x.data_ptr(), w.data_ptr(), lora_a.data_ptr(), lora_b.data_ptr())
     path = bf16_path(B * S, d_in, d_out, ptrs, dtype)
-    source = _WGMMA_SOURCE if path == "wgmma" else _SOURCE
-    lib = build.load(source, _WGMMA_SIGNATURES if path == "wgmma" else _SIGNATURES)
+    source, sigs = {"wgmma": (_WGMMA_SOURCE, _WGMMA_SIGNATURES),
+                    "cluster": (_CLUSTER_SOURCE, _CLUSTER_SIGNATURES)}.get(
+                        path, (_SOURCE, _SIGNATURES))
+    lib = build.load(source, sigs)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if path == "wgmma":
+    if path == "cluster":
+        h = cluster_h(dev, stream, B * S, r)
+        code = lib.fused_sgmv_cluster_launch(
+            *ptrs, ids.data_ptr(), y.data_ptr(), h.data_ptr(), h.numel(), B * S, S, d_in, d_out,
+            r, build.sm_count(dev), float(scale), stream)
+    elif path == "wgmma":
         sms = build.sm_count(dev)
         plan = wgmma_plan(lib, B, S, d_in, d_out, r, sms)
         scratch = _scratch(plan["scratch_floats"], dev)

@@ -16,6 +16,7 @@ from repro.kernels import counting as ref
 from repro.kernels.flash_prefill import _tri_schedule as ref_tri_schedule
 from repro_torch.kernels import counting
 from repro_torch.kernels.paged_attention import chunk_tokens
+from repro_torch.kernels.sgmv import skinny_plan
 
 # ------------------------------------------------- (a) the reference's counters
 FLASH = [  # (B, H, Hkv, S, D, keywords)
@@ -167,6 +168,39 @@ def test_port_sgmv_tiles_fused_single_pass(B, S):
     assert unfused["x_passes_per_block"] == 2.0
     assert (fused["kernel_launches"], unfused["kernel_launches"]) == (1, 2)
     assert fused["shrink_blocks"] >= 1
+
+
+@pytest.mark.parametrize("B,d_in,d_out,cs,ids,met", [
+    # met: (block, live row) pairs of a slab, counted from the share of
+    # block z, units [z·U/cs, (z + 1)·U/cs) of U = B·32
+    (8, 1024, 2048, 16, [-1, 0, 1, 2, 3, 4, 5, 7], 14),  # two blocks a row; row 0 unread
+    (8, 2048, 576, 16, [0] * 8, 16),
+    (8, 4096, 4096, 8, [1, -1, -1, 1, 2, 2, -1, 0], 5),  # one block a row
+    (2, 4096, 4096, 8, [0, 1], 8),          # llama-7b q: four blocks a row
+    (2, 2048, 3072, 8, [-1, 3], 4),         # deepseek q: row 0's four blocks read nothing
+    (3, 1024, 1024, 2, [0, 1, -1], 3),      # block 0 holds rows 0 and 1, block 1 rows 1 and 2
+])
+def test_port_sgmv_cluster_keeps_the_partials_on_chip(B, d_in, d_out, cs, ids, met):
+    """The cluster loop (bf16 decode): one kernel, the fused projection's
+    one pass over x, 128-column slabs and a shrink cluster a batch row in
+    clusters of cs blocks; of its partials only h goes to device memory:
+    cs parts of r 8-byte words (an f32 beside a 32-bit tag) for each live
+    row, each read back in every slab by each block whose share of the
+    slab's outputs meets the row, where the skinny loop writes and reads
+    back every k split's M x (R + d_out) f32."""
+    S, r = 1, 32
+    cl = counting.port_sgmv_counts(B, S, d_in, d_out, r, itemsize=2, path="cluster",
+                                   cluster_size=cs, adapter_ids=ids)
+    sk = counting.port_sgmv_counts(B, S, d_in, d_out, r, itemsize=2)
+    assert (cl["kernel_launches"], cl["x_passes_per_block"]) == (1, 1.0)
+    cols = -(-d_out // 128)
+    live = sum(i >= 0 for i in ids)
+    assert cl["grid_steps"] == (cols + B) * cs and cl["shrink_blocks"] == B * cs
+    assert cl["partial_write_bytes"] == 8 * cs * live * r
+    assert cl["partial_read_bytes"] == 8 * cs * r * met * cols
+    _, splits, _ = skinny_plan(B, d_in, d_out, True, 132)
+    assert sk["partial_write_bytes"] == sk["partial_read_bytes"] == 4 * splits * B * (32 + d_out)
+    assert sk["partial_write_bytes"] > 2 * cl["partial_write_bytes"]
 
 
 # ------------------------------------------------- (c) least work and bound

@@ -496,16 +496,255 @@ def test_fused_sgmv_cuda_bf16_shapes_off_the_wgmma_loop(cuda, case):
 
 
 def test_fused_sgmv_cuda_decode_takes_the_skinny_loop(cuda):
-    """M <= 16 rows (a decode step of 8 rows) take the skinny loop in bf16
-    and f32, counted as such."""
-    for dtype in DTYPES:
-        x, w, a, b, idv = _tiled_inputs(8, 1, 1024, 2048, 32, 8, "mixed", cuda, seed=3,
+    """M <= 16 rows (a decode step) take the skinny loop in f32, and in bf16
+    off the cluster loop's shapes (x on an 8-byte offset); llama-7b's q at
+    2 rows takes the cluster loop, qwen3-0.6b's q at 8 rows the loop
+    sgmv.bf16_path gives it. Counted as such, within the bar."""
+    qwen3_q = sgmv_mod.bf16_path(8, 1024, 2048, (0, 0, 0, 0), torch.bfloat16)
+    for dtype, B, d_in, d_out, shift, path in (
+            (torch.float32, 8, 1024, 2048, 0, "skinny"), (torch.bfloat16, 8, 4096, 4096, 4, "skinny"),
+            (torch.bfloat16, 8, 1024, 2048, 0, qwen3_q), (torch.bfloat16, 2, 4096, 4096, 0, "cluster")):
+        x, w, a, b, idv = _tiled_inputs(B, 1, d_in, d_out, 32, 8, "mixed", cuda, seed=3,
                                         dtype=dtype)
-        assert _sgmv_path(x, w, a, b) == "skinny"
+        if shift:
+            flat = torch.empty(x.numel() + shift, device=cuda, dtype=x.dtype)
+            flat[shift:] = x.reshape(-1)
+            x = flat[shift:].view(x.shape)
+        assert _sgmv_path(x, w, a, b) == path
         paths = ops.path_launch_counts()["fused_sgmv"]
-        fused_sgmv(x, w, a, b, idv)
+        got = fused_sgmv(x, w, a, b, idv)
         torch.cuda.synchronize()
-        assert _one_path_launch("fused_sgmv", paths, "skinny")
+        assert _one_path_launch("fused_sgmv", paths, path)
+        want, want32 = _plain(ref.fused_sgmv_ref, x, w, a, b, idv, 1.0)
+        assert _match(got, want, 1e-4 * float(want.abs().max()), dtype, want32)
+
+
+# bf16 fused_sgmv at M <= 16 on csrc/fused_sgmv_cluster.cu (sgmv.bf16_path:
+# d_in and d_out multiples of 8, 16-byte bases): one launch, split-K over
+# thread-block clusters, the shrink in clusters of the same grid. M = 1, 2,
+# 8, 16; S = 1, 4, 8; ranks 1, 12, 32, 128; d_out 576, 256, 136 (slabs
+# part-filled); d_in 4096 (llama-7b) and 8 (one 8-row k step, cs = 1);
+# repeated ids; every id -1; each config's decode projections.
+_CLUSTER = [
+    # B, S, d_in, d_out, r, N, ids, scale
+    (1, 1, 1024, 2048, 32, 4, "mixed", 1.0),    # M = 1
+    (8, 1, 1024, 2048, 32, 8, "mixed", 1.0),    # qwen3-0.6b q, k, o
+    (8, 1, 1024, 1024, 32, 8, "repeat", 0.5),
+    (8, 1, 2048, 1024, 32, 8, "mixed", 2.0),
+    (16, 1, 1024, 2048, 32, 8, "mixed", 1.0),   # M = 16
+    (16, 1, 2048, 576, 64, 5, "repeat", 1.0),
+    (2, 1, 2048, 576, 32, 8, "mixed", 1.0),     # deepseek kv_a, q, o
+    (2, 1, 2048, 3072, 32, 8, "repeat", 1.0),
+    (2, 1, 4096, 4096, 32, 8, "mixed", 1.0),    # llama-7b q
+    (2, 1, 2560, 2560, 32, 8, "mixed", 1.0),    # recurrentgemma-2b q, k
+    (2, 1, 2560, 256, 32, 8, "repeat", 1.0),
+    (2, 1, 2048, 2048, 32, 8, "mixed", 1.0),    # rwkv6-1.6b r
+    (2, 1, 1024, 1024, 32, 8, "mixed", 1.0),    # seamless-m4t decoder q
+    (8, 1, 1024, 2048, 1, 8, "mixed", 1.0),     # ranks 1, 12, 128
+    (8, 1, 1024, 2048, 12, 8, "repeat", 1.0),
+    (8, 1, 1024, 2048, 128, 8, "mixed", 1.0),
+    (16, 1, 512, 136, 128, 3, "repeat", 1.5),   # rank 128 at 16 rows, an 8-column slab
+    (2, 8, 512, 256, 16, 2, "repeat", 1.0),     # S = 8, 16 rows, one id
+    (4, 4, 256, 64, 8, 3, "mixed", 1.0),        # S = 4
+    (4, 1, 256, 320, 32, 3, "none", 2.0),       # every id -1
+    (3, 1, 8, 4096, 4, 3, "mixed", 1.0),        # d_in = 8: one block a cluster
+    (1, 16, 256, 256, 32, 2, "repeat", 1.0),    # 16 rows of one id, more than a rank's slots
+    (2, 4, 256, 128, 128, 3, "repeat", 0.5),    # rank 128: 8 rows of one id on 2 slots
+]
+
+
+def _cluster_lib():
+    return build.load(sgmv_mod._CLUSTER_SOURCE, sgmv_mod._CLUSTER_SIGNATURES)
+
+
+def _cluster_launch(x, w, a, b, idv, scale):
+    """csrc/fused_sgmv_cluster.cu's loop through its C entry, at any shape it
+    takes (the path rule sends it the large ones only)."""
+    dev = x.device
+    B, S, d_in = x.shape
+    d_out, r = w.shape[1], a.shape[2]
+    y = torch.empty((B, S, d_out), device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    h = sgmv_mod.cluster_h(dev, stream, B * S, r)
+    code = _cluster_lib().fused_sgmv_cluster_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idv.data_ptr(), y.data_ptr(),
+        h.data_ptr(), h.numel(), B * S, S, d_in, d_out, r, build.sm_count(dev), scale, stream)
+    assert code == 0
+    return y
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", _CLUSTER)
+def test_fused_sgmv_cuda_cluster_path(cuda, B, S, d_in, d_out, r, N, ids, scale):
+    """The cluster loop (through its C entry) within the bf16 bar of the
+    plain bf16 and f32 versions (W zeroed too), repeat launches bitwise
+    equal, every row of id -1 bitwise equal to the same launch with every
+    id -1 (x·W as the loop sums it, no delta)."""
+    x, w, a, b, idv = _wgmma_inputs(B, S, d_in, d_out, r, N, ids, False, cuda)
+    for ww in (w, torch.zeros_like(w)):
+        got = _cluster_launch(x, ww, a, b, idv, scale)
+        torch.cuda.synchronize()
+        want, want32 = _plain(ref.fused_sgmv_ref, x, ww, a, b, idv, scale)
+        assert _match(got, want, 1e-4 * float(want.abs().max()), torch.bfloat16, want32)
+        assert torch.equal(_cluster_launch(x, ww, a, b, idv, scale), got)
+    got = _cluster_launch(x, w, a, b, idv, scale)
+    base = _cluster_launch(x, w, a, b, torch.full_like(idv, -1), scale)
+    dead = idv < 0
+    assert torch.equal(got[dead], base[dead])
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out", [
+    (2, 1, 4096, 4096), (2, 1, 2048, 2048), (2, 1, 2048, 3072), (16, 1, 1024, 2048),
+    (2, 1, 2560, 2560),
+])
+def test_fused_sgmv_cuda_cluster_rule_shapes(cuda, B, S, d_in, d_out):
+    """The decode shapes the rule sends to the cluster loop (llama-7b's,
+    rwkv6-1.6b's, deepseek's and recurrentgemma-2b's projections at 2 rows,
+    qwen3-0.6b's q at 16) take it through fused_sgmv, counted, equal to the
+    C entry's launch bit for bit."""
+    x, w, a, b, idv = _wgmma_inputs(B, S, d_in, d_out, 32, 8, "mixed", False, cuda)
+    assert _sgmv_path(x, w, a, b) == "cluster"
+    paths = ops.path_launch_counts()["fused_sgmv"]
+    got = fused_sgmv(x, w, a, b, idv)
+    torch.cuda.synchronize()
+    assert _one_path_launch("fused_sgmv", paths, "cluster")
+    assert torch.equal(got, _cluster_launch(x, w, a, b, idv, 1.0))
+
+
+def test_fused_sgmv_cuda_cluster_graph_replays(cuda):
+    """A cluster launch captured in a CUDA graph (no host sync in it; its
+    scratch of h its own, zeroed in the graph) gives, at each replay on new
+    x and A written in place, the eager launch's bits: each replay knows its
+    own parts of h."""
+    B, d_in, d_out = 16, 1024, 2048
+    x, w, a, b, idv = _wgmma_inputs(B, 1, d_in, d_out, 32, 8, "mixed", False, cuda)
+    assert _sgmv_path(x, w, a, b) == "cluster"
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):  # a warm-up on the capture stream
+        fused_sgmv(x, w, a, b, idv)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fused_sgmv(x, w, a, b, idv)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for _ in range(3):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+        a.copy_(torch.randn(a.shape, generator=gen, device=cuda) * d_in ** -0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fused_sgmv(x, w, a, b, idv)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_fused_sgmv_cuda_cluster_graph_replays_beside_eager_launches(cuda):
+    """A graph captured on one stream and replayed on a second while eager
+    cluster launches run on the capture stream: the captured launch has a
+    scratch of h of its own, so neither overwrites the other's parts (whose
+    readers would wait until the kernel traps), and each gives its eager
+    bits. Both grids fit on the card at once (6 clusters of 16 each)."""
+    B, d_in, d_out = 2, 8192, 512
+    x, w, a, b, idv = _wgmma_inputs(B, 1, d_in, d_out, 32, 8, "mixed", False, cuda)
+    x2 = x.flip(0).contiguous()
+    assert _sgmv_path(x, w, a, b) == "cluster"
+    want, want2 = fused_sgmv(x, w, a, b, idv), fused_sgmv(x2, w, a, b, idv)
+    cap, other = torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)
+    cap.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(cap):  # the capture stream's scratch, made before the capture
+        fused_sgmv(x2, w, a, b, idv)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=cap):
+        out = fused_sgmv(x, w, a, b, idv)
+    torch.cuda.synchronize()
+    eager, replays = [], []
+    for _ in range(32):
+        with torch.cuda.stream(other):
+            graph.replay()
+            replays.append(out.clone())
+        with torch.cuda.stream(cap):
+            eager.append(fused_sgmv(x2, w, a, b, idv))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in replays)
+    assert all(torch.equal(e, want2) for e in eager)
+
+
+@pytest.mark.parametrize("M,S,d_in,d_out", [
+    (8, 1, 1024, 2048), (8, 1, 1024, 1024), (8, 1, 2048, 1024), (2, 1, 4096, 4096),
+    (2, 1, 2048, 576), (2, 1, 2560, 256), (2, 1, 2560, 2560), (16, 1, 1024, 2048),
+    (16, 16, 8, 4096), (1, 1, 64, 8),
+])
+def test_fused_sgmv_cuda_cluster_plan(cuda, M, S, d_in, d_out):
+    """The source's make_plan, as fused_sgmv_cluster_plan returns it, is
+    sgmv.cluster_plan's on the card's SMs and its cluster capacities
+    (cudaOccupancyMaxActiveClusters): the grid co-resident."""
+    import ctypes
+
+    lib = _cluster_lib()
+    sms = build.sm_count(cuda)
+    caps = {cs: lib.fused_sgmv_cluster_capacity(cs) for cs in (1, 2, 4, 8, 16)}
+    assert all(n > 0 for n in caps.values()), caps
+    out = (ctypes.c_int64 * 4)()
+    assert lib.fused_sgmv_cluster_plan(M, S, d_in, d_out, sms, ctypes.addressof(out)) == 0
+    cols, nb, cs, cap = out
+    want = sgmv_mod.cluster_plan(M, S, d_in, d_out, sms, caps.__getitem__)
+    assert (cols, nb, cs) == (want["cols"], want["nb"], want["cs"]) and cap == caps[cs]
+    assert cols + nb <= cap
+
+
+@pytest.mark.parametrize("bad", ["h short", "h on 8 bytes", "y on 8 bytes", "17 rows",
+                                 "d_out % 8", "M % S"])
+def test_fused_sgmv_cuda_cluster_refuses(cuda, bad):
+    """The C entry refuses what the loop does not take
+    (cudaErrorInvalidValue) and writes nothing."""
+    M, d_in, d_out, r = 8, 1024, 1024, 32
+    x, w, a, b, idv = _wgmma_inputs(M, 1, d_in, d_out, r, 8, "mixed", False, cuda)
+    h = torch.zeros((M * r + 2,), device=cuda, dtype=torch.int64)
+    y = torch.zeros((M * d_out + 8,), device=cuda, dtype=torch.bfloat16)
+    args = dict(h=h.data_ptr(), h_words=M * r, y=y.data_ptr(), M=M, S=1, d_out=d_out)
+    if bad == "h short":
+        args["h_words"] -= 1
+    elif bad == "h on 8 bytes":
+        args["h"] += 8
+    elif bad == "y on 8 bytes":
+        args["y"] += 8
+    elif bad == "17 rows":
+        args["M"] = 17
+    elif bad == "d_out % 8":
+        args["d_out"] = d_out - 4
+    else:
+        args["S"] = 3
+    code = _cluster_lib().fused_sgmv_cluster_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idv.data_ptr(), args["y"],
+        args["h"], args["h_words"], args["M"], args["S"], d_in, args["d_out"], r,
+        build.sm_count(cuda), 1.0, torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 1  # cudaErrorInvalidValue
+    assert not y.any() and not h.any()
+
+
+@pytest.mark.parametrize("B,S,d_in,d_out,r,N,ids,scale", [
+    (8, 1, 1024, 2048, 32, 8, "mixed", 1.0), (16, 1, 2048, 576, 64, 5, "repeat", 1.0),
+    (2, 8, 512, 256, 16, 2, "repeat", 1.0),
+])
+def test_fused_sgmv_cuda_bf16_skinny_loop_at_the_cluster_shapes(cuda, B, S, d_in, d_out, r, N,
+                                                                ids, scale):
+    """fused_sgmv.cu's bf16 skinny loop, which the rule now gives only the
+    bf16 shapes off the cluster loop, still right at the shapes the cluster
+    loop took from it: called through its C entry."""
+    x, w, a, b, idv = _wgmma_inputs(B, S, d_in, d_out, r, N, ids, False, cuda)
+    lib = build.load(sgmv_mod._SOURCE, sgmv_mod._SIGNATURES)
+    M = B * S
+    scratch = torch.empty((lib.fused_sgmv_scratch_floats(M, d_in, d_out, r, 1),), device=cuda)
+    y = torch.empty((B, S, d_out), device=cuda, dtype=torch.bfloat16)
+    code = lib.fused_sgmv_bf16_launch(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), idv.data_ptr(), y.data_ptr(),
+        scratch.data_ptr(), M, S, d_in, d_out, r, scale,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    want, want32 = _plain(ref.fused_sgmv_ref, x, w, a, b, idv, scale)
+    assert _match(y, want, 1e-4 * float(want.abs().max()), torch.bfloat16, want32)
 
 
 # The skinny path of fused_sgmv.cu (M <= 16): d_in split over blocks with

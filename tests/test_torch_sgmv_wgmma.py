@@ -269,18 +269,40 @@ def test_hi_lo_split_keeps_h_to_2_to_the_minus_17():
     ("llama-7b q, 2 x 512", 1024, 4096, 4096, 0, "wgmma"),
     ("just past the skinny path", 17, 1024, 1024, 0, "wgmma"),
     ("a decode step of 8 rows", 8, 1024, 2048, 0, "skinny"),
-    ("16 rows", 16, 2048, 1024, 0, "skinny"),
+    ("16 rows", 16, 2048, 1024, 0, "cluster"),
     ("16 rows, d_in % 4", 16, 97, 64, 0, "mma"),
     ("d_out % 8", 148, 256, 324, 0, "mma"),
     ("d_in % 8", 148, 100, 320, 0, "mma"),
     ("an 8-byte base", 148, 256, 256, 8, "mma"),
+    # the cluster loop: W of 2^22 elements, or 2^21 past 8 rows (the rows
+    # measured on the card are listed beside sgmv.CLUSTER_MIN_WEIGHTS)
+    ("llama-7b q, a decode step", 2, 4096, 4096, 0, "cluster"),
+    ("llama-7b q, 4 rows", 4, 4096, 4096, 0, "cluster"),
+    ("rwkv6-1.6b r, 8 rows", 8, 2048, 2048, 0, "cluster"),
+    ("rwkv6-1.6b r, 16 rows", 16, 2048, 2048, 0, "cluster"),
+    ("qwen3-0.6b o, 12 rows", 12, 2048, 1024, 0, "cluster"),
+    ("rwkv6-1.6b r, a decode step", 2, 2048, 2048, 0, "cluster"),
+    ("deepseek q, a decode step", 2, 2048, 3072, 0, "cluster"),
+    ("recurrentgemma q, 8 rows", 8, 2560, 2560, 0, "cluster"),
+    ("qwen3-0.6b q, 9 rows", 9, 1024, 2048, 0, "cluster"),
+    ("one row of llama-7b q", 1, 4096, 4096, 0, "cluster"),
+    ("just under 2^22 at 8 rows", 8, 2048, 2040, 0, "skinny"),
+    ("just under 2^21 at 16 rows", 16, 1024, 2040, 0, "skinny"),
+    ("deepseek kv_a, a decode step", 2, 2048, 576, 0, "skinny"),
+    ("recurrentgemma k, a decode step", 2, 2560, 256, 0, "skinny"),
+    ("seamless q, a decode step", 2, 1024, 1024, 0, "skinny"),
+    ("8 rows, d_out % 8", 8, 4096, 4092, 0, "skinny"),
+    ("8 rows, d_in % 8", 8, 4092, 4096, 0, "skinny"),
+    ("8 rows, an 8-byte base", 8, 4096, 4096, 8, "skinny"),
+    ("16 rows, an 8-byte base", 16, 2048, 1024, 8, "skinny"),
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bf16_path_rule(name, M, d_in, d_out, ptr, path, dtype):
-    """bf16 as listed; f32 takes the same skinny rows and mma.sync for every
-    tiled launch (the wgmma loop is bf16 only)."""
-    if dtype == torch.float32 and path == "wgmma":
-        path = "mma"
+    """bf16 as listed; f32 takes the skinny loop for every launch of at
+    most 16 rows and mma.sync for every tiled launch (the cluster and wgmma
+    loops are bf16 only)."""
+    if dtype == torch.float32:
+        path = {"wgmma": "mma", "cluster": "skinny"}.get(path, path)
     for i in range(4):  # x, W, A and B: any one off 16 bytes moves the launch
         ptrs = [4096, 8192, 12288, 16384]
         ptrs[i] += ptr
